@@ -1,0 +1,166 @@
+"""k²-tree over a sparse 0/1 matrix, built from COO, on a torch device.
+
+Same layout as the reference: one :class:`BitVector` per level, and the
+child block of the j-th set bit of level t is block j of level t+1. The
+batched row / column expansion (:meth:`K2Tree.rows_many`,
+:meth:`K2Tree.cols_many`) keeps its frontier on the device and issues one
+batched ``rank1`` per level, which on the card is one launch of the
+``bitvec_rank`` kernel. Each level also syncs with the host once, to learn
+how many children survive its bit test.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core._arrays import I64, empty, lexsort
+from repro_torch.core.succinct.bitvector import BitVector
+from repro_torch.device import as_i64, resolve_device
+
+
+class K2Tree:
+    def __init__(self, rows, cols, n_rows: int, n_cols: int, k: int = 2,
+                 device=None):
+        dev = rows.device if isinstance(rows, torch.Tensor) and device is None \
+            else resolve_device(device)
+        rows = as_i64(rows, dev)
+        cols = as_i64(cols, dev)
+        if rows.numel():
+            if bool((rows.min() < 0) | (rows.max() >= n_rows)
+                    | (cols.min() < 0) | (cols.max() >= n_cols)):
+                raise ValueError("point out of bounds")
+        self.n_rows, self.n_cols, self.k = int(n_rows), int(n_cols), int(k)
+        side = max(n_rows, n_cols, 1)
+        h = 1
+        while k**h < side:
+            h += 1
+        self.h = h
+        self.side = k**h
+        self.n_points = 0
+        self._device = dev
+        self.levels: list[BitVector] = []
+        self._build(rows, cols)
+
+    @classmethod
+    def from_levels(cls, n_rows: int, n_cols: int, k: int, h: int,
+                    n_points: int, level_words: list, level_bits: list,
+                    device=None) -> "K2Tree":
+        """Reconstruct from per-level bitvector words (uint32 values)."""
+        self = cls.__new__(cls)
+        self.n_rows, self.n_cols, self.k = int(n_rows), int(n_cols), int(k)
+        self.h = int(h)
+        self.side = self.k ** self.h
+        self.n_points = int(n_points)
+        if len(level_words) != self.h and not (len(level_words) == 1
+                                               and n_points == 0):
+            raise ValueError(
+                f"{len(level_words)} levels for a height-{self.h} k2-tree")
+        dev = level_words[0].device if isinstance(level_words[0], torch.Tensor) \
+            and device is None else resolve_device(device)
+        self._device = dev
+        self.levels = [BitVector.from_words(w, int(nb), device=dev)
+                       for w, nb in zip(level_words, level_bits)]
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _build(self, rows: torch.Tensor, cols: torch.Tensor):
+        k, k2, h = self.k, self.k * self.k, self.h
+        dev = self._device
+        if rows.numel() == 0:
+            self.levels = [BitVector(torch.zeros(k2, dtype=I64, device=dev))]
+            return
+        flat = torch.unique(rows * self.n_cols + cols)  # dedup points
+        rows = flat // self.n_cols
+        cols = flat % self.n_cols
+        self.n_points = int(flat.numel())
+
+        levels = []
+        keys = torch.zeros(rows.numel(), dtype=I64, device=dev)  # root = 0
+        for t in range(h):
+            scale = k ** (h - 1 - t)
+            child = (rows // scale % k) * k + (cols // scale % k)
+            pair = keys * k2 + child
+            uniq_keys = torch.unique(keys)
+            uniq_pair = torch.unique(pair)
+            bits = torch.zeros(uniq_keys.numel() * k2, dtype=I64, device=dev)
+            # set child bit: parent's index in level order * k2 + child
+            parent_of_pair = torch.searchsorted(uniq_keys, uniq_pair // k2)
+            bits[parent_of_pair * k2 + uniq_pair % k2] = 1
+            levels.append(BitVector(bits))
+            # next level's node key = index of (key, child) among the set bits
+            keys = torch.searchsorted(uniq_pair, pair)
+        self.levels = levels
+
+    # ---------------- queries ----------------
+
+    def access(self, r: int, c: int) -> int:
+        k, k2 = self.k, self.k * self.k
+        block = 0
+        for t in range(self.h):
+            scale = k ** (self.h - 1 - t)
+            child = (r // scale % k) * k + (c // scale % k)
+            bitpos = block * k2 + child
+            if bitpos >= self.levels[t].n or not int(self.levels[t].access(bitpos)):
+                return 0
+            block = int(self.levels[t].rank1(bitpos))
+        return 1
+
+    def rows_many(self, rs) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched row expansion. Returns (idx, cols): query rs[idx[i]] has a
+        1 at column cols[i], sorted by (idx, col); out-of-range rows yield
+        nothing."""
+        return self._lines(rs, axis=0)
+
+    def cols_many(self, cs) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batched column expansion; see :meth:`rows_many`."""
+        return self._lines(cs, axis=1)
+
+    def _lines(self, fixed, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+        k, k2 = self.k, self.k * self.k
+        dev = self.device
+        fixed = as_i64(fixed, dev)
+        limit_fixed = self.n_rows if axis == 0 else self.n_cols
+        limit_free = self.n_cols if axis == 0 else self.n_rows
+        qids = torch.nonzero((fixed >= 0) & (fixed < limit_fixed)).reshape(-1)
+        fvals = fixed[qids]
+        blocks = torch.zeros_like(qids)
+        prefixes = torch.zeros_like(qids)  # free-axis coordinate prefix
+        free = torch.arange(k, dtype=I64, device=dev)
+        for t in range(self.h):
+            if blocks.numel() == 0:
+                return empty(dev), empty(dev)
+            scale = k ** (self.h - 1 - t)
+            fixed_digit = fvals // scale % k
+            # candidate children: fixed-axis digit fixed, free-axis digit 0..k-1
+            if axis == 0:
+                child = fixed_digit[:, None] * k + free[None, :]
+            else:
+                child = free[None, :] * k + fixed_digit[:, None]
+            bitpos = (blocks[:, None] * k2 + child).reshape(-1)
+            lv = self.levels[t]
+            valid = bitpos < lv.n
+            setbit = valid & (lv.access(torch.where(valid, bitpos, 0)) == 1)
+            sel = torch.nonzero(setbit).reshape(-1)  # the level's host sync
+            parent = sel // k
+            prefixes = (prefixes[parent] * k) + (sel % k)
+            qids, fvals = qids[parent], fvals[parent]
+            if t < self.h - 1:
+                blocks = lv.rank1(bitpos[sel])  # one batched rank per level
+            else:
+                keep = torch.nonzero(prefixes < limit_free).reshape(-1)
+                qids, coords = qids[keep], prefixes[keep]
+                order = lexsort((coords, qids))
+                return qids[order], coords[order]
+        return empty(dev), empty(dev)
+
+    def to_dense(self) -> torch.Tensor:
+        out = torch.zeros((self.n_rows, self.n_cols), dtype=torch.uint8,
+                          device=self.device)
+        r_idx, cols = self.rows_many(torch.arange(self.n_rows, device=self.device))
+        out[r_idx, cols] = 1
+        return out
+
+    def size_in_bytes(self) -> int:
+        return sum(lv.size_in_bytes() for lv in self.levels) + 8 * len(self.levels)

@@ -1,0 +1,134 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for ``sm_90a``,
+into ``build/repro_torch/<name>.<hash>.so`` at the root of the checkout
+(the hash is the source's, so an edited kernel never loads a stale
+library), and is loaded with ``ctypes``. The sources have a plain C
+interface and include no PyTorch header, so a build takes seconds.
+:func:`build_all` starts one ``nvcc`` per source, all at once;
+:func:`launch` calls an entry point on the current stream and counts the
+launch in :data:`launch_counts`.
+
+A failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+CUDA_ROOTS = ("/usr/local/cuda",)  # where nvcc is looked for off the PATH
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# source name -> (C entry point, its argument types; the last is the stream)
+SOURCES = {
+    "bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P]),
+    "digram_count": ("digram_pair_counts_launch", [_P, _P, _P, _P, _P, _I64, _I64, _P]),
+}
+
+# kernel name -> launches so far; each wrapper adds one where it launches
+launch_counts: dict[str, int] = {"bitvec_rank": 0, "digram_pair_counts": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}  # source name -> its ctypes entry point, typed
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), *CUDA_ROOTS):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}.{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None if its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> float:
+    """Compile every source that is not built yet, in parallel, and load
+    them all; returns the seconds it took."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in SOURCES}
+    for name, s in started.items():
+        _finish(name, s)
+    for name in SOURCES:
+        load(name)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    _finish(name, _start(name))
+    lib = ctypes.CDLL(str(_target(name)))
+    symbol, argtypes = SOURCES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _libs[name] = lib
+    _entries[name] = fn
+    return lib
+
+
+def launch(source: str, kernel: str, device: torch.device, *args) -> None:
+    """Call the C entry point of ``csrc/<source>.cu`` with `args` and the
+    current stream of `device`; raise if the launch failed, else count it."""
+    fn = _entries.get(source)
+    if fn is None:
+        load(source)
+        fn = _entries[source]
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {kernel} failed with error {err}")
+    launch_counts[kernel] += 1

@@ -1,0 +1,34 @@
+"""Device dispatch for the hand-written kernels.
+
+A tensor on the CPU goes to the kernel's plain twin in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the CUDA kernel,
+which launches or raises. There is no fallback and no batch size below
+which the card takes the plain path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import build_all, launch_counts, reset_launch_counts
+from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
+from repro_torch.kernels.digram_count import digram_pair_counts_cuda
+
+
+def bitvec_rank(words: torch.Tensor, word_ranks: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """rank1 at each position; see :func:`ref.bitvec_rank_ref`."""
+    if positions.device.type == "cpu":
+        return ref.bitvec_rank_ref(words, word_ranks, positions)
+    return bitvec_rank_cuda(words, word_ranks, positions)
+
+
+def digram_pair_counts(its: torch.Tensor, cnts: torch.Tensor):
+    """(lo, hi, count) per node pair; see :func:`ref.digram_pair_counts_ref`."""
+    if its.device.type == "cpu":
+        return ref.digram_pair_counts_ref(its, cnts)
+    return digram_pair_counts_cuda(its, cnts)
+
+
+__all__ = ["bitvec_rank", "digram_pair_counts", "build_all", "launch_counts",
+           "reset_launch_counts", "ref"]

@@ -1,0 +1,52 @@
+"""Plain PyTorch twins of the hand-written kernels.
+
+Each twin computes exactly what its CUDA kernel computes. The wrappers in
+:mod:`repro_torch.kernels.ops` run the twin for a tensor on the CPU, and
+``chip_smoke.py`` holds each kernel against its twin on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of int64 lanes holding values in [0, 2**32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def bitvec_rank_ref(words: torch.Tensor, word_ranks: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """rank1(pos) = word_ranks[pos >> 5] + popcount(words[pos >> 5] & mask).
+
+    words: (W+1,) int32 or int64 holding the uint32 bit patterns (the last
+    word is the zero pad that keeps ``pos == n`` in bounds); word_ranks:
+    (W+1,) int64 exclusive prefix popcounts; positions: (Q,) int64.
+    Returns (Q,) int64.
+    """
+    w = positions >> 5
+    rem = positions & 31
+    word = words[w].to(torch.int64) & _M32
+    mask = (torch.ones_like(rem) << rem) - 1
+    return word_ranks[w] + popcount32(word & mask)
+
+
+def digram_pair_counts_ref(its: torch.Tensor, cnts: torch.Tensor):
+    """Per-node pairwise digram counts (the paper's count_v formula).
+
+    its, cnts: (N, K) int32, -1 / 0 padded. Returns (lo, hi, count), each
+    (N, K(K+1)/2) int32 in ``triu_indices(K)`` order; pairs with a padded
+    side carry count 0.
+    """
+    K = its.shape[1]
+    ii, jj = torch.triu_indices(K, K, device=its.device)
+    it1, it2 = its[:, ii], its[:, jj]
+    c1, c2 = cnts[:, ii], cnts[:, jj]
+    cv = torch.where(ii == jj, torch.div(c1, 2, rounding_mode="floor"),
+                     torch.minimum(c1, c2))
+    cv = torch.where((it1 >= 0) & (it2 >= 0), cv, torch.zeros_like(cv))
+    return torch.minimum(it1, it2), torch.maximum(it1, it2), cv

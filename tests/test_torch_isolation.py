@@ -1,0 +1,92 @@
+"""The port stands alone: it imports neither jax nor the JAX package, its
+entry points refuse to run on a missing GPU unless asked for the CPU, and
+``chip_smoke.py`` fails without a GPU or without the port beside it."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+
+
+def _run(code, cwd=ROOT):
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('OK', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_sources_name_no_reference_import():
+    offenders = []
+    for path in [*sorted((SRC / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1 and (
+                    words[1].split(".")[0] in ("jax", "jaxlib", "repro")):
+                offenders.append(f"{path}: {line.strip()}")
+    assert offenders == []
+
+
+def _without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the no-GPU refusal cannot be observed")
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "from_triples", "terminals",
+                                   "from_numpy_state", "bitvector"])
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
+    _without_cuda()
+    from repro_torch import resolve_device
+    from repro_torch.core import Hypergraph, LabelTable, TripleQueryEngine
+    from repro_torch.core.succinct import BitVector
+
+    triples = np.array([[0, 0, 1], [1, 0, 2]])
+    calls = {
+        "resolve_device": lambda dev: resolve_device(dev),
+        "from_triples": lambda dev: Hypergraph.from_triples(triples, 3, device=dev),
+        "terminals": lambda dev: LabelTable.terminals([2], device=dev),
+        "from_numpy_state": lambda dev: TripleQueryEngine.from_numpy_state({}, {}, device=dev),
+        "bitvector": lambda dev: BitVector(np.array([1, 0, 1]), device=dev),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry](None)
+    if entry != "from_numpy_state":
+        calls[entry]("cpu")  # asking for the CPU works
+
+
+def test_chip_smoke_fails_without_cuda():
+    _without_cuda()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,157 @@
+"""The port's kernel twins against the JAX package's kernels, on the CPU.
+
+Each plain PyTorch twin (``repro_torch.kernels.ref``) is held against the
+reference's pure-jnp oracle (``repro.kernels.ref``) and its Pallas kernel
+(``repro.kernels.ops``, interpret mode off-TPU), on inputs made by numpy
+from a seed. All outputs are integers and compared exactly. The CUDA
+kernels themselves run only on a GPU (``chip_smoke.py``); here the tests
+check that their wrappers refuse CPU tensors and that a missing ``nvcc``
+raises instead of falling back.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.succinct import BitVector as RefBitVector
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.bitvec_rank import bitvec_rank as pallas_bitvec_rank
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
+from repro_torch.kernels.digram_count import digram_pair_counts_cuda
+
+
+def _rank_inputs(rng, nbits):
+    bv = RefBitVector(rng.integers(0, 2, nbits).astype(np.uint8))
+    words = np.concatenate([bv.words, np.zeros(1, np.uint32)])  # pos == n pad
+    return bv, words, bv.word_ranks
+
+
+def _t(a, dtype=torch.int64):
+    """int64 values, or with dtype=int32 the uint32 bit patterns as int32."""
+    if dtype == torch.int32:
+        return torch.from_numpy(np.asarray(a, dtype=np.uint32).view(np.int32).copy())
+    return torch.from_numpy(np.asarray(a, dtype=np.int64))
+
+
+@pytest.mark.parametrize("nbits,q", [(4096, 1024), (100_000, 2048), (64, 65), (33, 1)])
+def test_bitvec_rank_twin_matches_reference_kernel(nbits, q):
+    rng = np.random.default_rng(8)
+    bv, words, ranks = _rank_inputs(rng, nbits)
+    pos = rng.integers(0, nbits + 1, q)
+    pos[-1] = nbits
+    got = ref.bitvec_rank_ref(_t(words, torch.int32), _t(ranks), _t(pos))
+    assert got.dtype == torch.int64
+    want_np = bv._rank1_numpy(pos.astype(np.int64))
+    np.testing.assert_array_equal(got.numpy(), want_np)
+    j_words = jnp.asarray(words)
+    j_ranks = jnp.asarray(ranks.astype(np.int32))
+    j_pos = jnp.asarray(pos.astype(np.int32))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jops.bitvec_rank(j_words, j_ranks, j_pos)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jref.bitvec_rank_ref(j_words, j_ranks, j_pos)))
+
+
+@pytest.mark.parametrize("q", [0, 1, 7, 64, 100, 1023])
+def test_bitvec_rank_arbitrary_batch_sizes(q):
+    rng = np.random.default_rng(q)
+    bv, words, ranks = _rank_inputs(rng, 2048)
+    pos = rng.integers(0, bv.n + 1, q)
+    got = ops.bitvec_rank(_t(words, torch.int32), _t(ranks), _t(pos))
+    assert got.shape == (q,)
+    if q:
+        out = pallas_bitvec_rank(jnp.asarray(words), jnp.asarray(ranks.astype(np.int32)),
+                                 jnp.asarray(pos.astype(np.int32)), block_q=64, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(out))
+    np.testing.assert_array_equal(got.numpy(), bv._rank1_numpy(pos.astype(np.int64)))
+
+
+def test_bitvec_rank_twin_takes_int64_words_with_top_bits():
+    words = np.array([0xFFFFFFFF, 0x80000001, 0], dtype=np.uint32)
+    ranks = np.array([0, 32, 34], dtype=np.int64)
+    pos = np.array([0, 1, 31, 32, 33, 63, 64], dtype=np.int64)
+    a = ref.bitvec_rank_ref(_t(words, torch.int32), _t(ranks), _t(pos))
+    b = ref.bitvec_rank_ref(_t(words), _t(ranks), _t(pos))
+    assert a.tolist() == b.tolist() == [0, 1, 31, 32, 33, 33, 34]
+
+
+def _digram_inputs(rng, n, k):
+    its = rng.integers(0, 50, (n, k)).astype(np.int32)
+    cnts = rng.integers(1, 10, (n, k)).astype(np.int32)
+    pad = rng.random((n, k)) < 0.3
+    its[pad] = -1
+    cnts[pad] = 0
+    return its, cnts
+
+
+@pytest.mark.parametrize("n,k", [(256, 4), (512, 8), (256, 16), (1, 1), (257, 2), (33, 7)])
+def test_digram_pair_counts_twin_matches_reference(n, k):
+    rng = np.random.default_rng(6)
+    its, cnts = _digram_inputs(rng, n, k)
+    got = ref.digram_pair_counts_ref(torch.from_numpy(its), torch.from_numpy(cnts))
+    want = jref.digram_pair_counts_ref(jnp.asarray(its), jnp.asarray(cnts))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (n, k * (k + 1) // 2)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if n % min(256, n) == 0:  # the Pallas kernel needs a block multiple
+        kern = jops.digram_pair_counts(jnp.asarray(its), jnp.asarray(cnts))
+        for g, w in zip(got, kern):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_digram_pair_counts_matches_host_counter():
+    """Twin output summed over nodes == the reference's full recount."""
+    from repro.core import digram_counts
+    from repro.core.digram import node_it_counts
+    from tests.test_itr_core import random_hypergraph
+
+    rng = np.random.default_rng(7)
+    g, table = random_hypergraph(rng, n_nodes=30, n_edges=100)
+    v, it, c = node_it_counts(g, table)
+    k = 16
+    uniq, inv = np.unique(v, return_inverse=True)
+    its = np.full((len(uniq), k), -1, np.int32)
+    cs = np.zeros((len(uniq), k), np.int32)
+    slot = np.zeros(len(uniq), np.int64)
+    for node_i, it_i, c_i in zip(inv, it, c):
+        its[node_i, slot[node_i]] = it_i
+        cs[node_i, slot[node_i]] = c_i
+        slot[node_i] += 1
+    lo, hi, cnt = ops.digram_pair_counts(torch.from_numpy(its), torch.from_numpy(cs))
+    sel = cnt > 0
+    keys = (lo[sel].to(torch.int64) << 32) | hi[sel].to(torch.int64)
+    agg = {}
+    for kk, cc in zip(keys.tolist(), cnt[sel].tolist()):
+        agg[kk] = agg.get(kk, 0) + cc
+    want_keys, want_cnts = digram_counts(g, table, cap=None)
+    assert agg == dict(zip(want_keys.tolist(), want_cnts.tolist()))
+
+
+def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(1)
+    _, words, ranks = _rank_inputs(rng, 100)
+    ops.bitvec_rank(_t(words, torch.int32), _t(ranks), _t([0, 5, 100]))
+    its, cnts = _digram_inputs(rng, 5, 3)
+    ops.digram_pair_counts(torch.from_numpy(its), torch.from_numpy(cnts))
+    assert ops.launch_counts == {"bitvec_rank": 0, "digram_pair_counts": 0}
+
+
+@pytest.mark.parametrize("kernel", ["bitvec_rank", "digram_pair_counts"])
+def test_cuda_wrappers_refuse_cpu_tensors(kernel):
+    if kernel == "bitvec_rank":
+        with pytest.raises(ValueError):
+            bitvec_rank_cuda(torch.zeros(2, dtype=torch.int32),
+                             torch.zeros(2, dtype=torch.int64), torch.zeros(1, dtype=torch.int64))
+    else:
+        with pytest.raises(ValueError):
+            digram_pair_counts_cuda(torch.zeros((2, 2), dtype=torch.int32),
+                                    torch.zeros((2, 2), dtype=torch.int32))
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_ROOTS", (str(tmp_path),))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
