@@ -1,25 +1,41 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of ITR on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR and DLRM serving.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
 
 Run from the root of a checkout; it imports the port from ``src/`` and
 nothing of the JAX package. Phases:
 
-1. build every CUDA kernel of the main path from ``src/repro_torch/csrc``;
-2. hold each kernel against its plain PyTorch twin on the card, exactly
-   (integer outputs), on the edge cases of its contract;
-3. drive the main path once at full size: geo-coordinates-en (50,000
+1. build every CUDA kernel from ``src/repro_torch/csrc``, one nvcc each, in
+   parallel;
+2. hold each kernel against its plain PyTorch twin on the card, on the edge
+   cases of its contract: exactly for the integer kernels and for
+   ``embedding_bag`` with one row per bag, within a stated float32
+   tolerance otherwise;
+3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
    every query checked against ``query_oracle`` (a plain scan of the
    triples on the card), with the kernels' launch counts read around it;
-4. time each kernel on the inputs the main path gave it, beside its plain
-   twin and its least possible time (bytes moved at 3.35 TB/s);
-5. break the main path's time down: warm query repeats, the k² seed, the
+4. time each kernel on the inputs its path gave it, beside its plain twin,
+   a PyTorch library call where one computes the same function, and its
+   least possible time (bytes at 3.35 TB/s or operations at the card's
+   peak, whichever is larger);
+5. break the ITR path's time down: warm query repeats, the k² seed, the
    initial Count, the device's busy share (``torch.profiler``), the host
    syncs (torch's sync debug mode; a lower bound), and the same build and
-   s?? batch with ``device="cpu"`` as a host yardstick.
+   s?? batch with ``device="cpu"`` as a host yardstick;
+6. serve ``dlrm-mlperf`` at its full published size (177,948,416 table rows
+   x 128 in bfloat16 on the card) through ``build_cell`` under
+   ``serve_p99`` (p50/p99 latency over 200 batches of 512), ``serve_bulk``
+   (samples per second at 262,144 a batch) and ``retrieval_cand`` (ms per
+   query against 1,000,192 candidates), with the launch counts of
+   ``embedding_bag`` and ``dot_interaction`` read around each serve path's
+   run; the kernel path is held against the twin path on the serve_p99
+   batch and on the first 4,096 samples of the serve_bulk batch, and a
+   small model against the same model on the host CPU. The timing
+   rows of both DLRM kernels (phase 4) are taken here, while the model is
+   on the card.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -36,7 +52,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-INT_OPS_PER_S = 67e12         # H100 SXM rate outside the tensor cores (fp32 table entry)
+CORE_OPS_PER_S = 67e12        # H100 SXM rate outside the tensor cores (fp32 table entry)
 DEV = "cuda"
 PATTERNS = ("s??", "?p?", "??o", "sp?", "s?o", "?po", "spo")
 
@@ -108,6 +124,77 @@ def check_kernels(torch, np, seed: int) -> dict:
     return err
 
 
+# Tolerances of the float kernels against their twins on the card. The
+# embedding bag sums rows in float32 in the twin's order, l = 0..L-1: one row
+# per bag is a copy and must be exact; for more rows the tolerance covers a
+# float32 summation (1e-6) and, for a bfloat16 table, the one rounding of
+# that sum to bfloat16 (2**-7 relative). The dot interaction sums D float32
+# products in another order than cuBLAS's batched product in the twin.
+EMB_TOL = {"float32": dict(rtol=1e-6, atol=1e-6), "bfloat16": dict(rtol=2**-7, atol=1e-6)}
+DOT_TOL = dict(rtol=1e-4, atol=1e-4)
+# The DLRM kernel path against its twin path: the fields must be equal, the
+# logits differ only by the interaction's summation order through the top MLP.
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def check_recsys_kernels(torch, np, seed: int) -> dict:
+    """Phase 2, DLRM's kernels: embedding_bag and dot_interaction against
+    their twins on the card."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    rng = np.random.default_rng(seed)
+    err = {"embedding_bag": 0.0, "dot_interaction": 0.0}
+    n_cases = 0
+    for dt in (torch.bfloat16, torch.float32):
+        tol = EMB_TOL[str(dt).split(".")[-1]]
+        for d in (16, 128):
+            table = torch.from_numpy(rng.normal(size=(10_000, d)).astype(np.float32)).to(DEV, dt)
+            for bag_len in (1, 3, 8):
+                for b in (0, 1, 257, 4097):
+                    idx = rng.integers(0, 10_000, (b, bag_len))
+                    if bag_len > 1:
+                        idx[rng.random((b, bag_len)) < 0.25] = -1  # ragged bags
+                        idx[: min(b, 2)] = -1                      # empty bags
+                    for combiner in ("sum", "mean"):
+                        for it in (torch.int32, torch.int64):
+                            idx_t = torch.from_numpy(idx).to(DEV, it)
+                            got = embedding_bag_cuda(table, idx_t, combiner)
+                            want = ref.embedding_bag_ref(table, idx_t, combiner)
+                            torch.cuda.synchronize()
+                            if got.shape != want.shape or got.dtype != want.dtype:
+                                _fail(f"embedding_bag shape/dtype at {dt} D={d} L={bag_len} B={b}")
+                            exact = torch.equal(got, want)
+                            if bag_len == 1 and not exact:
+                                _fail(f"embedding_bag is not exact for L=1 at {dt} D={d} B={b}")
+                            if not torch.allclose(got.float(), want.float(), **tol):
+                                _fail(f"embedding_bag differs at {dt} D={d} L={bag_len} "
+                                      f"B={b} {combiner}")
+                            if b:
+                                err["embedding_bag"] = max(err["embedding_bag"], float(
+                                    (got.float() - want.float()).abs().max()))
+                            n_cases += 1
+    for dt in (torch.bfloat16, torch.float32):
+        for f in (4, 8, 27):
+            for d in (16, 64, 128):
+                for b in (1, 129, 4097):
+                    x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(DEV, dt)
+                    got = dot_interaction_cuda(x)
+                    want = ref.dot_interaction_ref(x)
+                    torch.cuda.synchronize()
+                    if got.shape != want.shape or got.dtype != torch.float32 \
+                            or not torch.allclose(got, want, **DOT_TOL):
+                        _fail(f"dot_interaction differs at {dt} F={f} D={d} B={b}")
+                    err["dot_interaction"] = max(err["dot_interaction"],
+                                                 float((got - want).abs().max()))
+                    n_cases += 1
+    print(f"recsys kernels_vs_plain cases={n_cases} embedding_bag_max_abs_err="
+          f"{err['embedding_bag']} dot_interaction_max_abs_err={err['dot_interaction']} "
+          f"tolerances emb={EMB_TOL} dot={DOT_TOL}")
+    return err
+
+
 def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     """Phase 3: build and query at full size, checked against the oracle."""
     from repro_torch.core import (Hypergraph, LabelTable, TripleQueryEngine, compress,
@@ -154,7 +241,7 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
         torch.cuda.synchronize()
         query_s[pat] = time.perf_counter() - t1
         batches[pat] = cols
-    counts = dict(ops.launch_counts)
+    counts = {k: ops.launch_counts[k] for k in ("bitvec_rank", "digram_pair_counts")}
 
     print(f"build_s {build_s:.6f} " + " ".join(f"{k}_s={v:.6f}" for k, v in stages.items()))
     print(f"grammar rules={len(grammar.rules)} start_edges={grammar.start.n_edges} "
@@ -268,7 +355,7 @@ def time_kernels(torch, np, main: dict, errs: dict) -> list:
         ms_b = _time_ms(torch, run_kernel, 50)
         plain_b = _time_ms(torch, run_plain, 20)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / INT_OPS_PER_S * 1e3
+        t_ops = nops / CORE_OPS_PER_S * 1e3
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": main["counts"][name], "max_abs_err": errs[name],
                  "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
@@ -282,8 +369,9 @@ def time_kernels(torch, np, main: dict, errs: dict) -> list:
     return out
 
 
-def _device_busy(torch, fn) -> tuple[float, float]:
-    """(wall seconds, summed device kernel seconds) of one call of fn."""
+def _profile(torch, fn):
+    """(wall seconds, summed device kernel seconds, key averages) of one
+    call of fn."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -291,8 +379,10 @@ def _device_busy(torch, fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    return wall, dev_us / 1e6
+    avgs = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in avgs)
+    return wall, dev_us / 1e6, avgs
+
 
 
 def _count_syncs(torch, fn) -> int:
@@ -336,7 +426,7 @@ def breakdown(torch, main: dict) -> None:
     for what, fn in (("s?? batch", lambda: engine.query_batch_view(*batches["s??"])),
                      ("?p? batch", lambda: engine.query_batch_view(*batches["?p?"])),
                      ("compress", lambda: compress(main["graph"], main["table"]))):
-        wall, dev = _device_busy(torch, fn)
+        wall, dev, _ = _profile(torch, fn)
         share = f"{dev / wall:.4f}" if dev > 0 else "not measured"
         syncs = _count_syncs(torch, fn)
         print(f"device busy {what}: wall_s={wall:.6f} kernel_s={dev:.6f} busy_share={share} "
@@ -358,6 +448,282 @@ def breakdown(torch, main: dict) -> None:
     dt = time.perf_counter() - t0
     print(f"host CPU yardstick (same code, device=cpu): build_s={build_s:.6f} "
           f"s?? us_per_query={dt / cols[0].numel() * 1e6:.3f}")
+
+
+class _Twins:
+    """Route ``ops.embedding_bag`` and ``ops.dot_interaction`` to their plain
+    twins inside the block, for the twin path of the DLRM check."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self.ops = ops
+        self.saved = ops.embedding_bag, ops.dot_interaction
+        ops.embedding_bag, ops.dot_interaction = ref.embedding_bag_ref, ref.dot_interaction_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.embedding_bag, self.ops.dot_interaction = self.saved
+
+
+def _hold_against_twins(torch, model, dense, sparse, what: str) -> None:
+    """The kernel path against the twin path on one batch: the fields
+    exactly equal, the logits within LOGIT_TOL."""
+    x_k, f_k = model.fields(dense, sparse)
+    l_k = model(dense, sparse)
+    with _Twins():
+        x_t, f_t = model.fields(dense, sparse)
+        l_t = model(dense, sparse)
+    torch.cuda.synchronize()
+    if not (torch.equal(f_k, f_t) and torch.equal(x_k, x_t)):
+        _fail(f"{what}: the kernel path's fields differ from the twin path's")
+    if not torch.allclose(l_k, l_t, **LOGIT_TOL):
+        _fail(f"{what}: the kernel path's logits differ from the twin path's")
+    print(f"{what}: B={dense.shape[0]} fields equal=True logits max_abs_err="
+          f"{float((l_k - l_t).abs().max())} tol={LOGIT_TOL} "
+          f"logit range [{float(l_k.min()):.4f}, {float(l_k.max()):.4f}]")
+
+
+def _path_counts(what: str, counts: dict) -> dict:
+    """The DLRM kernels' launch counts of one path; fail if either is 0."""
+    counts = {k: counts[k] for k in ("embedding_bag", "dot_interaction")}
+    for name, c in counts.items():
+        print(f"launches {name} {c} (dlrm {what})")
+        if c <= 0:
+            _fail(f"the DLRM {what} path never launched {name}")
+    return counts
+
+
+def _top_kernels(avgs, n: int = 8) -> str:
+    rows = sorted(((getattr(e, "self_device_time_total", 0), e.count, e.key) for e in avgs),
+                  reverse=True)[:n]
+    return "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for us, c, k in rows if us > 0)
+
+
+def _served_counts(torch, run) -> tuple:
+    """Run one served batch with every launch count at 0 before it; return
+    the counts just after."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return dict(ops.launch_counts), out
+
+
+def _small_dlrm_params(np, cfg, seed: int) -> dict:
+    """A ``dlrm_init``-shaped pytree of numpy arrays, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    f = cfg.n_fields
+    sizes = {"bot": [cfg.n_dense, *cfg.bot_mlp],
+             "top": [f * (f - 1) // 2 + cfg.embed_dim, *cfg.top_mlp]}
+    return {"tables": {f"table_{i}": (rng.normal(size=(cfg.padded_rows(r), cfg.embed_dim))
+                                      / cfg.embed_dim ** 0.5).astype(np.float32)
+                       for i, r in enumerate(cfg.row_counts)},
+            **{k: [{"w": (rng.normal(size=(a, b)) / a ** 0.5).astype(np.float32),
+                    "b": rng.normal(size=b).astype(np.float32) * 0.1}
+                   for a, b in zip(v[:-1], v[1:])] for k, v in sizes.items()}}
+
+
+def dlrm_vs_host(torch, np, seed: int) -> None:
+    """A small DLRM (the reduced config in bfloat16) from the same numpy
+    weights on the card, through the kernels, and on the host CPU, through
+    the twins: the logits must agree."""
+    import dataclasses
+
+    from repro_torch.configs.dlrm_mlperf import reduced
+    from repro_torch.launch.steps import dlrm_batch
+    from repro_torch.models.dlrm import DLRM
+
+    cfg = dataclasses.replace(reduced(), compute_dtype="bfloat16")
+    params = _small_dlrm_params(np, cfg, seed)
+    dense, sparse = dlrm_batch(cfg, 1000, torch.Generator().manual_seed(seed))
+    host = DLRM.from_numpy_params(params, cfg, device="cpu")(dense, sparse)
+    card = DLRM.from_numpy_params(params, cfg, device=DEV)(dense.to(DEV), sparse.to(DEV))
+    err = float((card.cpu() - host).abs().max())
+    if not torch.allclose(card.cpu(), host, rtol=1e-3, atol=1e-3):
+        _fail(f"small DLRM on the card differs from the host CPU (max abs err {err})")
+    print(f"dlrm small model card vs host CPU: B=1000 max_abs_err={err} tol=1e-3")
+
+
+def time_dlrm_kernels(torch, model, dense, sparse, errs: dict, launches: dict,
+                      p99_launches: dict) -> list:
+    """Phase 4's rows for embedding_bag and dot_interaction, on the inputs
+    the serve_bulk batch gave them. ``launches`` are the serve_bulk path's
+    counts, the run these rows time; ``launches_serve_p99`` the serve_p99
+    path's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    table = model.table
+    bags = (sparse + model.row_offsets).reshape(-1, 1)
+    _, fields = model.fields(dense, sparse)
+    got, want = embedding_bag_cuda(table, bags), ref.embedding_bag_ref(table, bags)
+    if not torch.equal(got, want):
+        _fail("embedding_bag differs from its twin at serve_bulk shapes")
+    errs["embedding_bag"] = max(errs["embedding_bag"], float((got.float() - want.float())
+                                                             .abs().max()))
+    del got, want
+    got, want = dot_interaction_cuda(fields), ref.dot_interaction_ref(fields)
+    if not torch.allclose(got, want, **DOT_TOL):
+        _fail("dot_interaction differs from its twin at serve_bulk shapes")
+    errs["dot_interaction"] = max(errs["dot_interaction"], float((got - want).abs().max()))
+    del got, want
+
+    # each distinct row is read once (the small tables' rows recur), each
+    # index read and each output row written once
+    es = table.element_size()
+    n_bags, d = bags.shape[0], table.shape[1]
+    valid = bags[bags >= 0]
+    n_valid, n_distinct = valid.numel(), int(torch.unique(valid).numel())
+    emb_bytes = n_distinct * d * es + bags.numel() * bags.element_size() + n_bags * d * es
+    emb_ops = n_valid * d
+    b, f, _ = fields.shape
+    p = f * (f - 1) // 2
+    dot_bytes = fields.numel() * fields.element_size() + b * p * 4
+    dot_ops = 2 * b * p * d
+    xf = fields.float()
+    ii, jj = torch.tril_indices(f, f, -1, device=DEV)
+    print(f"embedding_bag main-path shape: table {tuple(table.shape)} {table.dtype}, "
+          f"bags {tuple(bags.shape)} {bags.dtype}, {n_valid} rows gathered, "
+          f"{n_distinct} distinct; dot_interaction: fields "
+          f"{tuple(fields.shape)} {fields.dtype}")
+
+    out = []
+    for name, src, replaces, kern, twin, lib, nbytes, nops, lib_what in (
+            ("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
+             "src/repro/kernels/embedding_bag.py:29", lambda: embedding_bag_cuda(table, bags),
+             lambda: ref.embedding_bag_ref(table, bags),
+             lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum"),
+             emb_bytes, emb_ops, "torch.nn.functional.embedding_bag"),
+            ("dot_interaction", "src/repro_torch/csrc/dot_interaction.cu",
+             "src/repro/kernels/dot_interaction.py:26", lambda: dot_interaction_cuda(fields),
+             lambda: ref.dot_interaction_ref(fields),
+             lambda: torch.bmm(xf, xf.transpose(1, 2))[:, ii, jj],
+             dot_bytes, dot_ops, "torch.bmm of the fp32-upcast fields + tril gather")):
+        plain_a = _time_ms(torch, twin, 3)
+        ms_a = _time_ms(torch, kern, 20)
+        lib_a = _time_ms(torch, lib, 10)
+        lib_b = _time_ms(torch, lib, 10)
+        ms_b = _time_ms(torch, kern, 20)
+        plain_b = _time_ms(torch, twin, 3)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / CORE_OPS_PER_S * 1e3
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": errs[name],
+                 "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": min(lib_a, lib_b), "launches_serve_p99": p99_launches[name]}
+        print(f"kernel {name} ms={entry['ms']:.6f} (runs {ms_a:.6f} {ms_b:.6f}) "
+              f"plain_ms={entry['plain_ms']:.6f} bound_ms={entry['bound_ms']:.6f} "
+              f"({entry['bound_by']}, {nbytes} B, {nops} ops) "
+              f"library_ms={entry['library_ms']:.6f} ({lib_what}) "
+              f"launches serve_bulk={entry['launches']} serve_p99={p99_launches[name]}")
+        out.append(entry)
+    return out
+
+
+def drive_dlrm(torch, np, seed: int, errs: dict) -> list:
+    """Phase 6: dlrm-mlperf at full size under its three serving shapes."""
+    from repro_torch.launch.steps import build_cell, dlrm_batch
+
+    dlrm_vs_host(torch, np, seed)
+
+    # serve_p99: batches of 512
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell("dlrm-mlperf", "serve_p99", seed=seed)
+    torch.cuda.synchronize()
+    model = cell.model
+    table = model.table
+    print(f"dlrm init_s={time.perf_counter() - t0:.3f} table_rows={table.shape[0]} "
+          f"dim={table.shape[1]} dtype={table.dtype} table_bytes="
+          f"{table.numel() * table.element_size()} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    counts, logits = _served_counts(torch, cell.run)
+    p99_counts = _path_counts("serve_p99", counts)
+    if logits.shape != (512,) or not bool(torch.isfinite(logits).all()):
+        _fail("serve_p99 logits are not 512 finite values")
+    _hold_against_twins(torch, model, *cell.args, "serve_p99 batch")
+    gen =torch.Generator(device=DEV).manual_seed(seed + 2)
+    batches = [dlrm_batch(model.cfg, 512, gen) for _ in range(200)]
+    for dense, sparse in batches[:20]:
+        model(dense, sparse)
+    torch.cuda.synchronize()
+    lat = []
+    for dense, sparse in batches:
+        t0 = time.perf_counter()
+        model(dense, sparse)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    lat_ms = np.array(lat) * 1e3
+    print(f"serve_p99 B=512 batches=200 p50_ms={np.percentile(lat_ms, 50):.6f} "
+          f"p99_ms={np.percentile(lat_ms, 99):.6f} mean_ms={lat_ms.mean():.6f} "
+          f"max_ms={lat_ms.max():.6f}")
+    wall, dev, avgs = _profile(torch, lambda: model(*batches[0]))
+    p50_s = float(np.percentile(lat_ms, 50)) / 1e3
+    print(f"device busy serve_p99 batch: wall_s={wall:.6f} kernel_s={dev:.6f} "
+          f"busy_share={dev / wall if dev > 0 else 'not measured'} (profiled wall); "
+          f"kernel_s / p50 = {dev / p50_s if dev > 0 else 'not measured'}")
+    print(f"serve_p99 kernels by device time: {_top_kernels(avgs)}")
+    del cell, model, table, batches, logits
+    torch.cuda.empty_cache()
+
+    # serve_bulk: one batch of 262,144
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell("dlrm-mlperf", "serve_bulk", seed=seed)
+    torch.cuda.synchronize()
+    model, (dense, sparse) = cell.model, cell.args
+    print(f"dlrm init_s={time.perf_counter() - t0:.3f} (serve_bulk cell)")
+    counts, logits = _served_counts(torch, cell.run)
+    bulk_counts = _path_counts("serve_bulk", counts)
+    n = dense.shape[0]
+    if logits.shape != (n,) or not bool(torch.isfinite(logits).all()):
+        _fail("serve_bulk logits are not finite")
+    print(f"serve_bulk max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    _hold_against_twins(torch, model, dense[:4096], sparse[:4096], "serve_bulk first 4096")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        model(dense, sparse)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"serve_bulk B={n} repeats=5 batch_s={[round(t, 6) for t in times]} "
+          f"samples_per_s={n / float(np.median(times)):.1f}")
+    wall, dev, avgs = _profile(torch, lambda: model(dense, sparse))
+    print(f"device busy serve_bulk batch: wall_s={wall:.6f} kernel_s={dev:.6f} "
+          f"busy_share={dev / wall if dev > 0 else 'not measured'}")
+    print(f"serve_bulk kernels by device time: {_top_kernels(avgs)}")
+    rows = time_dlrm_kernels(torch, model, dense, sparse, errs, bulk_counts, p99_counts)
+    print(f"peak max_memory_allocated serve_bulk={torch.cuda.max_memory_allocated()}")
+    del cell, model, dense, sparse, logits
+    torch.cuda.empty_cache()
+
+    # retrieval_cand: one query against 1,000,192 candidates
+    cell = build_cell("dlrm-mlperf", "retrieval_cand", seed=seed)
+    counts, (values, idx) = _served_counts(torch, cell.run)
+    query, cands = cell.args
+    scores = cands.double().cpu() @ query.double().cpu()
+    kth = torch.topk(scores, 101).values[-1]
+    if values.shape != (100,) or not bool((scores[idx.cpu()] >= kth - 1e-3).all()) \
+            or not bool((values[:-1] >= values[1:]).all()):
+        _fail("retrieval_cand top-100 is not the float64 top-100 of the scores")
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        cell.run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"retrieval_cand candidates={cands.shape[0]} k=100 launches={counts} "
+          f"ms_per_query_median={float(np.median(times)) * 1e3:.6f} "
+          f"ms_min={min(times) * 1e3:.6f}")
+    del cell, cands
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> int:
@@ -383,10 +749,16 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}")
     build_s = ops.build_all()
     print(f"kernel_build_s {build_s:.3f}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the reference's MLPs are float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     errs = check_kernels(torch, np, args.seed)
+    errs.update(check_recsys_kernels(torch, np, args.seed))
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
+    del main_res
+    kernels += drive_dlrm(torch, np, args.seed, errs)
     if sys.modules.get("jax") is not None or any(
             m == "repro" or m.startswith("repro.") for m in sys.modules):
         _fail("the JAX package or jax was imported")

@@ -1,0 +1,53 @@
+"""Architecture registry: maps arch ids to config constructors and shapes.
+
+The twin of ``repro.configs.registry``, cut to the archs the port runs.
+Each arch has a module in :mod:`repro_torch.configs` with ``config()``
+(the exact published numbers) and ``reduced()`` (smoke-test scale).
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | serve | retrieval
+    params: dict
+
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "train", dict(batch=65536)),
+    "serve_p99": ShapeSpec("serve_p99", "serve", dict(batch=512)),
+    "serve_bulk": ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1000000)),
+}
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str          # recsys
+    module: str          # repro_torch.configs.<module>
+    shapes: dict = field(default_factory=dict)
+
+    def config(self):
+        return importlib.import_module(self.module).config()
+
+    def reduced(self):
+        return importlib.import_module(self.module).reduced()
+
+
+ARCHS: dict[str, ArchSpec] = {
+    a.arch_id: a
+    for a in [
+        ArchSpec("dlrm-mlperf", "recsys", "repro_torch.configs.dlrm_mlperf", RECSYS_SHAPES),
+    ]
+}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch_id]

@@ -36,10 +36,14 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 SOURCES = {
     "bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P]),
     "digram_count": ("digram_pair_counts_launch", [_P, _P, _P, _P, _P, _I64, _I64, _P]),
+    "embedding_bag": ("embedding_bag_launch",
+                      [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]),
+    "dot_interaction": ("dot_interaction_launch", [_P, _P, _I64, _I64, _I64, _I64, _P]),
 }
 
 # kernel name -> launches so far; each wrapper adds one where it launches
-launch_counts: dict[str, int] = {"bitvec_rank": 0, "digram_pair_counts": 0}
+launch_counts: dict[str, int] = {"bitvec_rank": 0, "digram_pair_counts": 0,
+                                 "embedding_bag": 0, "dot_interaction": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict = {}  # source name -> its ctypes entry point, typed

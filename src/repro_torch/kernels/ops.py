@@ -13,6 +13,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import build_all, launch_counts, reset_launch_counts
 from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
 from repro_torch.kernels.digram_count import digram_pair_counts_cuda
+from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
 
 def bitvec_rank(words: torch.Tensor, word_ranks: torch.Tensor,
@@ -30,5 +32,22 @@ def digram_pair_counts(its: torch.Tensor, cnts: torch.Tensor):
     return digram_pair_counts_cuda(its, cnts)
 
 
-__all__ = ["bitvec_rank", "digram_pair_counts", "build_all", "launch_counts",
-           "reset_launch_counts", "ref"]
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  combiner: str = "sum") -> torch.Tensor:
+    """Sum or mean of the rows of each -1-padded bag; see
+    :func:`ref.embedding_bag_ref`."""
+    if table.device.type == "cpu":
+        return ref.embedding_bag_ref(table, indices, combiner)
+    return embedding_bag_cuda(table, indices, combiner)
+
+
+def dot_interaction(x: torch.Tensor) -> torch.Tensor:
+    """Strictly lower triangle of x @ x^T per sample, float32; see
+    :func:`ref.dot_interaction_ref`."""
+    if x.device.type == "cpu":
+        return ref.dot_interaction_ref(x)
+    return dot_interaction_cuda(x)
+
+
+__all__ = ["bitvec_rank", "digram_pair_counts", "embedding_bag", "dot_interaction",
+           "build_all", "launch_counts", "reset_launch_counts", "ref"]

@@ -50,3 +50,36 @@ def digram_pair_counts_ref(its: torch.Tensor, cnts: torch.Tensor):
                      torch.minimum(c1, c2))
     cv = torch.where((it1 >= 0) & (it2 >= 0), cv, torch.zeros_like(cv))
     return torch.minimum(it1, it2), torch.maximum(it1, it2), cv
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                      combiner: str = "sum") -> torch.Tensor:
+    """Sum or mean of the table rows of each bag.
+
+    table: (V, D) float32 or bfloat16; indices: (B, L) int32 or int64, a
+    negative index is padding. ``mean`` divides by max(#valid, 1). Rows are
+    summed in float32 over l = 0..L-1 and the result is cast back to
+    ``table.dtype``. Returns (B, D).
+    """
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
+    valid = indices >= 0
+    rows = table[indices.clamp(min=0).to(torch.int64)].float()
+    out = torch.zeros((indices.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for l in range(indices.shape[1]):  # the kernel's summation order
+        out += torch.where(valid[:, l, None], rows[:, l], 0.0)
+    if combiner == "mean":
+        out = out / valid.sum(dim=1, keepdim=True).clamp(min=1).float()
+    return out.to(table.dtype)
+
+
+def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
+    """DLRM dot interaction: x (B, F, D) float32 or bfloat16 -> the strictly
+    lower triangle of x @ x^T per sample, (B, F(F-1)/2) float32 in
+    ``tril_indices(F, -1)`` order. Inputs are upcast to float32 first."""
+    f = x.shape[1]
+    xf = x.float()
+    z = torch.bmm(xf, xf.transpose(1, 2))
+    ii, jj = torch.tril_indices(f, f, -1, device=x.device)
+    return z[:, ii, jj]

@@ -1,0 +1,1 @@
+"""Models of the JAX package's zoo that the port runs (DLRM so far)."""

@@ -53,13 +53,27 @@ def _without_cuda():
         pytest.skip("a GPU is visible: the no-GPU refusal cannot be observed")
 
 
+def _zero_dlrm_params(cfg):
+    f = cfg.n_fields
+    sizes = {"bot": [cfg.n_dense, *cfg.bot_mlp],
+             "top": [f * (f - 1) // 2 + cfg.embed_dim, *cfg.top_mlp]}
+    return {"tables": {f"table_{i}": np.zeros((cfg.padded_rows(r), cfg.embed_dim), np.float32)
+                       for i, r in enumerate(cfg.row_counts)},
+            **{k: [{"w": np.zeros((a, b), np.float32), "b": np.zeros(b, np.float32)}
+                   for a, b in zip(s[:-1], s[1:])] for k, s in sizes.items()}}
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "from_triples", "terminals",
-                                   "from_numpy_state", "bitvector"])
+                                   "from_numpy_state", "bitvector", "dlrm_from_config",
+                                   "dlrm_from_numpy_params", "build_cell"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
+    from repro_torch.configs.dlrm_mlperf import reduced
     from repro_torch.core import Hypergraph, LabelTable, TripleQueryEngine
     from repro_torch.core.succinct import BitVector
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.dlrm import DLRM
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
     calls = {
@@ -68,6 +82,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
         "terminals": lambda dev: LabelTable.terminals([2], device=dev),
         "from_numpy_state": lambda dev: TripleQueryEngine.from_numpy_state({}, {}, device=dev),
         "bitvector": lambda dev: BitVector(np.array([1, 0, 1]), device=dev),
+        "dlrm_from_config": lambda dev: DLRM.from_config(reduced(), device=dev),
+        "dlrm_from_numpy_params": lambda dev: DLRM.from_numpy_params(
+            _zero_dlrm_params(reduced()), reduced(), device=dev),
+        "build_cell": lambda dev: build_cell("dlrm-mlperf", "serve_p99", reduced=True,
+                                             device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)
