@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR and DLRM serving.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR, DLRM and LM serving.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
 
@@ -10,8 +10,8 @@ nothing of the JAX package. Phases:
    parallel;
 2. hold each kernel against its plain PyTorch twin on the card, on the edge
    cases of its contract: exactly for the integer kernels and for
-   ``embedding_bag`` with one row per bag, within a stated float32
-   tolerance otherwise;
+   ``embedding_bag`` with one row per bag, within a stated tolerance
+   otherwise (``flash_attention`` in float32 and bfloat16);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -35,7 +35,22 @@ nothing of the JAX package. Phases:
    batch and on the first 4,096 samples of the serve_bulk batch, and a
    small model against the same model on the host CPU. The timing
    rows of both DLRM kernels (phase 4) are taken here, while the model is
-   on the card.
+   on the card;
+7. with the DLRM tables freed, serve ``qwen2-1.5b`` at full width (28
+   layers, d_model 1536, 12 query and 2 KV heads of 128, vocab 151,936):
+   a small model on the card against the host CPU; the full-width model in
+   float32, kernel path against twin path (logits and 16 greedy tokens);
+   ``lm_serve`` (``ServeEngine.generate`` on 8 prompts of 256-2048 ids, 64
+   greedy tokens, cache of 4,096, exactly 28 x 65 ``flash_attention``
+   launches), held against its twin path; ``prefill_32k`` (batch 4) and
+   ``decode_32k`` (batch 64, a 60.1 GB cache filled on the card) through
+   ``build_cell``. Each bfloat16 path check is read beside a witness (p
+   unrounded) and a control (first K/V tile dropped) that must fail it.
+   The ``flash_attention`` row is timed at one layer of the ``lm_serve``
+   prefill and of ``decode_32k``, beside its twin and
+   ``scaled_dot_product_attention`` as the library yardstick; at both, the
+   kernel is held against its twin on those inputs, in bfloat16 and in
+   float32, and the control must fail the float32 comparison.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -451,19 +466,30 @@ def breakdown(torch, main: dict) -> None:
 
 
 class _Twins:
-    """Route ``ops.embedding_bag`` and ``ops.dot_interaction`` to their plain
-    twins inside the block, for the twin path of the DLRM check."""
+    """Route ``ops.embedding_bag``, ``ops.dot_interaction`` and
+    ``ops.flash_attention`` to their plain twins inside the block, for the
+    twin paths of the DLRM and LM checks; ``attention`` replaces the
+    attention twin (the LM checks' witness and control)."""
+
+    NAMES = ("embedding_bag", "dot_interaction", "flash_attention")
+
+    def __init__(self, attention=None):
+        self.attention = attention
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
 
         self.ops = ops
-        self.saved = ops.embedding_bag, ops.dot_interaction
-        ops.embedding_bag, ops.dot_interaction = ref.embedding_bag_ref, ref.dot_interaction_ref
+        self.saved = {n: getattr(ops, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(ops, n, getattr(ref, f"{n}_ref"))
+        if self.attention is not None:
+            ops.flash_attention = self.attention
         return self
 
     def __exit__(self, *exc):
-        self.ops.embedding_bag, self.ops.dot_interaction = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, fn)
 
 
 def _hold_against_twins(torch, model, dense, sparse, what: str) -> None:
@@ -726,6 +752,523 @@ def drive_dlrm(torch, np, seed: int, errs: dict) -> list:
     return rows
 
 
+# Tolerances of flash_attention against its twin on the card: float32 sums
+# in another order (tiles of keys, an online max), bfloat16 also rounds p
+# against another running max (tests/test_kernels.py's bf16 tolerance).
+ATTN_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# flash_attention against its twin at the main path's own shapes, where the
+# outputs are far from unit scale (about 0.01 at decode_32k, an average over
+# 32,768 keys): atol is scaled by the largest |output|, 2**-7 of it in
+# bfloat16 (at least one bfloat16 step at that magnitude, what rounding p or
+# the output another way moves it by), 1e-4 of it in float32 (the inputs
+# cast to float32).
+ATTN_MAIN_TOL = {"bfloat16": (2e-2, 2.0 ** -7), "float32": (1e-4, 1e-4)}  # (rtol, atol/max|want|)
+CONTROL_TILE = 64           # the controls drop keys 0..63, a kernel that skipped its first tile
+# The LM kernel path against its twin path. float32 at full width: the
+# attention's summation order through 28 layers. bfloat16: both paths round
+# every activation to bfloat16, so an attention output that rounds one step
+# apart in one layer is carried by the residual stream through the rest. The
+# limit sits between two readings of the same comparison, both printed by
+# every run: the twin path with p left in float32 (what rounding p in
+# another way does to the logits) and a control, the twin path with the
+# first K/V tile dropped in every layer, which must land above it. On an
+# H100 (700 W): kernel path 0.086 / 0.161, witness 0.088 / 0.158, control
+# 5.08 / 0.549 at the lm_serve prefill / decode_32k.
+LM_F32_TOL = dict(rtol=1e-3, atol=1e-3)
+LM_BF16_TOL = dict(rtol=0.0, atol=0.25)
+SDPA_TOL = 0.1              # the yardstick's agreement with the kernel (bfloat16)
+LM_MAX_LEN = 4096           # lm_serve cache positions per sequence
+LM_PROMPT_LENS = (256, 2048)  # lm_serve prompt lengths are drawn in this range
+LM_NEW_TOKENS = 64
+PREFILL_32K_BATCH = 4       # of the registry's 32: the smoke's time limit
+DECODE_32K_BATCH = 64       # of the registry's 128: 128 caches are 120.3 GB
+H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, the attention bound's rate
+
+
+def check_attention_kernel(torch, np, seed: int) -> dict:
+    """Phase 2, flash_attention against its twin on the card: the reference
+    sweeps (GQA, windows, soft-cap, non-causal), more queries than keys,
+    lengths that are not tile multiples, one query row inside a cache,
+    D in {64, 128, 256} in float32 and bfloat16, the model's strided views,
+    and empty lengths."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    rng = np.random.default_rng(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []  # (dtype, (B, Hq, Hkv, Sq, Sk, D), kwargs, strided)
+    for dt in (f32, bf16):
+        for shape in ((1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
+                      (1, 4, 1, 64, 256, 32), (1, 2, 2, 256, 256, 128)):
+            cases.append((dt, shape, {}, False))
+        for window in (None, 64, 128):
+            for softcap in (None, 30.0):
+                cases.append((dt, (1, 4, 2, 256, 256, 64),
+                              dict(window=window, softcap=softcap), False))
+        cases.append((dt, (1, 2, 2, 128, 128, 32), dict(causal=False), False))
+        cases.append((dt, (1, 4, 2, 100, 50, 32), {}, False))              # Sq > Sk
+        cases.append((dt, (2, 6, 2, 77, 333, 8), {}, False))               # ragged
+        cases.append((dt, (1, 12, 2, 130, 1000, 128), dict(window=40, q_offset=600), False))
+        cases.append((dt, (3, 6, 2, 1, 97, 24), dict(q_offset=50), False))  # decode
+        cases.append((dt, (4, 12, 2, 1, 4096, 128), dict(q_offset=1234), True))
+        for d in (64, 128, 256):
+            cases.append((dt, (2, 12, 2, 300, 700, d), dict(q_offset=400), True))
+            cases.append((dt, (2, 12, 2, 1, 700, d), dict(q_offset=650), True))
+            cases.append((dt, (1, 4, 2, 70, 70, d), dict(causal=False, softcap=20.0), False))
+        cases.append((dt, (1, 4, 2, 0, 16, 64), {}, False))                # Sq = 0
+        cases.append((dt, (1, 4, 2, 5, 0, 64), {}, False))                 # Sk = 0
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for dt, (b, hq, hkv, sq, sk, d), kw, strided in cases:
+        name = str(dt).split(".")[-1]
+        if strided:  # the model's layouts: q (B, S, H, D), the cache (B, Smax, Hkv, D)
+            mk = [torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
+                  .to(DEV, dt).transpose(1, 2) for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+        else:
+            mk = [torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).to(DEV, dt)
+                  for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+        before = ops.launch_counts["flash_attention"]
+        got = flash_attention_cuda(*mk, **kw)
+        want = ref.flash_attention_ref(*mk, **kw)
+        torch.cuda.synchronize()
+        launched = ops.launch_counts["flash_attention"] - before
+        what = f"{name} (B,Hq,Hkv,Sq,Sk,D)={(b, hq, hkv, sq, sk, d)} {kw} strided={strided}"
+        if launched != (1 if sq else 0):
+            _fail(f"flash_attention launched {launched} times for {what}")
+        if got.shape != want.shape or got.dtype != dt \
+                or not torch.allclose(got.float(), want.float(), **ATTN_TOL[name]):
+            _fail(f"flash_attention differs from its twin at {what}")
+        if got.numel():
+            err[name] = max(err[name], float((got.float() - want.float()).abs().max()))
+        if sq > sk and kw.get("q_offset") is None and got[:, :, :sq - sk].abs().max() != 0:
+            _fail(f"flash_attention rows that see no key are not 0 at {what}")
+    print(f"flash_attention kernel_vs_plain cases={len(cases)} max_abs_err "
+          f"float32={err['float32']} bfloat16={err['bfloat16']} tolerances={ATTN_TOL}")
+    return err
+
+
+def _lm_params(np, cfg, seed: int) -> dict:
+    """An ``init_params``-shaped pytree of numpy arrays, drawn with numpy,
+    norms and biases included."""
+    from repro_torch.models.transformer import param_shapes
+
+    rng = np.random.default_rng(seed)
+    flat = {k: (rng.normal(size=shape) * (0.1 if scale is None else scale)).astype(np.float32)
+            for k, (shape, scale) in param_shapes(cfg).items()}
+    top = ("embed", "ln_final", "w_vocab")
+    return {**{k: flat[k] for k in top}, "layers": {k: v for k, v in flat.items()
+                                                     if k not in top}}
+
+
+def _prompts(np, rng, n: int, lo: int, hi: int, vocab: int) -> list:
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist() for _ in range(n)]
+
+
+def lm_vs_host(torch, np, seed: int) -> None:
+    """``qwen2-reduced`` from the same numpy weights on the card, through the
+    kernel, and on the host CPU, through the twin: logits within 1e-4 and
+    greedy tokens equal."""
+    from repro_torch.configs.qwen2_1_5b import reduced
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced()
+    params = _lm_params(np, cfg, seed)
+    host = Transformer.from_numpy_params(params, cfg, device="cpu")
+    card = Transformer.from_numpy_params(params, cfg, device=DEV)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 40)))
+    err = float((card.forward_logits(tokens.to(DEV)).cpu() - host.forward_logits(tokens))
+                .abs().max())
+    if err > 1e-4:
+        _fail(f"small LM on the card differs from the host CPU (max abs err {err})")
+    prompts = _prompts(np, rng, 4, 3, 30, cfg.vocab)
+    got = ServeEngine(card, max_len=64).generate(prompts, max_new_tokens=24)
+    want = ServeEngine(host, max_len=64).generate(prompts, max_new_tokens=24)
+    if not np.array_equal(got.tokens, want.tokens):
+        _fail("small LM greedy tokens on the card differ from the host CPU's")
+    print(f"lm small model card vs host CPU: forward_logits max_abs_err={err} tol=1e-4; "
+          f"greedy tokens equal over {got.tokens.shape} = True")
+
+
+def _logit_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def lm_float32_full_width(torch, np, seed: int) -> None:
+    """qwen2-1.5b at full width with float32 weights (7.1 GB): the kernel
+    path against the twin path on 2 prompts of 512, logits within
+    LM_F32_TOL and greedy tokens over 16 steps equal."""
+    import dataclasses
+
+    from repro_torch.configs.qwen2_1_5b import config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer.from_config(dataclasses.replace(config(), dtype="float32"),
+                                    device=DEV, seed=seed)
+    rng = np.random.default_rng(seed + 3)
+    tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab, (2, 512))).to(DEV)
+    l_k, _ = model.prefill_step(tokens, max_len=528)
+    with _Twins():
+        l_t, _ = model.prefill_step(tokens, max_len=528)
+    err = _logit_err(l_k, l_t)
+    if not torch.allclose(l_k, l_t, **LM_F32_TOL):
+        _fail(f"float32 qwen2-1.5b: kernel path logits differ from the twin path's ({err})")
+    prompts = tokens.cpu().tolist()
+    eng = ServeEngine(model, max_len=528)
+    got = eng.generate(prompts, max_new_tokens=16)
+    with _Twins():
+        want = eng.generate(prompts, max_new_tokens=16)
+    if not np.array_equal(got.tokens, want.tokens):
+        _fail("float32 qwen2-1.5b: kernel path greedy tokens differ from the twin path's")
+    print(f"lm float32 full width: prefill logits max_abs_err={err} tol={LM_F32_TOL} "
+          f"logit range [{float(l_k.min()):.4f}, {float(l_k.max()):.4f}]; greedy tokens "
+          f"equal over 2 x 16 = True; max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del model, l_k, l_t
+    torch.cuda.empty_cache()
+
+
+def _capture_attention(run) -> tuple:
+    """(args, kwargs) of the first ``ops.flash_attention`` call of run()."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    real = ops.flash_attention
+
+    def rec(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return real(*a, **kw)
+
+    ops.flash_attention = rec
+    try:
+        run()
+    finally:
+        ops.flash_attention = real
+    return seen[0]
+
+
+def _p_unrounded(q, k, v, **kw):
+    """The twin with p kept in float32 for the PV product (v cast to
+    float32), output in q's dtype: the witness of what rounding p does."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_ref(q, k, v.float(), **kw)
+
+
+def _first_tile_dropped(q, k, v, *, q_offset=None, **kw):
+    """The control: the twin with keys 0..CONTROL_TILE-1 invisible, as a
+    kernel that skipped its first K/V tile would compute."""
+    from repro_torch.kernels import ref
+
+    off = k.shape[2] - q.shape[2] if q_offset is None else q_offset
+    return ref.flash_attention_ref(q, k[:, :, CONTROL_TILE:], v[:, :, CONTROL_TILE:],
+                                   q_offset=off - CONTROL_TILE, **kw)
+
+
+def _hold_lm_bf16(torch, what: str, run, l_k, l_t) -> None:
+    """The bfloat16 kernel path's logits l_k against the twin path's l_t,
+    beside the witness (run() on the twin path with p unrounded) and the
+    control (run() with the first tile dropped) through the same comparison:
+    fails if the kernel path is off by more than LM_BF16_TOL or the control
+    is not."""
+    with _Twins(_p_unrounded):
+        l_w = run()
+    with _Twins(_first_tile_dropped):
+        l_c = run()
+    err, witness, control = (_logit_err(x, l_t) for x in (l_k, l_w, l_c))
+    print(f"{what} kernel vs twin path: logits max_abs_err={err} tol={LM_BF16_TOL}; "
+          f"witness (twin, p unrounded) {witness}; control (twin, first tile dropped) "
+          f"{control}; logit range [{float(l_k.min()):.4f}, {float(l_k.max()):.4f}]")
+    if not bool(torch.isfinite(l_k).all()) or not torch.allclose(l_k, l_t, **LM_BF16_TOL):
+        _fail(f"{what}: kernel path logits differ from the twin path's ({err})")
+    if torch.allclose(l_c, l_t, **LM_BF16_TOL):
+        _fail(f"{what}: the comparison does not tell the control ({control}) from the twin")
+
+
+def _check_yardstick(torch, sdpa, args, kw, what: str) -> None:
+    """Checks the yardstick, not the kernel: the library call must compute
+    the kernel's function. It rounds p in its own way, so it is held to
+    SDPA_TOL, a gross-error check (a wrong head mapping or mask moves
+    outputs of unit scale by far more). The kernel itself is held against
+    its twin in :func:`_hold_attention`."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    err = float((sdpa().float() - flash_attention_cuda(*args, **kw).float()).abs().max())
+    print(f"scaled_dot_product_attention vs kernel at {what}: max_abs_err={err} "
+          f"tol={SDPA_TOL}")
+    if err > SDPA_TOL:
+        _fail(f"scaled_dot_product_attention computes another function at {what}")
+
+
+def _hold_attention(torch, what: str, args, kw) -> float:
+    """The kernel against its twin on one main-path call's inputs, in their
+    bfloat16 and cast to float32, within ATTN_MAIN_TOL; the control
+    (first tile dropped) must fail the float32 comparison. Returns the
+    bfloat16 max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    errs, verdicts = {}, {}
+    for name, xs in (("bfloat16", args), ("float32", tuple(x.float() for x in args))):
+        rtol, scaled = ATTN_MAIN_TOL[name]
+        want = ref.flash_attention_ref(*xs, **kw).float()
+        got = flash_attention_cuda(*xs, **kw).float()
+        ctrl = _first_tile_dropped(*xs, **kw).float()
+        atol = scaled * float(want.abs().max())
+        errs[name] = (_logit_err(got, want), _logit_err(ctrl, want), atol)
+        verdicts[name] = torch.allclose(ctrl, want, rtol=rtol, atol=atol)
+        print(f"flash_attention vs twin at {what} in {name}: max_abs_err={errs[name][0]} "
+              f"tol rtol={rtol} atol={atol} (max|want| x {scaled}); control (first tile "
+              f"dropped) max_abs_err={errs[name][1]} passes={verdicts[name]}")
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            _fail(f"flash_attention differs from its twin at {what} in {name}")
+        del want, got, ctrl
+    if verdicts["float32"]:
+        _fail(f"the float32 comparison at {what} does not tell the control from the twin")
+    return errs["bfloat16"][0]
+
+
+def _time_attention(torch, what: str, args, kw, visible_keys: int, causal_pairs: int,
+                    sdpa, twin_args=None, twin_note: str = "") -> dict:
+    """Kernel, twin and SDPA times of one layer's attention, with its bound:
+    bytes (q, o and the visible K and V once per kv head) at 3.35 TB/s
+    against 4 * D FLOPs per visible (query head, key) pair at 989 TFLOP/s."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = args
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    es = q.element_size()
+    nbytes = 2 * b * hq * sq * d * es + 2 * b * hkv * visible_keys * d * es
+    nflops = 4 * d * causal_pairs
+    targs = twin_args or args
+    err = _hold_attention(torch, what + twin_note, targs, kw)
+    plain_a = _time_ms(torch, lambda: ref.flash_attention_ref(*targs, **kw), 2)
+    ms_a = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw), 10)
+    lib_a = _time_ms(torch, sdpa, 10)
+    lib_b = _time_ms(torch, sdpa, 10)
+    ms_b = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw), 10)
+    plain_b = _time_ms(torch, lambda: ref.flash_attention_ref(*targs, **kw), 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nflops / H100_BF16_FLOPS * 1e3
+    row = {"ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": min(lib_a, lib_b), "max_abs_err_here": err}
+    print(f"kernel flash_attention at {what}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+          f"{kw} ms={row['ms']:.6f} (runs {ms_a:.6f} {ms_b:.6f}) plain_ms={row['plain_ms']:.6f}"
+          f"{twin_note} library_ms={row['library_ms']:.6f} "
+          f"(scaled_dot_product_attention, enable_gqa) bound_ms={row['bound_ms']:.6f} "
+          f"({row['bound_by']}: {nbytes} B, {nflops} FLOP) "
+          f"achieved {nflops / row['ms'] / 1e9:.3f} TFLOP/s {nbytes / row['ms'] / 1e9:.3f} TB/s")
+    return row
+
+
+def lm_serve(torch, np, seed: int) -> dict:
+    """The lm_serve requests at full width in bfloat16: 8 prompts of 256-2048
+    ids, 64 greedy tokens each, cache of 4,096; flash_attention must launch
+    once per layer per forward."""
+    from repro_torch.configs.qwen2_1_5b import config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer.from_config(config(), device=DEV, seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm qwen2-1.5b init_s={time.perf_counter() - t0:.3f} params={n_params} "
+          f"bytes={sum(p.numel() * p.element_size() for p in model.parameters())}")
+    rng = np.random.default_rng(seed + 4)
+    prompts = _prompts(np, rng, 8, *LM_PROMPT_LENS, model.cfg.vocab)
+    plen = max(len(p) for p in prompts)
+    eng = ServeEngine(model, max_len=LM_MAX_LEN)
+    eng.generate(prompts, max_new_tokens=2)  # warm-up: cuBLAS handles, allocator
+    counts, res = _served_counts(torch, lambda: eng.generate(prompts,
+                                                             max_new_tokens=LM_NEW_TOKENS))
+    want = model.cfg.n_layers * (1 + LM_NEW_TOKENS)
+    print(f"launches flash_attention {counts['flash_attention']} (lm_serve; expected {want})")
+    if counts["flash_attention"] != want:
+        _fail(f"lm_serve launched flash_attention {counts['flash_attention']} times, not {want}")
+    if res.tokens.shape != (8, LM_NEW_TOKENS) or not (res.n_generated == LM_NEW_TOKENS).all():
+        _fail("lm_serve did not generate 64 tokens for each of its 8 requests")
+    real = sum(len(p) for p in prompts)
+    print(f"lm_serve B=8 prompt_lens={[len(p) for p in prompts]} padded_len={plen} "
+          f"max_len={LM_MAX_LEN} new_tokens={LM_NEW_TOKENS} prefill_ms={res.prefill_ms:.6f} "
+          f"prefill_tokens_per_s={real / res.prefill_ms * 1e3:.1f} (real) "
+          f"{8 * plen / res.prefill_ms * 1e3:.1f} (padded) "
+          f"decode_ms_per_token={res.decode_ms_per_token:.6f} "
+          f"decode_tokens_per_s={8 / res.decode_ms_per_token * 1e3:.1f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+
+    # the kernel path against the twin path on the same batch
+    tokens = torch.full((8, plen), 0, dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, plen - len(p):] = torch.tensor(p)
+    tokens = tokens.to(DEV)
+    l_k, cache = model.prefill_step(tokens, max_len=LM_MAX_LEN)
+    with _Twins():
+        l_t, _ = model.prefill_step(tokens, max_len=LM_MAX_LEN)
+    _hold_lm_bf16(torch, "lm_serve prefill", lambda: model.prefill_step(
+        tokens, max_len=LM_MAX_LEN)[0], l_k, l_t)
+    with _Twins():
+        twin = eng.generate(prompts, max_new_tokens=LM_NEW_TOKENS)
+    agree = float((twin.tokens == res.tokens).mean())
+    differ = twin.tokens != res.tokens
+    first = [int(np.argmax(row)) if row.any() else None for row in differ]
+    print(f"lm_serve kernel vs twin path: greedy tokens agreeing={agree:.4f} "
+          f"first disagreement per request={first}")
+
+    # one decode step under the profiler
+    cur = torch.argmax(l_k, dim=-1)
+    wall, dev, avgs = _profile(torch, lambda: model.decode_step(cache, cur, plen))
+    print(f"device busy lm_serve decode step: wall_s={wall:.6f} kernel_s={dev:.6f} "
+          f"busy_share={dev / wall if dev > 0 else 'not measured'}")
+    print(f"lm_serve decode step kernels by device time: {_top_kernels(avgs)}")
+
+    # the kernel's row at one layer of the lm_serve prefill
+    args, kw = _capture_attention(lambda: model.prefill_step(tokens, max_len=LM_MAX_LEN))
+    q, k, v = args
+    qs = q.contiguous()
+    ks, vs = (x[:, :, :plen].contiguous() for x in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                                enable_gqa=True)
+
+    _check_yardstick(torch, sdpa, args, kw, "lm_serve prefill")
+    row = _time_attention(torch, "lm_serve prefill, one layer", args, kw, plen,
+                          8 * model.cfg.n_heads * plen * (plen + 1) // 2, sdpa)
+    del model, cache, l_k, l_t, args, q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"row": row, "launches": counts["flash_attention"]}
+
+
+def prefill_32k(torch, np, seed: int) -> int:
+    """prefill_32k: one prefill_step of 32,768 tokens per sequence."""
+    from repro_torch.launch.steps import build_cell
+
+    torch.cuda.reset_peak_memory_stats()
+    cell = build_cell("qwen2-1.5b", "prefill_32k", seed=seed, batch=PREFILL_32K_BATCH)
+    (tokens,) = cell.args
+    b, s = tokens.shape
+    torch.cuda.synchronize()
+    times = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        if i == 0:
+            counts, (logits, _) = _served_counts(torch, cell.run)
+        else:
+            logits, _ = cell.run()
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if logits.shape != (b, cell.model.cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        _fail("prefill_32k logits are not finite")
+    if counts["flash_attention"] != cell.model.cfg.n_layers:
+        _fail(f"prefill_32k launched flash_attention {counts['flash_attention']} times")
+    print(f"prefill_32k B={b} S={s} (batch cut from 32) runs_s={[round(t, 6) for t in times]} "
+          f"tokens_per_s={b * s / min(times):.1f} launches flash_attention="
+          f"{counts['flash_attention']} max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    del cell, logits, tokens
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def decode_32k(torch, np, seed: int) -> dict:
+    """decode_32k: one decode_step per sequence at cur_index 32,767 against
+    a cache of 32,768 positions, filled on the card from the seed."""
+    from repro_torch.launch.steps import build_cell
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell("qwen2-1.5b", "decode_32k", seed=seed, batch=DECODE_32K_BATCH)
+    torch.cuda.synchronize()
+    model = cell.model
+    cache, tokens, index = cell.args
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache)
+    print(f"decode_32k B={tokens.shape[0]} (batch cut from 128) cache {tuple(cache[0].shape)} "
+          f"x2 {cache[0].dtype} cache_bytes={cache_bytes} init_s={time.perf_counter() - t0:.3f}")
+    counts, (logits, _) = _served_counts(torch, cell.run)
+    if counts["flash_attention"] != model.cfg.n_layers:
+        _fail(f"decode_32k launched flash_attention {counts['flash_attention']} times")
+    if logits.shape != (tokens.shape[0], model.cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        _fail("decode_32k logits are not finite")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cell.run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"decode_32k ms_per_step_median={float(np.median(times)) * 1e3:.6f} "
+          f"steps_ms={[round(t * 1e3, 6) for t in times]} "
+          f"tokens_per_s={tokens.shape[0] / float(np.median(times)):.1f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+
+    # the kernel path against the twin path on the first 2 sequences
+    sub = tuple(c[:, :2] for c in cache)
+    l_k, _ = model.decode_step(sub, tokens[:2], index)
+    with _Twins():
+        l_t, _ = model.decode_step(sub, tokens[:2], index)
+    _hold_lm_bf16(torch, "decode_32k first 2 sequences",
+                  lambda: model.decode_step(sub, tokens[:2], index)[0], l_k, l_t)
+    print(f"decode_32k kernel vs twin path: greedy equal="
+          f"{bool(torch.equal(l_k.argmax(-1), l_t.argmax(-1)))}")
+
+    wall, dev, avgs = _profile(torch, cell.run)
+    print(f"device busy decode_32k step: wall_s={wall:.6f} kernel_s={dev:.6f} "
+          f"busy_share={dev / wall if dev > 0 else 'not measured'}")
+    print(f"decode_32k step kernels by device time: {_top_kernels(avgs)}")
+
+    # the kernel's row at one decode_32k layer; the twin on 8 sequences
+    args, kw = _capture_attention(cell.run)
+    q, k, v = args
+    s = index + 1
+    qs = q.contiguous()
+    ks, vs = (x[:, :, :s].contiguous() for x in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+
+    _check_yardstick(torch, sdpa, args, kw, "decode_32k")
+    row = _time_attention(torch, "decode_32k, one layer", args, kw, s,
+                          q.shape[0] * model.cfg.n_heads * s, sdpa,
+                          twin_args=tuple(x[:8] for x in args),
+                          twin_note=f" (twin on 8 of the {q.shape[0]} sequences)")
+    del cell, model, cache, sub, args, q, k, v, qs, ks, vs, logits, l_k, l_t
+    torch.cuda.empty_cache()
+    return {"row": row, "launches": counts["flash_attention"]}
+
+
+def drive_lm(torch, np, seed: int, errs: dict) -> list:
+    """Phase 7: qwen2-1.5b serving at full width, after the DLRM tables are
+    freed: the small model against the host, the float32 model's kernel path
+    against its twin path, lm_serve, prefill_32k and decode_32k; returns the
+    flash_attention row of the kernels line."""
+    left = torch.cuda.memory_allocated()
+    print(f"lm phases start with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after the DLRM phase")
+    lm_vs_host(torch, np, seed)
+    lm_float32_full_width(torch, np, seed)
+    serve = lm_serve(torch, np, seed)
+    prefill_launches = prefill_32k(torch, np, seed)
+    dec = decode_32k(torch, np, seed)
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:86",
+           "launches": serve["launches"],
+           "max_abs_err": max(*errs["flash_attention"].values(), serve["row"]["max_abs_err_here"],
+                              dec["row"]["max_abs_err_here"]),
+           "max_abs_err_float32": errs["flash_attention"]["float32"],
+           **serve["row"], "shape": "lm_serve prefill, one layer",
+           "decode_32k": {**dec["row"], "shape": f"decode_32k, one layer, B={DECODE_32K_BATCH}"},
+           "launches_prefill_32k": prefill_launches, "launches_decode_32k": dec["launches"]}
+    return [row]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -754,11 +1297,13 @@ def main(argv=None) -> int:
     torch.set_float32_matmul_precision("highest")
     errs = check_kernels(torch, np, args.seed)
     errs.update(check_recsys_kernels(torch, np, args.seed))
+    errs["flash_attention"] = check_attention_kernel(torch, np, args.seed)
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res
     kernels += drive_dlrm(torch, np, args.seed, errs)
+    kernels += drive_lm(torch, np, args.seed, errs)
     if sys.modules.get("jax") is not None or any(
             m == "repro" or m.startswith("repro.") for m in sys.modules):
         _fail("the JAX package or jax was imported")

@@ -4,8 +4,11 @@ PyTorch and CUDA.
 The twin of the ``repro`` package, module for module: triples go in, RePair
 compresses them into a grammar, the grammar is encoded succinctly, and a
 batched engine answers all eight (S, P, O) triple patterns, with tensors on
-an NVIDIA GPU. The hot operations of that path run in hand-written CUDA
-kernels (``csrc/``); each has a plain PyTorch twin that serves the CPU.
+an NVIDIA GPU. From the package's model zoo it serves DLRM
+(:mod:`repro_torch.models.dlrm`) and the dense GQA transformer
+(:mod:`repro_torch.models.transformer`, :mod:`repro_torch.serve`). The hot
+operations of these paths run in hand-written CUDA kernels (``csrc/``);
+each has a plain PyTorch twin that serves the CPU.
 
 Entry points take ``device=None``, meaning ``"cuda"``; without a GPU they
 raise unless ``device="cpu"`` is given.

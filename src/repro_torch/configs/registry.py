@@ -13,9 +13,16 @@ from dataclasses import dataclass, field
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str            # train | serve | retrieval
+    kind: str            # train | prefill | decode | serve | retrieval
     params: dict
 
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    "decode_32k": ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    "long_500k": ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+}
 
 RECSYS_SHAPES = {
     "train_batch": ShapeSpec("train_batch", "train", dict(batch=65536)),
@@ -28,7 +35,7 @@ RECSYS_SHAPES = {
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str          # recsys
+    family: str          # lm | recsys
     module: str          # repro_torch.configs.<module>
     shapes: dict = field(default_factory=dict)
 
@@ -42,6 +49,7 @@ class ArchSpec:
 ARCHS: dict[str, ArchSpec] = {
     a.arch_id: a
     for a in [
+        ArchSpec("qwen2-1.5b", "lm", "repro_torch.configs.qwen2_1_5b", LM_SHAPES),
         ArchSpec("dlrm-mlperf", "recsys", "repro_torch.configs.dlrm_mlperf", RECSYS_SHAPES),
     ]
 }

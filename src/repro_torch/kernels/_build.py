@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 CUDA_ROOTS = ("/usr/local/cuda",)  # where nvcc is looked for off the PATH
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # source name -> (C entry point, its argument types; the last is the stream)
 SOURCES = {
     "bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P]),
@@ -39,11 +39,17 @@ SOURCES = {
     "embedding_bag": ("embedding_bag_launch",
                       [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]),
     "dot_interaction": ("dot_interaction_launch", [_P, _P, _I64, _I64, _I64, _I64, _P]),
+    # q, k, v, o; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal, window,
+    # q_offset; softcap, sm_scale; dtype
+    "flash_attention": ("flash_attention_launch",
+                        [_P] * 4 + [_I64] * 6 + [_I64] * 12 + [_I64] * 3 + [_F32] * 2
+                        + [_I64, _P]),
 }
 
 # kernel name -> launches so far; each wrapper adds one where it launches
 launch_counts: dict[str, int] = {"bitvec_rank": 0, "digram_pair_counts": 0,
-                                 "embedding_bag": 0, "dot_interaction": 0}
+                                 "embedding_bag": 0, "dot_interaction": 0,
+                                 "flash_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict = {}  # source name -> its ctypes entry point, typed

@@ -15,6 +15,7 @@ from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
 from repro_torch.kernels.digram_count import digram_pair_counts_cuda
 from repro_torch.kernels.dot_interaction import dot_interaction_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 
 
 def bitvec_rank(words: torch.Tensor, word_ranks: torch.Tensor,
@@ -49,5 +50,19 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     return dot_interaction_cuda(x)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, sm_scale: float | None = None,
+                    q_offset: int | None = None) -> torch.Tensor:
+    """Grouped-query attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Sk, D)
+    with query row i at position i + q_offset; see
+    :func:`ref.flash_attention_ref`."""
+    kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=sm_scale,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, **kw)
+    return flash_attention_cuda(q, k, v, **kw)
+
+
 __all__ = ["bitvec_rank", "digram_pair_counts", "embedding_bag", "dot_interaction",
-           "build_all", "launch_counts", "reset_launch_counts", "ref"]
+           "flash_attention", "build_all", "launch_counts", "reset_launch_counts", "ref"]

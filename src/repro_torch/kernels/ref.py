@@ -83,3 +83,51 @@ def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
     z = torch.bmm(xf, xf.transpose(1, 2))
     ii, jj = torch.tril_indices(f, f, -1, device=x.device)
     return z[:, ii, jj]
+
+
+NEG_INF = -1e30  # the masked-score constant of the Pallas attention kernel
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None, sm_scale: float | None = None,
+                        q_offset: int | None = None) -> torch.Tensor:
+    """Attention with the flash kernel's numerics, scores materialised.
+
+    q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), float32 or bfloat16; q head
+    h reads kv head h // (Hq / Hkv). Query row i sits at position
+    i + q_offset (default Sk - Sq, the Pallas kernel's right alignment);
+    key j is visible when ``i + q_offset >= j`` (causal) and
+    ``j > i + q_offset - window`` (window). Scores ``q.k * sm_scale``
+    (default 1/sqrt(D)) are float32, soft-capped as ``softcap *
+    tanh(s / softcap)``, masked to -1e30; p = exp(s - max) with masked p
+    set to 0 is rounded to v's dtype before the PV product, which sums in
+    float32. A row with no visible key is 0. Returns (B, Hq, Sq, D) in q's
+    dtype.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = float(1.0 / (d ** 0.5))
+    if q_offset is None:
+        q_offset = sk - sq
+    if sq == 0 or sk == 0:
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    qf = q.float().reshape(b, hkv, group, sq, d)
+    s = torch.matmul(qf, k.float().unsqueeze(2).transpose(-1, -2)) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float().unsqueeze(2))
+    o = o / torch.where(l == 0.0, 1.0, l)
+    return o.reshape(b, hq, sq, d).to(q.dtype)

@@ -1,1 +1,2 @@
-"""Models of the JAX package's zoo that the port runs (DLRM so far)."""
+"""Models of the JAX package's zoo that the port runs: DLRM and the dense
+GQA transformer."""

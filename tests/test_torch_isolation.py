@@ -63,17 +63,30 @@ def _zero_dlrm_params(cfg):
                    for a, b in zip(s[:-1], s[1:])] for k, s in sizes.items()}}
 
 
+def _zero_lm_params(cfg):
+    from repro_torch.models.transformer import param_shapes
+
+    flat = {k: np.zeros(shape, np.float32) for k, (shape, _) in param_shapes(cfg).items()}
+    top = ("embed", "ln_final", "w_vocab")
+    return {**{k: flat[k] for k in top},
+            "layers": {k: v for k, v in flat.items() if k not in top}}
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "from_triples", "terminals",
                                    "from_numpy_state", "bitvector", "dlrm_from_config",
-                                   "dlrm_from_numpy_params", "build_cell"])
+                                   "dlrm_from_numpy_params", "build_cell",
+                                   "transformer_from_config", "transformer_from_numpy_params",
+                                   "lm_build_cell"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
+    from repro_torch.configs import qwen2_1_5b
     from repro_torch.configs.dlrm_mlperf import reduced
     from repro_torch.core import Hypergraph, LabelTable, TripleQueryEngine
     from repro_torch.core.succinct import BitVector
     from repro_torch.launch.steps import build_cell
     from repro_torch.models.dlrm import DLRM
+    from repro_torch.models.transformer import Transformer
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
     calls = {
@@ -87,6 +100,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
             _zero_dlrm_params(reduced()), reduced(), device=dev),
         "build_cell": lambda dev: build_cell("dlrm-mlperf", "serve_p99", reduced=True,
                                              device=dev),
+        "transformer_from_config": lambda dev: Transformer.from_config(
+            qwen2_1_5b.reduced(), device=dev),
+        "transformer_from_numpy_params": lambda dev: Transformer.from_numpy_params(
+            _zero_lm_params(qwen2_1_5b.reduced()), qwen2_1_5b.reduced(), device=dev),
+        "lm_build_cell": lambda dev: build_cell("qwen2-1.5b", "decode_32k", reduced=True,
+                                                device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)

@@ -134,7 +134,11 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.bitvec_rank(_t(words, torch.int32), _t(ranks), _t([0, 5, 100]))
     its, cnts = _digram_inputs(rng, 5, 3)
     ops.digram_pair_counts(torch.from_numpy(its), torch.from_numpy(cnts))
+    q, kv = torch.zeros((1, 2, 3, 8)), torch.zeros((1, 1, 4, 8))
+    ops.flash_attention(q, kv, kv)
     assert ops.launch_counts["bitvec_rank"] == ops.launch_counts["digram_pair_counts"] == 0
+    assert set(ops.launch_counts) == {"bitvec_rank", "digram_pair_counts", "embedding_bag",
+                                      "dot_interaction", "flash_attention"}
     assert set(ops.launch_counts.values()) == {0}
 
 
