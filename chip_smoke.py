@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR, DLRM and LM serving.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR, DLRM and LM
+serving, GNN training.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
 
@@ -11,7 +12,8 @@ nothing of the JAX package. Phases:
 2. hold each kernel against its plain PyTorch twin on the card, on the edge
    cases of its contract: exactly for the integer kernels and for
    ``embedding_bag`` with one row per bag, within a stated tolerance
-   otherwise (``flash_attention`` in float32 and bfloat16);
+   otherwise (``flash_attention`` and ``csr_spmm`` in float32 and bfloat16,
+   ``csr_spmm``'s backward against the twin's autograd);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -50,7 +52,18 @@ nothing of the JAX package. Phases:
    prefill and of ``decode_32k``, beside its twin and
    ``scaled_dot_product_attention`` as the library yardstick; at both, the
    kernel is held against its twin on those inputs, in bfloat16 and in
-   float32, and the control must fail the float32 comparison.
+   float32, and the control must fail the float32 comparison;
+8. with the LM freed, train ``gcn-cora`` (2 layers, hidden 16): three
+   ``Trainer`` steps on ``full_graph_sm`` (Cora's 2,816 x 1,433) on the
+   card against the same on the host CPU; then ``ogb_products`` at full
+   size (2,449,152 nodes, 61,859,140 heavy-tailed edges, 100 features, 47
+   classes) through ``build_cell``: exactly 4 ``csr_spmm`` launches a step
+   (2 forward, 2 on the transposed CSR in the backward), 10 timed steps,
+   the profiler's busy share, the kernel held against its twin on the
+   four launches' own inputs (a control with the last edge of each row
+   dropped must fail) and timed beside its twin, ``torch.sparse.mm`` and
+   its bound, the kernel path against the twin path, and two steps from
+   one state bit-identical.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -70,6 +83,14 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 CORE_OPS_PER_S = 67e12        # H100 SXM rate outside the tensor cores (fp32 table entry)
 DEV = "cuda"
 PATTERNS = ("s??", "?p?", "??o", "sp?", "s?o", "?po", "spo")
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
 
 
 def _fail(msg: str) -> None:
@@ -466,12 +487,13 @@ def breakdown(torch, main: dict) -> None:
 
 
 class _Twins:
-    """Route ``ops.embedding_bag``, ``ops.dot_interaction`` and
-    ``ops.flash_attention`` to their plain twins inside the block, for the
-    twin paths of the DLRM and LM checks; ``attention`` replaces the
-    attention twin (the LM checks' witness and control)."""
+    """Route ``ops.embedding_bag``, ``ops.dot_interaction``,
+    ``ops.flash_attention`` and ``ops.csr_spmm`` to their plain twins inside
+    the block, for the twin paths of the DLRM, LM and GNN checks;
+    ``attention`` replaces the attention twin (the LM checks' witness and
+    control)."""
 
-    NAMES = ("embedding_bag", "dot_interaction", "flash_attention")
+    NAMES = ("embedding_bag", "dot_interaction", "flash_attention", "csr_spmm")
 
     def __init__(self, attention=None):
         self.attention = attention
@@ -483,6 +505,7 @@ class _Twins:
         self.saved = {n: getattr(ops, n) for n in self.NAMES}
         for n in self.NAMES:
             setattr(ops, n, getattr(ref, f"{n}_ref"))
+        ops.csr_spmm = lambda x, a: ref.csr_spmm_ref(x, a.row_ptr, a.col, a.n_rows)
         if self.attention is not None:
             ops.flash_attention = self.attention
         return self
@@ -1269,6 +1292,486 @@ def drive_lm(torch, np, seed: int, errs: dict) -> list:
     return [row]
 
 
+# Tolerances of csr_spmm against its twin on the card. float32: both sum
+# in float32, the kernel in CSR order and the twin's index_add_ with atomics
+# in any order; over a row of n terms that moves the sum by about
+# n * 2**-24 of its terms' scale, far below 1e-5 of the largest output even
+# at ogb_products' heaviest rows (over 10,000 edges). bfloat16: both round
+# the float32 sum once, one bfloat16 step apart at most (2**-8 relative),
+# and near zero the float32 difference itself (the atol).
+SPMM_F32_SCALED = 1e-5           # atol = SPMM_F32_SCALED * max|want|, rtol 0
+SPMM_BF16_RTOL = 2e-2
+SPMM_LIB_SCALED = 1e-4           # the yardstick's agreement (a gross check)
+# Cora, card against host CPU, three Trainer steps: float32 everywhere, sums
+# in another order; the parameters may differ by 2 lr a step (a near-zero
+# gradient whose sign differs moves one Adam entry by up to 2 lr), so that
+# bound alone cannot tell a card that skipped its updates (each entry moves
+# about lr a step) from one that made them. The moments and each leaf's
+# change over the three steps can: m and v as the CPU tests hold them, and
+# the change within a tenth of the host's in norm, which a card that wrote
+# no parameters (1.0) misses.
+GNN_GRAD_SCALED = 1e-5           # first-step gradients: atol = 1e-5 * max|g|
+GNN_LOSS_RTOL = 1e-5
+GNN_MOMENT_RTOL = 1e-5           # m and v: rtol 1e-5, atol 1e-5 * the leaf's max
+GNN_CHANGE_RTOL = 0.1            # |dp_card - dp_host| <= 0.1 |dp_host| per leaf
+# ogb_products: the loss against the twin path's at GNN_LOSS_RTOL; the
+# gradients against a float64 path of the same step, since the twin path's
+# own gradients (index_add_'s atomics) differ from run to run by about 1e-4
+# x max|g| on this graph: two of its runs on the same inputs are printed.
+GNN_MAIN_GRAD_SCALED = 1e-4
+GNN_TIMED_STEPS = 10
+SPMM_REPLACES = "src/repro/kernels/segment_matmul.py:61"
+
+
+def _spmm_close(torch, got, want, dtype) -> bool:
+    atol = SPMM_F32_SCALED * float(want.float().abs().max()) if want.numel() else 0.0
+    rtol = 0.0 if dtype == torch.float32 else SPMM_BF16_RTOL
+    return got.shape == want.shape and got.dtype == want.dtype and torch.allclose(
+        got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def check_spmm_kernel(torch, np, seed: int) -> float:
+    """Phase 2, csr_spmm against its twin on the card: no edges, isolated
+    nodes, one row holding every edge, senders -1 and receivers out of
+    range, heavy-tailed rows, more source rows than output rows, no output
+    rows, D in {1, 7, 16, 47, 128, 256, 300}, float32 and bfloat16; and the
+    backward through CSRSpMM against the twin's own autograd."""
+    from repro_torch.data.graphs import node_graph
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_matmul import CSRSpMM, build_csr, csr_spmm_cuda
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def edges(s, r):
+        return torch.from_numpy(np.asarray(s, np.int64)).to(DEV), \
+            torch.from_numpy(np.asarray(r, np.int64)).to(DEV)
+
+    graphs = {  # name -> (senders, receivers, n_out, n_x)
+        "no_edges": (*edges([], []), 500, 500),
+        "isolated_nodes": (*edges([0, 1, 2], [5, 5, 7]), 300, 300),
+        "one_row": (*edges(rng.integers(0, 1000, 5000), np.full(5000, 3)), 1000, 1000),
+        "masked": (*edges(np.where(rng.random(8000) < 0.3, -1, rng.integers(0, 2000, 8000)),
+                          rng.integers(-50, 2050, 8000)), 2000, 2000),
+        "more_sources": (*edges(rng.integers(0, 3000, 9000), rng.integers(0, 700, 9000)),
+                         700, 3000),
+        "no_rows": (*edges([0, 1], [0, 1]), 0, 4),
+    }
+    g = node_graph(100_003, 1_200_000, 1, 2, real_nodes=100_003, real_edges=1_200_000,
+                   generator=gen)
+    graphs["heavy_tailed"] = (g["senders"], g["receivers"], 100_003, 100_003)
+    err, n_cases, heavy = 0.0, 0, 0
+    for name, (s, r, n_out, n_x) in graphs.items():
+        fwd, bwd = build_csr(s, r, n_out, n_x)
+        if n_out:
+            heavy = max(heavy, int(fwd.row_lengths().max()))
+        for dt in (torch.float32, torch.bfloat16):
+            for d in (1, 7, 16, 47, 128, 256, 300):
+                x = torch.randn((n_x, d), generator=gen, device=DEV).to(dt)
+                before = ops.launch_counts["csr_spmm"]
+                got = csr_spmm_cuda(x, fwd)
+                want = ref.csr_spmm_ref(x, fwd.row_ptr, fwd.col, n_out)
+                torch.cuda.synchronize()
+                launched = ops.launch_counts["csr_spmm"] - before
+                what = f"{name} {str(dt).split('.')[-1]} D={d}"
+                if launched != (1 if n_out else 0):
+                    _fail(f"csr_spmm launched {launched} times at {what}")
+                if not _spmm_close(torch, got, want, dt):
+                    _fail(f"csr_spmm differs from its twin at {what}")
+                if got.numel():
+                    err = max(err, float((got.float() - want.float()).abs().max()))
+                if name == "no_edges" and got.numel() and float(got.float().abs().max()) != 0:
+                    _fail(f"csr_spmm rows with no edges are not 0 at {what}")
+                n_cases += 1
+        # the backward: the kernel on the transposed CSR against autograd
+        # through the twin (index_add_'s own gradient)
+        for d in (7, 47):
+            x = torch.randn((n_x, d), generator=gen, device=DEV)
+            w = torch.randn((n_out, d), generator=gen, device=DEV)
+            xk = x.clone().requires_grad_(True)
+            (CSRSpMM.apply(xk, fwd, bwd) * w).sum().backward()
+            xt = x.clone().requires_grad_(True)
+            (ref.csr_spmm_ref(xt, fwd.row_ptr, fwd.col, n_out) * w).sum().backward()
+            torch.cuda.synchronize()
+            if not _spmm_close(torch, xk.grad, xt.grad, torch.float32):
+                _fail(f"csr_spmm's backward differs from the twin's autograd at {name} D={d}")
+            err = max(err, float((xk.grad - xt.grad).abs().max()))
+            n_cases += 1
+    print(f"csr_spmm kernel_vs_plain cases={n_cases} max_abs_err={err} tolerances "
+          f"float32 atol={SPMM_F32_SCALED} x max|want|, bfloat16 rtol={SPMM_BF16_RTOL} + the "
+          f"same atol; longest row={heavy} edges")
+    return err
+
+
+def _graph_to(graph, dev):
+    """The graph's CSRs and normalisation copied to ``dev``."""
+    import dataclasses
+
+    def csr(c):
+        return dataclasses.replace(c, row_ptr=c.row_ptr.to(dev), col=c.col.to(dev))
+
+    return dataclasses.replace(graph, fwd=csr(graph.fwd), bwd=csr(graph.bwd),
+                               inv_sqrt=graph.inv_sqrt.to(dev))
+
+
+def _loss_and_grads(torch, model, batch):
+    from repro_torch.models.gnn import gcn_loss
+
+    leaves = model.leaves()
+    loss = gcn_loss(model, batch)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def _f64_loss_and_grads(torch, model, batch):
+    """The GCN loss and its gradients in float64, the aggregation a gather
+    and an ``index_add_`` on the forward CSR: the plain float64 reference
+    of the step, independent of the kernel and its twin."""
+    from repro_torch.models.gnn import node_loss
+
+    graph = batch["graph"]
+    fwd = graph.fwd
+    rows = torch.repeat_interleave(torch.arange(fwd.n_rows, device=fwd.col.device),
+                                   fwd.row_lengths(), output_size=fwd.col.numel())
+    col, s = fwd.col.long(), graph.inv_sqrt.double()
+    leaves = {k: p.detach().double().requires_grad_(True) for k, p in model.leaves().items()}
+    h = batch["x"].double()
+    for i in range(len(model.w)):
+        h = h @ leaves[f"layers/{i}/w"] + leaves[f"layers/{i}/b"]
+        agg = torch.zeros_like(h).index_add_(0, rows, (h * s)[col]) * s
+        h = agg + h * (s * s)
+        h = torch.relu(h) if i < len(model.w) - 1 else h
+    loss = node_loss(h, batch["y"])
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    """Each leaf's max abs error over its largest |want|."""
+    return {k: float((got[k].to(w.device).double() - w.double()).abs().max() / w.abs().max())
+            for k, w in want.items()}
+
+
+def _grads_close(torch, got: dict, want: dict, scaled: float) -> float:
+    """Max abs error over the leaves; fails unless every leaf is within
+    ``scaled`` x its largest |want|."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        e = float((g - w).abs().max())
+        if e > scaled * float(w.abs().max()):
+            _fail(f"gradient {k} differs: max abs err {e}, max|g| {float(w.abs().max())}")
+        worst = max(worst, e)
+    return worst
+
+
+def _cora_state_check(torch, p, m, v, want: dict, p0: dict, sum_lr: float) -> dict:
+    """Parameters ``p`` and moments ``m``, ``v`` (dicts by leaf path) after
+    three steps against the host's (``want``, with "p", "m", "v"), from the
+    parameters ``p0``: the largest errors and whether every check holds."""
+    out = {"p_err": 0.0, "m_err": 0.0, "v_err": 0.0, "change_rel": 0.0, "ok": True}
+    for k, wp in want["p"].items():
+        if float((p[k].cpu() - wp).abs().max()) > 2 * sum_lr:
+            out["ok"] = False
+        out["p_err"] = max(out["p_err"], float((p[k].cpu() - wp).abs().max()))
+        for name, got in (("m", m[k]), ("v", v[k])):
+            w = want[name][k]
+            g = got.cpu()
+            out[f"{name}_err"] = max(out[f"{name}_err"], float((g - w).abs().max()))
+            if not torch.allclose(g, w, rtol=GNN_MOMENT_RTOL,
+                                  atol=GNN_MOMENT_RTOL * float(w.abs().max())):
+                out["ok"] = False
+        d_want = wp - p0[k]
+        rel = float((p[k].cpu() - p0[k] - d_want).norm() / d_want.norm())
+        out["change_rel"] = max(out["change_rel"], rel)
+        if not rel <= GNN_CHANGE_RTOL:
+            out["ok"] = False
+    return out
+
+
+def gnn_vs_host(torch, np, seed: int) -> None:
+    """gcn-cora on full_graph_sm (2,816 nodes, 1,433 features) from the same
+    parameters and graph on the card, through the kernel, and on the host
+    CPU, through the twin: the first step's gradients, each of three
+    Trainer steps' loss, and the parameters, their change and the moments
+    after them, with two controls that the last check must reject: no
+    update at all, and moments updated but no parameter written."""
+    import itertools
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.gnn import GCN, gcn_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cell = build_cell("gcn-cora", "full_graph_sm", seed=seed)
+    card, _, batch = cell.args
+    params = {"layers": [{"w": w.detach().cpu().numpy(), "b": b.detach().cpu().numpy()}
+                         for w, b in zip(card.w, card.b)]}
+    host = GCN.from_numpy_params(params, card.cfg, device="cpu")
+    p0 = {k: t.detach().clone() for k, t in host.leaves().items()}
+    host_batch = {"x": batch["x"].cpu(), "y": batch["y"].cpu(),
+                  "graph": _graph_to(batch["graph"], "cpu")}
+    _, g_card = _loss_and_grads(torch, card, batch)
+    _, g_host = _loss_and_grads(torch, host, host_batch)
+    g_err = _grads_close(torch, g_card, g_host, GNN_GRAD_SCALED)
+    logs, states = [], []
+    for model, b in ((card, batch), (host, host_batch)):
+        trainer = Trainer(lambda x, m=model: gcn_loss(m, x), model.leaves(),
+                          TrainerConfig(log_every=1))
+        logs.append(trainer.run(itertools.repeat(b), steps=3))
+        states.append(trainer.opt_state)
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(*logs))
+    if loss_err > GNN_LOSS_RTOL:
+        _fail(f"gcn-cora full_graph_sm: card losses {[r['loss'] for r in logs[0]]} differ from "
+              f"the host's {[r['loss'] for r in logs[1]]}")
+    if int(states[0]["step"]) != int(states[1]["step"]) or int(states[1]["step"]) != 3:
+        _fail(f"gcn-cora full_graph_sm: AdamW steps {int(states[0]['step'])} on the card, "
+              f"{int(states[1]['step'])} on the host, not 3")
+    sum_lr = sum(r["lr"] for r in logs[1])
+    want = {"p": {k: t.detach() for k, t in host.leaves().items()},
+            "m": states[1]["m"], "v": states[1]["v"]}
+    got = _cora_state_check(torch, {k: t.detach() for k, t in card.leaves().items()},
+                            states[0]["m"], states[0]["v"], want, p0, sum_lr)
+    zeros = {k: torch.zeros_like(t) for k, t in p0.items()}
+    controls = {"no update": _cora_state_check(torch, p0, zeros, zeros, want, p0, sum_lr),
+                "moments but no parameter write": _cora_state_check(
+                    torch, p0, want["m"], want["v"], want, p0, sum_lr)}
+    print(f"gnn small graph card vs host CPU (full_graph_sm, 2,816 nodes x 1,433): first-step "
+          f"grads max_abs_err={g_err} tol={GNN_GRAD_SCALED} x max|g|; 3 Trainer steps loss "
+          f"max_rel_err={loss_err} tol={GNN_LOSS_RTOL} losses={[r['loss'] for r in logs[0]]}; "
+          f"after 3 steps params max_abs_err={got['p_err']} limit={2 * sum_lr}, m max_abs_err="
+          f"{got['m_err']} v max_abs_err={got['v_err']} tol rtol={GNN_MOMENT_RTOL} + "
+          f"{GNN_MOMENT_RTOL} x max, change max_rel_err={got['change_rel']} tol="
+          f"{GNN_CHANGE_RTOL}; controls: " + "; ".join(
+              f"{n}: m_err={c['m_err']} change_rel={c['change_rel']} passes={c['ok']}"
+              for n, c in controls.items()))
+    if not got["ok"]:
+        _fail("gcn-cora full_graph_sm: the card's parameters or moments after 3 steps differ "
+              "from the host's")
+    for n, c in controls.items():
+        if c["ok"]:
+            _fail(f"the full_graph_sm state check does not tell the control ({n}) from the host")
+    del cell, card, batch, states
+
+
+def _snapshot(model, opt_state) -> dict:
+    out = {"p": {k: p.detach().clone() for k, p in model.leaves().items()},
+           "step": opt_state["step"].clone()}
+    for name in ("master", "m", "v"):
+        out[name] = {k: None if t is None else t.clone() for k, t in opt_state[name].items()}
+    return out
+
+
+def _restore(torch, model, opt_state, snap) -> None:
+    with torch.no_grad():
+        for k, p in model.leaves().items():
+            p.copy_(snap["p"][k])
+        opt_state["step"].copy_(snap["step"])
+        for name in ("master", "m", "v"):
+            for k, t in opt_state[name].items():
+                if t is not None:
+                    t.copy_(snap[name][k])
+
+
+def _last_edge_dropped(torch, row_ptr, col):
+    """The control's CSR: every non-empty row without its last entry, as a
+    kernel that stopped one edge early would read it."""
+    lengths = row_ptr[1:] - row_ptr[:-1]
+    keep = torch.ones(col.numel(), dtype=torch.bool, device=col.device)
+    keep[row_ptr[1:][lengths > 0] - 1] = False
+    short = (lengths - 1).clamp(min=0)
+    return torch.cat([row_ptr.new_zeros(1), short.cumsum(0)]), col[keep]
+
+
+def time_spmm(torch, calls: list, max_in_degree: int, card: str) -> list:
+    """csr_spmm on the inputs of one ogb_products step's four launches: held
+    against its twin in float32 (with the control, which must fail), timed
+    beside its twin, torch.sparse.mm on the same CSR (the yardstick) and its
+    bound (bytes at 3.35 TB/s against one add per edge and feature at
+    67 TFLOP/s)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_matmul import csr_spmm_cuda
+
+    names = ("forward layer 0", "forward layer 1", "backward layer 1", "backward layer 0")
+    rows = []
+    for what, (x, a) in zip(names, calls):
+        row_ptr, col, n_out = a.row_ptr, a.col, a.n_rows
+        n_x, d = x.shape
+        nnz = col.numel()
+        want = ref.csr_spmm_ref(x, row_ptr, col, n_out)
+        got = csr_spmm_cuda(x, a)
+        ctrl = ref.csr_spmm_ref(x, *_last_edge_dropped(torch, row_ptr, col), n_out)
+        atol = SPMM_F32_SCALED * float(want.abs().max())
+        err, c_err = float((got - want).abs().max()), float((ctrl - want).abs().max())
+        ok = torch.allclose(got, want, rtol=0, atol=atol)
+        ctrl_passes = torch.allclose(ctrl, want, rtol=0, atol=atol)
+        print(f"csr_spmm vs twin at ogb_products {what} (D={d}, rows={n_out}, nnz={nnz}, "
+              f"{x.dtype}): max_abs_err={err} tol atol={atol} ({SPMM_F32_SCALED} x max|want| "
+              f"{float(want.abs().max())}); control (last edge of each row dropped) "
+              f"max_abs_err={c_err} passes={ctrl_passes}")
+        if not ok:
+            _fail(f"csr_spmm differs from its twin at ogb_products {what}")
+        if ctrl_passes:
+            _fail(f"the comparison at ogb_products {what} does not tell the control from the twin")
+        del want, ctrl
+        a_csr = torch.sparse_csr_tensor(row_ptr, col.to(torch.int64),
+                                            torch.ones(nnz, device=x.device),
+                                            size=(n_out, n_x), check_invariants=False)
+
+        def lib(a=a_csr, x=x):
+            return torch.sparse.mm(a, x)
+
+        lib_err = float((lib() - got).abs().max())
+        if lib_err > SPMM_LIB_SCALED * float(got.abs().max()):
+            _fail(f"torch.sparse.mm computes another function at {what} ({lib_err})")
+        plain_a = _time_ms(torch, lambda: ref.csr_spmm_ref(x, row_ptr, col, n_out), 3)
+        ms_a = _time_ms(torch, lambda: csr_spmm_cuda(x, a), 20)
+        lib_a = _time_ms(torch, lib, 20)
+        lib_b = _time_ms(torch, lib, 20)
+        ms_b = _time_ms(torch, lambda: csr_spmm_cuda(x, a), 20)
+        plain_b = _time_ms(torch, lambda: ref.csr_spmm_ref(x, row_ptr, col, n_out), 3)
+        es = x.element_size()
+        nbytes = n_x * d * es + row_ptr.numel() * 8 + nnz * 4 + n_out * d * es
+        nops = nnz * d
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / CORE_OPS_PER_S * 1e3
+        row = {"what": what, "D": d, "rows": n_out, "source_rows": n_x, "nnz": nnz,
+               "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": min(lib_a, lib_b), "max_abs_err": err, "control_err": c_err}
+        print(f"kernel csr_spmm at ogb_products {what}: D={d} ms={row['ms']:.6f} (runs "
+              f"{ms_a:.6f} {ms_b:.6f}) plain_ms={row['plain_ms']:.6f} library_ms="
+              f"{row['library_ms']:.6f} (torch.sparse.mm, CSR of ones; vs kernel {lib_err}) "
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}: {nbytes} B, {nops} adds) "
+              f"achieved {nbytes / row['ms'] / 1e9:.3f} TB/s; max in-degree {max_in_degree}; {card}")
+        rows.append(row)
+        del got, a_csr
+    return rows
+
+
+def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
+    """Phase 8: train gcn-cora (2 layers, hidden 16) on the ogb_products cell
+    at full size after the LM phase has freed the card; returns the
+    csr_spmm row of the kernels line."""
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import _gnn_sizes, build_cell
+
+    left = torch.cuda.memory_allocated()
+    print(f"gnn phase on {card} starts with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after the LM phase")
+    gnn_vs_host(torch, np, seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell("gcn-cora", "ogb_products", seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model, opt_state, batch = cell.args
+    graph = batch["graph"]
+    in_deg = graph.fwd.row_lengths()
+    max_in = int(in_deg.max())
+    n, e, _, _, real_n, real_e = _gnn_sizes(GNN_SHAPES["ogb_products"], False)
+    print(f"ogb_products graph: nodes={graph.n_nodes} ({real_n} published, padded to {n}) "
+          f"edges={graph.fwd.col.numel()} ({real_e} published, padded to {e}), features={tuple(batch['x'].shape)} classes={model.w[-1].shape[1]} "
+          f"in-degree mean={float(in_deg.float().mean()):.4f} max={max_in} out-degree max="
+          f"{int(graph.bwd.row_lengths().max())} build_s={build_s:.6f} (graph drawn, both "
+          f"CSRs sorted, model and AdamW state, on the card)")
+
+    counts, (loss, metrics) = _served_counts(torch, cell.run)  # also the warm-up step
+    print(f"launches csr_spmm {counts['csr_spmm']} (one ogb_products train step; expected 4)")
+    if counts["csr_spmm"] != 4:
+        _fail(f"one gcn-cora step launched csr_spmm {counts['csr_spmm']} times, not 4")
+    if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(metrics["grad_norm"]))):
+        _fail("the ogb_products step's loss or gradient norm is not finite")
+    times, losses = [], []
+    for _ in range(GNN_TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss, metrics = cell.run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    ms = np.array(times) * 1e3
+    print(f"ogb_products train steps={GNN_TIMED_STEPS} step_ms_median={float(np.median(ms)):.6f} "
+          f"mean={float(ms.mean()):.6f} min={float(ms.min()):.6f} steps_ms="
+          f"{[round(t, 6) for t in ms.tolist()]} losses={losses} on {card}")
+    wall, dev, avgs = _profile(torch, lambda: [cell.run() for _ in range(3)])
+    print(f"device busy ogb_products 3 steps: wall_s={wall:.6f} kernel_s={dev:.6f} busy_share="
+          f"{dev / wall if dev > 0 else 'not measured'}")
+    print(f"ogb_products step kernels by device time: {_top_kernels(avgs, 10)}")
+    print(f"ogb_products peak max_memory_allocated={torch.cuda.max_memory_allocated()}")
+
+    # the kernel at the main path's own shapes: the four launches of one step
+    calls = []
+    real = ops.csr_spmm
+
+    def rec(x, a):
+        calls.append((x.detach(), a))
+        return real(x, a)
+
+    snap = _snapshot(model, opt_state)
+    ops.csr_spmm = rec
+    try:
+        cell.run()
+    finally:
+        ops.csr_spmm = real
+    _restore(torch, model, opt_state, snap)
+    if [a[0].shape[1] for a in calls] != [16, 47, 47, 16]:
+        _fail(f"one step's csr_spmm widths are {[a[0].shape[1] for a in calls]}")
+    with torch.no_grad():
+        rows = time_spmm(torch, calls, max_in, card)
+    del calls
+
+    # the kernel path against the twin path (loss) and a float64 path
+    # (gradients), from the same state
+    l_k, g_k = _loss_and_grads(torch, model, batch)
+    with _Twins():
+        l_t, g_t = _loss_and_grads(torch, model, batch)
+        _, g_t2 = _loss_and_grads(torch, model, batch)
+    l_64, g_64 = _f64_loss_and_grads(torch, model, batch)
+    l_err = abs(float(l_k) - float(l_t)) / abs(float(l_t))
+    e_k, e_t = _grad_errs(g_k, g_64), _grad_errs(g_t, g_64)
+    e_tt, e_kt = _grad_errs(g_t2, g_t), _grad_errs(g_k, g_t)
+    g_err = max(e_k.values())
+    print(f"ogb_products gradients over max|g| per leaf: kernel path vs float64 {e_k} "
+          f"(tol {GNN_MAIN_GRAD_SCALED}); twin path vs float64 {e_t}; twin path vs itself "
+          f"{e_tt}; kernel path vs twin path {e_kt}; loss kernel {float(l_k)} twin "
+          f"{float(l_t)} float64 {float(l_64)}")
+    if l_err > GNN_LOSS_RTOL:
+        _fail(f"ogb_products kernel path loss {float(l_k)} differs from the twin path's "
+              f"{float(l_t)}")
+    if g_err > GNN_MAIN_GRAD_SCALED:
+        _fail(f"ogb_products kernel path gradients differ from the float64 path's: {e_k}")
+    del g_t2, g_64
+    # determinism: the same step twice from the same state, bit for bit
+    outs = []
+    for _ in range(2):
+        _restore(torch, model, opt_state, snap)
+        loss, _ = cell.run()
+        outs.append((loss.clone(), _snapshot(model, opt_state)))
+    (l1, s1), (l2, s2) = outs
+    same = torch.equal(l1, l2) and all(
+        torch.equal(s1[n][k], s2[n][k]) for n in ("p", "master", "m", "v") for k in s1[n])
+    print(f"ogb_products kernel vs twin path: loss {float(l_k)} vs {float(l_t)} rel_err={l_err} "
+          f"tol={GNN_LOSS_RTOL}; grads vs float64 max_err={g_err} tol={GNN_MAIN_GRAD_SCALED} x max|g|; "
+          f"kernel path twice from one state bit-identical={same}")
+    if not same:
+        _fail("two ogb_products steps from the same state are not bit-identical")
+    del cell, model, opt_state, batch, graph, in_deg, snap, outs, g_k, g_t, s1, s2
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"gnn phase ends with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after the GNN phase")
+
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return [{"name": "csr_spmm", "route": "cuda", "source": "src/repro_torch/csrc/segment_matmul.cu",
+             "replaces": SPMM_REPLACES, "launches": counts["csr_spmm"],
+             "max_abs_err": max(errs["csr_spmm"], *(r["max_abs_err"] for r in rows)),
+             **total, "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+             else "operations",
+             "shape": "one ogb_products train step: the sums over its 4 launches",
+             "per_launch": rows, "max_in_degree": max_in}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1288,8 +1791,9 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import ops
 
+    card = _card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; card {card}")
     build_s = ops.build_all()
     print(f"kernel_build_s {build_s:.3f}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference's MLPs are float32
@@ -1298,21 +1802,20 @@ def main(argv=None) -> int:
     errs = check_kernels(torch, np, args.seed)
     errs.update(check_recsys_kernels(torch, np, args.seed))
     errs["flash_attention"] = check_attention_kernel(torch, np, args.seed)
+    errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res
     kernels += drive_dlrm(torch, np, args.seed, errs)
     kernels += drive_lm(torch, np, args.seed, errs)
+    kernels += drive_gnn(torch, np, args.seed, errs, card)
     if sys.modules.get("jax") is not None or any(
             m == "repro" or m.startswith("repro.") for m in sys.modules):
         _fail("the JAX package or jax was imported")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()
     print(json.dumps({"kernels": kernels}))
-    print(smi[0] if smi else "nvidia-smi: no output")
+    print(_card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ compresses them into a grammar, the grammar is encoded succinctly, and a
 batched engine answers all eight (S, P, O) triple patterns, with tensors on
 an NVIDIA GPU. From the package's model zoo it serves DLRM
 (:mod:`repro_torch.models.dlrm`) and the dense GQA transformer
-(:mod:`repro_torch.models.transformer`, :mod:`repro_torch.serve`). The hot
+(:mod:`repro_torch.models.transformer`, :mod:`repro_torch.serve`), and it
+trains GCN (:mod:`repro_torch.models.gnn`, :mod:`repro_torch.train`). The hot
 operations of these paths run in hand-written CUDA kernels (``csrc/``);
 each has a plain PyTorch twin that serves the CPU.
 

@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str            # train | prefill | decode | serve | retrieval
+    kind: str            # train | prefill | decode | serve | retrieval | full_graph | minibatch | molecule
     params: dict
 
 
@@ -22,6 +22,22 @@ LM_SHAPES = {
     "prefill_32k": ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
     "decode_32k": ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
     "long_500k": ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": ShapeSpec(
+        "full_graph_sm", "full_graph",
+        dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    "minibatch_lg": ShapeSpec(
+        "minibatch_lg", "minibatch",
+        dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+             fanouts=(15, 10), d_feat=602, n_classes=41)),
+    "ogb_products": ShapeSpec(
+        "ogb_products", "full_graph",
+        dict(n_nodes=2449029, n_edges=61859140, d_feat=100, n_classes=47)),
+    "molecule": ShapeSpec(
+        "molecule", "molecule",
+        dict(n_nodes=30, n_edges=64, batch=128, d_feat=16)),
 }
 
 RECSYS_SHAPES = {
@@ -35,7 +51,7 @@ RECSYS_SHAPES = {
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str          # lm | recsys
+    family: str          # lm | gnn | recsys
     module: str          # repro_torch.configs.<module>
     shapes: dict = field(default_factory=dict)
 
@@ -50,6 +66,7 @@ ARCHS: dict[str, ArchSpec] = {
     a.arch_id: a
     for a in [
         ArchSpec("qwen2-1.5b", "lm", "repro_torch.configs.qwen2_1_5b", LM_SHAPES),
+        ArchSpec("gcn-cora", "gnn", "repro_torch.configs.gcn_cora", GNN_SHAPES),
         ArchSpec("dlrm-mlperf", "recsys", "repro_torch.configs.dlrm_mlperf", RECSYS_SHAPES),
     ]
 }

@@ -44,12 +44,14 @@ SOURCES = {
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I64] * 6 + [_I64] * 12 + [_I64] * 3 + [_F32] * 2
                         + [_I64, _P]),
+    # x, row_ptr, col, out; n_rows, n_x, D, dtype
+    "segment_matmul": ("csr_spmm_launch", [_P] * 4 + [_I64] * 4 + [_P]),
 }
 
 # kernel name -> launches so far; each wrapper adds one where it launches
 launch_counts: dict[str, int] = {"bitvec_rank": 0, "digram_pair_counts": 0,
                                  "embedding_bag": 0, "dot_interaction": 0,
-                                 "flash_attention": 0}
+                                 "flash_attention": 0, "csr_spmm": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict = {}  # source name -> its ctypes entry point, typed

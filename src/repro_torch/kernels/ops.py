@@ -16,6 +16,7 @@ from repro_torch.kernels.digram_count import digram_pair_counts_cuda
 from repro_torch.kernels.dot_interaction import dot_interaction_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.segment_matmul import CSR, csr_spmm_cuda
 
 
 def bitvec_rank(words: torch.Tensor, word_ranks: torch.Tensor,
@@ -64,5 +65,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_cuda(q, k, v, **kw)
 
 
+def csr_spmm(x: torch.Tensor, a: CSR) -> torch.Tensor:
+    """``a @ x``: out[r] = sum of x[col[k]] over row r of the checked CSR
+    ``a``, summed in float32; see :func:`ref.csr_spmm_ref`."""
+    if x.device.type == "cpu":
+        return ref.csr_spmm_ref(x, a.row_ptr, a.col, a.n_rows)
+    return csr_spmm_cuda(x, a)
+
+
 __all__ = ["bitvec_rank", "digram_pair_counts", "embedding_bag", "dot_interaction",
-           "flash_attention", "build_all", "launch_counts", "reset_launch_counts", "ref"]
+           "flash_attention", "csr_spmm", "build_all", "launch_counts", "reset_launch_counts", "ref"]

@@ -85,6 +85,23 @@ def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
     return z[:, ii, jj]
 
 
+def csr_spmm_ref(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
+                 n_out: int) -> torch.Tensor:
+    """CSR sparse-dense product: out[r] = sum over k in [row_ptr[r],
+    row_ptr[r + 1]) of x[col[k]].
+
+    x: (n_x, D) float32 or bfloat16; row_ptr: (n_out + 1,) int64; col:
+    (nnz,) int32 or int64 in [0, n_x). The rows x[col] are gathered as
+    float32 and summed into their output rows by ``index_add_``, then cast
+    to x's dtype; a row with no entries is 0. Returns (n_out, D).
+    """
+    rows = torch.repeat_interleave(torch.arange(n_out, device=x.device),
+                                   row_ptr[1:] - row_ptr[:-1], output_size=col.numel())
+    out = torch.zeros((n_out, x.shape[1]), dtype=torch.float32, device=x.device)
+    out.index_add_(0, rows, x[col.to(torch.int64)].float())
+    return out.to(x.dtype)
+
+
 NEG_INF = -1e30  # the masked-score constant of the Pallas attention kernel
 
 

@@ -1,10 +1,11 @@
 """Step functions per (arch, shape) cell, with real inputs made from a seed.
 
 The twin of ``repro.launch.steps`` for the kinds the port runs: the LM's
-prefill and decode cells and the recsys serve and retrieval cells. The
-reference returns abstract shapes for an ahead-of-time compile on a mesh;
-the port runs eagerly on one GPU, so a cell here holds the model on the
-device and inputs drawn from the seed, ready to call.
+prefill and decode cells, the recsys serve and retrieval cells, and the
+GNN's full-graph training cells. The reference returns abstract shapes for
+an ahead-of-time compile on a mesh; the port runs eagerly on one GPU, so a
+cell here holds the model on the device and inputs drawn from the seed,
+ready to call.
 """
 from __future__ import annotations
 
@@ -14,10 +15,14 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import ShapeSpec, get_arch
+from repro_torch.data.graphs import node_graph
 from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import DLRM, DLRMConfig, retrieval_scores
+from repro_torch.models.gnn import GCN, Graph, gcn_loss
 from repro_torch.models.transformer import DTYPES, Transformer, normal_chunked
+from repro_torch.train.loop import train_step
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
 
 @dataclass
@@ -26,7 +31,7 @@ class Cell:
     shape: str
     fn: Callable
     args: tuple
-    model: DLRM | Transformer | None = None  # the served model, None for retrieval
+    model: DLRM | Transformer | GCN | None = None  # the model, None for retrieval
 
     def run(self):
         return self.fn(*self.args)
@@ -84,6 +89,43 @@ def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
     return Cell(arch_id, shape.name, model.decode_step, (cache, tokens, S - 1), model)
 
 
+def _gnn_sizes(shape: ShapeSpec, reduced: bool) -> tuple:
+    """(nodes, edges, d_feat, n_classes) of a full-graph shape, cut as the
+    reference's ``_gnn_sizes`` cuts it when reduced, rounded up to
+    multiples of 256, and (nodes, edges) before the rounding."""
+    p = shape.params
+    n, e = p["n_nodes"], p["n_edges"]
+    d_feat, n_cls = p["d_feat"], p.get("n_classes", 2)
+    if reduced:
+        scale = max(n // 64, 1)
+        n, e = max(n // scale, 8), max(e // scale, 16)
+        d_feat = min(d_feat, 16)
+    return _r256(n), _r256(e), d_feat, n_cls, n, e
+
+
+def gnn_step(model: GCN, opt_state: dict, batch: dict, opt_cfg: AdamWConfig) -> tuple:
+    """One train step of the GNN cell: (loss, metrics), with the model's
+    parameters and ``opt_state`` updated in place."""
+    return train_step(lambda b: gcn_loss(model, b), model.leaves(), opt_state, batch, opt_cfg)
+
+
+def _gnn_cell(arch_id: str, shape: ShapeSpec, cfg, reduced: bool, dev, seed: int) -> Cell:
+    if shape.kind != "full_graph":
+        raise NotImplementedError(
+            f"{arch_id} {shape.name}: the {shape.kind} kind is not ported yet (ROADMAP.md "
+            "queue A, item 19: the minibatch_lg and molecule GNN shapes)")
+    n, e, d_feat, n_cls, real_n, real_e = _gnn_sizes(shape, reduced)
+    model = GCN.from_config(cfg, d_feat, n_cls, device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = node_graph(n, e, d_feat, n_cls, real_nodes=real_n, real_edges=real_e, generator=gen)
+    batch = {"x": g["x"], "y": g["y"],
+             "graph": Graph.from_edges(g["senders"], g["receivers"], n)}
+    opt_cfg = AdamWConfig()
+    opt_state = init_opt_state(model.leaves(), opt_cfg)
+    return Cell(arch_id, shape.name, partial(gnn_step, opt_cfg=opt_cfg),
+                (model, opt_state, batch), model)
+
+
 def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None,
                seed: int = 0, batch: int | None = None) -> Cell:
     """The cell's step function and its inputs on ``device`` (None: CUDA).
@@ -103,6 +145,14 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     reduced); retrieval: one query against 1,000,192 candidates (the
     reference's 1,000,000 rounded up to a multiple of 256; 1,024 when
     reduced), top 100. Inputs draw from a generator seeded with seed + 1.
+
+    full_graph (GNN): the GCN built by :meth:`GCN.from_config` from ``seed``,
+    its AdamW state and one batch {"x", "y", "graph"} drawn by
+    :func:`node_graph` at the shape's sizes padded to multiples of 256
+    (cut as the reference cuts them when reduced); ``cell.args`` is (model,
+    opt_state, batch) and ``cell.run()`` one train step, returning (loss,
+    metrics) and updating the parameters and ``opt_state`` in place. The
+    minibatch and molecule kinds raise NotImplementedError.
     """
     dev = resolve_device(device)
     arch = get_arch(arch_id)
@@ -110,6 +160,11 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     cfg = arch.reduced() if reduced else arch.config()
     if arch.family == "lm":
         return _lm_cell(arch_id, shape, cfg, reduced, dev, seed, batch)
+    if arch.family == "gnn":
+        if batch is not None:
+            raise ValueError(f"{arch_id} {shape_name}: batch= cuts LM cells only; a "
+                             "full-graph step takes the whole graph")
+        return _gnn_cell(arch_id, shape, cfg, reduced, dev, seed)
     if shape.kind == "train":
         raise NotImplementedError(
             f"{arch_id} {shape_name}: DLRM training is not ported yet "

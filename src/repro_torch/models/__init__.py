@@ -1,2 +1,2 @@
-"""Models of the JAX package's zoo that the port runs: DLRM and the dense
-GQA transformer."""
+"""Models of the JAX package's zoo that the port runs: DLRM, the dense GQA
+transformer and GCN."""

@@ -76,7 +76,8 @@ def _zero_lm_params(cfg):
                                    "from_numpy_state", "bitvector", "dlrm_from_config",
                                    "dlrm_from_numpy_params", "build_cell",
                                    "transformer_from_config", "transformer_from_numpy_params",
-                                   "lm_build_cell"])
+                                   "lm_build_cell", "gcn_from_config",
+                                   "gcn_from_numpy_params", "gnn_build_cell"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
@@ -85,7 +86,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     from repro_torch.core import Hypergraph, LabelTable, TripleQueryEngine
     from repro_torch.core.succinct import BitVector
     from repro_torch.launch.steps import build_cell
+    from repro_torch.configs import gcn_cora
     from repro_torch.models.dlrm import DLRM
+    from repro_torch.models.gnn import GCN
     from repro_torch.models.transformer import Transformer
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
@@ -106,6 +109,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
             _zero_lm_params(qwen2_1_5b.reduced()), qwen2_1_5b.reduced(), device=dev),
         "lm_build_cell": lambda dev: build_cell("qwen2-1.5b", "decode_32k", reduced=True,
                                                 device=dev),
+        "gcn_from_config": lambda dev: GCN.from_config(gcn_cora.reduced(), 16, 7, device=dev),
+        "gcn_from_numpy_params": lambda dev: GCN.from_numpy_params(
+            {"layers": [{"w": np.zeros((16, 8), np.float32), "b": np.zeros(8, np.float32)},
+                        {"w": np.zeros((8, 7), np.float32), "b": np.zeros(7, np.float32)}]},
+            gcn_cora.reduced(), device=dev),
+        "gnn_build_cell": lambda dev: build_cell("gcn-cora", "full_graph_sm", reduced=True,
+                                                 device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)

@@ -20,6 +20,7 @@ from repro.kernels.bitvec_rank import bitvec_rank as pallas_bitvec_rank
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
 from repro_torch.kernels.digram_count import digram_pair_counts_cuda
+from repro_torch.kernels.segment_matmul import CSR
 
 
 def _rank_inputs(rng, nbits):
@@ -136,9 +137,10 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.digram_pair_counts(torch.from_numpy(its), torch.from_numpy(cnts))
     q, kv = torch.zeros((1, 2, 3, 8)), torch.zeros((1, 1, 4, 8))
     ops.flash_attention(q, kv, kv)
+    ops.csr_spmm(torch.ones((2, 3)), CSR(torch.tensor([0, 1]), torch.tensor([1], dtype=torch.int32), 2))
     assert ops.launch_counts["bitvec_rank"] == ops.launch_counts["digram_pair_counts"] == 0
     assert set(ops.launch_counts) == {"bitvec_rank", "digram_pair_counts", "embedding_bag",
-                                      "dot_interaction", "flash_attention"}
+                                      "dot_interaction", "flash_attention", "csr_spmm"}
     assert set(ops.launch_counts.values()) == {0}
 
 
