@@ -13,7 +13,9 @@ nothing of the JAX package. Phases:
    cases of its contract: exactly for the integer kernels and for
    ``embedding_bag`` with one row per bag, within a stated tolerance
    otherwise (``flash_attention`` and ``csr_spmm`` in float32 and bfloat16,
-   ``csr_spmm``'s backward against the twin's autograd);
+   ``flash_attention`` also split and merged at decode and its merge
+   kernel on the twin's partials, ``csr_spmm``'s backward against the
+   twin's autograd);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -44,15 +46,19 @@ nothing of the JAX package. Phases:
    float32, kernel path against twin path (logits and 16 greedy tokens);
    ``lm_serve`` (``ServeEngine.generate`` on 8 prompts of 256-2048 ids, 64
    greedy tokens, cache of 4,096, exactly 28 x 65 ``flash_attention``
-   launches), held against its twin path; ``prefill_32k`` (batch 4) and
-   ``decode_32k`` (batch 64, a 60.1 GB cache filled on the card) through
-   ``build_cell``. Each bfloat16 path check is read beside a witness (p
-   unrounded) and a control (first K/V tile dropped) that must fail it.
-   The ``flash_attention`` row is timed at one layer of the ``lm_serve``
-   prefill and of ``decode_32k``, beside its twin and
-   ``scaled_dot_product_attention`` as the library yardstick; at both, the
+   launches and 28 x 64 of its merge, one a decode layer), held against
+   its twin path; ``prefill_32k`` (batch 4, no merge) and ``decode_32k``
+   (batch 64, a 60.1 GB cache filled on the card, 28 merges a step)
+   through ``build_cell``. Each bfloat16 path check is read beside a
+   witness (p unrounded) and a control (first K/V tile dropped) that must
+   fail it. The ``flash_attention`` row is timed at one layer of the
+   ``lm_serve`` prefill, of ``prefill_32k`` (the twin on its last 512
+   query rows) and of ``decode_32k``, beside its twin and
+   ``scaled_dot_product_attention`` as the library yardstick; at each, the
    kernel is held against its twin on those inputs, in bfloat16 and in
-   float32, and the control must fail the float32 comparison;
+   float32, and the control must fail the float32 comparison. At
+   ``decode_32k`` the split count is swept (1, half the plan, the plan,
+   twice it) and the merge kernel gets its own row;
 8. with the LM freed, train ``gcn-cora`` (2 layers, hidden 16): three
    ``Trainer`` steps on ``full_graph_sm`` (Cora's 2,816 x 1,433) on the
    card against the same on the host CPU; then ``ogb_products`` at full
@@ -808,14 +814,33 @@ DECODE_32K_BATCH = 64       # of the registry's 128: 128 caches are 120.3 GB
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, the attention bound's rate
 
 
+def _close_scaled(torch, got, want, name: str) -> bool:
+    """got within ATTN_MAIN_TOL[name] of want: rtol, and atol scaled by
+    the largest |want| (0 where want is all 0: then got must be 0 too)."""
+    rtol, scaled = ATTN_MAIN_TOL[name]
+    want = want.float()
+    atol = scaled * float(want.abs().max()) if want.numel() else 0.0
+    return torch.allclose(got.float(), want, rtol=rtol, atol=atol)
+
+
 def check_attention_kernel(torch, np, seed: int) -> dict:
     """Phase 2, flash_attention against its twin on the card: the reference
     sweeps (GQA, windows, soft-cap, non-causal), more queries than keys,
     lengths that are not tile multiples, one query row inside a cache,
-    D in {64, 128, 256} in float32 and bfloat16, the model's strided views,
-    and empty lengths."""
+    D in {64, 128, 256} and the zero-padded D = 24, 40 in float32 and
+    bfloat16, the model's strided views, lm_serve's padded prompt against
+    its cache, a q_offset inside a tile, decode split 1, 2, 7 ways and as
+    planned (windowed with empty splits, Sk not a multiple of 64), and
+    empty lengths. Each case is held within ATTN_TOL and, since outputs
+    averaged over many keys are far from unit scale, also within
+    ATTN_MAIN_TOL's atol scaled by its largest |output|. Each call launches
+    flash_attention once and the merge once exactly when it splits. The
+    merge kernel is also held against the twin's merge on the twin's own
+    partials, within both."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_combine_cuda,
+                                                     flash_attention_cuda, pack_partials,
+                                                     planned_splits)
 
     rng = np.random.default_rng(seed)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -840,7 +865,18 @@ def check_attention_kernel(torch, np, seed: int) -> dict:
             cases.append((dt, (1, 4, 2, 70, 70, d), dict(causal=False, softcap=20.0), False))
         cases.append((dt, (1, 4, 2, 0, 16, 64), {}, False))                # Sq = 0
         cases.append((dt, (1, 4, 2, 5, 0, 64), {}, False))                 # Sk = 0
+        cases.append((dt, (1, 12, 2, 200, 300, 24), dict(q_offset=100), False))  # D padded
+        cases.append((dt, (2, 6, 2, 150, 150, 40), {}, False))                   # to 16s
+        cases.append((dt, (1, 12, 2, 1558, 4096, 128), dict(q_offset=0), True))  # lm_serve
+        cases.append((dt, (1, 12, 2, 100, 700, 128), dict(q_offset=37), True))   # mid-tile
+        for n in (1, 2, 7):  # the decode above (split as planned), split n ways
+            cases.append((dt, (4, 12, 2, 1, 4096, 128), dict(q_offset=1234, n_splits=n), True))
+        cases.append((dt, (2, 12, 2, 1, 2048, 128),  # 100 keys: splits 2..6 see none
+                      dict(q_offset=1500, window=100, n_splits=7), True))
+        cases.append((dt, (3, 6, 2, 1, 1000, 64), dict(causal=False, n_splits=7), False))
+        cases.append((dt, (3, 12, 2, 1, 1000, 128), dict(q_offset=999), True))  # ragged end
     err = {"float32": 0.0, "bfloat16": 0.0}
+    combines = 0
     for dt, (b, hq, hkv, sq, sk, d), kw, strided in cases:
         name = str(dt).split(".")[-1]
         if strided:  # the model's layouts: q (B, S, H, D), the cache (B, Smax, Hkv, D)
@@ -849,23 +885,48 @@ def check_attention_kernel(torch, np, seed: int) -> dict:
         else:
             mk = [torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).to(DEV, dt)
                   for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
-        before = ops.launch_counts["flash_attention"]
+        before = dict(ops.launch_counts)
         got = flash_attention_cuda(*mk, **kw)
-        want = ref.flash_attention_ref(*mk, **kw)
+        want = ref.flash_attention_ref(*mk, **{a: x for a, x in kw.items() if a != "n_splits"})
         torch.cuda.synchronize()
-        launched = ops.launch_counts["flash_attention"] - before
+        launched, merged = (ops.launch_counts[n] - before[n]
+                            for n in ("flash_attention", "flash_attention_combine"))
         what = f"{name} (B,Hq,Hkv,Sq,Sk,D)={(b, hq, hkv, sq, sk, d)} {kw} strided={strided}"
         if launched != (1 if sq else 0):
             _fail(f"flash_attention launched {launched} times for {what}")
+        if merged != (1 if sq and planned_splits(*mk[:2], **kw) > 1 else 0):
+            _fail(f"flash_attention_combine launched {merged} times for {what}")
+        combines += merged
         if got.shape != want.shape or got.dtype != dt \
-                or not torch.allclose(got.float(), want.float(), **ATTN_TOL[name]):
+                or not torch.allclose(got.float(), want.float(), **ATTN_TOL[name]) \
+                or not _close_scaled(torch, got, want, name):
             _fail(f"flash_attention differs from its twin at {what}")
         if got.numel():
             err[name] = max(err[name], float((got.float() - want.float()).abs().max()))
+        if not bool(torch.isfinite(got).all()):
+            _fail(f"flash_attention gave a value that is not finite at {what}")
         if sq > sk and kw.get("q_offset") is None and got[:, :, :sq - sk].abs().max() != 0:
             _fail(f"flash_attention rows that see no key are not 0 at {what}")
-    print(f"flash_attention kernel_vs_plain cases={len(cases)} max_abs_err "
-          f"float32={err['float32']} bfloat16={err['bfloat16']} tolerances={ATTN_TOL}")
+    print(f"flash_attention kernel_vs_plain cases={len(cases)} (of them split and merged: "
+          f"{combines}) max_abs_err float32={err['float32']} bfloat16={err['bfloat16']} "
+          f"tolerances={ATTN_TOL} and (rtol, atol / max|want|)={ATTN_MAIN_TOL}")
+
+    # the merge alone, on the twin's partials of a windowed decode with empty splits
+    err["combine"] = 0.0
+    for dt in (f32, bf16):
+        name = str(dt).split(".")[-1]
+        args = [torch.from_numpy(rng.normal(size=(3, h, s, 64)).astype(np.float32)).to(DEV, dt)
+                for s, h in ((1, 12), (900, 2), (900, 2))]
+        kw = dict(q_offset=850, window=300)
+        parts = ref.flash_attention_partials_ref(*args, n_splits=7, **kw)
+        got = flash_attention_combine_cuda(pack_partials(*parts), torch.empty_like(args[0]), 2, 7)
+        want = ref.flash_attention_combine_ref(*parts, 6, dt)
+        if not torch.allclose(got.float(), want.float(), **ATTN_TOL[name]) \
+                or not _close_scaled(torch, got, want, name):
+            _fail(f"flash_attention_combine differs from the twin's merge in {name}")
+        err["combine"] = max(err["combine"], float((got.float() - want.float()).abs().max()))
+    print(f"flash_attention_combine kernel_vs_plain on the twin's partials: max_abs_err="
+          f"{err['combine']} tolerances={ATTN_TOL} and {ATTN_MAIN_TOL}")
     return err
 
 
@@ -1027,18 +1088,20 @@ def _check_yardstick(torch, sdpa, args, kw, what: str) -> None:
 
 def _hold_attention(torch, what: str, args, kw) -> float:
     """The kernel against its twin on one main-path call's inputs, in their
-    bfloat16 and cast to float32, within ATTN_MAIN_TOL; the control
-    (first tile dropped) must fail the float32 comparison. Returns the
-    bfloat16 max abs error."""
+    bfloat16 (the tensor-core kernel) and cast to float32 (the SIMT
+    kernel), within ATTN_MAIN_TOL; the control (first tile dropped) must
+    fail both comparisons. kw's n_splits, where given, reaches the kernel
+    only. Returns the bfloat16 max abs error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
+    twin_kw = {a: x for a, x in kw.items() if a != "n_splits"}
     errs, verdicts = {}, {}
     for name, xs in (("bfloat16", args), ("float32", tuple(x.float() for x in args))):
         rtol, scaled = ATTN_MAIN_TOL[name]
-        want = ref.flash_attention_ref(*xs, **kw).float()
+        want = ref.flash_attention_ref(*xs, **twin_kw).float()
         got = flash_attention_cuda(*xs, **kw).float()
-        ctrl = _first_tile_dropped(*xs, **kw).float()
+        ctrl = _first_tile_dropped(*xs, **twin_kw).float()
         atol = scaled * float(want.abs().max())
         errs[name] = (_logit_err(got, want), _logit_err(ctrl, want), atol)
         verdicts[name] = torch.allclose(ctrl, want, rtol=rtol, atol=atol)
@@ -1048,16 +1111,20 @@ def _hold_attention(torch, what: str, args, kw) -> float:
         if not torch.allclose(got, want, rtol=rtol, atol=atol):
             _fail(f"flash_attention differs from its twin at {what} in {name}")
         del want, got, ctrl
-    if verdicts["float32"]:
-        _fail(f"the float32 comparison at {what} does not tell the control from the twin")
+    for name, passed in verdicts.items():
+        if passed:
+            _fail(f"the {name} comparison at {what} does not tell the control from the twin")
     return errs["bfloat16"][0]
 
 
 def _time_attention(torch, what: str, args, kw, visible_keys: int, causal_pairs: int,
-                    sdpa, twin_args=None, twin_note: str = "") -> dict:
+                    sdpa, twin_args=None, twin_kw=None, twin_note: str = "",
+                    reps: int = 10) -> dict:
     """Kernel, twin and SDPA times of one layer's attention, with its bound:
     bytes (q, o and the visible K and V once per kv head) at 3.35 TB/s
-    against 4 * D FLOPs per visible (query head, key) pair at 989 TFLOP/s."""
+    against 4 * D FLOPs per visible (query head, key) pair at 989 TFLOP/s.
+    The twin runs on twin_args with twin_kw where given (a part of the
+    call), and the kernel is held against it there."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -1067,14 +1134,15 @@ def _time_attention(torch, what: str, args, kw, visible_keys: int, causal_pairs:
     es = q.element_size()
     nbytes = 2 * b * hq * sq * d * es + 2 * b * hkv * visible_keys * d * es
     nflops = 4 * d * causal_pairs
-    targs = twin_args or args
-    err = _hold_attention(torch, what + twin_note, targs, kw)
-    plain_a = _time_ms(torch, lambda: ref.flash_attention_ref(*targs, **kw), 2)
-    ms_a = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw), 10)
-    lib_a = _time_ms(torch, sdpa, 10)
-    lib_b = _time_ms(torch, sdpa, 10)
-    ms_b = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw), 10)
-    plain_b = _time_ms(torch, lambda: ref.flash_attention_ref(*targs, **kw), 2)
+    targs, tkw = twin_args or args, twin_kw or kw
+    err = _hold_attention(torch, what + twin_note, targs, tkw)
+    tkw = {a: x for a, x in tkw.items() if a != "n_splits"}
+    plain_a = _time_ms(torch, lambda: ref.flash_attention_ref(*targs, **tkw), 2)
+    ms_a = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw), reps)
+    lib_a = _time_ms(torch, sdpa, reps)
+    lib_b = _time_ms(torch, sdpa, reps)
+    ms_b = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw), reps)
+    plain_b = _time_ms(torch, lambda: ref.flash_attention_ref(*targs, **tkw), 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nflops / H100_BF16_FLOPS * 1e3
     row = {"ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
@@ -1113,9 +1181,16 @@ def lm_serve(torch, np, seed: int) -> dict:
     counts, res = _served_counts(torch, lambda: eng.generate(prompts,
                                                              max_new_tokens=LM_NEW_TOKENS))
     want = model.cfg.n_layers * (1 + LM_NEW_TOKENS)
-    print(f"launches flash_attention {counts['flash_attention']} (lm_serve; expected {want})")
+    # every decode forward sees at least 257 keys in 16 (batch, kv head)
+    # pairs, so the plan splits it and the merge runs once a layer
+    want_merge = model.cfg.n_layers * LM_NEW_TOKENS
+    print(f"launches flash_attention {counts['flash_attention']} (lm_serve; expected {want}) "
+          f"flash_attention_combine {counts['flash_attention_combine']} (expected {want_merge})")
     if counts["flash_attention"] != want:
         _fail(f"lm_serve launched flash_attention {counts['flash_attention']} times, not {want}")
+    if counts["flash_attention_combine"] != want_merge:
+        _fail(f"lm_serve launched flash_attention_combine {counts['flash_attention_combine']} "
+              f"times, not {want_merge}")
     if res.tokens.shape != (8, LM_NEW_TOKENS) or not (res.n_generated == LM_NEW_TOKENS).all():
         _fail("lm_serve did not generate 64 tokens for each of its 8 requests")
     real = sum(len(p) for p in prompts)
@@ -1167,10 +1242,14 @@ def lm_serve(torch, np, seed: int) -> dict:
                           8 * model.cfg.n_heads * plen * (plen + 1) // 2, sdpa)
     del model, cache, l_k, l_t, args, q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
-    return {"row": row, "launches": counts["flash_attention"]}
+    return {"row": row, "launches": counts["flash_attention"],
+            "merges": counts["flash_attention_combine"]}
 
 
-def prefill_32k(torch, np, seed: int) -> int:
+PREFILL_32K_TWIN_ROWS = 512  # the twin's score tensor over all 32,768 rows would be 206 GB
+
+
+def prefill_32k(torch, np, seed: int) -> dict:
     """prefill_32k: one prefill_step of 32,768 tokens per sequence."""
     from repro_torch.launch.steps import build_cell
 
@@ -1190,19 +1269,44 @@ def prefill_32k(torch, np, seed: int) -> int:
         times.append(time.perf_counter() - t0)
     if logits.shape != (b, cell.model.cfg.vocab) or not bool(torch.isfinite(logits).all()):
         _fail("prefill_32k logits are not finite")
-    if counts["flash_attention"] != cell.model.cfg.n_layers:
-        _fail(f"prefill_32k launched flash_attention {counts['flash_attention']} times")
+    if counts["flash_attention"] != cell.model.cfg.n_layers or counts["flash_attention_combine"]:
+        _fail(f"prefill_32k launched flash_attention {counts['flash_attention']} times and "
+              f"its merge {counts['flash_attention_combine']} times")
     print(f"prefill_32k B={b} S={s} (batch cut from 32) runs_s={[round(t, 6) for t in times]} "
           f"tokens_per_s={b * s / min(times):.1f} launches flash_attention="
           f"{counts['flash_attention']} max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    del cell, logits, tokens
+
+    # the kernel's row at one prefill_32k layer; the twin on the last rows
+    args, kw = _capture_attention(cell.run)
+    q, k, v = args
+    n_heads = cell.model.cfg.n_heads
+    qs = q.contiguous()
+    ks, vs = (x[:, :, :s].contiguous() for x in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                                enable_gqa=True)
+
+    _check_yardstick(torch, sdpa, args, kw, "prefill_32k")
+    last = PREFILL_32K_TWIN_ROWS
+    row = _time_attention(torch, "prefill_32k, one layer", args, kw, s,
+                          b * n_heads * s * (s + 1) // 2, sdpa,
+                          twin_args=(q[:, :, s - last:], k, v),
+                          twin_kw={**kw, "q_offset": s - last},
+                          twin_note=f" (twin on the last {last} of {s} query rows)", reps=3)
+    attn_s = row["ms"] * cell.model.cfg.n_layers / 1e3
+    print(f"prefill_32k attention share: {cell.model.cfg.n_layers} layers x {row['ms']:.6f} ms "
+          f"= {attn_s:.6f} s of a {min(times):.6f} s prefill ({attn_s / min(times):.4f})")
+    del cell, logits, tokens, args, q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
-    return counts["flash_attention"]
+    return {"row": row, "launches": counts["flash_attention"], "attention_share":
+            attn_s / min(times), "step_s": min(times)}
 
 
 def decode_32k(torch, np, seed: int) -> dict:
     """decode_32k: one decode_step per sequence at cur_index 32,767 against
     a cache of 32,768 positions, filled on the card from the seed."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, planned_splits
     from repro_torch.launch.steps import build_cell
 
     torch.cuda.reset_peak_memory_stats()
@@ -1215,8 +1319,17 @@ def decode_32k(torch, np, seed: int) -> dict:
     print(f"decode_32k B={tokens.shape[0]} (batch cut from 128) cache {tuple(cache[0].shape)} "
           f"x2 {cache[0].dtype} cache_bytes={cache_bytes} init_s={time.perf_counter() - t0:.3f}")
     counts, (logits, _) = _served_counts(torch, cell.run)
+    args, kw = _capture_attention(cell.run)
+    plan = planned_splits(*args[:2], **kw)
+    want_merge = model.cfg.n_layers if plan > 1 else 0
+    print(f"decode_32k launches flash_attention {counts['flash_attention']} "
+          f"flash_attention_combine {counts['flash_attention_combine']} (n_splits {plan}, "
+          f"expected {want_merge})")
     if counts["flash_attention"] != model.cfg.n_layers:
         _fail(f"decode_32k launched flash_attention {counts['flash_attention']} times")
+    if counts["flash_attention_combine"] != want_merge:
+        _fail(f"decode_32k launched flash_attention_combine {counts['flash_attention_combine']} "
+              f"times, not {want_merge}")
     if logits.shape != (tokens.shape[0], model.cfg.vocab) or not bool(torch.isfinite(logits).all()):
         _fail("decode_32k logits are not finite")
     times = []
@@ -1245,24 +1358,145 @@ def decode_32k(torch, np, seed: int) -> dict:
           f"busy_share={dev / wall if dev > 0 else 'not measured'}")
     print(f"decode_32k step kernels by device time: {_top_kernels(avgs)}")
 
-    # the kernel's row at one decode_32k layer; the twin on 8 sequences
-    args, kw = _capture_attention(cell.run)
+    # the kernel's row at one decode_32k layer; the twin on 8 sequences,
+    # with the kernel split as planned for all of them (the plan of 8 alone
+    # differs), and the timed call's first 8 outputs held against that
     q, k, v = args
     s = index + 1
     qs = q.contiguous()
     ks, vs = (x[:, :, :s].contiguous() for x in (k, v))
+    part = tuple(x[:8] for x in args)
+    full = flash_attention_cuda(*args, **kw)[:8].float()
+    alone = flash_attention_cuda(*part, **kw, n_splits=plan).float()
+    same = bool(torch.equal(full, alone))
+    print(f"decode_32k one layer: the call on all {q.shape[0]} sequences (n_splits {plan}) vs "
+          f"the call on 8 split {plan} ways: max_abs_err={_logit_err(full, alone)} "
+          f"bitwise_equal={same}")
+    if not _close_scaled(torch, full, alone, "bfloat16"):
+        _fail("decode_32k: the call's first 8 sequences differ from the same call on 8")
+    del full, alone
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
 
     _check_yardstick(torch, sdpa, args, kw, "decode_32k")
     row = _time_attention(torch, "decode_32k, one layer", args, kw, s,
-                          q.shape[0] * model.cfg.n_heads * s, sdpa,
-                          twin_args=tuple(x[:8] for x in args),
-                          twin_note=f" (twin on 8 of the {q.shape[0]} sequences)")
-    del cell, model, cache, sub, args, q, k, v, qs, ks, vs, logits, l_k, l_t
+                          q.shape[0] * model.cfg.n_heads * s, sdpa, twin_args=part,
+                          twin_kw={**kw, "n_splits": plan},
+                          twin_note=f" (twin on 8 of the {q.shape[0]} sequences, the kernel "
+                                    f"split {plan} ways as planned for all)")
+    sweep = _split_sweep(torch, args, kw, plan)
+    merge = _time_merge(torch, args, kw, plan)
+    del cell, model, cache, sub, args, part, q, k, v, qs, ks, vs, logits, l_k, l_t
     torch.cuda.empty_cache()
-    return {"row": row, "launches": counts["flash_attention"]}
+    return {"row": row, "launches": counts["flash_attention"], "n_splits": plan,
+            "sweep": sweep, "merge": merge, "merges": counts["flash_attention_combine"]}
+
+
+def _split_sweep(torch, args, kw, plan: int) -> dict:
+    """ms of one decode_32k layer at 1, half the plan, the plan and twice
+    it; each output is held against the planned one (the splits only
+    reorder float32 sums)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    base = flash_attention_cuda(*args, **kw).float()
+    out = {}
+    for n in sorted({1, max(1, plan // 2), plan, 2 * plan}):
+        got = flash_attention_cuda(*args, **kw, n_splits=n).float()
+        rtol, scaled = ATTN_MAIN_TOL["bfloat16"]
+        if not torch.allclose(got, base, rtol=rtol, atol=scaled * float(base.abs().max())):
+            _fail(f"decode_32k split {n} ways differs from the planned {plan}")
+        out[n] = _time_ms(torch, lambda: flash_attention_cuda(*args, **kw, n_splits=n), 10)
+    print(f"decode_32k one layer by n_splits (planned {plan}): "
+          + " ".join(f"{n}={ms:.6f}ms" for n, ms in out.items()))
+    return {str(n): ms for n, ms in out.items()}
+
+
+def _time_merge(torch, args, kw, plan: int) -> dict:
+    """The merge kernel at one decode_32k layer: held against the twin's
+    merge on the twin's partials of that call within ATTN_MAIN_TOL (both
+    merge the same float32 partials), timed beside it, and its bound (the
+    partials read once, o written once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_combine_cuda, pack_partials
+
+    q, k = args[0], args[1]
+    hkv = k.shape[1]
+    chunks = [ref.flash_attention_partials_ref(*(x[i:i + 8] for x in args), n_splits=plan, **kw)
+              for i in range(0, q.shape[0], 8)]  # 8 sequences at a time: the cache fills the card
+    parts = tuple(torch.cat([c[j] for c in chunks], dim=1) for j in range(3))
+    del chunks
+    packed = pack_partials(*parts)
+    out = torch.empty_like(q)
+    want = ref.flash_attention_combine_ref(*parts, q.shape[1] // hkv, q.dtype).float()
+    got = flash_attention_combine_cuda(packed, out, hkv, plan).float()
+    err = _logit_err(got, want)
+    atol = ATTN_MAIN_TOL["bfloat16"][1] * float(want.abs().max())
+    print(f"flash_attention_combine vs the twin's merge at decode_32k: max_abs_err={err} "
+          f"tol rtol={ATTN_MAIN_TOL['bfloat16'][0]} atol={atol} (max|want| x "
+          f"{ATTN_MAIN_TOL['bfloat16'][1]})")
+    if not _close_scaled(torch, got, want, "bfloat16"):
+        _fail(f"flash_attention_combine differs from the twin's merge at decode_32k ({err})")
+    # a launch takes less device time than the wrapper takes to issue it, so
+    # events around a loop time the host: read the device time per launch
+    # from the profiler, and the events' figure beside it
+    reps = 50
+    ms, seen = [], []
+    for _ in range(2):
+        _, _, avgs = _profile(torch, lambda: [flash_attention_combine_cuda(packed, out, hkv, plan)
+                                              for _ in range(reps)])
+        hits = [e for e in avgs if "combine_kernel" in e.key]
+        seen.append(sum(e.count for e in hits))
+        if seen[-1]:  # the trace may lose launches: average over those it holds
+            ms.append(sum(getattr(e, "self_device_time_total", 0) for e in hits)
+                      / seen[-1] / 1e3)
+    issue_ms = _time_ms(torch, lambda: flash_attention_combine_cuda(packed, out, hkv, plan), reps)
+    plain = [_time_ms(torch, lambda: ref.flash_attention_combine_ref(
+        *parts, q.shape[1] // hkv, q.dtype), 5) for _ in range(2)]
+    nbytes = packed.numel() * 4 + out.numel() * out.element_size()
+    row = {"ms": min(ms) if ms else issue_ms, "plain_ms": min(plain),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+           "max_abs_err_here": err, "ms_issue_bound": issue_ms}
+    if not ms:
+        print("flash_attention_combine: the profiler traced no launch; ms is the events' "
+              "figure, an upper bound")
+    print(f"kernel flash_attention_combine at decode_32k, one layer: {plan} splits, partials "
+          f"{packed.numel() * 4} B, ms={row['ms']} (device time per traced launch, profiler; "
+          f"runs {ms}, launches traced {seen} of {reps}; events over {reps} "
+          f"back-to-back calls {issue_ms:.6f}) plain_ms={row['plain_ms']:.6f} "
+          f"bound_ms={row['bound_ms']:.6f} (bytes: {nbytes} B) max_abs_err vs twin's merge={err}")
+    return row
+
+
+def _mma_counts(source: str) -> dict:
+    """Tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) in each
+    kernel of csrc/<source>.cu's build, counted in its SASS by cuobjdump
+    (static counts, not executions); empty where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("cuobjdump not found: tensor-core instruction counts not measured")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        sym = fn.split()[0]
+        name = re.search(r"\d([a-z_]+_kernel)I(\w+?)EEv", sym)
+        if name:
+            targs = re.findall(r"Li(\d+)E", name.group(2)) or [name.group(2).lstrip("0123456789")]
+            key = f"{name.group(1)}<{', '.join(targs)}>"
+        else:
+            key = sym
+        out[key] = {"HMMA": len(re.findall(r"\bHMMA\.", fn)),
+                    "HGMMA": len(re.findall(r"\bHGMMA\.", fn))}
+    print(f"tensor-core instructions in {source}.cu by kernel (SASS, static): {out}")
+    return out
 
 
 def drive_lm(torch, np, seed: int, errs: dict) -> list:
@@ -1274,22 +1508,36 @@ def drive_lm(torch, np, seed: int, errs: dict) -> list:
     print(f"lm phases start with memory_allocated={left}")
     if left > 1 << 30:
         _fail(f"{left} bytes are still allocated after the DLRM phase")
+    mma = _mma_counts("flash_attention")
     lm_vs_host(torch, np, seed)
     lm_float32_full_width(torch, np, seed)
     serve = lm_serve(torch, np, seed)
-    prefill_launches = prefill_32k(torch, np, seed)
+    pre = prefill_32k(torch, np, seed)
     dec = decode_32k(torch, np, seed)
+    err = errs["flash_attention"]
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:86",
            "launches": serve["launches"],
-           "max_abs_err": max(*errs["flash_attention"].values(), serve["row"]["max_abs_err_here"],
-                              dec["row"]["max_abs_err_here"]),
-           "max_abs_err_float32": errs["flash_attention"]["float32"],
+           "max_abs_err": max(err["float32"], err["bfloat16"], serve["row"]["max_abs_err_here"],
+                              pre["row"]["max_abs_err_here"], dec["row"]["max_abs_err_here"]),
+           "max_abs_err_float32": err["float32"],
            **serve["row"], "shape": "lm_serve prefill, one layer",
-           "decode_32k": {**dec["row"], "shape": f"decode_32k, one layer, B={DECODE_32K_BATCH}"},
-           "launches_prefill_32k": prefill_launches, "launches_decode_32k": dec["launches"]}
-    return [row]
+           "decode_32k": {**dec["row"], "shape": f"decode_32k, one layer, B={DECODE_32K_BATCH}",
+                          "n_splits": dec["n_splits"], "ms_by_n_splits": dec["sweep"]},
+           "prefill_32k": {**pre["row"], "shape": f"prefill_32k, one layer, "
+                           f"B={PREFILL_32K_BATCH}", "attention_share": pre["attention_share"]},
+           "launches_prefill_32k": pre["launches"], "launches_decode_32k": dec["launches"],
+           "launches_combine_lm_serve": serve["merges"],
+           "launches_combine_decode_32k": dec["merges"], "sass_mma": mma}
+    merge = {"name": "flash_attention_combine", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:86",
+             "launches": serve["merges"],
+             **dec["merge"], "max_abs_err": max(err["combine"], dec["merge"]["max_abs_err_here"]),
+             "shape": f"decode_32k, one layer, B={DECODE_32K_BATCH}, {dec['n_splits']} splits",
+             "launches_decode_32k": dec["merges"]}
+    return [row, merge]
 
 
 # Tolerances of csr_spmm against its twin on the card. float32: both sum

@@ -12,32 +12,60 @@
 //   o_i      = sum_j p_ij v_j / sum_j p_ij over visible j, 0 for a row that
 //              sees no key, in q's type.
 //
-// The numerics are the Pallas kernel's: scores and the running max m, sum l
-// and output accumulator in float32; p = exp(s - m) rounded to v's type
-// before the PV product; masked scores at -1e30 and masked p forced to 0.
-// q_offset puts query row i at absolute position i + q_offset (the Pallas
-// kernel fixes Sk - Sq): prefill attends positions 0..S-1 against a longer
-// cache, decode one position against the cache. Any Sq, Sk >= 0; D a
-// multiple of 8 up to 256.
+// The numerics are the Pallas kernel's: scores are products of the inputs
+// summed in float32, the running max m, sum l and output accumulator are
+// float32; p = exp(s - m) is rounded to v's type before the PV product;
+// masked scores are -1e30 and masked p is forced to 0. q_offset puts query
+// row i at absolute position i + q_offset (the Pallas kernel fixes
+// Sk - Sq): prefill attends positions 0..S-1 against a longer cache,
+// decode one position against the cache. Any Sq, Sk >= 0; D a multiple of
+// 8 up to 256.
 //
-// Design. A block owns BM rows of one (batch, kv head): the rows are the
-// (query position, head in the group) pairs r = i * group + g, so the heads
-// that share a kv head share every K/V tile the block stages. At decode
-// (Sq = 1) the six query heads of qwen2's group read the cache once, not
-// six times. The block walks only the K/V tiles that some row of it can
-// see (the Pallas kernel's `pl.when(block_visible)`): causal decode stops
-// at cur_index, prefill at the tile's last position. Tiles of BN keys are
-// copied to shared memory with cp.async, double-buffered, so the next
-// tile's copy runs under this tile's arithmetic. Scores and the PV product
-// are float32 FMAs out of shared memory (no tensor cores, so no TF32 for a
-// float32 input); m and l live in shared memory, the accumulator in
-// registers. Nothing carries over between blocks.
+// Rows. A block owns rows of one (batch, kv head): the rows are the (query
+// position, head in the group) pairs r = i * group + g, so the heads that
+// share a kv head share every K/V tile the block stages (qwen2's six query
+// heads read the cache once, not six times). A block walks only the key
+// tiles that some row of it can see (the Pallas kernel's
+// `pl.when(block_visible)`) and masks per element only in tiles that some
+// row cannot see whole (the diagonal, the window's edge, the ragged end).
 //
-// What bounds it on this card: at decode, bytes (each step reads the whole
-// visible cache once; qwen2-1.5b at 32k tokens x 64 sequences moves
-// 60.1 GB); at prefill, the float32 FMA rate (67 TFLOP/s outside the
-// tensor cores), far under the bf16 tensor-core rate (989 TFLOP/s) that
-// the bound counts. A tensor-core redesign is later work.
+// Three kernels:
+//
+// - bf16, `tc_kernel`: both products on the tensor cores, mma.sync
+//   m16n8k16 (bf16 in, float32 accumulate), FlashAttention-2 style. Q, K
+//   and V tiles come to shared memory by cp.async through a ring of two
+//   stages, one barrier a tile; rows are padded by 16 bytes, so each
+//   ldmatrix phase hits 32 distinct banks. Operands reach the mma through
+//   ldmatrix (.trans for V, whose depth is keys). The softmax stays in
+//   registers: a row's max is reduced over the four lanes of a quad with
+//   shuffles; p = 2^(s c - m c) (sm_scale folded into c) is rounded to bf16
+//   in registers and is the A fragment of the PV product as it stands (the
+//   m16n8 accumulator layout is the A layout). The accumulator is rescaled
+//   only when some row's max rose. D below the instance's width is
+//   zero-filled in shared memory and its k-steps are skipped.
+//   * Prefill (more than 8 rows of a (batch, kv head)), bound by the
+//     tensor cores (989 TFLOP/s): 128-row blocks of 4 warps, each warp two
+//     16-row m-tiles over the whole 64-key tile, so every K and V fragment
+//     feeds two products. The heaviest row tiles (the last, under a causal
+//     mask) launch first.
+//   * Decode (at most 8 rows), bound by bytes (the visible cache is read
+//     once: qwen2-1.5b at 32k tokens x 64 sequences moves 2.1 GB a layer):
+//     one 16-row tile, the 4 warps each a quarter of every 64-key tile with
+//     its own m, l and accumulator, merged through shared memory at the
+//     end. The visible keys are split over n_splits blocks a (batch, kv
+//     head): block (split, kv head, batch) walks its contiguous share of
+//     whole 64-key chunks and writes float32 partials (m, l, unnormalised
+//     acc), which `combine_kernel` merges (m* = max m_s, l* = sum l_s
+//     e^(m_s - m*), o = sum acc_s e^(m_s - m*) / l*). One split writes o
+//     directly. The wrapper plans n_splits from the visible range, so the
+//     card gets a few blocks per SM even at 16 (batch, kv head) pairs.
+// - float32, `simt_kernel`: float32 FMAs, never TF32; 64-row tiles (32 at
+//   D = 256) at prefill, one 8-row tile split as above at decode.
+//
+// Nothing carries over between blocks. The next step for the prefill is
+// wgmma fed by TMA, with a producer warp (warp specialisation): mma.sync
+// stays under a third of the card's bf16 rate even at prefill_32k
+// (PERF.md), and wgmma is the only path to the full rate.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,13 +74,17 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSplitKeys = 64;  // a split covers whole chunks of this many keys
+constexpr int kDecodeRows = 8;  // rows of a (batch, kv head) up to which decode splits
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int64_t Sq, Sk, D, group;
+  float* part;  // split partials: acc (S, B, Hkv, R, D), then m and l (S, B, Hkv, R)
+  int64_t B, Hkv, Sq, Sk, D, group, n_splits;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int64_t q_offset, window;  // window <= 0: no window
   int causal;
@@ -67,57 +99,53 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// The keys [begin, end) that some row in [r0, r_last] can see, cut to this
+// block's split: whole kSplitKeys chunks, split s taking chunks
+// [s * per, (s + 1) * per) of the ceil(visible / kSplitKeys) (per =
+// ceil(chunks / n_splits)). A split past the last chunk is empty. The
+// wrapper's planner computes the same bounds.
+__device__ __forceinline__ void key_range(const Params& p, int64_t r0, int64_t r_last,
+                                          int64_t split, int64_t& begin, int64_t& end) {
+  const int64_t pos_lo = r0 / p.group + p.q_offset;
+  const int64_t pos_hi = r_last / p.group + p.q_offset;
+  begin = 0;
+  end = p.Sk;
+  if (p.causal && pos_hi + 1 < end) end = pos_hi + 1;
+  if (p.window > 0 && pos_lo - p.window + 1 > begin) begin = pos_lo - p.window + 1;
+  if (p.n_splits > 1) {
+    const int64_t chunks = end > begin ? (end - begin + kSplitKeys - 1) / kSplitKeys : 0;
+    const int64_t per = (chunks + p.n_splits - 1) / p.n_splits;
+    const int64_t lo = begin + split * per * kSplitKeys;
+    const int64_t hi = lo + per * kSplitKeys;
+    begin = lo;
+    if (hi < end) end = hi;
+  }
+}
 
-template <typename T>
-struct Io;
+__device__ __forceinline__ bool visible(const Params& p, int64_t pos, int64_t key) {
+  return pos != INT64_MIN && key < p.Sk && (!p.causal || pos >= key) &&
+         (p.window <= 0 || key > pos - p.window);
+}
 
-template <>
-struct Io<float> {
-  static constexpr int kVec = 4;  // elements in 16 bytes
-  __device__ static void load16(const unsigned char* p, float* out) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  }
-  __device__ static void load4(const unsigned char* p, float* out) { load16(p, out); }
-  __device__ static void store4(float* p, const float* x) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-  __device__ static float round(float x) { return x; }
-};
+// ------------------------------------------------------- float32 SIMT kernel
 
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void load16(const unsigned char* p, float* out) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    out[0] = bf16_lo(x.x); out[1] = bf16_hi(x.x); out[2] = bf16_lo(x.y); out[3] = bf16_hi(x.y);
-    out[4] = bf16_lo(x.z); out[5] = bf16_hi(x.z); out[6] = bf16_lo(x.w); out[7] = bf16_hi(x.w);
-  }
-  __device__ static void load4(const unsigned char* p, float* out) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    out[0] = bf16_lo(x.x); out[1] = bf16_hi(x.x); out[2] = bf16_lo(x.y); out[3] = bf16_hi(x.y);
-  }
-  __device__ static void store4(__nv_bfloat16* p, const float* x) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
-    uint2 w;
-    w.x = *reinterpret_cast<uint32_t*>(&a);
-    w.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = w;
-  }
-  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-};
+__device__ __forceinline__ void load4(const unsigned char* p, float* out) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+}
 
-// Shared memory of one block: the Q tile, two stages of K and V tiles (rows
-// of DMAX elements padded by 16 bytes, so the rows that a warp reads at one
-// column fall in different banks), the BM x BN score tile, and m, l, alpha.
-template <typename T, int BM, int BN, int DMAX>
+// Shared memory of one SIMT block: the Q tile, two stages of K and V tiles
+// (rows of DMAX elements padded by 16 bytes, so the rows that a warp reads
+// at one column fall in different banks), the BM x BN score tile, and m,
+// l, alpha.
+template <int BM, int BN, int DMAX>
 struct Smem {
-  static constexpr int kRow = DMAX * (int)sizeof(T) + 16;
+  static constexpr int kRow = DMAX * 4 + 16;
   static constexpr int kSRow = BN + 1;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + BM * kRow;
@@ -129,20 +157,21 @@ struct Smem {
 
 // RG row groups x CG column groups of threads: in the score phase a thread
 // holds TM rows x TN keys (keys cg, cg + CG, ...), in the PV phase TM rows x
-// DMAX / CG output columns (4 at a time: cg * 4 + 4 * CG * j).
-template <typename T, int BM, int BN, int DMAX, int RG>
+// DMAX / CG output columns (4 at a time: cg * 4 + 4 * CG * j). blockIdx.x is
+// row tile * n_splits + split; n_splits > 1 only with one row tile.
+template <int BM, int BN, int DMAX, int RG>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const Params p) {
-  using IO = Io<T>;
-  using SM = Smem<T, BM, BN, DMAX>;
+simt_kernel(const Params p) {
+  using SM = Smem<BM, BN, DMAX>;
   constexpr int CG = kThreads / RG;
   constexpr int TM = BM / RG;
   constexpr int TN = BN / CG;
   constexpr int DC = DMAX / CG;
-  constexpr int VEC = IO::kVec;
+  constexpr int VEC = 4;  // floats in 16 bytes
   constexpr int TPR = kThreads / BM;  // threads per row in the softmax phase
   static_assert(RG * CG == kThreads && TM * RG == BM && TN * CG == BN, "tile shape");
   static_assert(DC % 4 == 0 && TPR >= 1 && TPR <= 32, "tile shape");
+  static_assert(kSplitKeys % BN == 0, "a split is whole tiles");
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* q_s = smem + SM::kQ;
@@ -158,24 +187,21 @@ flash_attention_kernel(const Params p) {
   const int64_t b = blockIdx.z, kvh = blockIdx.y;
   const int64_t group = p.group;
   const int64_t R = p.Sq * group;
-  const int64_t r0 = (int64_t)blockIdx.x * BM;
+  const int64_t split = blockIdx.x % p.n_splits;
+  const int64_t r0 = (int64_t)(blockIdx.x / p.n_splits) * BM;
   const int D = (int)p.D;
   const int chunks = D / VEC;
 
-  // keys that some row of this tile can see
   const int64_t r_last = (r0 + BM < R ? r0 + BM : R) - 1;
-  const int64_t pos_lo = r0 / group + p.q_offset;
-  const int64_t pos_hi = r_last / group + p.q_offset;
-  int64_t k_begin = 0, k_end = p.Sk;
-  if (p.causal && pos_hi + 1 < k_end) k_end = pos_hi + 1;
-  if (p.window > 0 && pos_lo - p.window + 1 > k_begin) k_begin = pos_lo - p.window + 1;
+  int64_t k_begin, k_end;
+  key_range(p, r0, r_last, split, k_begin, k_end);
   const int64_t n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
   const unsigned char* qb = static_cast<const unsigned char*>(p.q);
   const unsigned char* kb =
-      static_cast<const unsigned char*>(p.k) + (b * p.k_sb + kvh * p.k_sh) * (int64_t)sizeof(T);
+      static_cast<const unsigned char*>(p.k) + (b * p.k_sb + kvh * p.k_sh) * 4;
   const unsigned char* vb =
-      static_cast<const unsigned char*>(p.v) + (b * p.v_sb + kvh * p.v_sh) * (int64_t)sizeof(T);
+      static_cast<const unsigned char*>(p.v) + (b * p.v_sb + kvh * p.v_sh) * 4;
 
   // stage the Q tile (rows past R are zeros)
   for (int c = tid; c < BM * chunks; c += kThreads) {
@@ -185,7 +211,7 @@ flash_attention_kernel(const Params p) {
     const unsigned char* src = qb;
     if (valid) {
       const int64_t i = r / group, h = kvh * group + r % group;
-      src += (b * p.q_sb + h * p.q_sh + i * p.q_ss + (int64_t)ch * VEC) * (int64_t)sizeof(T);
+      src += (b * p.q_sb + h * p.q_sh + i * p.q_ss + (int64_t)ch * VEC) * 4;
     }
     cp_async16(q_s + row * SM::kRow + ch * 16, src, valid);
   }
@@ -194,9 +220,9 @@ flash_attention_kernel(const Params p) {
       const int row = c / chunks, ch = c % chunks;
       const int64_t key = t0 + row;
       const bool valid = key < p.Sk;  // past Sk: zeros, so 0 * v stays 0
-      const int64_t off = (int64_t)ch * VEC * (int64_t)sizeof(T);
-      const unsigned char* ks = valid ? kb + key * p.k_ss * (int64_t)sizeof(T) + off : kb;
-      const unsigned char* vs = valid ? vb + key * p.v_ss * (int64_t)sizeof(T) + off : vb;
+      const int64_t off = (int64_t)ch * VEC * 4;
+      const unsigned char* ks = valid ? kb + key * p.k_ss * 4 + off : kb;
+      const unsigned char* vs = valid ? vb + key * p.v_ss * 4 + off : vb;
       const int dst = (stage * BN + row) * SM::kRow + ch * 16;
       cp_async16(k_s + dst, ks, valid);
       cp_async16(v_s + dst, vs, valid);
@@ -222,11 +248,6 @@ flash_attention_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < DC; ++e) acc[a][e] = 0.0f;
 
-  auto visible = [&](int64_t pos, int64_t key) {
-    return pos != INT64_MIN && key < p.Sk && (!p.causal || pos >= key) &&
-           (p.window <= 0 || key > pos - p.window);
-  };
-
   // softmax phase: TPR consecutive lanes per row
   const int sm_row = tid / TPR, sm_part = tid % TPR;
   const int64_t sm_r = r0 + sm_row;
@@ -235,7 +256,7 @@ flash_attention_kernel(const Params p) {
   for (int64_t t = 0; t < n_tiles; ++t) {
     const int stage = (int)(t & 1);
     const int64_t t0 = k_begin + t * BN;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // tile t landed; every thread is done with tile t - 1
     if (t + 1 < n_tiles) load_kv(stage ^ 1, t0 + BN);
     cp_async_commit();
@@ -250,11 +271,11 @@ flash_attention_kernel(const Params p) {
     for (int ch = 0; ch < chunks; ++ch) {
       float qv[TM][VEC];
 #pragma unroll
-      for (int a = 0; a < TM; ++a) IO::load16(q_s + (rg * TM + a) * SM::kRow + ch * 16, qv[a]);
+      for (int a = 0; a < TM; ++a) load4(q_s + (rg * TM + a) * SM::kRow + ch * 16, qv[a]);
 #pragma unroll
       for (int c = 0; c < TN; ++c) {
         float kv[VEC];
-        IO::load16(kt + (cg + CG * c) * SM::kRow + ch * 16, kv);
+        load4(kt + (cg + CG * c) * SM::kRow + ch * 16, kv);
 #pragma unroll
         for (int a = 0; a < TM; ++a)
 #pragma unroll
@@ -268,7 +289,7 @@ flash_attention_kernel(const Params p) {
         const int n = cg + CG * c;
         float s = sacc[a][c] * p.sm_scale;
         if (p.softcap > 0.0f) s = p.softcap * tanhf(s / p.softcap);
-        if (!visible(my_pos[a], t0 + n)) s = kNegInf;
+        if (!visible(p, my_pos[a], t0 + n)) s = kNegInf;
         s_s[(rg * TM + a) * SM::kSRow + n] = s;
       }
     __syncthreads();
@@ -285,9 +306,9 @@ flash_attention_kernel(const Params p) {
       const float m_cur = fmaxf(m_prev, mx);
       float sum = 0.0f;
       for (int n = sm_part; n < BN; n += TPR) {
-        const float pv = visible(sm_pos, t0 + n) ? expf(srow[n] - m_cur) : 0.0f;
+        const float pv = visible(p, sm_pos, t0 + n) ? expf(srow[n] - m_cur) : 0.0f;
         sum += pv;
-        srow[n] = IO::round(pv);
+        srow[n] = pv;
       }
 #pragma unroll
       for (int off = TPR / 2; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -318,7 +339,7 @@ flash_attention_kernel(const Params p) {
         const int d0 = cg * 4 + 4 * CG * j;
         if (d0 < D) {
           float v4[4];
-          IO::load4(vt + n * SM::kRow + d0 * (int)sizeof(T), v4);
+          load4(vt + n * SM::kRow + d0 * 4, v4);
 #pragma unroll
           for (int a = 0; a < TM; ++a)
 #pragma unroll
@@ -327,11 +348,37 @@ flash_attention_kernel(const Params p) {
       }
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
+  if (p.n_splits > 1) {  // float32 partials of this split; the combine kernel merges them
+    const int64_t slots = p.n_splits * p.B * p.Hkv * R;
+    const int64_t slot0 = ((split * p.B + b) * p.Hkv + kvh) * R;
+    float* pm = p.part + slots * D;
+    float* pl = pm + slots;
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+      const int row = rg * TM + a;
+      const int64_t r = r0 + row;
+      if (r >= R) continue;
+      float* dst = p.part + (slot0 + r) * D;
+      if (cg == 0) {
+        pm[slot0 + r] = m_s[row];
+        pl[slot0 + r] = l_s[row];
+      }
+#pragma unroll
+      for (int j = 0; j < DC / 4; ++j) {
+        const int d0 = cg * 4 + 4 * CG * j;
+        if (d0 < D)
+          *reinterpret_cast<float4*>(dst + d0) =
+              make_float4(acc[a][j * 4], acc[a][j * 4 + 1], acc[a][j * 4 + 2], acc[a][j * 4 + 3]);
+      }
+    }
+    return;
+  }
+
   // o = acc / l, 0 for a row that saw no key
-  T* ob = static_cast<T*>(p.o);
+  float* ob = static_cast<float*>(p.o);
 #pragma unroll
   for (int a = 0; a < TM; ++a) {
     const int row = rg * TM + a;
@@ -340,7 +387,7 @@ flash_attention_kernel(const Params p) {
     const float l = l_s[row];
     const float denom = l == 0.0f ? 1.0f : l;
     const int64_t i = r / group, h = kvh * group + r % group;
-    T* dst = ob + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+    float* dst = ob + b * p.o_sb + h * p.o_sh + i * p.o_ss;
 #pragma unroll
     for (int j = 0; j < DC / 4; ++j) {
       const int d0 = cg * 4 + 4 * CG * j;
@@ -348,43 +395,557 @@ flash_attention_kernel(const Params p) {
         float x[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) x[e] = acc[a][j * 4 + e] / denom;
-        IO::store4(dst + d0, x);
+        *reinterpret_cast<float4*>(dst + d0) = make_float4(x[0], x[1], x[2], x[3]);
       }
     }
   }
 }
 
-template <typename T, int BM, int DMAX, int RG>
-int launch(const Params& p, int64_t B, int64_t Hkv, cudaStream_t stream) {
-  constexpr int BN = DMAX * (int)sizeof(T) <= 256 ? 64 : 32;
-  constexpr int bytes = Smem<T, BM, BN, DMAX>::kBytes;
-  auto kernel = flash_attention_kernel<T, BM, BN, DMAX, RG>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+// ------------------------------------------------------- combine (split merge)
+
+// One block per (batch, kv head, row): its first warp reduces m* = max m_s
+// and l* = sum l_s e^(m_s - m*) over the splits, then each thread merges
+// its columns, o = sum acc_s e^(m_s - m*) / l*, 0 where l* = 0. A split
+// that saw no key has m = -1e30, l = 0 and acc = 0, so it adds nothing.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const float* part, T* o, int64_t B, int64_t Hkv, int64_t group, int64_t R,
+               int64_t D, int64_t n_splits, int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+  __shared__ float ml[2];
+  const int64_t slot = blockIdx.x;  // (b * Hkv + kvh) * R + r
+  const int64_t per_split = B * Hkv * R;
+  const float* pm = part + n_splits * per_split * D + slot;
+  const float* pl = pm + n_splits * per_split;
+  if (threadIdx.x < 32) {
+    float m = kNegInf, l = 0.0f;
+    for (int64_t s = threadIdx.x; s < n_splits; s += 32) m = fmaxf(m, pm[s * per_split]);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    for (int64_t s = threadIdx.x; s < n_splits; s += 32)
+      l += pl[s * per_split] * expf(pm[s * per_split] - m);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (threadIdx.x == 0) {
+      ml[0] = m;
+      ml[1] = l;
+    }
   }
-  const int64_t row_tiles = (p.Sq * p.group + BM - 1) / BM;
-  if (row_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)row_tiles, (unsigned)Hkv, (unsigned)B);
+  __syncthreads();
+  const float m = ml[0], inv = 1.0f / (ml[1] == 0.0f ? 1.0f : ml[1]);
+  const int64_t r = slot % R, bh = slot / R;
+  const int64_t kvh = bh % Hkv, b = bh / Hkv;
+  const int64_t i = r / group, h = kvh * group + r % group;
+  T* dst = o + b * o_sb + h * o_sh + i * o_ss;
+  for (int64_t d = threadIdx.x; d < D; d += blockDim.x) {
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int64_t s = 0; s < n_splits; ++s)
+      acc += part[(s * per_split + slot) * D + d] * expf(pm[s * per_split] - m);
+    if constexpr (sizeof(T) == 4) dst[d] = acc * inv;
+    else dst[d] = __float2bfloat16_rn(acc * inv);
+  }
+}
+
+// --------------------------------------------------- bf16 tensor-core kernel
+
+// Q tile of BM rows, then a ring of STAGES (K, V) tiles of BN keys; rows
+// of DMAX bf16 padded by 16 bytes: a row is then 4 banks (mod 32) past the
+// one before, so the 8 rows of one ldmatrix phase cover all 32 banks once.
+template <int DMAX, int BM, int BN, int STAGES>
+struct TcSmem {
+  static constexpr int kRow = DMAX * 2 + 16;
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQ + BM * kRow;      // stage s: K at kKV + s * kStage, then V
+  static constexpr int kStage = 2 * BN * kRow;
+  static constexpr int kBytes = kKV + STAGES * kStage;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU; -1e30 and below give 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Writes row r's float32 partials of split `split` (m, l, unnormalised acc)
+// or, with one split, o = acc / l (0 where l = 0) in bf16. acc(d) gives
+// column d.
+template <typename Acc>
+__device__ __forceinline__ void tc_store_row(const Params& p, int64_t b, int64_t kvh,
+                                             int64_t split, int64_t r, float m, float l,
+                                             int d0, int d_step, Acc acc) {
+  const int64_t R = p.Sq * p.group;
+  if (p.n_splits > 1) {
+    const int64_t slots = p.n_splits * p.B * p.Hkv * R;
+    const int64_t slot = ((split * p.B + b) * p.Hkv + kvh) * R + r;
+    if (d0 == 0) {
+      p.part[slots * p.D + slot] = m;
+      p.part[slots * p.D + slots + slot] = l;
+    }
+    for (int d = d0; d < p.D; d += d_step) p.part[slot * p.D + d] = acc(d);
+    return;
+  }
+  const float inv = 1.0f / (l == 0.0f ? 1.0f : l);
+  const int64_t i = r / p.group, h = kvh * p.group + r % p.group;
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+  for (int d = d0; d < p.D; d += d_step) dst[d] = __float2bfloat16_rn(acc(d) * inv);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * gid + tig. A holds
+// rows gid and gid + 8, columns 2 tig, 2 tig + 1 (a0, a1) and the same + 8
+// (a2, a3); B holds column gid, rows 2 tig, 2 tig + 1 (b0) and + 8 (b1); the
+// accumulator holds rows gid (c0, c1) and gid + 8 (c2, c3), columns 2 tig,
+// 2 tig + 1.
+//
+// WM warps along the rows, MT m-tiles of 16 rows each, x WN warps along
+// the keys of a tile (BN / WN each). Prefill: WN = 1, every warp over the
+// whole tile; each K and V fragment feeds MT products. Decode: WM = MT =
+// 1, WN = 4, one 16-row tile (at most 8 rows are real), each warp a
+// quarter of the keys with its own m, l and accumulator, merged through
+// shared memory at the end. K and V tiles come through a ring of STAGES,
+// STAGES - 1 tiles ahead, one barrier a tile. The grid is one-dimensional,
+// (batch, kv head) pair fastest, then split, then row tile, last row tile
+// first: the heaviest blocks under a causal mask start first on every
+// pair, and the grid's tail is light.
+template <int DMAX, int BN, int WM, int WN, int MT, int STAGES>
+__global__ void __launch_bounds__(32 * WM * WN)
+tc_kernel(const Params p) {
+  constexpr int NT = 32 * WM * WN;
+  constexpr int BM = 16 * MT * WM;
+  constexpr int WK = BN / WN;    // keys of a tile for one warp
+  constexpr int KD = DMAX / 16;  // k-steps of S = Q K^T
+  constexpr int NS = WK / 8;     // n-tiles of S
+  constexpr int KP = WK / 16;    // k-steps of O += P V
+  constexpr int ND = DMAX / 8;   // n-tiles of O
+  constexpr int CH = DMAX / 8;   // 16-byte chunks of a row
+  constexpr bool kQInRegs = MT * DMAX <= 128;  // else ldmatrix Q at every k-step
+  using SM = TcSmem<DMAX, BM, BN, STAGES>;
+  static_assert(WK % 16 == 0 && ND % 2 == 0 && NS * 4 <= 32 && (BN * CH) % NT == 0,
+                "tile shape");
+  static_assert(kSplitKeys % BN == 0 && STAGES >= 2, "a split is whole tiles");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % WM, wn = warp / WM;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int64_t pairs = p.B * p.Hkv;
+  const int64_t b = blockIdx.x % pairs / p.Hkv, kvh = blockIdx.x % p.Hkv;
+  const int64_t group = p.group;
+  const int64_t R = p.Sq * group;
+  const int64_t row_tiles = (R + BM - 1) / BM;
+  const int64_t split = blockIdx.x / pairs % p.n_splits;
+  const int64_t r0 = (row_tiles - 1 - (int64_t)blockIdx.x / pairs / p.n_splits) * BM;
+  const int D = (int)p.D;
+
+  const int64_t r_last = (r0 + BM < R ? r0 + BM : R) - 1;
+  int64_t k_begin, k_end;
+  key_range(p, r0, r_last, split, k_begin, k_end);
+  const int64_t n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  const int64_t pos_lo = r0 / group + p.q_offset;
+  const int64_t pos_hi = r_last / group + p.q_offset;
+
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  unsigned char* q_s = smem + SM::kQ;
+  unsigned char* kv_s = smem + SM::kKV;
+
+  // Q rows past R and columns past D are zeros
+  for (int c = tid; c < BM * CH; c += NT) {
+    const int row = c / CH, ch = c % CH;
+    const int64_t r = r0 + row;
+    const bool valid = r < R && ch * 8 < D;
+    const __nv_bfloat16* src = qb;
+    if (valid) {
+      const int64_t i = r / group, h = kvh * group + r % group;
+      src += b * p.q_sb + h * p.q_sh + i * p.q_ss + ch * 8;
+    }
+    cp_async16(q_s + row * SM::kRow + ch * 16, src, valid);
+  }
+  // A thread copies the same chunk of rows ld_row, ld_row + NT / CH, ...
+  // of every K and V tile. Rows past k_end and columns past D are zeros: a
+  // cache holds unwritten positions past the causal end, and 0 * NaN would
+  // reach O.
+  constexpr int kLdRows = NT / CH;  // rows one pass of the block copies
+  const int ld_row = tid / CH, ld_ch = tid % CH;
+  const bool ld_col = ld_ch * 8 < D;
+  auto load_tile = [&](int stage, int64_t t0) {  // K and V of keys t0.. into a stage
+    unsigned char* dst = kv_s + stage * SM::kStage + ld_row * SM::kRow + ld_ch * 16;
+    const __nv_bfloat16* ks = kb + (t0 + ld_row) * p.k_ss + ld_ch * 8;
+    const __nv_bfloat16* vs = vb + (t0 + ld_row) * p.v_ss + ld_ch * 8;
+#pragma unroll
+    for (int i = 0; i < BN / kLdRows; ++i) {
+      const bool valid = ld_col && t0 + ld_row + i * kLdRows < k_end;
+      const int at = i * kLdRows * SM::kRow;
+      cp_async16(dst + at, valid ? ks + i * kLdRows * p.k_ss : kb, valid);
+      cp_async16(dst + BN * SM::kRow + at, valid ? vs + i * kLdRows * p.v_ss : vb, valid);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {  // one group a tile; the first also holds Q
+    if (st < n_tiles) load_tile(st, k_begin + st * BN);
+    cp_async_commit();
+  }
+
+  float o_acc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      o_acc[mt][j][0] = o_acc[mt][j][1] = o_acc[mt][j][2] = o_acc[mt][j][3] = 0.0f;
+  float m_row[MT][2], l_row[MT][2];  // l: this thread's share of the row
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m_row[mt][0] = m_row[mt][1] = kNegInf;
+    l_row[mt][0] = l_row[mt][1] = 0.0f;
+  }
+  uint32_t q_frag[kQInRegs ? MT : 1][kQInRegs ? KD : 1][4];
+  int rel[MT][2];  // position of this thread's rows - pos_lo; -1 past R
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t r = r0 + (wm * MT + mt) * 16 + gid + 8 * h;
+      rel[mt][h] = r < R ? (int)(r / group - r0 / group) : -1;
+    }
+  const float c = (p.softcap > 0.0f ? 1.0f : p.sm_scale) * kLog2e;
+
+  // this lane's ldmatrix row addresses: matrix lane >> 3, its row lane & 7
+  const int mi = lane >> 3, mr = lane & 7;
+  const uint32_t q_addr =
+      smem_u32(q_s) + (wm * MT * 16 + (mi & 1) * 8 + mr) * SM::kRow + (mi >> 1) * 16;
+  const uint32_t k_addr =
+      smem_u32(kv_s) + (wn * WK + (mi >> 1) * 8 + mr) * SM::kRow + (mi & 1) * 16;
+  const uint32_t v_addr =
+      smem_u32(kv_s) + (BN + wn * WK + (mi & 1) * 8 + mr) * SM::kRow + (mi >> 1) * 16;
+
+  int stage = 0;
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    const int64_t t0 = k_begin + t * BN;
+    cp_async_wait<STAGES - 2>();  // tile t's group landed (later ones may be in flight)
+    __syncthreads();  // ... for every thread, and every thread is done with tile t - 1
+    {  // tile t + STAGES - 1 into the stage that tile t - 1 used
+      const int64_t ahead = t + STAGES - 1;
+      if (ahead < n_tiles)
+        load_tile(stage == 0 ? STAGES - 1 : stage - 1, k_begin + ahead * BN);
+      cp_async_commit();
+    }
+    if (kQInRegs && t == 0) {
+#pragma unroll
+      for (int mt = 0; mt < (kQInRegs ? MT : 1); ++mt)
+#pragma unroll
+        for (int kk = 0; kk < (kQInRegs ? KD : 1); ++kk)
+          ldmatrix_x4(q_frag[mt][kk], q_addr + mt * 16 * SM::kRow + kk * 32);
+    }
+
+    // S = Q K^T over the k-steps that hold some of D
+    float s[MT][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.0f;
+    const uint32_t kt = k_addr + stage * SM::kStage;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      if (kk * 16 >= D) break;
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (kQInRegs) {
+          a[mt][0] = q_frag[mt][kk][0]; a[mt][1] = q_frag[mt][kk][1];
+          a[mt][2] = q_frag[mt][kk][2]; a[mt][3] = q_frag[mt][kk][3];
+        } else {
+          ldmatrix_x4(a[mt], q_addr + mt * 16 * SM::kRow + kk * 32);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, kt + np * 16 * SM::kRow + kk * 32);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], bk[0], bk[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // Scores stay in units u: q.k, or softcap * tanh(q.k * sm_scale /
+    // softcap) with a soft-cap; p = 2^(u c - m c) with c = log2(e) times
+    // sm_scale (or 1), one FFMA and one MUFU an element.
+    if (p.softcap > 0.0f) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][j][e] = p.softcap * tanhf(s[mt][j][e] * p.sm_scale / p.softcap);
+    }
+    // mask only in a tile that some row does not see whole (uniform over the block)
+    const bool whole = t0 + BN <= k_end && (!p.causal || t0 + BN - 1 <= pos_lo) &&
+                       (p.window <= 0 || t0 > pos_hi - p.window);
+    uint32_t seen[MT];  // bit 4 j + e: element e of n-tile j is visible
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) seen[mt] = 0xffffffffu;
+    if (!whole) {
+      // element (j, e) holds key key0 + o, o = 8 j + (e & 1); a row sees
+      // o_lo < o < o_hi
+      const int64_t key0 = t0 + wn * WK + 2 * tig;
+      const int64_t base = pos_lo - key0;  // a row's position - key0, less its rel
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int64_t hi = p.Sk - key0, lo = -1;
+          if (p.causal && base + rel[mt][h] + 1 < hi) hi = base + rel[mt][h] + 1;
+          if (p.window > 0) lo = base + rel[mt][h] - p.window;
+          if (rel[mt][h] < 0) hi = -1;
+          const int o_hi = (int)(hi < -1 ? -1 : hi > WK ? WK : hi);
+          const int o_lo = (int)(lo < -1 ? -1 : lo > WK ? WK : lo);
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+              const int o = 8 * j + (e & 1);
+              if (o >= o_hi || o <= o_lo) {
+                seen[mt] &= ~(1u << (4 * j + e));
+                s[mt][j][e] = kNegInf;
+              }
+            }
+        }
+    }
+    bool moved = false;  // some row's max rose
+    float alpha[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
+      }
+      float m_c[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // the row's max over the quad that holds it
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_row[mt][h], mx[h]);
+        moved |= m_new != m_row[mt][h];
+        alpha[mt][h] = ex2((m_row[mt][h] - m_new) * c);
+        m_row[mt][h] = m_new;
+        m_c[h] = m_new * c;
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = ex2(fmaf(s[mt][j][e], c, -m_c[e >> 1]));
+      if (!whole) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!(seen[mt] >> (4 * j + e) & 1u)) s[mt][j][e] = 0.0f;
+      }
+      float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        rs[0] += s[mt][j][0] + s[mt][j][1];
+        rs[1] += s[mt][j][2] + s[mt][j][3];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_row[mt][h] = l_row[mt][h] * alpha[mt][h] + rs[h];
+    }
+    if (__any_sync(0xffffffffu, moved)) {  // else every alpha is 1
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          o_acc[mt][j][0] *= alpha[mt][0]; o_acc[mt][j][1] *= alpha[mt][0];
+          o_acc[mt][j][2] *= alpha[mt][1]; o_acc[mt][j][3] *= alpha[mt][1];
+        }
+    }
+
+    // O += P V, p rounded to bf16: S's n-tiles 2 kk and 2 kk + 1 are the A
+    // fragment of k-step kk
+    const uint32_t vt = v_addr + stage * SM::kStage;
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        if (dp * 16 >= D) break;
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vt + kk * 16 * SM::kRow + dp * 32);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o_acc[mt][2 * dp], a[mt], bv[0], bv[1]);
+          mma_bf16(o_acc[mt][2 * dp + 1], a[mt], bv[2], bv[3]);
+        }
+      }
+    }
+    stage = stage == STAGES - 1 ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+
+  // l summed over the quad that holds the row
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_row[mt][h] += __shfl_xor_sync(0xffffffffu, l_row[mt][h], 1);
+      l_row[mt][h] += __shfl_xor_sync(0xffffffffu, l_row[mt][h], 2);
+    }
+  if constexpr (WN == 1) {  // prefill, one split: each row is one warp's, written from registers
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t r = r0 + (wm * MT + mt) * 16 + gid + 8 * h;
+        if (r >= R) continue;
+        const float inv = 1.0f / (l_row[mt][h] == 0.0f ? 1.0f : l_row[mt][h]);
+        const int64_t i = r / group, hq = kvh * group + r % group;
+        __nv_bfloat16* dst =
+            static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + hq * p.o_sh + i * p.o_ss + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          if (j * 8 + 2 * tig < D)
+            *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(
+                o_acc[mt][j][2 * h] * inv, o_acc[mt][j][2 * h + 1] * inv);
+        }
+      }
+  } else {  // merge the WN warps' shares of each row through the freed K/V stages
+    static_assert(MT == 1 && WN * BM * (DMAX + 2) * 4 <= STAGES * SM::kStage, "merge scratch");
+    float* red_o = reinterpret_cast<float*>(kv_s);  // (WN, BM, DMAX)
+    float* red_m = red_o + WN * BM * DMAX;                    // (WN, BM)
+    float* red_l = red_m + WN * BM;
+    __syncthreads();  // every warp is done with the K/V stages
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 16 + gid + 8 * h;
+      float* dst = red_o + (wn * BM + row) * DMAX + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        dst[j * 8] = o_acc[0][j][2 * h];
+        dst[j * 8 + 1] = o_acc[0][j][2 * h + 1];
+      }
+      if (tig == 0) {
+        red_m[wn * BM + row] = m_row[0][h];
+        red_l[wn * BM + row] = l_row[0][h];
+      }
+    }
+    __syncthreads();
+    const int rows = (int)(R - r0 < BM ? R - r0 : BM);
+    constexpr int kPerRow = NT / BM;  // threads per row, each every kPerRow-th column
+    const int row = tid / kPerRow;
+    if (row < rows) {
+      float m = kNegInf;
+#pragma unroll
+      for (int w = 0; w < WN; ++w) m = fmaxf(m, red_m[w * BM + row]);
+      float wt[WN], l = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WN; ++w) {
+        wt[w] = ex2((red_m[w * BM + row] - m) * c);
+        l += red_l[w * BM + row] * wt[w];
+      }
+      // the partial's max in scaled scores, as the combine kernel reads it
+      const float m_scaled = m == kNegInf || p.softcap > 0.0f ? m : m * p.sm_scale;
+      tc_store_row(p, b, kvh, split, r0 + row, m_scaled, l, tid % kPerRow, kPerRow, [&](int d) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int w = 0; w < WN; ++w) acc += red_o[(w * BM + row) * DMAX + d] * wt[w];
+        return acc;
+      });
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launches
+
+template <typename K>
+int configure(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int BM, int DMAX, int RG>
+int launch_simt(const Params& p, cudaStream_t stream) {
+  constexpr int BN = DMAX <= 64 ? 64 : 32;
+  constexpr int bytes = Smem<BM, BN, DMAX>::kBytes;
+  auto kernel = simt_kernel<BM, BN, DMAX, RG>;
+  static const int configured = configure(kernel, bytes);
+  if (configured != 0) return configured;
+  const int64_t blocks = (p.Sq * p.group + BM - 1) / BM * p.n_splits;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)blocks, (unsigned)p.Hkv, (unsigned)p.B);
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <int DMAX, int BN, int WM, int WN, int MT, int STAGES>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr int BM = 16 * MT * WM;
+  constexpr int bytes = TcSmem<DMAX, BM, BN, STAGES>::kBytes;
+  auto kernel = tc_kernel<DMAX, BN, WM, WN, MT, STAGES>;
+  static const int configured = configure(kernel, bytes);
+  if (configured != 0) return configured;
+  const int64_t blocks = (p.Sq * p.group + BM - 1) / BM * p.n_splits * p.B * p.Hkv;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 32 * WM * WN, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DMAX>
-int launch_d(const Params& p, int64_t B, int64_t Hkv, cudaStream_t stream) {
-  if (p.Sq * p.group <= 8) return launch<T, 8, DMAX, 8>(p, B, Hkv, stream);  // decode
-  if constexpr (DMAX == 256) return launch<T, 32, DMAX, 16>(p, B, Hkv, stream);
-  else return launch<T, 64, DMAX, 16>(p, B, Hkv, stream);
+int launch_d(const Params& p, cudaStream_t stream) {
+  const bool decode = p.Sq * p.group <= kDecodeRows;
+  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores, one 16-row tile at decode
+    if (decode) return launch_tc<DMAX, 64, 1, 4, 1, 2>(p, stream);
+    // 128 rows x 64 keys; at D = 256, where the accumulator is 128 registers, 64 x 32
+    if constexpr (DMAX == 256) return launch_tc<DMAX, 32, 4, 1, 1, 2>(p, stream);
+    else return launch_tc<DMAX, 64, 4, 1, 2, 2>(p, stream);
+  } else {
+    if (decode) return launch_simt<kDecodeRows, DMAX, 8>(p, stream);
+    if constexpr (DMAX == 256) return launch_simt<32, DMAX, 16>(p, stream);
+    else return launch_simt<64, DMAX, 16>(p, stream);
+  }
 }
 
 template <typename T>
-int launch_t(const Params& p, int64_t B, int64_t Hkv, cudaStream_t stream) {
-  if (p.D <= 64) return launch_d<T, 64>(p, B, Hkv, stream);
-  if (p.D <= 128) return launch_d<T, 128>(p, B, Hkv, stream);
-  return launch_d<T, 256>(p, B, Hkv, stream);
+int launch_t(const Params& p, cudaStream_t stream) {
+  if (p.D <= 64) return launch_d<T, 64>(p, stream);
+  if (p.D <= 128) return launch_d<T, 128>(p, stream);
+  return launch_d<T, 256>(p, stream);
 }
 
 bool aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss, int64_t vec) {
@@ -395,25 +956,56 @@ bool aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss, int64_t vec) {
 
 // q, k, v, o: device pointers; strides in elements, (batch, head, position)
 // each, D contiguous. window <= 0: none; softcap <= 0: none. dtype: 0
-// float32, 1 bfloat16. Returns a cudaError_t; Sq == 0 launches nothing.
+// float32, 1 bfloat16. n_splits > 1 (decode only: Sq * Hq / Hkv <= 8)
+// writes float32 partials to part, n_splits * B * Hkv * Sq * (Hq / Hkv) *
+// (D + 2) of them, for flash_attention_combine_launch to merge into o.
+// Returns a cudaError_t; Sq == 0 launches nothing.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Hq, int64_t Hkv,
-    int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
-    int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-    int64_t o_sh, int64_t o_ss, int64_t causal, int64_t window, int64_t q_offset,
-    float softcap, float sm_scale, int64_t dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* part, int64_t B, int64_t Hq,
+    int64_t Hkv, int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t causal, int64_t window,
+    int64_t q_offset, int64_t n_splits, float softcap, float sm_scale, int64_t dtype,
+    void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || D <= 0 || D > 256 || D % 8 != 0 ||
-      B > 65535 || Hkv > 65535 || (dtype != 0 && dtype != 1))
+      B > 65535 || Hkv > 65535 || (dtype != 0 && dtype != 1) || n_splits < 1 ||
+      (n_splits > 1 && (Sq * (Hq / Hkv) > kDecodeRows || part == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int64_t vec = dtype == 0 ? 4 : 8;
   if (!aligned(q, q_sb, q_sh, q_ss, vec) || !aligned(k, k_sb, k_sh, k_ss, vec) ||
-      !aligned(v, v_sb, v_sh, v_ss, vec) || !aligned(o, o_sb, o_sh, o_ss, 4))
+      !aligned(v, v_sb, v_sh, v_ss, vec) || !aligned(o, o_sb, o_sh, o_ss, 4) ||
+      (uintptr_t)part % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, Sq, Sk, D, Hq / Hkv,
+  Params p{q, k, v, o, static_cast<float*>(part), B, Hkv, Sq, Sk, D, Hq / Hkv, n_splits,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
            q_offset, window, causal != 0 ? 1 : 0, softcap, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_t<float>(p, B, Hkv, s);
-  return launch_t<__nv_bfloat16>(p, B, Hkv, s);
+  if (dtype == 0) return launch_t<float>(p, s);
+  return launch_t<__nv_bfloat16>(p, s);
+}
+
+// Merges the n_splits partials that flash_attention_launch wrote to part
+// into o (strides in elements, D contiguous), in o's dtype (0 float32, 1
+// bfloat16). Returns a cudaError_t.
+extern "C" int flash_attention_combine_launch(const void* part, void* o, int64_t B, int64_t Hq,
+                                              int64_t Hkv, int64_t Sq, int64_t D,
+                                              int64_t n_splits, int64_t o_sb, int64_t o_sh,
+                                              int64_t o_ss, int64_t dtype, void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || n_splits < 2 || part == nullptr ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int64_t group = Hq / Hkv, R = Sq * group;
+  const int64_t blocks = B * Hkv * R;  // one a row
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pf = static_cast<const float*>(part);
+  if (dtype == 0)
+    combine_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+        pf, static_cast<float*>(o), B, Hkv, group, R, D, n_splits, o_sb, o_sh, o_ss);
+  else
+    combine_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
+        pf, static_cast<__nv_bfloat16*>(o), B, Hkv, group, R, D, n_splits, o_sb, o_sh, o_ss);
+  return (int)cudaGetLastError();
 }

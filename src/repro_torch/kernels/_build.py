@@ -32,29 +32,36 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CUDA_ROOTS = ("/usr/local/cuda",)  # where nvcc is looked for off the PATH
 
 _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-# source name -> (C entry point, its argument types; the last is the stream)
+# source name -> {kernel name: (C entry point, its argument types; the last
+# is the stream)}; each kernel name is a key of launch_counts
 SOURCES = {
-    "bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P]),
-    "digram_count": ("digram_pair_counts_launch", [_P, _P, _P, _P, _P, _I64, _I64, _P]),
-    "embedding_bag": ("embedding_bag_launch",
-                      [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]),
-    "dot_interaction": ("dot_interaction_launch", [_P, _P, _I64, _I64, _I64, _I64, _P]),
-    # q, k, v, o; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal, window,
-    # q_offset; softcap, sm_scale; dtype
-    "flash_attention": ("flash_attention_launch",
-                        [_P] * 4 + [_I64] * 6 + [_I64] * 12 + [_I64] * 3 + [_F32] * 2
-                        + [_I64, _P]),
+    "bitvec_rank": {"bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P])},
+    "digram_count": {"digram_pair_counts": ("digram_pair_counts_launch",
+                                            [_P, _P, _P, _P, _P, _I64, _I64, _P])},
+    "embedding_bag": {"embedding_bag": ("embedding_bag_launch",
+                                        [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                                         _P])},
+    "dot_interaction": {"dot_interaction": ("dot_interaction_launch",
+                                            [_P, _P, _I64, _I64, _I64, _I64, _P])},
+    "flash_attention": {
+        # q, k, v, o, part; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal,
+        # window, q_offset, n_splits; softcap, sm_scale; dtype
+        "flash_attention": ("flash_attention_launch",
+                            [_P] * 5 + [_I64] * 6 + [_I64] * 12 + [_I64] * 4 + [_F32] * 2
+                            + [_I64, _P]),
+        # part, o; B, Hq, Hkv, Sq, D, n_splits; 3 strides of o; dtype
+        "flash_attention_combine": ("flash_attention_combine_launch",
+                                    [_P] * 2 + [_I64] * 6 + [_I64] * 3 + [_I64, _P]),
+    },
     # x, row_ptr, col, out; n_rows, n_x, D, dtype
-    "segment_matmul": ("csr_spmm_launch", [_P] * 4 + [_I64] * 4 + [_P]),
+    "segment_matmul": {"csr_spmm": ("csr_spmm_launch", [_P] * 4 + [_I64] * 4 + [_P])},
 }
 
 # kernel name -> launches so far; each wrapper adds one where it launches
-launch_counts: dict[str, int] = {"bitvec_rank": 0, "digram_pair_counts": 0,
-                                 "embedding_bag": 0, "dot_interaction": 0,
-                                 "flash_attention": 0, "csr_spmm": 0}
+launch_counts: dict[str, int] = {k: 0 for entries in SOURCES.values() for k in entries}
 
 _libs: dict[str, ctypes.CDLL] = {}
-_entries: dict = {}  # source name -> its ctypes entry point, typed
+_entries: dict = {}  # kernel name -> its ctypes entry point, typed
 
 
 def reset_launch_counts() -> None:
@@ -120,22 +127,23 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     _finish(name, _start(name))
     lib = ctypes.CDLL(str(_target(name)))
-    symbol, argtypes = SOURCES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for kernel, (symbol, argtypes) in SOURCES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[kernel] = fn
     _libs[name] = lib
-    _entries[name] = fn
     return lib
 
 
 def launch(source: str, kernel: str, device: torch.device, *args) -> None:
-    """Call the C entry point of ``csrc/<source>.cu`` with `args` and the
-    current stream of `device`; raise if the launch failed, else count it."""
-    fn = _entries.get(source)
+    """Call the C entry point of `kernel` in ``csrc/<source>.cu`` with `args`
+    and the current stream of `device`; raise if the launch failed, else
+    count it."""
+    fn = _entries.get(kernel)
     if fn is None:
         load(source)
-        fn = _entries[source]
+        fn = _entries[kernel]
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 _M32 = 0xFFFFFFFF
+SPLIT_KEYS = 64  # a split of the decode's keys covers whole chunks of this many keys
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -148,3 +149,103 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.matmul(p.to(v.dtype).float(), v.float().unsqueeze(2))
     o = o / torch.where(l == 0.0, 1.0, l)
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def visible_range(sq: int, sk: int, q_offset: int, causal: bool,
+                  window: int | None) -> tuple[int, int]:
+    """Keys [lo, hi) that some of the Sq query rows at positions q_offset..
+    can see, as the kernel computes them for a tile that holds every row;
+    empty when hi <= lo."""
+    lo, hi = 0, sk
+    if causal:
+        hi = min(hi, sq - 1 + q_offset + 1)
+    if window:
+        lo = max(lo, q_offset - window + 1)
+    return lo, hi
+
+
+def split_bounds(lo: int, hi: int, n_splits: int) -> list[tuple[int, int]]:
+    """The kernel's splits of the keys [lo, hi): whole SPLIT_KEYS chunks,
+    split s taking chunks [s * per, (s + 1) * per) with per =
+    ceil(chunks / n_splits), the last cut at hi; a split past the last
+    chunk is empty (its two bounds equal)."""
+    chunks = -(-(hi - lo) // SPLIT_KEYS) if hi > lo else 0
+    per = -(-chunks // n_splits)
+    out = []
+    for s in range(n_splits):
+        a = lo + s * per * SPLIT_KEYS
+        out.append((a, max(a, min(a + per * SPLIT_KEYS, hi))))
+    return out
+
+
+def flash_attention_partials_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                 n_splits: int, causal: bool = True, window: int | None = None,
+                                 softcap: float | None = None, sm_scale: float | None = None,
+                                 q_offset: int | None = None):
+    """The split decode's first pass: float32 partials (m, l, acc) of each
+    split, over the splits that :func:`split_bounds` cuts from the
+    :func:`visible_range` (the kernel's arithmetic).
+
+    Rows are the kernel's: r = i * group + g for query position i and head
+    g of a kv head's group. m (S, B, Hkv, R) is a split's max scaled score
+    (-1e30 where it sees no key), l (S, B, Hkv, R) the sum of p = exp(s -
+    m), acc (S, B, Hkv, R, D) p rounded to v's dtype times v.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = float(1.0 / (d ** 0.5))
+    if q_offset is None:
+        q_offset = sk - sq
+    qf = q.float().reshape(b, hkv, group, sq, d).transpose(2, 3).reshape(b, hkv, sq * group, d)
+    s = torch.matmul(qf, k.float().transpose(-1, -2)) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = (torch.arange(sq, device=q.device) + q_offset).repeat_interleave(group)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq * group, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    vf = v.float()
+    ms, ls, accs = [], [], []
+    for lo, hi in split_bounds(*visible_range(sq, sk, q_offset, causal, window), n_splits):
+        m_in = mask & (k_pos >= lo) & (k_pos < hi)
+        s_in = torch.where(m_in, s, NEG_INF)
+        m_s = s_in.amax(dim=-1) if sk else torch.full(s.shape[:-1], NEG_INF, device=q.device)
+        p = torch.where(m_in, torch.exp(s_in - m_s[..., None]), 0.0)
+        ms.append(m_s)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.matmul(p.to(v.dtype).float(), vf))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def flash_attention_combine_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                                group: int, dtype: torch.dtype) -> torch.Tensor:
+    """The merge of the split partials of
+    :func:`flash_attention_partials_ref`: m* = max m_s, o = sum acc_s
+    e^(m_s - m*) / sum l_s e^(m_s - m*), 0 where that sum is 0. Returns
+    (B, Hkv * group, Sq, D) in `dtype`."""
+    n, b, hkv, rows, d = acc.shape
+    m_all = m.amax(dim=0)
+    w = torch.exp(m - m_all)
+    l_all = (l * w).sum(dim=0)
+    o = (acc * w[..., None]).sum(dim=0) / torch.where(l_all == 0.0, 1.0, l_all)[..., None]
+    o = o.reshape(b, hkv, rows // group, group, d).transpose(2, 3)
+    return o.reshape(b, hkv * group, rows // group, d).to(dtype)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              n_splits: int, causal: bool = True, window: int | None = None,
+                              softcap: float | None = None, sm_scale: float | None = None,
+                              q_offset: int | None = None) -> torch.Tensor:
+    """:func:`flash_attention_ref` computed as the split decode computes it:
+    the partials of :func:`flash_attention_partials_ref` merged by
+    :func:`flash_attention_combine_ref`. Returns (B, Hq, Sq, D) in q's
+    dtype."""
+    kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=sm_scale,
+              q_offset=q_offset)
+    m, l, acc = flash_attention_partials_ref(q, k, v, n_splits=n_splits, **kw)
+    return flash_attention_combine_ref(m, l, acc, q.shape[1] // k.shape[1], q.dtype)

@@ -22,7 +22,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import (SPLIT_MAX_ROWS, flash_attention_combine_cuda,
+                                                 flash_attention_cuda, pack_partials,
+                                                 partials_size, plan_splits, planned_splits)
+from repro_torch.kernels.ref import SPLIT_KEYS, split_bounds, visible_range
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -139,6 +143,151 @@ def test_empty_lengths():
     assert torch.equal(ops.flash_attention(q, kv, kv), torch.zeros((1, 2, 3, 8)))
 
 
+# ------------------------------------------------- the split decode's arithmetic
+SPLITS = [1, 2, 3, 7]
+
+
+@pytest.mark.parametrize("n_splits", SPLITS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("sk,window,block_k", [
+    (256, None, 64),    # causal decode at q_offset 255 against the cache cut there
+    (256, 20, 64),      # a window of 20 keys: every split but the first is empty
+    (200, None, 40),    # Sk not a multiple of 64: the last chunk is ragged
+])
+def test_split_ref_matches_pallas(n_splits, dtype, sk, window, block_k):
+    """One decode row per head at position Sk - 1 (the Pallas kernel's right
+    alignment, q_offset = Sk - 1), split and merged, against Pallas."""
+    (q, k, v), (tq, tk, tv) = _qkv(8, 2, 12, 2, 1, sk, 16, dtype)
+    got = tref.flash_attention_split_ref(tq, tk, tv, n_splits=n_splits, window=window,
+                                         q_offset=sk - 1)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = jops.flash_attention(q, k, v, causal=True, window=window, block_q=1,
+                                block_k=block_k)
+    _close(got, want, _tol(dtype))
+
+
+@pytest.mark.parametrize("n_splits", SPLITS)
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,kw", [
+    (3, 6, 2, 1, 1000, 32, dict(q_offset=700)),                # causal decode mid-cache
+    (2, 12, 2, 1, 2048, 16, dict(q_offset=1500, window=100)),  # 2 of 32 chunks visible
+    (1, 4, 2, 2, 97, 8, dict(causal=False)),                   # 4 rows, Sk prime
+    (2, 8, 2, 2, 300, 16, dict(q_offset=130, softcap=20.0)),  # 8 rows, soft-capped
+    (1, 4, 2, 3, 64, 8, dict(q_offset=-5)),                    # rows before every key
+    (1, 4, 2, 1, 0, 8, {}),                                    # no key at all
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_ref_matches_twin(n_splits, b, hq, hkv, sq, sk, d, kw, dtype):
+    _, (tq, tk, tv) = _qkv(9, b, hq, hkv, sq, sk, d)
+    tq, tk, tv = tq.to(dtype), tk.to(dtype), tv.to(dtype)
+    got = tref.flash_attention_split_ref(tq, tk, tv, n_splits=n_splits, **kw)
+    want = tref.flash_attention_ref(tq, tk, tv, **kw)
+    tol = F32 if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_split_partials_merge_to_the_unsplit_partial():
+    """Merging the partials of any split count gives the one-split result,
+    and an empty split carries m = -1e30, l = 0, acc = 0."""
+    _, (tq, tk, tv) = _qkv(10, 2, 6, 2, 1, 500, 16)
+    kw = dict(q_offset=480, window=90)
+    one = tref.flash_attention_combine_ref(
+        *tref.flash_attention_partials_ref(tq, tk, tv, n_splits=1, **kw), 3, tq.dtype)
+    m, l, acc = tref.flash_attention_partials_ref(tq, tk, tv, n_splits=7, **kw)
+    assert m.shape == l.shape == (7, 2, 2, 3) and acc.shape == (7, 2, 2, 3, 16)
+    empty = [s for s, (lo, hi) in enumerate(split_bounds(391, 481, 7)) if hi <= lo]
+    assert empty == [2, 3, 4, 5, 6]
+    assert bool((m[empty] == tref.NEG_INF).all() and (l[empty] == 0).all()
+                and (acc[empty] == 0).all())
+    torch.testing.assert_close(tref.flash_attention_combine_ref(m, l, acc, 3, tq.dtype), one,
+                               **F32)
+
+
+# ------------------------------------------------------------------ the planner
+PLAN_CASES = [  # (pairs, Sq, group, Sk, q_offset, causal, window, SMs)
+    (128, 1, 6, 32768, 32767, True, None, 132),  # decode_32k at batch 64
+    (16, 1, 6, 4096, 1600, True, None, 132),     # lm_serve decode against its 4,096 cache
+    (16, 1, 6, 4096, 1600, True, 100, 132),
+    (2, 1, 8, 1000, 999, False, None, 132),
+    (6, 1, 6, 97, 50, True, None, 132),
+    (4, 2, 4, 5000, 4000, True, None, 8),
+    (1, 1, 6, 64, 63, True, None, 132),          # one chunk: no split
+    (64, 2, 6, 32768, 32766, True, None, 132),   # 12 rows: prefill, no split
+    (8, 128, 6, 4096, 0, True, None, 132),
+    (4, 1, 6, 300, -1, True, None, 132),         # sees no key
+]
+
+
+@pytest.mark.parametrize("pairs,sq,group,sk,q_offset,causal,window,n_sm", PLAN_CASES)
+def test_plan_splits_tiles_the_visible_keys(pairs, sq, group, sk, q_offset, causal, window,
+                                            n_sm):
+    lo, hi = visible_range(sq, sk, q_offset, causal, window)
+    n = plan_splits(pairs, sq * group, lo, hi, n_sm)
+    assert n >= 1
+    if sq * group > SPLIT_MAX_ROWS:
+        assert n == 1
+    bounds = split_bounds(lo, hi, n)
+    assert len(bounds) == n
+    seen = [(a, e) for a, e in bounds if e > a]
+    if hi > lo:
+        assert len(seen) == n  # a planned split is never empty
+        assert seen[0][0] == lo and seen[-1][1] == hi
+        for (a, e), (a2, _) in zip(seen, seen[1:]):
+            assert e == a2 and (e - a) % SPLIT_KEYS == 0  # contiguous, whole chunks
+        assert n <= -(-(hi - lo) // SPLIT_KEYS)
+    else:
+        assert n == 1 and seen == []
+    # the visible keys by brute force: every visible key in some split, none outside
+    pos = np.arange(sq)[:, None] + q_offset
+    key = np.arange(sk)[None, :]
+    vis = np.ones((sq, sk), bool)
+    if causal:
+        vis &= pos >= key
+    if window:
+        vis &= key > pos - window
+    cols = np.flatnonzero(vis.any(axis=0))
+    covered = np.zeros(sk, bool)
+    for a, e in seen:
+        covered[a:min(e, sk)] = True
+    assert covered[cols].all()
+    if cols.size:
+        assert lo == cols.min() and hi == cols.max() + 1
+
+
+def test_plan_splits_fills_the_card():
+    assert plan_splits(128, 6, 0, 32768, n_sm=132) == 9      # 1,152 blocks for 132 SMs
+    assert plan_splits(16, 6, 0, 1600, n_sm=132) == 25       # one split a 64-key chunk
+    assert plan_splits(16, 6, 0, 1600, n_sm=132) * 16 >= 132
+    assert plan_splits(100000, 6, 0, 32768, n_sm=132) == 1   # enough pairs already
+
+
+@pytest.mark.parametrize("pairs,sq,group,sk,q_offset,causal,window,n_sm", PLAN_CASES)
+def test_planned_splits_is_the_plan_of_the_call(pairs, sq, group, sk, q_offset, causal, window,
+                                                n_sm):
+    """planned_splits reads the plan off a call's tensors and keywords as
+    the wrapper does, and gives a forced n_splits back unchanged."""
+    q = torch.zeros((pairs, group, sq, 8))
+    k = torch.zeros((pairs, 1, sk, 8))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=30.0, sm_scale=0.5)
+    want = plan_splits(pairs, sq * group, *visible_range(sq, sk, q_offset, causal, window), n_sm)
+    assert planned_splits(q, k, n_sm=n_sm, **kw) == want
+    assert planned_splits(q, k, n_sm=n_sm, n_splits=3, **kw) == 3
+    if q_offset == sk - sq:  # q_offset None means Sk - Sq
+        assert planned_splits(q, k, n_sm=n_sm, **{**kw, "q_offset": None}) == want
+
+
+def test_pack_partials_is_the_flat_layout():
+    """acc, then m, then l, float32, partials_size values in all."""
+    _, (tq, tk, tv) = _qkv(11, 2, 6, 2, 1, 300, 16)
+    m, l, acc = tref.flash_attention_partials_ref(tq, tk, tv, n_splits=3)
+    flat = pack_partials(m, l, acc)
+    assert flat.dtype == torch.float32 and flat.dim() == 1
+    assert flat.numel() == partials_size(3, 2, 2, 3, 16)
+    n = acc.numel()
+    assert torch.equal(flat[:n].view(acc.shape), acc)
+    assert torch.equal(flat[n:n + m.numel()].view(m.shape), m)
+    assert torch.equal(flat[n + m.numel():].view(l.shape), l)
+
+
 # ---------------------------------------------------------------- the wrapper
 def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.reset_launch_counts()
@@ -148,7 +297,8 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed_dtype", "head_dim_256+", "head_dim_odd",
-                                  "groups", "window", "softcap", "cpu_tensor"])
+                                  "groups", "window", "softcap", "cpu_tensor", "n_splits_0",
+                                  "n_splits_float", "n_splits_prefill"])
 def test_cuda_wrapper_refuses(case):
     q = torch.zeros((1, 4, 3, 16))
     kv = torch.zeros((1, 2, 5, 16))
@@ -168,5 +318,26 @@ def test_cuda_wrapper_refuses(case):
         kw = dict(window=0)
     elif case == "softcap":
         kw = dict(softcap=-1.0)
-    with pytest.raises(err):
+    elif case == "n_splits_0":
+        kw = dict(n_splits=0)
+    elif case == "n_splits_float":
+        kw = dict(n_splits=2.0)
+    elif case == "n_splits_prefill":  # 6 positions x a group of 2 = 12 rows: prefill
+        q, kw = torch.zeros((1, 4, 6, 16)), dict(n_splits=2)
+    with pytest.raises(err, match="n_splits" if case.startswith("n_splits") else None):
         flash_attention_cuda(q, kv, kv, **kw)
+
+
+@pytest.mark.parametrize("case", ["cpu_tensor", "size", "dtype", "one_split"])
+def test_combine_wrapper_refuses(case):
+    out = torch.zeros((1, 4, 1, 16))
+    part = torch.zeros(3 * 1 * 2 * 2 * 18)
+    hkv, n, err = 2, 3, ValueError
+    if case == "size":
+        part = part[:-1]
+    elif case == "dtype":
+        part, err = part.double(), TypeError
+    elif case == "one_split":
+        n, part = 1, torch.zeros(1 * 1 * 2 * 2 * 18)
+    with pytest.raises(err):
+        flash_attention_combine_cuda(part, out, hkv, n)
