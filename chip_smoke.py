@@ -14,8 +14,9 @@ nothing of the JAX package. Phases:
    ``embedding_bag`` with one row per bag, within a stated tolerance
    otherwise (``flash_attention`` and ``csr_spmm`` in float32 and bfloat16,
    ``flash_attention`` also split and merged at decode and its merge
-   kernel on the twin's partials, ``csr_spmm``'s backward against the
-   twin's autograd);
+   kernel on the twin's partials, ``csr_spmm`` also against its split twin
+   on the plan's edges (rows of C and C + 1 edges, many just past C, one
+   of hundreds of chunks) and its backward against the twin's autograd);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -64,12 +65,15 @@ nothing of the JAX package. Phases:
    card against the same on the host CPU; then ``ogb_products`` at full
    size (2,449,152 nodes, 61,859,140 heavy-tailed edges, 100 features, 47
    classes) through ``build_cell``: exactly 4 ``csr_spmm`` launches a step
-   (2 forward, 2 on the transposed CSR in the backward), 10 timed steps,
-   the profiler's busy share, the kernel held against its twin on the
-   four launches' own inputs (a control with the last edge of each row
-   dropped must fail) and timed beside its twin, ``torch.sparse.mm`` and
-   its bound, the kernel path against the twin path, and two steps from
-   one state bit-identical.
+   (2 forward, 2 on the transposed CSR in the backward) and 4 of its
+   combine, 10 timed steps, the profiler's busy share, the kernel held
+   against its twin and its split twin on the four launches' own inputs
+   (a control with the last edge of each row dropped must fail) and timed
+   beside its twin, ``torch.sparse.mm``, its bound and the bytes with no
+   reuse of an x row, a sweep of the plan's chunk size and the time with
+   the rows of more than 1,024 edges emptied, the combine on the split
+   twin's partials, the kernel's gathers in a row (SASS), the kernel path
+   against the twin path, and two steps from one state bit-identical.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -1578,23 +1582,45 @@ def _spmm_close(torch, got, want, dtype) -> bool:
         got.float(), want.float(), rtol=rtol, atol=atol)
 
 
+def _split_close(torch, got, a, x):
+    """The kernel's output against the split twin on the same plan, at
+    SPMM_F32_SCALED in either dtype (both round the same float32 sums
+    once); (max abs error, bit-identical)."""
+    from repro_torch.kernels import ref
+
+    want = ref.csr_spmm_split_ref(x, a.row_ptr, a.col, a.n_rows, a.chunk)
+    atol = SPMM_F32_SCALED * float(want.float().abs().max()) if want.numel() else 0.0
+    if not (got.dtype == want.dtype and torch.allclose(got.float(), want.float(), rtol=0,
+                                                       atol=atol)):
+        return None, False
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    return err, bool(torch.equal(got, want))
+
+
 def check_spmm_kernel(torch, np, seed: int) -> float:
-    """Phase 2, csr_spmm against its twin on the card: no edges, isolated
+    """Phase 2, csr_spmm against its twins on the card: no edges, isolated
     nodes, one row holding every edge, senders -1 and receivers out of
     range, heavy-tailed rows, more source rows than output rows, no output
-    rows, D in {1, 7, 16, 47, 128, 256, 300}, float32 and bfloat16; and the
-    backward through CSRSpMM against the twin's own autograd."""
+    rows, and the plan's edges (rows of exactly C and C + 1 edges, many rows
+    just past C, one row of hundreds of chunks), D in {1, 7, 16, 47, 128,
+    256, 300}, float32 and bfloat16. Each case is held against the plain
+    twin and, at SPMM_F32_SCALED, the split twin on the same plan; its
+    launches are counted (csr_spmm once, csr_spmm_combine once where the
+    plan cut a row). The backward through CSRSpMM is held against the
+    twin's own autograd, and must have taken the split path."""
     from repro_torch.data.graphs import node_graph
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.segment_matmul import CSRSpMM, build_csr, csr_spmm_cuda
+    from repro_torch.kernels.segment_matmul import SPMM_CHUNK, CSRSpMM, build_csr, csr_spmm_cuda
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=DEV).manual_seed(seed)
+    c = SPMM_CHUNK
 
     def edges(s, r):
         return torch.from_numpy(np.asarray(s, np.int64)).to(DEV), \
             torch.from_numpy(np.asarray(r, np.int64)).to(DEV)
 
+    past = rng.integers(c + 1, c + 9, 2000)  # 2,000 rows of C + 1 .. C + 8 edges
     graphs = {  # name -> (senders, receivers, n_out, n_x)
         "no_edges": (*edges([], []), 500, 500),
         "isolated_nodes": (*edges([0, 1, 2], [5, 5, 7]), 300, 300),
@@ -1604,28 +1630,60 @@ def check_spmm_kernel(torch, np, seed: int) -> float:
         "more_sources": (*edges(rng.integers(0, 3000, 9000), rng.integers(0, 700, 9000)),
                          700, 3000),
         "no_rows": (*edges([0, 1], [0, 1]), 0, 4),
+        "rows_of_C": (*edges(rng.integers(0, 1000, 40 * c), np.repeat(np.arange(40), c)),
+                      50, 1000),
+        "rows_of_C_plus_1": (*edges(rng.integers(0, 1000, 40 * (c + 1)),
+                                    np.repeat(np.arange(40), c + 1)), 50, 1000),
+        "just_past_C": (*edges(rng.integers(0, 4000, int(past.sum())),
+                               np.repeat(np.arange(2000), past)), 2100, 4000),
+        # one row of 300 chunks and 17 edges, its senders 200 nodes of about
+        # 385 edges each, so the transposed CSR is cut too; beside short rows
+        "hundreds_of_chunks": (*edges(np.concatenate([rng.integers(0, 200, 300 * c + 17),
+                                                      rng.integers(0, 1000, 3000)]),
+                                      np.concatenate([np.full(300 * c + 17, 7),
+                                                      rng.integers(0, 600, 3000)])), 600, 1000),
     }
+    # The plan's edges take x in multiples of 1/64 in [-1, 1]: every partial
+    # sum of their rows (at most 76,817 terms) is exact in float32 and in
+    # the bfloat16 rounding, so the sum cannot depend on its order and the
+    # kernel must equal both twins bit for bit. (On random normal rows of
+    # 76,817 terms the twin's index_add_, whose atomics add in any order,
+    # moves the sum by about 1e-5 of itself.)
+    exact = ("rows_of_C", "rows_of_C_plus_1", "just_past_C", "hundreds_of_chunks")
     g = node_graph(100_003, 1_200_000, 1, 2, real_nodes=100_003, real_edges=1_200_000,
                    generator=gen)
     graphs["heavy_tailed"] = (g["senders"], g["receivers"], 100_003, 100_003)
-    err, n_cases, heavy = 0.0, 0, 0
+    err, n_cases, heavy, split_err, same, bwd_combines = 0.0, 0, 0, 0.0, 0, 0
     for name, (s, r, n_out, n_x) in graphs.items():
         fwd, bwd = build_csr(s, r, n_out, n_x)
         if n_out:
             heavy = max(heavy, int(fwd.row_lengths().max()))
         for dt in (torch.float32, torch.bfloat16):
             for d in (1, 7, 16, 47, 128, 256, 300):
-                x = torch.randn((n_x, d), generator=gen, device=DEV).to(dt)
-                before = ops.launch_counts["csr_spmm"]
+                if name in exact:
+                    x = (torch.randint(-64, 65, (n_x, d), generator=gen, device=DEV)
+                         .float() / 64).to(dt)
+                else:
+                    x = torch.randn((n_x, d), generator=gen, device=DEV).to(dt)
+                before = dict(ops.launch_counts)
                 got = csr_spmm_cuda(x, fwd)
                 want = ref.csr_spmm_ref(x, fwd.row_ptr, fwd.col, n_out)
                 torch.cuda.synchronize()
-                launched = ops.launch_counts["csr_spmm"] - before
+                launched = {k: ops.launch_counts[k] - before[k]
+                            for k in ("csr_spmm", "csr_spmm_combine")}
                 what = f"{name} {str(dt).split('.')[-1]} D={d}"
-                if launched != (1 if n_out else 0):
-                    _fail(f"csr_spmm launched {launched} times at {what}")
+                expect = {"csr_spmm": 1 if n_out else 0,
+                          "csr_spmm_combine": 1 if n_out and fwd.plan.n_long else 0}
+                if launched != expect:
+                    _fail(f"csr_spmm launched {launched} at {what}, not {expect}")
                 if not _spmm_close(torch, got, want, dt):
                     _fail(f"csr_spmm differs from its twin at {what}")
+                e_split, bits = _split_close(torch, got, fwd, x)
+                if e_split is None:
+                    _fail(f"csr_spmm differs from its split twin at {what}")
+                if name in exact and not (bits and torch.equal(got, want)):
+                    _fail(f"csr_spmm's exact sums differ from its twins' at {what}")
+                split_err, same = max(split_err, e_split), same + bits
                 if got.numel():
                     err = max(err, float((got.float() - want.float()).abs().max()))
                 if name == "no_edges" and got.numel() and float(got.float().abs().max()) != 0:
@@ -1637,7 +1695,10 @@ def check_spmm_kernel(torch, np, seed: int) -> float:
             x = torch.randn((n_x, d), generator=gen, device=DEV)
             w = torch.randn((n_out, d), generator=gen, device=DEV)
             xk = x.clone().requires_grad_(True)
-            (CSRSpMM.apply(xk, fwd, bwd) * w).sum().backward()
+            out = CSRSpMM.apply(xk, fwd, bwd)
+            before = ops.launch_counts["csr_spmm_combine"]
+            (out * w).sum().backward()
+            bwd_combines += ops.launch_counts["csr_spmm_combine"] - before
             xt = x.clone().requires_grad_(True)
             (ref.csr_spmm_ref(xt, fwd.row_ptr, fwd.col, n_out) * w).sum().backward()
             torch.cuda.synchronize()
@@ -1647,7 +1708,12 @@ def check_spmm_kernel(torch, np, seed: int) -> float:
             n_cases += 1
     print(f"csr_spmm kernel_vs_plain cases={n_cases} max_abs_err={err} tolerances "
           f"float32 atol={SPMM_F32_SCALED} x max|want|, bfloat16 rtol={SPMM_BF16_RTOL} + the "
-          f"same atol; longest row={heavy} edges")
+          f"same atol; vs the split twin (chunk {c}) max_abs_err={split_err} at atol "
+          f"{SPMM_F32_SCALED} x max|want| in both dtypes, bit-identical in {same} of "
+          f"{n_cases - 2 * len(graphs)}; backward launches of csr_spmm_combine={bwd_combines}; "
+          f"longest row={heavy} edges")
+    if not bwd_combines:
+        _fail("no backward check took the split path (csr_spmm_combine never launched)")
     return err
 
 
@@ -1828,18 +1894,92 @@ def _last_edge_dropped(torch, row_ptr, col):
     return torch.cat([row_ptr.new_zeros(1), short.cumsum(0)]), col[keep]
 
 
-def time_spmm(torch, calls: list, max_in_degree: int, card: str) -> list:
+def _no_reuse_bytes(torch, x, a) -> tuple:
+    """(bytes, gathered sectors) of one launch if every edge's x row came
+    from device memory: the 32-byte sectors that each gathered row spans,
+    plus row_ptr, col and out once."""
+    n_x, d = x.shape
+    rb = d * x.element_size()
+    j = torch.arange(n_x, device=x.device, dtype=torch.int64)
+    spans = ((j + 1) * rb - 1) // 32 - (j * rb) // 32 + 1
+    sectors = int(spans[a.col.long()].sum())
+    return sectors * 32 + a.row_ptr.numel() * 8 + a.col.numel() * 4 + a.n_rows * rb, sectors
+
+
+def _heavy_rows_emptied(torch, a, limit: int):
+    """The CSR ``a`` with every row of more than ``limit`` edges emptied, and
+    the count of those rows and of their edges."""
+    from repro_torch.kernels.segment_matmul import CSR
+
+    lengths = a.row_lengths()
+    heavy = lengths > limit
+    keep = torch.repeat_interleave(~heavy, lengths, output_size=a.col.numel())
+    short = torch.where(heavy, 0, lengths)
+    b = CSR(torch.cat([a.row_ptr.new_zeros(1), short.cumsum(0)]), a.col[keep].contiguous(),
+            a.n_cols, a.chunk)
+    return b, int(heavy.sum()), int(lengths[heavy].sum())
+
+
+SPMM_SWEEP = (64, 128, 256, 512, 1024, 4096)  # chunk sizes timed at D = 16 and D = 47
+SPMM_HEAVY = 1024                             # rows above this many edges are emptied once
+
+
+def _combine_row(torch, x, a, reps: int = 50) -> dict:
+    """csr_spmm_combine on the split twin's partials of ``a``'s chunks (the
+    plan's layout): held against the twin's combine at SPMM_F32_SCALED,
+    its device time per launch read from the profiler (a launch is shorter
+    than the wrapper takes to issue it), beside the twin's combine and its
+    bound (the partials read once, the long rows written once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_matmul import csr_spmm_combine_cuda
+
+    p = a.plan
+    part = ref.csr_spmm_partials_ref(x, a.col, p.chunk_start, p.chunk_end)
+    rows = p.items(a.row_ptr)[0][:p.n_chunks]
+    want = ref.csr_spmm_combine_ref(part, rows, a.n_rows, x.dtype)[p.long_rows.long()]
+    out = torch.zeros((a.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    got = csr_spmm_combine_cuda(part, a, out)[p.long_rows.long()]
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if err > SPMM_F32_SCALED * float(want.float().abs().max()):
+        _fail(f"csr_spmm_combine differs from the twin's combine ({err})")
+    ms = []
+    for _ in range(2):
+        _, _, avgs = _profile(torch, lambda: [csr_spmm_combine_cuda(part, a, out)
+                                              for _ in range(reps)])
+        hits = [e for e in avgs if "combine_kernel" in e.key]
+        seen = sum(e.count for e in hits)
+        if seen:  # the trace may lose launches: average over those it holds
+            ms.append(sum(getattr(e, "self_device_time_total", 0) for e in hits) / seen / 1e3)
+    issue_ms = _time_ms(torch, lambda: csr_spmm_combine_cuda(part, a, out), reps)
+    plain = min(_time_ms(torch, lambda: ref.csr_spmm_combine_ref(part, rows, a.n_rows, x.dtype),
+                         3) for _ in range(2))
+    nbytes = (part.numel() * 4 + p.n_long * x.shape[1] * x.element_size()
+              + p.chunk_ptr.numel() * 8 + p.n_long * 4)
+    return {"ms": min(ms) if ms else issue_ms, "plain_ms": plain,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": err, "ms_issue_bound": issue_ms,
+            "n_long": p.n_long, "n_chunks": p.n_chunks}
+
+
+def time_spmm(torch, calls: list, max_in_degree: int, card: str) -> tuple:
     """csr_spmm on the inputs of one ogb_products step's four launches: held
-    against its twin in float32 (with the control, which must fail), timed
-    beside its twin, torch.sparse.mm on the same CSR (the yardstick) and its
-    bound (bytes at 3.35 TB/s against one add per edge and feature at
-    67 TFLOP/s)."""
+    against its twin in float32 (with the control, which must fail) and the
+    split twin, timed beside its twin, torch.sparse.mm on the same CSR (the
+    yardstick), its bound (bytes at 3.35 TB/s against one add per edge and
+    feature at 67 TFLOP/s) and the bytes with no reuse of any x row; its
+    combine kernel on the split twin's partials. At the D = 16 and D = 47
+    forward launches, a sweep of the chunk size and the time with the rows of
+    more than SPMM_HEAVY edges emptied. Returns (the four launches' rows,
+    the combine's rows)."""
+    import dataclasses
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_matmul import csr_spmm_cuda
 
     names = ("forward layer 0", "forward layer 1", "backward layer 1", "backward layer 0")
-    rows = []
-    for what, (x, a) in zip(names, calls):
+    rows, combines = [], []
+    for i, (what, (x, a)) in enumerate(zip(names, calls)):
         row_ptr, col, n_out = a.row_ptr, a.col, a.n_rows
         n_x, d = x.shape
         nnz = col.numel()
@@ -1850,14 +1990,18 @@ def time_spmm(torch, calls: list, max_in_degree: int, card: str) -> list:
         err, c_err = float((got - want).abs().max()), float((ctrl - want).abs().max())
         ok = torch.allclose(got, want, rtol=0, atol=atol)
         ctrl_passes = torch.allclose(ctrl, want, rtol=0, atol=atol)
+        e_split, bits = _split_close(torch, got, a, x)
         print(f"csr_spmm vs twin at ogb_products {what} (D={d}, rows={n_out}, nnz={nnz}, "
               f"{x.dtype}): max_abs_err={err} tol atol={atol} ({SPMM_F32_SCALED} x max|want| "
               f"{float(want.abs().max())}); control (last edge of each row dropped) "
-              f"max_abs_err={c_err} passes={ctrl_passes}")
+              f"max_abs_err={c_err} passes={ctrl_passes}; vs the split twin max_abs_err="
+              f"{e_split} bit-identical={bits}")
         if not ok:
             _fail(f"csr_spmm differs from its twin at ogb_products {what}")
         if ctrl_passes:
             _fail(f"the comparison at ogb_products {what} does not tell the control from the twin")
+        if e_split is None:
+            _fail(f"csr_spmm differs from its split twin at ogb_products {what}")
         del want, ctrl
         a_csr = torch.sparse_csr_tensor(row_ptr, col.to(torch.int64),
                                             torch.ones(nnz, device=x.device),
@@ -1879,33 +2023,114 @@ def time_spmm(torch, calls: list, max_in_degree: int, card: str) -> list:
         nbytes = n_x * d * es + row_ptr.numel() * 8 + nnz * 4 + n_out * d * es
         nops = nnz * d
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / CORE_OPS_PER_S * 1e3
+        nr_bytes, sectors = _no_reuse_bytes(torch, x, a)
+        p = a.plan
         row = {"what": what, "D": d, "rows": n_out, "source_rows": n_x, "nnz": nnz,
                "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": min(lib_a, lib_b), "max_abs_err": err, "control_err": c_err}
+               "library_ms": min(lib_a, lib_b), "max_abs_err": err, "control_err": c_err,
+               "no_reuse_ms": nr_bytes / HBM_BYTES_PER_S * 1e3, "chunk": p.chunk,
+               "long_rows": p.n_long, "chunks": p.n_chunks, "items": p.n_items}
         print(f"kernel csr_spmm at ogb_products {what}: D={d} ms={row['ms']:.6f} (runs "
               f"{ms_a:.6f} {ms_b:.6f}) plain_ms={row['plain_ms']:.6f} library_ms="
               f"{row['library_ms']:.6f} (torch.sparse.mm, CSR of ones; vs kernel {lib_err}) "
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}: {nbytes} B, {nops} adds) "
-              f"achieved {nbytes / row['ms'] / 1e9:.3f} TB/s; max in-degree {max_in_degree}; {card}")
+              f"no_reuse_ms={row['no_reuse_ms']:.6f} ({sectors} gathered 32-byte sectors, "
+              f"{nr_bytes} B) achieved {nbytes / row['ms'] / 1e9:.3f} TB/s of the bound's bytes; "
+              f"plan chunk={p.chunk} long_rows={p.n_long} chunks={p.n_chunks} "
+              f"items={p.n_items}; max in-degree {max_in_degree}; {card}")
+        if i < 2:  # the D = 16 and D = 47 forward launches
+            sweep = {}
+            for c in SPMM_SWEEP:
+                b = dataclasses.replace(a, chunk=c)
+                if not torch.allclose(csr_spmm_cuda(x, b), got, rtol=0, atol=atol):
+                    _fail(f"csr_spmm at chunk {c} differs at ogb_products {what}")
+                sweep[c] = (_time_ms(torch, lambda b=b: csr_spmm_cuda(x, b), 10),
+                            b.plan.n_long, b.plan.n_chunks)
+            print(f"csr_spmm chunk sweep at ogb_products {what} (D={d}): " + " ".join(
+                f"{c}={ms:.6f}ms ({nl} long rows, {nc} chunks)"
+                for c, (ms, nl, nc) in sweep.items()))
+            row["ms_by_chunk"] = {str(c): v[0] for c, v in sweep.items()}
+            b, n_heavy, e_heavy = _heavy_rows_emptied(torch, a, SPMM_HEAVY)
+            t_full = _time_ms(torch, lambda: csr_spmm_cuda(x, a), 20)
+            t_light = _time_ms(torch, lambda: csr_spmm_cuda(x, b), 20)
+            t_full_b = _time_ms(torch, lambda: csr_spmm_cuda(x, a), 20)
+            light = b.col.numel()
+            print(f"csr_spmm at ogb_products {what} (D={d}) with its {n_heavy} rows of more than "
+                  f"{SPMM_HEAVY} edges emptied ({e_heavy} of {nnz} edges, "
+                  f"{e_heavy / nnz:.6f}): ms={t_light:.6f} against {t_full:.6f} {t_full_b:.6f} "
+                  f"with them; time share {t_light / min(t_full, t_full_b):.6f}, edge share "
+                  f"{light / nnz:.6f}")
+            row["heavy_rows_emptied"] = {"rows": n_heavy, "edges": e_heavy, "ms": t_light,
+                                         "ms_with_them": min(t_full, t_full_b)}
+            del b
+        comb = _combine_row(torch, x, a)
+        print(f"kernel csr_spmm_combine at ogb_products {what}: {comb['n_long']} long rows, "
+              f"{comb['n_chunks']} chunk partials, ms={comb['ms']} (device time per traced "
+              f"launch, profiler; events over 50 back-to-back calls {comb['ms_issue_bound']:.6f}) "
+              f"plain_ms={comb['plain_ms']:.6f} bound_ms={comb['bound_ms']:.6f} max_abs_err vs "
+              f"the twin's combine={comb['max_abs_err']}")
         rows.append(row)
+        combines.append(comb)
         del got, a_csr
-    return rows
+    return rows, combines
+
+
+SPMM_SASS_RUNS = {  # kernel instance (mangled template arguments) -> least gathers in a row
+    "csr_spmm_kernel<fLb1ELi1E>": 8,   # float32, 16-byte units, D = 16: 8 float4 rows
+    "csr_spmm_kernel<fLb0ELi3E>": 15,  # float32, 4-byte units, D = 47: 5 rows x 3 floats
+}
+
+
+def _gather_runs(source: str) -> dict:
+    """The longest run of global loads (LDG) with no float add (FADD)
+    between them, in each kernel of csrc/<source>.cu's build, read from its
+    SASS by cuobjdump (static); fails where an instance of SPMM_SASS_RUNS
+    has fewer than its least, and is empty where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("cuobjdump not found: gathers in a row not measured")
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        sym = fn.split()[0]
+        name = re.search(r"\d([a-z_]+_kernel)I(\w+?)EEv", sym)
+        key = f"{name.group(1)}<{name.group(2)}>" if name else sym
+        best = run = 0
+        for ins in re.findall(r"\b(LDG|FADD)\b", fn):
+            run = run + 1 if ins == "LDG" else 0
+            best = max(best, run)
+        out[key] = best
+    print(f"global loads in a row, no float add between, in {source}.cu by kernel (SASS, "
+          f"static): {out}")
+    for key, least in SPMM_SASS_RUNS.items():
+        if out.get(key, 0) < least:
+            _fail(f"{key} issues {out.get(key, 0)} gathers in a row, not {least}")
+    return out
 
 
 def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
     """Phase 8: train gcn-cora (2 layers, hidden 16) on the ogb_products cell
     at full size after the LM phase has freed the card; returns the
-    csr_spmm row of the kernels line."""
+    csr_spmm and csr_spmm_combine rows of the kernels line."""
     from repro_torch.configs.registry import GNN_SHAPES
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.steps import _gnn_sizes, build_cell
 
     left = torch.cuda.memory_allocated()
     print(f"gnn phase on {card} starts with memory_allocated={left}")
     if left > 1 << 30:
         _fail(f"{left} bytes are still allocated after the LM phase")
+    sass = _gather_runs("segment_matmul")
     gnn_vs_host(torch, np, seed)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1925,9 +2150,16 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
           f"CSRs sorted, model and AdamW state, on the card)")
 
     counts, (loss, metrics) = _served_counts(torch, cell.run)  # also the warm-up step
-    print(f"launches csr_spmm {counts['csr_spmm']} (one ogb_products train step; expected 4)")
+    print(f"launches csr_spmm {counts['csr_spmm']} csr_spmm_combine "
+          f"{counts['csr_spmm_combine']} (one ogb_products train step; expected 4 and 4: "
+          f"both CSRs hold rows of more than {graph.fwd.chunk} edges, "
+          f"{graph.fwd.plan.n_long} and {graph.bwd.plan.n_long})")
     if counts["csr_spmm"] != 4:
         _fail(f"one gcn-cora step launched csr_spmm {counts['csr_spmm']} times, not 4")
+    cut = 2 * (bool(graph.fwd.plan.n_long) + bool(graph.bwd.plan.n_long))
+    if counts["csr_spmm_combine"] != cut or not cut:
+        _fail(f"one gcn-cora step launched csr_spmm_combine {counts['csr_spmm_combine']} "
+              f"times, not {cut} (and more than 0)")
     if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(metrics["grad_norm"]))):
         _fail("the ogb_products step's loss or gradient norm is not finite")
     times, losses = [], []
@@ -1965,7 +2197,7 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
     if [a[0].shape[1] for a in calls] != [16, 47, 47, 16]:
         _fail(f"one step's csr_spmm widths are {[a[0].shape[1] for a in calls]}")
     with torch.no_grad():
-        rows = time_spmm(torch, calls, max_in, card)
+        rows, combines = time_spmm(torch, calls, max_in, card)
     del calls
 
     # the kernel path against the twin path (loss) and a float64 path
@@ -1975,20 +2207,30 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
         l_t, g_t = _loss_and_grads(torch, model, batch)
         _, g_t2 = _loss_and_grads(torch, model, batch)
     l_64, g_64 = _f64_loss_and_grads(torch, model, batch)
+    # a reading, not a check: the float32 step with every aggregation summed
+    # in float64 and rounded once, the closest a float32 kernel can come
+    real = ops.csr_spmm
+    ops.csr_spmm = lambda x, a: ref.csr_spmm_ref(x.double(), a.row_ptr, a.col,
+                                                 a.n_rows).float()
+    try:
+        _, g_r = _loss_and_grads(torch, model, batch)
+    finally:
+        ops.csr_spmm = real
     l_err = abs(float(l_k) - float(l_t)) / abs(float(l_t))
     e_k, e_t = _grad_errs(g_k, g_64), _grad_errs(g_t, g_64)
     e_tt, e_kt = _grad_errs(g_t2, g_t), _grad_errs(g_k, g_t)
     g_err = max(e_k.values())
     print(f"ogb_products gradients over max|g| per leaf: kernel path vs float64 {e_k} "
           f"(tol {GNN_MAIN_GRAD_SCALED}); twin path vs float64 {e_t}; twin path vs itself "
-          f"{e_tt}; kernel path vs twin path {e_kt}; loss kernel {float(l_k)} twin "
-          f"{float(l_t)} float64 {float(l_64)}")
+          f"{e_tt}; kernel path vs twin path {e_kt}; aggregation rounded once vs float64 "
+          f"{_grad_errs(g_r, g_64)}; loss kernel {float(l_k)} twin {float(l_t)} float64 "
+          f"{float(l_64)}")
     if l_err > GNN_LOSS_RTOL:
         _fail(f"ogb_products kernel path loss {float(l_k)} differs from the twin path's "
               f"{float(l_t)}")
     if g_err > GNN_MAIN_GRAD_SCALED:
         _fail(f"ogb_products kernel path gradients differ from the float64 path's: {e_k}")
-    del g_t2, g_64
+    del g_t2, g_64, g_r
     # determinism: the same step twice from the same state, bit for bit
     outs = []
     for _ in range(2):
@@ -2010,14 +2252,24 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
     if left > 1 << 30:
         _fail(f"{left} bytes are still allocated after the GNN phase")
 
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    return [{"name": "csr_spmm", "route": "cuda", "source": "src/repro_torch/csrc/segment_matmul.cu",
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms", "no_reuse_ms")}
+    c_total = {k: sum(r[k] for r in combines) for k in ("ms", "plain_ms", "bound_ms")}
+    source = "src/repro_torch/csrc/segment_matmul.cu"
+    return [{"name": "csr_spmm", "route": "cuda", "source": source,
              "replaces": SPMM_REPLACES, "launches": counts["csr_spmm"],
              "max_abs_err": max(errs["csr_spmm"], *(r["max_abs_err"] for r in rows)),
              **total, "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
              else "operations",
-             "shape": "one ogb_products train step: the sums over its 4 launches",
-             "per_launch": rows, "max_in_degree": max_in}]
+             "shape": "one ogb_products train step: the sums over its 4 launches, each timed "
+             "as the wrapper runs it (csr_spmm, then csr_spmm_combine)",
+             "per_launch": rows, "max_in_degree": max_in, "sass_gathers_in_a_row": sass},
+            {"name": "csr_spmm_combine", "route": "cuda", "source": source,
+             "replaces": SPMM_REPLACES, "launches": counts["csr_spmm_combine"],
+             "max_abs_err": max(r["max_abs_err"] for r in combines), **c_total,
+             "bound_by": "bytes", "library_ms": None,
+             "shape": "one ogb_products train step: the sums over its 4 launches, on the "
+             "split twin's partials", "per_launch": combines}]
 
 
 def main(argv=None) -> int:

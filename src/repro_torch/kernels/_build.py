@@ -53,8 +53,13 @@ SOURCES = {
         "flash_attention_combine": ("flash_attention_combine_launch",
                                     [_P] * 2 + [_I64] * 6 + [_I64] * 3 + [_I64, _P]),
     },
-    # x, row_ptr, col, out; n_rows, n_x, D, dtype
-    "segment_matmul": {"csr_spmm": ("csr_spmm_launch", [_P] * 4 + [_I64] * 4 + [_P])},
+    "segment_matmul": {
+        # x, row_ptr, col, out, part, chunk_start, chunk_end, short_rows;
+        # n_chunks, n_items, n_x, D, dtype
+        "csr_spmm": ("csr_spmm_launch", [_P] * 8 + [_I64] * 5 + [_P]),
+        # part, long_rows, chunk_ptr, out; n_long, D, dtype
+        "csr_spmm_combine": ("csr_spmm_combine_launch", [_P] * 4 + [_I64] * 3 + [_P]),
+    },
 }
 
 # kernel name -> launches so far; each wrapper adds one where it launches

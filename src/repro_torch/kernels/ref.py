@@ -2,7 +2,10 @@
 
 Each twin computes exactly what its CUDA kernel computes. The wrappers in
 :mod:`repro_torch.kernels.ops` run the twin for a tensor on the CPU, and
-``chip_smoke.py`` holds each kernel against its twin on the card.
+``chip_smoke.py`` holds each kernel against its twin on the card. The CSR
+product has two: :func:`csr_spmm_ref`, a plain float32 sum, is the CPU
+path; :func:`csr_spmm_split_ref` sums as the kernel does (split by its
+plan, compensated), for the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -101,6 +104,74 @@ def csr_spmm_ref(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
     out = torch.zeros((n_out, x.shape[1]), dtype=torch.float32, device=x.device)
     out.index_add_(0, rows, x[col.to(torch.int64)].float())
     return out.to(x.dtype)
+
+
+def csr_spmm_segments_ref(row_ptr: torch.Tensor, chunk: int):
+    """The split of the CSR kernel's plan, as segments in CSR order: a row of
+    more than ``chunk`` edges is cut into segments of ``chunk`` edges (its
+    last one shorter), any other row is one segment, empty or not. Returns
+    (row, start, end), int64: segment s sums the edges [start[s], end[s])
+    of row ``row[s]``."""
+    lengths = row_ptr[1:] - row_ptr[:-1]
+    per_row = torch.where(lengths > chunk, (lengths + chunk - 1) // chunk, 1)
+    n = int(per_row.sum())
+    row = torch.repeat_interleave(torch.arange(lengths.numel(), device=row_ptr.device), per_row,
+                                  output_size=n)
+    first = torch.cumsum(per_row, 0) - per_row  # each row's first segment
+    start = row_ptr[row] + (torch.arange(n, device=row_ptr.device) - first[row]) * chunk
+    return row, start, torch.minimum(start + chunk, row_ptr[row + 1])
+
+
+def add2(s: torch.Tensor, c: torch.Tensor, x: torch.Tensor):
+    """One compensated float32 addition (Knuth's TwoSum): the new (s, c)
+    of a sum s with error c, plus x; s + c is the sum rounded once, but for
+    an error of about n * 2**-48 of the sum of |terms| after n additions."""
+    t = s + x
+    z = t - s
+    return t, c + ((s - (t - z)) + (x - z))
+
+
+def csr_spmm_partials_ref(x: torch.Tensor, col: torch.Tensor, start: torch.Tensor,
+                          end: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of x[col[k]] over k in [start[s], end[s]) for each
+    segment s, added in CSR order (one position of every segment at a time)
+    from 0 by :func:`add2`, and rounded once (s + c). Returns (n_segments, D)
+    float32."""
+    acc = torch.zeros((start.numel(), x.shape[1]), dtype=torch.float32, device=x.device)
+    err = torch.zeros_like(acc)
+    lengths = end - start
+    for p in range(int(lengths.max()) if lengths.numel() else 0):
+        live = torch.nonzero(lengths > p).squeeze(1)
+        acc[live], err[live] = add2(acc[live], err[live], x[col[start[live] + p].long()].float())
+    return acc + err
+
+
+def csr_spmm_combine_ref(partials: torch.Tensor, row: torch.Tensor, n_rows: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """Each row's segment partials (n_segments, D) float32 added in the
+    order the segments come, from 0, by :func:`add2`, and rounded once to
+    float32 (s + c), then to ``dtype``; a row with no segment is 0. Returns
+    (n_rows, D)."""
+    acc = torch.zeros((n_rows, partials.shape[1]), dtype=torch.float32, device=partials.device)
+    err = torch.zeros_like(acc)
+    order = torch.argsort(row, stable=True)
+    by_row = row[order]
+    rank = torch.arange(row.numel(), device=row.device) - torch.searchsorted(by_row, by_row)
+    for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = order[rank == r]  # at most one segment of each row
+        acc[row[sel]], err[row[sel]] = add2(acc[row[sel]], err[row[sel]], partials[sel])
+    return (acc + err).to(dtype)
+
+
+def csr_spmm_split_ref(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor, n_out: int,
+                       chunk: int) -> torch.Tensor:
+    """:func:`csr_spmm_ref` summed as the CUDA kernel sums it, compensated
+    (:func:`add2`): the segments of :func:`csr_spmm_segments_ref`, each
+    summed by :func:`csr_spmm_partials_ref`, added row by row in segment
+    order by :func:`csr_spmm_combine_ref`. Returns (n_out, D) in x's
+    dtype."""
+    row, start, end = csr_spmm_segments_ref(row_ptr, chunk)
+    return csr_spmm_combine_ref(csr_spmm_partials_ref(x, col, start, end), row, n_out, x.dtype)
 
 
 NEG_INF = -1e30  # the masked-score constant of the Pallas attention kernel
