@@ -16,7 +16,10 @@ nothing of the JAX package. Phases:
    ``flash_attention`` also split and merged at decode and its merge
    kernel on the twin's partials, ``csr_spmm`` also against its split twin
    on the plan's edges (rows of C and C + 1 edges, many just past C, one
-   of hundreds of chunks) and its backward against the twin's autograd);
+   of hundreds of chunks) and its backward against the twin's autograd,
+   ``dot_interaction`` against its plain and its tensor-core tiling twin
+   on each case's path, read from the launch counts, with a control (the
+   last field row zeroed) that must fail);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -40,7 +43,10 @@ nothing of the JAX package. Phases:
    batch and on the first 4,096 samples of the serve_bulk batch, and a
    small model against the same model on the host CPU. The timing
    rows of both DLRM kernels (phase 4) are taken here, while the model is
-   on the card;
+   on the card: ``dot_interaction`` at the serve_bulk fields and at a
+   serve_p99 batch's, beside two ``torch.bmm`` yardsticks (fp32 upcast;
+   bf16 with float32 output), a sweep of its launch plan, its HMMA count
+   (SASS), and the device time of the two ``torch.cat`` passes around it;
 7. with the DLRM tables freed, serve ``qwen2-1.5b`` at full width (28
    layers, d_model 1536, 12 query and 2 KV heads of 128, vocab 151,936):
    a small model on the card against the host CPU; the full-width model in
@@ -187,7 +193,6 @@ def check_recsys_kernels(torch, np, seed: int) -> dict:
     """Phase 2, DLRM's kernels: embedding_bag and dot_interaction against
     their twins on the card."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
     rng = np.random.default_rng(seed)
@@ -221,24 +226,74 @@ def check_recsys_kernels(torch, np, seed: int) -> dict:
                                 err["embedding_bag"] = max(err["embedding_bag"], float(
                                     (got.float() - want.float()).abs().max()))
                             n_cases += 1
-    for dt in (torch.bfloat16, torch.float32):
-        for f in (4, 8, 27):
-            for d in (16, 64, 128):
-                for b in (1, 129, 4097):
-                    x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(DEV, dt)
-                    got = dot_interaction_cuda(x)
-                    want = ref.dot_interaction_ref(x)
-                    torch.cuda.synchronize()
-                    if got.shape != want.shape or got.dtype != torch.float32 \
-                            or not torch.allclose(got, want, **DOT_TOL):
-                        _fail(f"dot_interaction differs at {dt} F={f} D={d} B={b}")
-                    err["dot_interaction"] = max(err["dot_interaction"],
-                                                 float((got - want).abs().max()))
-                    n_cases += 1
-    print(f"recsys kernels_vs_plain cases={n_cases} embedding_bag_max_abs_err="
-          f"{err['embedding_bag']} dot_interaction_max_abs_err={err['dot_interaction']} "
-          f"tolerances emb={EMB_TOL} dot={DOT_TOL}")
+    err["dot_interaction"] = _check_dot_interaction(torch, np, rng)
+    print(f"embedding_bag kernels_vs_plain cases={n_cases} max_abs_err="
+          f"{err['embedding_bag']} tolerances emb={EMB_TOL}")
     return err
+
+
+DOT_PATHS = ("dot_interaction", "dot_interaction_simt")  # tensor cores, SIMT
+
+
+def _excess(torch, got, want) -> float:
+    """How far got lands from want in units of DOT_TOL: the largest
+    |got - want| / (atol + rtol |want|); above 1 fails the comparison."""
+    lim = DOT_TOL["atol"] + DOT_TOL["rtol"] * want.abs()
+    return float(((got - want).abs() / lim).max())
+
+
+def _check_dot_interaction(torch, np, rng) -> float:
+    """dot_interaction on the card against both twins (the plain one and the
+    tensor-core kernel's tiling twin) within DOT_TOL, on every case of F in
+    {2, 4, 8, 17, 27, 32}, D in {16, 24, 64, 128}, B in {1, 5, 129, 4097},
+    in bfloat16 and float32, and F in {40, 64, 80} (the tensor-core kernel's
+    other instances) in bfloat16 at D in {16, 128}, B in {5, 129}: each case
+    must take the path its type and shape give it (tensor cores for bfloat16
+    with D % 16 == 0; D = 24 is SIMT),
+    counted in launch_counts. A control, the plain twin with the last field
+    row zeroed, must fail the comparison in every case. Returns the largest
+    error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda, uses_tensor_cores
+
+    errs = {p: 0.0 for p in DOT_PATHS}
+    cases = {p: 0 for p in DOT_PATHS}
+    ctrl_least = float("inf")
+    grid = [(dt, f, d, b) for dt in (torch.bfloat16, torch.float32)
+            for f in (2, 4, 8, 17, 27, 32) for d in (16, 24, 64, 128) for b in (1, 5, 129, 4097)]
+    # the tensor-core kernel's instances for 3 and 4 m-tiles and for any F
+    grid += [(torch.bfloat16, f, d, b) for f in (40, 64, 80) for d in (16, 128) for b in (5, 129)]
+    for dt, f, d, b in grid:
+        x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(DEV, dt)
+        path = DOT_PATHS[0] if dt == torch.bfloat16 and d % 16 == 0 else DOT_PATHS[1]
+        if uses_tensor_cores(x) != (path == DOT_PATHS[0]):
+            _fail(f"dot_interaction dispatch at {dt} F={f} D={d} B={b}")
+        before = {p: ops.launch_counts[p] for p in DOT_PATHS}
+        got = dot_interaction_cuda(x)
+        launched = {p: ops.launch_counts[p] - before[p] for p in DOT_PATHS}
+        if launched != {p: int(p == path) for p in DOT_PATHS}:
+            _fail(f"dot_interaction at {dt} F={f} D={d} B={b} launched {launched}, "
+                  f"not one {path}")
+        ctrl_x = x.clone()
+        ctrl_x[:, -1] = 0
+        ctrl = ref.dot_interaction_ref(ctrl_x)
+        for twin in (ref.dot_interaction_ref, ref.dot_interaction_tc_ref):
+            want = twin(x)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.float32 \
+                    or not torch.allclose(got, want, **DOT_TOL):
+                _fail(f"dot_interaction ({path}) differs from {twin.__name__} at "
+                      f"{dt} F={f} D={d} B={b}")
+            errs[path] = max(errs[path], float((got - want).abs().max()))
+        if torch.allclose(got, ctrl, **DOT_TOL):
+            _fail(f"the dot_interaction comparison does not tell the control (last "
+                  f"field row zeroed) from the twin at {dt} F={f} D={d} B={b}")
+        ctrl_least = min(ctrl_least, _excess(torch, got, ctrl))
+        cases[path] += 1
+    print(f"dot_interaction vs both twins (plain, tensor-core tiling): cases by path {cases}, "
+          f"max_abs_err by path {errs}, tol={DOT_TOL}; control (last field row zeroed) "
+          f"lands at least {ctrl_least:.1f}x outside the tolerance")
+    return max(errs.values())
 
 
 def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
@@ -544,12 +599,17 @@ def _hold_against_twins(torch, model, dense, sparse, what: str) -> None:
 
 
 def _path_counts(what: str, counts: dict) -> dict:
-    """The DLRM kernels' launch counts of one path; fail if either is 0."""
-    counts = {k: counts[k] for k in ("embedding_bag", "dot_interaction")}
+    """The DLRM kernels' launch counts of one path; fail if either is 0 or
+    if the interaction took the SIMT kernel (DLRM's fields are bf16 with D =
+    128: the tensor-core kernel's)."""
+    counts = {k: counts[k] for k in ("embedding_bag", "dot_interaction",
+                                     "dot_interaction_simt")}
     for name, c in counts.items():
         print(f"launches {name} {c} (dlrm {what})")
-        if c <= 0:
+        if c <= 0 and name != "dot_interaction_simt":
             _fail(f"the DLRM {what} path never launched {name}")
+    if counts["dot_interaction_simt"]:
+        _fail(f"the DLRM {what} path took the SIMT dot_interaction kernel")
     return counts
 
 
@@ -606,14 +666,13 @@ def dlrm_vs_host(torch, np, seed: int) -> None:
     print(f"dlrm small model card vs host CPU: B=1000 max_abs_err={err} tol=1e-3")
 
 
-def time_dlrm_kernels(torch, model, dense, sparse, errs: dict, launches: dict,
+def time_dlrm_kernels(torch, model, dense, sparse, p99_fields, errs: dict, launches: dict,
                       p99_launches: dict) -> list:
     """Phase 4's rows for embedding_bag and dot_interaction, on the inputs
-    the serve_bulk batch gave them. ``launches`` are the serve_bulk path's
-    counts, the run these rows time; ``launches_serve_p99`` the serve_p99
-    path's."""
+    the serve_bulk batch gave them (dot_interaction also on a serve_p99
+    batch's fields, ``p99_fields``). ``launches`` are the serve_bulk path's
+    counts, the run these rows time; ``p99_launches`` the serve_p99 path's."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
     from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
     table = model.table
@@ -625,11 +684,6 @@ def time_dlrm_kernels(torch, model, dense, sparse, errs: dict, launches: dict,
     errs["embedding_bag"] = max(errs["embedding_bag"], float((got.float() - want.float())
                                                              .abs().max()))
     del got, want
-    got, want = dot_interaction_cuda(fields), ref.dot_interaction_ref(fields)
-    if not torch.allclose(got, want, **DOT_TOL):
-        _fail("dot_interaction differs from its twin at serve_bulk shapes")
-    errs["dot_interaction"] = max(errs["dot_interaction"], float((got - want).abs().max()))
-    del got, want
 
     # each distinct row is read once (the small tables' rows recur), each
     # index read and each output row written once
@@ -639,50 +693,204 @@ def time_dlrm_kernels(torch, model, dense, sparse, errs: dict, launches: dict,
     n_valid, n_distinct = valid.numel(), int(torch.unique(valid).numel())
     emb_bytes = n_distinct * d * es + bags.numel() * bags.element_size() + n_bags * d * es
     emb_ops = n_valid * d
-    b, f, _ = fields.shape
-    p = f * (f - 1) // 2
-    dot_bytes = fields.numel() * fields.element_size() + b * p * 4
-    dot_ops = 2 * b * p * d
-    xf = fields.float()
-    ii, jj = torch.tril_indices(f, f, -1, device=DEV)
     print(f"embedding_bag main-path shape: table {tuple(table.shape)} {table.dtype}, "
           f"bags {tuple(bags.shape)} {bags.dtype}, {n_valid} rows gathered, "
           f"{n_distinct} distinct; dot_interaction: fields "
           f"{tuple(fields.shape)} {fields.dtype}")
 
-    out = []
-    for name, src, replaces, kern, twin, lib, nbytes, nops, lib_what in (
-            ("embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
-             "src/repro/kernels/embedding_bag.py:29", lambda: embedding_bag_cuda(table, bags),
-             lambda: ref.embedding_bag_ref(table, bags),
-             lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum"),
-             emb_bytes, emb_ops, "torch.nn.functional.embedding_bag"),
-            ("dot_interaction", "src/repro_torch/csrc/dot_interaction.cu",
-             "src/repro/kernels/dot_interaction.py:26", lambda: dot_interaction_cuda(fields),
-             lambda: ref.dot_interaction_ref(fields),
-             lambda: torch.bmm(xf, xf.transpose(1, 2))[:, ii, jj],
-             dot_bytes, dot_ops, "torch.bmm of the fp32-upcast fields + tril gather")):
-        plain_a = _time_ms(torch, twin, 3)
-        ms_a = _time_ms(torch, kern, 20)
-        lib_a = _time_ms(torch, lib, 10)
-        lib_b = _time_ms(torch, lib, 10)
-        ms_b = _time_ms(torch, kern, 20)
-        plain_b = _time_ms(torch, twin, 3)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / CORE_OPS_PER_S * 1e3
-        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": launches[name], "max_abs_err": errs[name],
-                 "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "library_ms": min(lib_a, lib_b), "launches_serve_p99": p99_launches[name]}
-        print(f"kernel {name} ms={entry['ms']:.6f} (runs {ms_a:.6f} {ms_b:.6f}) "
-              f"plain_ms={entry['plain_ms']:.6f} bound_ms={entry['bound_ms']:.6f} "
-              f"({entry['bound_by']}, {nbytes} B, {nops} ops) "
-              f"library_ms={entry['library_ms']:.6f} ({lib_what}) "
-              f"launches serve_bulk={entry['launches']} serve_p99={p99_launches[name]}")
-        out.append(entry)
-    return out
+    kern = lambda: embedding_bag_cuda(table, bags)  # noqa: E731
+    twin = lambda: ref.embedding_bag_ref(table, bags)  # noqa: E731
+    lib = lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum")  # noqa: E731
+    plain_a = _time_ms(torch, twin, 3)
+    ms_a = _time_ms(torch, kern, 20)
+    lib_a = _time_ms(torch, lib, 10)
+    lib_b = _time_ms(torch, lib, 10)
+    ms_b = _time_ms(torch, kern, 20)
+    plain_b = _time_ms(torch, twin, 3)
+    t_bytes = emb_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = emb_ops / CORE_OPS_PER_S * 1e3
+    emb = {"name": "embedding_bag", "route": "cuda",
+           "source": "src/repro_torch/csrc/embedding_bag.cu",
+           "replaces": "src/repro/kernels/embedding_bag.py:29",
+           "launches": launches["embedding_bag"], "max_abs_err": errs["embedding_bag"],
+           "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": min(lib_a, lib_b), "launches_serve_p99": p99_launches["embedding_bag"]}
+    print(f"kernel embedding_bag ms={emb['ms']:.6f} (runs {ms_a:.6f} {ms_b:.6f}) "
+          f"plain_ms={emb['plain_ms']:.6f} bound_ms={emb['bound_ms']:.6f} "
+          f"({emb['bound_by']}, {emb_bytes} B, {emb_ops} ops) "
+          f"library_ms={emb['library_ms']:.6f} (torch.nn.functional.embedding_bag) "
+          f"launches serve_bulk={emb['launches']} serve_p99={p99_launches['embedding_bag']}")
+    del bags, valid
+    return [emb, _dot_row(torch, fields, p99_fields, errs, launches, p99_launches)]
+
+
+def _dot_yardsticks(torch, x) -> dict:
+    """The PyTorch calls that compute the interaction of x, each checked
+    against the plain twin within DOT_TOL first: torch.bmm of the
+    float32-upcast fields, and torch.bmm of the bf16 fields with float32
+    output (cuBLAS on the tensor cores, the contract of `_interact`), each
+    with its tril gather. One the card's torch refuses, or that computes
+    another function, is printed and left out."""
+    from repro_torch.kernels import ref
+
+    f = x.shape[1]
+    ii, jj = torch.tril_indices(f, f, -1, device=x.device)
+    xf = x.float()
+    calls = {"bmm_fp32_upcast": lambda: torch.bmm(xf, xf.transpose(1, 2))[:, ii, jj],
+             "bmm_bf16_out_fp32": lambda: torch.bmm(x, x.transpose(1, 2),
+                                                    out_dtype=torch.float32)[:, ii, jj]}
+    want = ref.dot_interaction_ref(x)
+    for name in list(calls):
+        try:
+            got = calls[name]()
+        except (TypeError, RuntimeError, NotImplementedError) as e:
+            print(f"yardstick {name} refused by torch {torch.__version__}: "
+                  f"{str(e).splitlines()[0][:200]}; left out")
+            del calls[name]
+            continue
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = got.shape == want.shape and torch.allclose(got, want, **DOT_TOL)
+        print(f"yardstick {name} vs plain twin at B={x.shape[0]}: max_abs_err={err} "
+              f"tol={DOT_TOL} same function={ok}")
+        if not ok:
+            del calls[name]
+        del got
+    return calls
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of fn: `reps` calls under the profiler, each
+    kernel's device time over the launches it traced, summed over the
+    kernels of a call."""
+    fn()
+    torch.cuda.synchronize()
+    _, _, avgs = _profile(torch, lambda: [fn() for _ in range(reps)])
+    return sum(e.self_device_time_total / e.count for e in avgs
+               if getattr(e, "self_device_time_total", 0) > 0 and e.count) / 1e3
+
+
+def _time_dot(torch, x, reps: int, device_reps: int = 0) -> dict:
+    """The interaction on x: kernel, plain twin and yardsticks timed in
+    turns (plain, kernel, yardsticks, yardsticks, kernel, plain), the
+    kernel held against both twins first; with device_reps, also the
+    device time of one call of the kernel and of each yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda, uses_tensor_cores
+
+    b, f, d = x.shape
+    got = dot_interaction_cuda(x)
+    for twin in (ref.dot_interaction_ref, ref.dot_interaction_tc_ref):
+        want = twin(x)
+        if not torch.allclose(got, want, **DOT_TOL):
+            _fail(f"dot_interaction differs from {twin.__name__} at B={b} F={f} D={d}")
+        err = float((got - want).abs().max())
+        del want
+    del got
+    libs = _dot_yardsticks(torch, x)
+    kern = lambda: dot_interaction_cuda(x)  # noqa: E731
+    twin = lambda: ref.dot_interaction_ref(x)  # noqa: E731
+    plain_reps = max(3, reps // 10)
+    plain_a = _time_ms(torch, twin, plain_reps)
+    ms_a = _time_ms(torch, kern, reps)
+    lib_a = {n: _time_ms(torch, fn, reps) for n, fn in libs.items()}
+    lib_b = {n: _time_ms(torch, fn, reps) for n, fn in libs.items()}
+    ms_b = _time_ms(torch, kern, reps)
+    plain_b = _time_ms(torch, twin, plain_reps)
+    p = f * (f - 1) // 2
+    nbytes = x.numel() * x.element_size() + b * p * 4
+    nops = 2 * b * p * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / (H100_BF16_FLOPS if uses_tensor_cores(x) else CORE_OPS_PER_S) * 1e3
+    row = {"ms": min(ms_a, ms_b), "runs": [ms_a, ms_b], "plain_ms": min(plain_a, plain_b),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_calls": {n: min(lib_a[n], lib_b[n]) for n in libs},
+           "bytes": nbytes, "ops": nops, "max_abs_err": err}
+    if device_reps:
+        row["device_ms"] = _device_ms(torch, kern, device_reps)
+        row["library_device_ms"] = {n: _device_ms(torch, fn, device_reps)
+                                    for n, fn in libs.items()}
+    return row
+
+
+DOT_SWEEP = ((8, 3), (8, 2), (4, 3), (4, 2), (2, 3), (8, 1))  # (samples, stages) at serve_bulk
+
+
+def _dot_row(torch, fields, p99_fields, errs: dict, launches: dict, p99_launches: dict) -> dict:
+    """The dot_interaction row: the serve_bulk fields and a serve_p99 batch's
+    (B = 512), each beside its bound, twin and yardsticks; a sweep of the
+    launch plan at serve_bulk (each plan's output bit-identical to the
+    plan's own: a sample's arithmetic does not depend on its group); the
+    tensor-core kernel's HMMA count in its SASS."""
+    from dataclasses import asdict
+
+    from repro_torch.kernels.dot_interaction import (_sm_count, dot_interaction_cuda, tc_plan,
+                                                     uses_tensor_cores)
+
+    if not (uses_tensor_cores(fields) and uses_tensor_cores(p99_fields)):
+        _fail("DLRM's fields do not take the tensor-core dot_interaction")
+    bulk = _time_dot(torch, fields, 20)
+    p99 = _time_dot(torch, p99_fields, 200, device_reps=50)
+    errs["dot_interaction"] = max(errs["dot_interaction"], bulk["max_abs_err"],
+                                  p99["max_abs_err"])
+    b, f, d = fields.shape
+    n_sm = _sm_count(fields.device)
+    plan = tc_plan(b, f, d, n_sm)
+    base = dot_interaction_cuda(fields)
+    sweep = {}
+    for samples, stages in DOT_SWEEP:
+        sp = tc_plan(b, f, d, n_sm, samples=samples, stages=stages)
+        if not torch.equal(dot_interaction_cuda(fields, sp), base):
+            _fail(f"dot_interaction's output depends on its plan ({samples}, {stages})")
+        sweep[f"{samples}x{stages}"] = {"blocks": sp.blocks, "smem": sp.smem,
+                                        "ms": _time_ms(torch, lambda sp=sp: dot_interaction_cuda(
+                                            fields, sp), 10)}
+    del base
+    mma = _mma_counts("dot_interaction")
+    tc_keys = [k for k in mma if "dot_interaction_tc_kernel" in k]
+    hmma = sum(mma[k]["HMMA"] for k in tc_keys) if mma else None
+    if mma and not hmma:
+        _fail("no HMMA in the tensor-core dot_interaction kernel's SASS")
+    libs = bulk["library_calls"]
+    row = {"name": "dot_interaction", "route": "cuda",
+           "source": "src/repro_torch/csrc/dot_interaction.cu",
+           "replaces": "src/repro/kernels/dot_interaction.py:26",
+           "launches": launches["dot_interaction"], "max_abs_err": errs["dot_interaction"],
+           "ms": bulk["ms"], "plain_ms": bulk["plain_ms"], "bound_ms": bulk["bound_ms"],
+           "bound_by": bulk["bound_by"], "library_ms": min(libs.values()) if libs else None,
+           "library_calls": libs, "launches_simt": launches["dot_interaction_simt"],
+           "launches_serve_p99": p99_launches["dot_interaction"],
+           "serve_p99": {k: p99[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_calls",
+                                              "library_device_ms")},
+           "plan": asdict(plan), "plan_sweep_ms": sweep, "hmma_sass": hmma}
+    for what, r in (("serve_bulk", bulk), ("serve_p99 B=512", p99)):
+        print(f"kernel dot_interaction at {what} fields ms={r['ms']:.6f} (runs "
+              f"{r['runs'][0]:.6f} {r['runs'][1]:.6f}) device_ms={r.get('device_ms', 'n/a')} "
+              f"plain_ms={r['plain_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, "
+              f"{r['bytes']} B, {r['ops']} ops) share of bound="
+              f"{r['bound_ms'] / r['ms']:.3f} library_ms={r['library_calls']} "
+              f"library_device_ms={r.get('library_device_ms', 'n/a')}")
+    print(f"dot_interaction plan at serve_bulk {asdict(plan)}; sweep (samples x stages): {sweep}; "
+          f"HMMA in the tensor-core kernel (SASS, static) {hmma}; launches serve_bulk "
+          f"tensor cores={launches['dot_interaction']} simt={launches['dot_interaction_simt']} "
+          f"serve_p99 tensor cores={p99_launches['dot_interaction']} "
+          f"simt={p99_launches['dot_interaction_simt']}")
+    return row
+
+
+def _cat_passes(avgs) -> None:
+    """Device time of the concatenations in a profiled DLRM batch (the fields
+    (B, 27, D) in bf16 before the interaction, the top MLP's float32 input
+    after it), by kernel."""
+    cats = [(e.key, getattr(e, "self_device_time_total", 0), e.count) for e in avgs
+            if "Cat" in e.key and getattr(e, "self_device_time_total", 0) > 0]
+    print(f"torch.cat passes in the serve_bulk batch (device time): "
+          f"{[(k[:160], us / 1e3, c) for k, us, c in cats]} "
+          f"total_ms={sum(us for _, us, _ in cats) / 1e3}")
 
 
 def drive_dlrm(torch, np, seed: int, errs: dict) -> list:
@@ -707,6 +915,7 @@ def drive_dlrm(torch, np, seed: int, errs: dict) -> list:
     if logits.shape != (512,) or not bool(torch.isfinite(logits).all()):
         _fail("serve_p99 logits are not 512 finite values")
     _hold_against_twins(torch, model, *cell.args, "serve_p99 batch")
+    _, p99_fields = model.fields(*cell.args)  # timed with the serve_bulk rows
     gen =torch.Generator(device=DEV).manual_seed(seed + 2)
     batches = [dlrm_batch(model.cfg, 512, gen) for _ in range(200)]
     for dense, sparse in batches[:20]:
@@ -757,9 +966,11 @@ def drive_dlrm(torch, np, seed: int, errs: dict) -> list:
     print(f"device busy serve_bulk batch: wall_s={wall:.6f} kernel_s={dev:.6f} "
           f"busy_share={dev / wall if dev > 0 else 'not measured'}")
     print(f"serve_bulk kernels by device time: {_top_kernels(avgs)}")
-    rows = time_dlrm_kernels(torch, model, dense, sparse, errs, bulk_counts, p99_counts)
+    _cat_passes(avgs)
+    rows = time_dlrm_kernels(torch, model, dense, sparse, p99_fields, errs, bulk_counts,
+                             p99_counts)
     print(f"peak max_memory_allocated serve_bulk={torch.cuda.max_memory_allocated()}")
-    del cell, model, dense, sparse, logits
+    del cell, model, dense, sparse, logits, p99_fields
     torch.cuda.empty_cache()
 
     # retrieval_cand: one query against 1,000,192 candidates

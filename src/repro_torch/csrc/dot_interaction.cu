@@ -7,25 +7,69 @@
 //   out[b, i*(i-1)/2 + j] = sum_d x[b, i, d] * x[b, j, d]   for F > i > j >= 0
 //
 // x (B, F, D) float32 or bfloat16, out (B, F(F-1)/2) float32, in
-// tril_indices(F, -1) order. Inputs are upcast to float32 and every pair is
-// summed in float32 in the order d = 0..D-1. The Pallas kernel casts its
-// float32 sums back to x's type; this kernel keeps float32, which is what
-// DLRM's interaction (`_interact` in src/repro/models/dlrm.py) computes.
+// tril_indices(F, -1) order. Products are summed in float32. The Pallas
+// kernel casts its float32 sums back to x's type; this kernel keeps float32,
+// which is what DLRM's interaction (`_interact` in src/repro/models/dlrm.py)
+// computes. Any B is accepted; B == 0 launches nothing.
 //
-// What bounds it: bytes. At DLRM's shape (F = 27, D = 128, bfloat16) a
-// sample reads 6.9 KB and writes 351 * 4 B, against 351 * 128 float32
-// multiply-adds: 2 * 351 * 128 / 8,316 B = 10.8 operations per byte, below
-// the card's float32 balance (67e12 / 3.35e12 = 20). The design stages a few
-// samples of X per block in shared memory as float32, each row padded to
-// a stride of 4 (mod 32) words so that rows r and r + 1 start in
-// neighbouring 16-byte bank groups, and has each thread compute a 4 x 4
-// tile of the F x F product: four rows of X against four rows, 64
-// multiply-adds per eight shared-memory loads of 16 bytes, so that shared
-// memory bandwidth, not HBM, is what the tile size trades against
-// registers. Each thread starts its sweep over D at a column rotated by its
-// tile column, which spreads the threads that read the same rows over the
-// bank groups. Only tiles that touch the strict lower triangle are
-// computed. Any B is accepted; B == 0 launches nothing.
+// Two kernels; the caller picks one by the input's type and shape and says
+// which through `spg` (0: SIMT), so that each path is counted on its own.
+//
+// - bfloat16 with D % 16 == 0, `dot_interaction_tc_kernel`: the tensor
+//   cores. What bounds it: bytes. At DLRM's shape (F = 27, D = 128) a sample
+//   reads 6,912 B and writes 351 * 4 B against 2 * 351 * 128 operations, 10.8
+//   a byte, far below the tensor cores' balance (989e12 / 3.35e12 = 295), so
+//   the design keeps loads in flight and spends little on the rest:
+//   * Persistent blocks walk groups of `spg` consecutive samples (one
+//     contiguous span of spg * F * D * 2 bytes), blockIdx.x, + gridDim.x,
+//     ... A ring of `stages` groups in shared memory is filled by 16-byte
+//     cp.async.cg from every lane; the copies of group i + stages - 1 are
+//     issued before group i is computed, so stages - 1 groups are in flight
+//     while one is multiplied (110 KB an SM at DLRM's shape and plan).
+//   * Rows are padded to 2 D + 16 bytes, an odd number of 16-byte units, so
+//     the 8 rows of one ldmatrix phase cover all 32 banks once (unpadded 256
+//     B rows would be an 8-way conflict). A group's rows follow each other
+//     as in x; a sample's rows past F (F rounded up to 16) are the next
+//     sample's rows, or zeroed tail rows after the group: they feed only
+//     outputs that are thrown away, and the ring is zeroed once at the
+//     start, so no uninitialised shared memory is ever read.
+//   * One warp a sample: Z = X X^T by mma.sync m16n8k16 (bf16 in, float32
+//     accumulate, the contract of `_interact`), operands from ldmatrix.x4.
+//     Only the m16 x n8 tiles that touch the strict lower triangle are
+//     computed (6 of 8 at F = 27: 48 mma over D = 128). The B fragment of
+//     n-tiles 2p and 2p + 1 is the A fragment of m-tile p (X^T's columns are
+//     X's rows), so a k-step loads one ldmatrix.x4 per 16 rows and no more.
+//   * The product must also cost few instructions: with loads in flight the
+//     time is the larger of the stream and the warps' issue. So the kernel
+//     is instantiated for 1-4 m-tiles (F <= 64; a generic instance takes
+//     any F), which unrolls the tiles, keeps every accumulator in registers,
+//     and reduces the scatter to one compare and one store an entry. (With
+//     runtime tile loops, the warps' issue alone took longer than DLRM's
+//     stream on an H100; unrolled, it hides under the loads.)
+//   * Each accumulator entry j < i < F goes to the sample's output row at
+//     i(i-1)/2 + j in shared memory (the map of `ref.tc_store_map`); the
+//     group's spg * P floats then leave as one contiguous span in 16-byte
+//     stores (a lead of 0-3 floats aligns the span to 16 bytes).
+//   The wrapper plans spg, stages and the grid (kernels/dot_interaction.py,
+//   `tc_plan`): spg from B, so that a small batch (serve_p99's 512) still
+//   spreads over every SM, and the largest ring that fits.
+//
+// - float32, or bfloat16 with D % 16 != 0, `dot_interaction_kernel`: SIMT.
+//   Inputs are upcast to float32 and every pair is summed in float32 in the
+//   order d = 0..D-1. What bounds it: at DLRM's shape in float32, bytes too
+//   (2 * 351 * 128 / 15,228 B = 5.9 operations a byte, below the card's
+//   float32 balance of 67e12 / 3.35e12 = 20); the design stages a few
+//   samples of X per block in shared memory as float32, each row padded to a
+//   stride of 4 (mod 32) words so that rows r and r + 1 start in neighbouring
+//   16-byte bank groups, and has each thread compute a 4 x 4 tile of the F x
+//   F product: four rows of X against four rows, 64 multiply-adds per eight
+//   shared-memory loads of 16 bytes. Each thread starts its sweep over D at a
+//   column rotated by its tile column, which spreads the threads that read
+//   the same rows over the bank groups. Only tiles that touch the strict
+//   lower triangle are computed. It loads each row before it converts and
+//   stores it, so few loads are in flight (3.2 ms for DLRM's bfloat16 batch
+//   on an H100, 20% of its byte bound): it serves only what the
+//   tensor-core kernel does not take.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -172,15 +216,285 @@ int launch_vec(const void* x, void* out, int64_t B, int64_t F, int64_t D,
   return launch<T, 1>(x, out, B, F, D, stream);
 }
 
+// --------------------------------------------------- bf16 tensor-core kernel
+
+constexpr int TC_PAIRS = 4;     // n-tile pairs a warp accumulates at once (32 floats a lane)
+constexpr int TC_MAX_WARPS = 8;  // one warp a sample of the group, at most 8
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One sample on one warp, F <= 16 MT: xs is the shared address of the
+// sample's row 0 (rows of rb bytes, 16 MT of them readable), lane_off this
+// lane's ldmatrix.x4 offset inside a 16 x 16 tile, o the sample's output row
+// in shared memory. m-tile mt is rows [16 mt, 16 mt + 16), n-tile nt columns
+// [8 nt, 8 nt + 8); every tile nt <= 2 mt + 1 is computed, except, in the
+// last m-tile, those with 8 nt >= F - 1 (no column below a real row): the
+// tiles with 8 nt < min(16 mt + 15, F - 1). Each k-step loads the A fragment
+// of every m-tile once; the B fragments of n-tiles 2p and 2p + 1 are m-tile
+// p's A fragment (b0 = a0, b1 = a2 and b0 = a1, b1 = a3), since Z = X X^T.
+template <int MT>
+__device__ __forceinline__ void tc_sample(uint32_t xs, float* o, int F, int K, int rb,
+                                          uint32_t lane_off, int lane) {
+  const int n_last = (F - 1 + 7) / 8;  // computed n-tiles of the last m-tile
+  float acc[MT][2 * MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * MT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xs + mt * 16 * rb + lane_off + k * 32);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int p = 0; p <= mt; ++p) {
+        if (mt < MT - 1 || 2 * p < n_last) mma_bf16(acc[mt][2 * p], a[mt], a[p][0], a[p][2]);
+        if (mt < MT - 1 || 2 * p + 1 < n_last)
+          mma_bf16(acc[mt][2 * p + 1], a[mt], a[p][1], a[p][3]);
+      }
+  }
+  // accumulator entry 2h + c of tile (mt, nt): row i = 16 mt + g + 8 h,
+  // column j = 8 nt + 2 t + c (g = lane / 4, t = lane % 4); it is kept
+  // where j < i < F, at i (i - 1) / 2 + j
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * mt + g + 8 * h;
+      if (i >= F) continue;
+      float* row = o + i * (i - 1) / 2 + 2 * t;
+      const int lim = i - 2 * t;  // j < i: 8 nt + c < lim
+#pragma unroll
+      for (int nt = 0; nt < 2 * mt + 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * nt + c < lim) row[8 * nt + c] = acc[mt][nt][2 * h + c];
+    }
+}
+
+// The same for any F (MT = ceil(F / 16) above 4): a warp takes the m-tiles
+// one at a time and their n-tiles TC_PAIRS pairs at a time, so its
+// accumulators stay at 32 floats a lane.
+__device__ __forceinline__ void tc_sample_any(uint32_t xs, float* o, int F, int K, int rb,
+                                              uint32_t lane_off, int lane) {
+  const int MT = (F + 15) / 16;
+  const int g = lane >> 2, t = lane & 3;
+  for (int mt = 0; mt < MT; ++mt) {
+    const int i_hi = min(16 * mt + 15, F - 1);  // the m-tile's last real row
+    const int n_nt = (i_hi + 7) / 8;            // its computed n-tiles
+    const int n_pairs = (n_nt + 1) / 2;
+    const uint32_t a_addr = xs + mt * 16 * rb + lane_off;
+    for (int p0 = 0; p0 < n_pairs; p0 += TC_PAIRS) {
+      float acc[TC_PAIRS][2][4];
+#pragma unroll
+      for (int q = 0; q < TC_PAIRS; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[q][h][r] = 0.0f;
+#pragma unroll 2
+      for (int k = 0; k < K; ++k) {
+        uint32_t a[4];
+        ldmatrix_x4(a, a_addr + k * 32);
+        uint32_t b[TC_PAIRS][4];
+#pragma unroll
+        for (int q = 0; q < TC_PAIRS; ++q) {
+          const int p = p0 + q;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) b[q][r] = a[r];
+          if (p < n_pairs && p != mt) ldmatrix_x4(b[q], xs + p * 16 * rb + lane_off + k * 32);
+        }
+#pragma unroll
+        for (int q = 0; q < TC_PAIRS; ++q) {
+          const int p = p0 + q;
+          if (p < n_pairs) {
+            mma_bf16(acc[q][0], a, b[q][0], b[q][2]);
+            if (2 * p + 1 < n_nt) mma_bf16(acc[q][1], a, b[q][1], b[q][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < TC_PAIRS; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int nt = 2 * (p0 + q) + h;
+          if (nt >= n_nt) continue;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 16 * mt + g + 8 * (r >> 1), j = 8 * nt + 2 * t + (r & 1);
+            if (j < i && i < F) o[i * (i - 1) / 2 + j] = acc[q][h][r];
+          }
+        }
+    }
+  }
+}
+
+// Shared memory: the output staging of a group (spg * P floats after a lead
+// of 0-3, rounded up to 16 bytes), then `stages` ring slots of spg * F rows
+// plus 16 * ceil(F / 16) - F tail rows, each row 2 D + 16 bytes.
+__host__ __device__ __forceinline__ int64_t tc_staging_bytes(int64_t F, int64_t spg) {
+  return (spg * (F * (F - 1) / 2) + 3 + 3) / 4 * 16;
+}
+__host__ __device__ __forceinline__ int64_t tc_slot_bytes(int64_t F, int64_t D, int64_t spg) {
+  return (spg * F + (F + 15) / 16 * 16 - F) * (2 * D + 16);
+}
+
+// MT: ceil(F / 16) for F <= 64, 0 for any F.
+template <int MT>
+__global__ void __launch_bounds__(32 * TC_MAX_WARPS)
+    dot_interaction_tc_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
+                              int64_t B, int F, int D, int spg, int stages, int64_t n_groups) {
+  extern __shared__ float4 smem_tc[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem_tc);
+  float* stg = reinterpret_cast<float*>(base);
+  unsigned char* ring = base + tc_staging_bytes(F, spg);
+  const int rb = 2 * D + 16, chunks = D / 8, P = F * (F - 1) / 2;
+  const int slot_bytes = (int)tc_slot_bytes(F, D, spg);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  // c / chunks = umulhi(c, magic) for c < 2^32 / chunks, which every index
+  // of a group that fits in shared memory is
+  const uint32_t magic = (uint32_t)((0x100000000ull + chunks - 1) / chunks);
+  // ldmatrix.x4 address of this lane inside a 16 x 16 tile: matrices (rows
+  // 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15),
+  // which is the A fragment a0..a3 of m16n8k16
+  const uint32_t lane_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * rb + (lane >> 4) * 16;
+
+  for (int off = tid * 16; off < stages * slot_bytes; off += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(ring + off) = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // this block's groups: blockIdx.x + i * gridDim.x for i < mine
+  const int64_t mine = (n_groups - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto load = [&](int64_t i) {
+    const int64_t s0 = (blockIdx.x + i * gridDim.x) * (int64_t)spg;
+    const int n = (int)(B - s0 < spg ? B - s0 : spg) * F * chunks;
+    const char* src = reinterpret_cast<const char*>(x + s0 * F * D);
+    const uint32_t dst = smem_u32(ring + (int)(i % stages) * slot_bytes);
+    for (int c = tid; c < n; c += blockDim.x) {
+      const int r = (int)__umulhi((uint32_t)c, magic);  // c / chunks
+      cp_async16(dst + r * rb + (c - r * chunks) * 16, src + (int64_t)c * 16);
+    }
+  };
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < mine) load(i);
+    cp_async_commit();
+  }
+  for (int64_t i = 0; i < mine; ++i) {
+    // the slot of group i + stages - 1 held group i - 1, which every warp
+    // finished before the last barrier
+    if (i + stages - 1 < mine) load(i + stages - 1);
+    cp_async_commit();
+    if (stages >= 3) cp_async_wait<2>();
+    else if (stages == 2) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();  // group i is in the ring
+
+    const int64_t s0 = (blockIdx.x + i * gridDim.x) * (int64_t)spg;
+    const int nb = (int)(B - s0 < spg ? B - s0 : spg);
+    const int lead = (int)((s0 * P) & 3);
+    const unsigned char* slot = ring + (int)(i % stages) * slot_bytes;
+    for (int s = warp; s < nb; s += nwarps) {
+      const uint32_t xs = smem_u32(slot + s * F * rb);
+      if constexpr (MT > 0) tc_sample<MT>(xs, stg + lead + s * P, F, D / 16, rb, lane_off, lane);
+      else tc_sample_any(xs, stg + lead + s * P, F, D / 16, rb, lane_off, lane);
+    }
+    __syncthreads();  // the group's outputs are staged
+
+    // out + s0 * P - lead is 16-byte aligned: out is, and s0 * P - lead = 0 mod 4
+    float* dst = out + s0 * P - lead;
+    const int end = lead + nb * P, nv = (end + 3) / 4;
+    for (int v = tid; v < nv; v += blockDim.x) {
+      const int e = 4 * v;
+      if (e >= lead && e + 4 <= end) {
+        *reinterpret_cast<float4*>(dst + e) = *reinterpret_cast<const float4*>(stg + e);
+      } else {
+        for (int k = max(e, lead); k < min(e + 4, end); ++k) dst[k] = stg[k];
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int MT>
+int launch_tc_mt(const void* x, void* out, int64_t B, int64_t F, int64_t D, int64_t spg,
+                 int64_t stages, int64_t grid, int64_t n_groups, int64_t smem,
+                 cudaStream_t stream) {
+  if (smem > 49152) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dot_interaction_tc_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int threads = 32 * (int)(spg < TC_MAX_WARPS ? spg : TC_MAX_WARPS);
+  dot_interaction_tc_kernel<MT><<<(unsigned)grid, threads, (size_t)smem, stream>>>(
+      (const __nv_bfloat16*)x, (float*)out, B, (int)F, (int)D, (int)spg, (int)stages,
+      n_groups);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc(const void* x, void* out, int64_t B, int64_t F, int64_t D, int64_t spg,
+              int64_t stages, int64_t grid, cudaStream_t stream) {
+  if (D <= 0 || D % 16 != 0 || (uintptr_t)x % 16 != 0 || (uintptr_t)out % 16 != 0 ||
+      spg < 1 || spg > 1024 || stages < 1 || stages > 3 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t smem = tc_staging_bytes(F, spg) + stages * tc_slot_bytes(F, D, spg);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;  // what one block may use on sm_90
+  const int64_t n_groups = (B + spg - 1) / spg;
+  if (grid > n_groups) grid = n_groups;
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  switch ((F + 15) / 16) {
+    case 1: return launch_tc_mt<1>(x, out, B, F, D, spg, stages, grid, n_groups, smem, stream);
+    case 2: return launch_tc_mt<2>(x, out, B, F, D, spg, stages, grid, n_groups, smem, stream);
+    case 3: return launch_tc_mt<3>(x, out, B, F, D, spg, stages, grid, n_groups, smem, stream);
+    case 4: return launch_tc_mt<4>(x, out, B, F, D, spg, stages, grid, n_groups, smem, stream);
+    default: return launch_tc_mt<0>(x, out, B, F, D, spg, stages, grid, n_groups, smem, stream);
+  }
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.
+// dtype: 0 float32, 1 bfloat16. spg > 0 asks for the tensor-core kernel
+// (bfloat16, D % 16 == 0) with groups of spg samples, a ring of `stages`
+// and `grid` persistent blocks; spg == 0 for the SIMT kernel, which
+// ignores stages and grid.
 extern "C" int dot_interaction_launch(const void* x, void* out, int64_t B,
-                                      int64_t F, int64_t D, int64_t dtype,
-                                      void* stream) {
+                                      int64_t F, int64_t D, int64_t dtype, int64_t spg,
+                                      int64_t stages, int64_t grid, void* stream) {
   if (B <= 0 || F < 2) return 0;
-  if (D < 0 || F > 4096 || D > (1 << 20)) return (int)cudaErrorInvalidValue;
+  if (D < 0 || F > 4096 || D > (1 << 20) || spg < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (spg > 0) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_tc(x, out, B, F, D, spg, stages, grid, s);
+  }
   if (dtype == 0) return launch_vec<float>(x, out, B, F, D, s);
   return launch_vec<__nv_bfloat16>(x, out, B, F, D, s);
 }

@@ -41,8 +41,12 @@ SOURCES = {
     "embedding_bag": {"embedding_bag": ("embedding_bag_launch",
                                         [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                          _P])},
-    "dot_interaction": {"dot_interaction": ("dot_interaction_launch",
-                                            [_P, _P, _I64, _I64, _I64, _I64, _P])},
+    # x, out; B, F, D, dtype, spg, stages, grid: one entry point, counted
+    # under the path the wrapper asked for (spg > 0: tensor cores)
+    "dot_interaction": {
+        "dot_interaction": ("dot_interaction_launch", [_P, _P] + [_I64] * 7 + [_P]),
+        "dot_interaction_simt": ("dot_interaction_launch", [_P, _P] + [_I64] * 7 + [_P]),
+    },
     "flash_attention": {
         # q, k, v, o, part; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal,
         # window, q_offset, n_splits; softcap, sm_scale; dtype

@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA kernel ``csrc/dot_interaction.cu``: the strictly lower
+"""Wrapper of the CUDA kernels ``csrc/dot_interaction.cu``: the strictly lower
 triangle of X Xᵀ per sample, in float32.
 
 It replaces the Pallas kernel ``dot_interaction`` of the JAX package (a TPU
@@ -7,22 +7,106 @@ kernel) and is DLRM's feature interaction
 the Pallas kernel, which casts its float32 sums back to the input's type,
 it returns float32, as DLRM's ``_interact`` does. Its plain twin is
 :func:`repro_torch.kernels.ref.dot_interaction_ref`.
+
+A call launches one of two kernels, chosen by the input's type and shape
+(:func:`uses_tensor_cores`) and counted under its own name in
+``launch_counts``: ``dot_interaction``, bfloat16 with D % 16 == 0 on the
+tensor cores (DLRM's fields), whose tiling twin is
+:func:`repro_torch.kernels.ref.dot_interaction_tc_ref`; and
+``dot_interaction_simt``, float32 FMAs, for the rest. The tensor-core kernel
+walks groups of samples through a ring in shared memory with persistent
+blocks, planned here by :func:`tc_plan`.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_SAMPLES = 8        # most samples a group: one a warp, 8 warps a block
+TC_STAGES = 3         # ring slots: two groups in flight while one is multiplied
+SMEM_CAP = 232_448    # dynamic shared memory one block may use (sm_90)
+SM_SMEM = 233_472     # shared memory of one SM; each resident block also takes 1 KB
+SM_THREADS = 2_048    # resident threads of one SM
+_sm_counts: dict[int, int] = {}
 
 
-def dot_interaction_cuda(x: torch.Tensor) -> torch.Tensor:
+@dataclass(frozen=True)
+class TcPlan:
+    """A launch of the tensor-core kernel: groups of ``samples`` consecutive
+    samples (one ring slot each), a ring of ``stages`` slots, ``blocks``
+    persistent blocks of ``threads`` threads, block k taking groups k,
+    k + blocks, ...; ``smem`` bytes of shared memory a block."""
+    samples: int
+    stages: int
+    blocks: int
+    threads: int
+    smem: int
+    groups: int
+
+
+def tc_smem(f: int, d: int, samples: int, stages: int) -> int:
+    """Shared memory of a tensor-core block: the output staging (samples *
+    P floats and a lead of up to 3, in 16-byte units), then `stages` slots of
+    samples * F rows and 16 * ceil(F / 16) - F tail rows of 2 D + 16 bytes.
+    The kernel's launch computes the same (``tc_staging_bytes``,
+    ``tc_slot_bytes``)."""
+    p = f * (f - 1) // 2
+    staging = (samples * p + 6) // 4 * 16
+    slot = (samples * f + -(-f // 16) * 16 - f) * (2 * d + 16)
+    return staging + stages * slot
+
+
+def tc_plan(b: int, f: int, d: int, n_sm: int = 132, *, samples: int | None = None,
+            stages: int | None = None) -> TcPlan:
+    """The tensor-core launch for a (b, f, d) batch on `n_sm` SMs.
+    Samples a group: b // n_sm, between 1 and TC_SAMPLES, so that a small
+    batch still gives every SM a group; then the deepest ring (up to
+    TC_STAGES), and the most samples, that fit in a block's shared memory.
+    Blocks: as many as are resident at once on the card, at most one a
+    group. `samples` and `stages` force either (a sweep's knobs). Raises
+    ValueError where one sample's rows do not fit."""
+    want = samples or max(1, min(TC_SAMPLES, b // n_sm))
+    sizes = [want] if samples else range(want, 0, -1)
+    for st in [stages] if stages else range(TC_STAGES, 0, -1):
+        for spg in sizes:
+            smem = tc_smem(f, d, spg, st)
+            if smem <= SMEM_CAP:
+                threads = 32 * min(spg, TC_SAMPLES)
+                per_sm = max(1, min(SM_SMEM // (smem + 1024), SM_THREADS // threads))
+                groups = -(-b // spg)
+                return TcPlan(spg, st, min(groups, n_sm * per_sm), threads, smem, groups)
+    raise ValueError(f"dot_interaction: one sample of {f} rows of {d} bfloat16 values "
+                     "does not fit in a block's shared memory")
+
+
+def uses_tensor_cores(x: torch.Tensor) -> bool:
+    """Whether :func:`dot_interaction_cuda` sends x to the tensor-core kernel:
+    bfloat16, D a positive multiple of 16, and 16-byte aligned (each
+    cp.async moves 16 bytes)."""
+    d = x.shape[-1]
+    return (x.dtype == torch.bfloat16 and d > 0 and d % 16 == 0
+            and x.data_ptr() % 16 == 0)
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def dot_interaction_cuda(x: torch.Tensor, plan: TcPlan | None = None) -> torch.Tensor:
     """x (B, F, D) float32 or bfloat16, contiguous, on a CUDA device.
     Returns (B, F(F-1)/2) float32 in ``tril_indices(F, -1)`` order. Any B is
     accepted; B == 0 launches nothing. One sample's rows, padded, must fit
     in one block's shared memory (F * D up to about 56K floats); the kernel
-    refuses a larger sample and the launch raises."""
+    refuses a larger sample and the launch raises. `plan` replaces
+    :func:`tc_plan`'s for the tensor-core kernel (a sweep's knob)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"dot_interaction_cuda takes float32 or bfloat16, not {x.dtype}")
     if x.dim() != 3:
@@ -35,6 +119,12 @@ def dot_interaction_cuda(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, f * (f - 1) // 2), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    _build.launch("dot_interaction", "dot_interaction", x.device, x.data_ptr(),
-                  out.data_ptr(), b, f, d, _DTYPES[x.dtype])
+    if uses_tensor_cores(x):
+        if plan is None:
+            plan = tc_plan(b, f, d, _sm_count(x.device))
+        _build.launch("dot_interaction", "dot_interaction", x.device, x.data_ptr(),
+                      out.data_ptr(), b, f, d, 1, plan.samples, plan.stages, plan.blocks)
+    else:
+        _build.launch("dot_interaction", "dot_interaction_simt", x.device, x.data_ptr(),
+                      out.data_ptr(), b, f, d, _DTYPES[x.dtype], 0, 0, 0)
     return out

@@ -89,6 +89,56 @@ def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
     return z[:, ii, jj]
 
 
+def _tc_fragment_rows_cols(f: int):
+    """Row i and column j of Z = X Xᵀ that each accumulator entry of the
+    tensor-core kernel holds, indexed (m-tile, n-tile, lane, register) over
+    ceil(F / 16) m-tiles of 16 rows and twice as many n-tiles of 8 columns:
+    the m16n8 accumulator layout, row 16 mt + lane // 4 + 8 (r // 2), column
+    8 nt + 2 (lane % 4) + r % 2."""
+    mts = -(-f // 16)
+    mt, nt, lane, r = torch.meshgrid(torch.arange(mts), torch.arange(2 * mts),
+                                     torch.arange(32), torch.arange(4), indexing="ij")
+    i = 16 * mt + lane // 4 + 8 * (r // 2)
+    j = 8 * nt + 2 * (lane % 4) + r % 2
+    return i, j
+
+
+def tc_store_map(f: int) -> torch.Tensor:
+    """The tensor-core kernel's store map: for each (m-tile, n-tile, lane,
+    register) of F's tiles, (ceil(F/16), 2 ceil(F/16), 32, 4) int64, the
+    output column i(i-1)/2 + j its entry goes to, or -1 where it is thrown
+    away (a pad row i >= F, or j >= i). Only tiles with 8 nt < min(16 mt +
+    15, F - 1) are computed; every kept entry lies in one of them."""
+    i, j = _tc_fragment_rows_cols(f)
+    mt, nt = i // 16, j // 8
+    computed = 8 * nt < torch.clamp(16 * mt + 15, max=f - 1)
+    kept = computed & (j < i) & (i < f)
+    return torch.where(kept, i * (i - 1) // 2 + j, -1)
+
+
+def dot_interaction_tc_ref(x: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic: x (B, F, D) float32 or bfloat16
+    -> (B, F(F-1)/2) float32, like :func:`dot_interaction_ref`. F is padded
+    with zero rows to 16-row tiles (the kernel's pad rows hold the next
+    sample's rows; they reach only entries the map throws away) and D with
+    zeros to 16-wide k-steps; Z is summed in float32 one k-step at a time,
+    and each entry reaches its output column through :func:`tc_store_map`."""
+    b, f, d = x.shape
+    fp, dp = -(-f // 16) * 16, -(-d // 16) * 16
+    xp = torch.zeros((b, fp, dp), dtype=torch.float32, device=x.device)
+    xp[:, :f, :d] = x.float()
+    z = torch.zeros((b, fp, fp), dtype=torch.float32, device=x.device)
+    for k0 in range(0, dp, 16):
+        xk = xp[:, :, k0:k0 + 16]
+        z += torch.bmm(xk, xk.transpose(1, 2))
+    cols = tc_store_map(f)
+    i, j = _tc_fragment_rows_cols(f)
+    kept = cols >= 0
+    out = torch.empty((b, f * (f - 1) // 2), dtype=torch.float32, device=x.device)
+    out[:, cols[kept].to(x.device)] = z[:, i[kept].to(x.device), j[kept].to(x.device)]
+    return out
+
+
 def csr_spmm_ref(x: torch.Tensor, row_ptr: torch.Tensor, col: torch.Tensor,
                  n_out: int) -> torch.Tensor:
     """CSR sparse-dense product: out[r] = sum over k in [row_ptr[r],

@@ -140,7 +140,8 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.csr_spmm(torch.ones((2, 3)), CSR(torch.tensor([0, 1]), torch.tensor([1], dtype=torch.int32), 2))
     assert ops.launch_counts["bitvec_rank"] == ops.launch_counts["digram_pair_counts"] == 0
     assert set(ops.launch_counts) == {"bitvec_rank", "digram_pair_counts", "embedding_bag",
-                                      "dot_interaction", "flash_attention",
+                                      "dot_interaction", "dot_interaction_simt",
+                                      "flash_attention",
                                       "flash_attention_combine", "csr_spmm",
                                       "csr_spmm_combine"}
     assert set(ops.launch_counts.values()) == {0}
