@@ -19,20 +19,30 @@ nothing of the JAX package. Phases:
    of hundreds of chunks) and its backward against the twin's autograd,
    ``dot_interaction`` against its plain and its tensor-core tiling twin
    on each case's path, read from the launch counts, with a control (the
-   last field row zeroed) that must fail);
+   last field row zeroed) that must fail; the fused k²-tree descent
+   ``k2_lines`` against its level-loop twin, exactly, at k = 2, 3, 4, on
+   both axes, the empty tree, random trees up to 100,000 points and one
+   row holding 100,000, with 0, 1, 33 and 4,097 fixed values);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
    every query checked against ``query_oracle`` (a plain scan of the
-   triples on the card), with the kernels' launch counts read around it;
+   triples on the card), with the kernels' launch counts read around it:
+   each of the six batches with S or O bound seeds through one count and
+   one write launch of ``k2_lines``, and the standalone ``bitvec_rank``
+   is launched 0 times;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
-   peak, whichever is larger);
-5. break the ITR path's time down: warm query repeats, the k² seed, the
-   initial Count, the device's busy share (``torch.profiler``), the host
-   syncs (torch's sync debug mode; a lower bound), and the same build and
-   s?? batch with ``device="cpu"`` as a host yardstick;
+   peak, whichever is larger): ``bitvec_rank`` on the per-level inputs of
+   the level loop (the per-level seed) at the s?? batch, ``k2_lines`` on
+   that batch, as the wrapper runs it and each pass's device time, beside
+   its twin and that per-level path;
+5. break the ITR path's time down: warm query repeats, the k² seed and
+   its host syncs (exactly 1), the initial Count, the device's busy share
+   (``torch.profiler``), the host syncs (torch's sync debug mode; a lower
+   bound), and the same build and s?? batch with ``device="cpu"`` as a
+   host yardstick;
 6. serve ``dlrm-mlperf`` at its full published size (177,948,416 table rows
    x 128 in bfloat16 on the card) through ``build_cell`` under
    ``serve_p99`` (p50/p99 latency over 200 batches of 512), ``serve_bulk``
@@ -174,6 +184,50 @@ def check_kernels(torch, np, seed: int) -> dict:
             n_cases += 1
     print(f"kernels_vs_plain cases={n_cases} exact=True")
     return err
+
+
+def check_k2_lines(torch, np, seed: int) -> dict:
+    """Phase 2: the fused k²-tree descent equals its level-loop twin on the
+    card, exactly: k = 2, 3, 4, both axes, the empty tree, random trees up
+    to 100,000 points, one line holding every point, batches of 0, 1, 33
+    and 4,097 fixed values with out-of-range values and duplicates."""
+    from repro_torch.core.succinct import K2Tree
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.k2_lines import k2_lines_cuda
+
+    rng = np.random.default_rng(seed)
+    trees = []
+    for k, n_rows, n_cols in ((2, 5000, 3000), (3, 2000, 7000), (4, 4096, 4096)):
+        for n_pts in (0, 1000, 100_000):
+            r, c = rng.integers(0, n_rows, n_pts), rng.integers(0, n_cols, n_pts)
+            trees.append((f"k={k} {n_rows}x{n_cols} points={n_pts}", r, c, n_rows, n_cols, k))
+        trees.append((f"k={k} one row of 100000 points", np.full(100_000, 7),
+                      np.arange(100_000), 16, 100_000, k))
+    n_cases = results = heaviest = 0
+    for what, r, c, n_rows, n_cols, k in trees:
+        tree = K2Tree(torch.from_numpy(r).to(DEV), torch.from_numpy(c).to(DEV),
+                      n_rows, n_cols, k=k, device=DEV)
+        lay = tree.layout()
+        for axis, n in ((0, n_rows), (1, n_cols)):
+            for q in (0, 1, 33, 4097):
+                fixed = rng.integers(-2, n + 2, q)
+                if q:
+                    fixed[0] = 7 if axis == 0 else 0  # the heavy row, or a line crossing it
+                if q > 2:
+                    fixed[1:3] = fixed[0]  # duplicates
+                fixed = torch.from_numpy(fixed).to(DEV)
+                got = k2_lines_cuda(lay, fixed, axis)
+                want = ref.k2_lines_ref(lay, fixed, axis)
+                torch.cuda.synchronize()
+                if not all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)):
+                    _fail(f"k2_lines differs from its twin on {what}, axis={axis}, Q={q}")
+                n_cases += 1
+                results += got[0].numel()
+                if got[0].numel():
+                    heaviest = max(heaviest, int(torch.bincount(got[0]).max()))
+    print(f"k2_lines kernels_vs_plain cases={n_cases} exact=True results={results} "
+          f"heaviest_line={heaviest}")
+    return {"k2_lines_count": 0, "k2_lines_write": 0}
 
 
 # Tolerances of the float kernels against their twins on the card. The
@@ -342,7 +396,8 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
         torch.cuda.synchronize()
         query_s[pat] = time.perf_counter() - t1
         batches[pat] = cols
-    counts = {k: ops.launch_counts[k] for k in ("bitvec_rank", "digram_pair_counts")}
+    counts = {k: ops.launch_counts[k] for k in ("bitvec_rank", "k2_lines_count",
+                                                 "k2_lines_write", "digram_pair_counts")}
 
     print(f"build_s {build_s:.6f} " + " ".join(f"{k}_s={v:.6f}" for k, v in stages.items()))
     print(f"grammar rules={len(grammar.rules)} start_edges={grammar.start.n_edges} "
@@ -351,8 +406,16 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     print(f"encoded_bytes {encoded.size_in_bytes()}")
     for name, c in counts.items():
         print(f"launches {name} {c}")
-        if c <= 0:
-            _fail(f"the main path never launched {name}")
+    if counts["digram_pair_counts"] <= 0:
+        _fail("the main path never launched digram_pair_counts")
+    # each batch with S or O bound seeds through one rows_many: one count
+    # and one write launch of the fused descent, no per-level rank
+    seeds = sum(pat[0] != "?" or pat[2] != "?" for pat in PATTERNS)
+    if counts["k2_lines_count"] != seeds or counts["k2_lines_write"] != seeds:
+        _fail(f"the main path launched k2_lines_count {counts['k2_lines_count']} and "
+              f"k2_lines_write {counts['k2_lines_write']} times, not {seeds} each")
+    if counts["bitvec_rank"] != 0:
+        _fail(f"the main path launched bitvec_rank {counts['bitvec_rank']} times, not 0")
 
     triples = torch.from_numpy(ds.triples).to(DEV)
     results = {}
@@ -385,25 +448,28 @@ def time_kernels(torch, np, main: dict, errs: dict) -> list:
     from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
     from repro_torch.kernels.digram_count import digram_pair_counts_cuda
 
-    # capture the inputs of one s?? seed batch and of one initial Count
+    # capture the inputs of one initial Count, and the per-level rank inputs
+    # of one s?? seed batch as the level loop (the per-level path, which the
+    # main path no longer takes) gives them to the standalone rank kernel
     calls = {"bitvec_rank": [], "digram_pair_counts": []}
-    real_rank, real_pairs = ops.bitvec_rank, ops.digram_pair_counts
+    real_pairs = ops.digram_pair_counts
 
     def rec_rank(*a):
         calls["bitvec_rank"].append(a)
-        return real_rank(*a)
+        return bitvec_rank_cuda(*a)
 
     def rec_pairs(*a):
         calls["digram_pair_counts"].append(a)
         return real_pairs(*a)
 
-    ops.bitvec_rank, ops.digram_pair_counts = rec_rank, rec_pairs
+    ops.digram_pair_counts = rec_pairs
     try:
-        s = main["batches"]["s??"][0]
-        main["engine"].incidence.rows_many(s)
         digram_counts(main["graph"], main["table"], cap=64)
     finally:
-        ops.bitvec_rank, ops.digram_pair_counts = real_rank, real_pairs
+        ops.digram_pair_counts = real_pairs
+    s = main["batches"]["s??"][0]
+    lay = main["engine"].incidence.layout()
+    per_level = ref.k2_lines_ref(lay, s, 0, rank=rec_rank)
     torch.cuda.synchronize()
 
     rank_calls = calls["bitvec_rank"]
@@ -429,7 +495,7 @@ def time_kernels(torch, np, main: dict, errs: dict) -> list:
                      for a in pair_calls)
     pair_ops = sum(16 * a[0].shape[0] * (a[0].shape[1] * (a[0].shape[1] + 1) // 2)
                    for a in pair_calls)
-    print(f"bitvec_rank main-path shapes: {len(rank_calls)} calls (one s?? seed batch), "
+    print(f"bitvec_rank per-level shapes: {len(rank_calls)} calls (one s?? seed batch), "
           f"Q per level={[a[2].numel() for a in rank_calls]}, "
           f"W+1 per level={[a[0].numel() for a in rank_calls]}")
     print(f"digram_pair_counts main-path shapes: {len(pair_calls)} calls (one initial Count), "
@@ -467,7 +533,74 @@ def time_kernels(torch, np, main: dict, errs: dict) -> list:
               f"bound_ms={entry['bound_ms']:.6f} ({entry['bound_by']}, {nbytes} B) "
               f"launches={entry['launches']} library=none")
         out.append(entry)
+    out += _k2_lines_rows(torch, main, errs, lay, s, per_level, rank_calls)
     return out
+
+
+def _k2_lines_rows(torch, main: dict, errs: dict, lay, s, per_level, rank_calls) -> list:
+    """The fused descent on the s?? seed batch: held against its twin and
+    the per-level path, timed as the wrapper runs it (both passes, the scan
+    and the host read), each pass's device time from the profiler, beside
+    the twin on the card and the per-level path (the level loop launching
+    the standalone rank kernel). Bound: the tree's bytes, the batch's and
+    16 B a result at 3.35 TB/s, or 12 operations a bit test at the float32
+    rate, whichever is larger."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
+    from repro_torch.kernels.k2_lines import k2_lines_cuda
+
+    got = k2_lines_cuda(lay, s, 0)
+    for what, want in (("twin", ref.k2_lines_ref(lay, s, 0)), ("per-level path", per_level)):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            _fail(f"k2_lines differs from the {what} at the s?? seed batch")
+    results = got[0].numel()
+    heaviest = int(torch.bincount(got[0]).max()) if results else 0
+    kern = lambda: k2_lines_cuda(lay, s, 0)  # noqa: E731
+    twin = lambda: ref.k2_lines_ref(lay, s, 0)  # noqa: E731
+    levels = lambda: ref.k2_lines_ref(lay, s, 0, rank=bitvec_rank_cuda)  # noqa: E731
+    plain_a, level_a = _time_ms(torch, twin, 10), _time_ms(torch, levels, 10)
+    ms_a, ms_b = _time_ms(torch, kern, 50), _time_ms(torch, kern, 50)
+    level_b, plain_b = _time_ms(torch, levels, 10), _time_ms(torch, twin, 10)
+    device = {}
+    _, _, avgs = _profile(torch, lambda: [kern() for _ in range(20)])
+    for name, key in (("k2_lines_count", "k2_count_kernel"),
+                      ("k2_lines_write", "k2_write_kernel")):
+        hits = [e for e in avgs if key in e.key]
+        seen = sum(e.count for e in hits)
+        if seen:  # the trace may lose launches: average over those it holds
+            device[name] = sum(getattr(e, "self_device_time_total", 0)
+                               for e in hits) / seen / 1e3
+    # the work this batch needs: every valid query's root and every node the
+    # level loop ranked is a node whose k candidate bits the walk tests
+    n_valid = int(((s >= 0) & (s < lay.n_rows)).sum())
+    tests = lay.k * (n_valid + sum(a[2].numel() for a in rank_calls))
+    tree = lay.words.numel() * 4 + lay.ranks.numel() * 8 + (2 * lay.h + 1) * 8
+    q = s.numel()
+    t_ops = 12 * tests / CORE_OPS_PER_S * 1e3
+    wrapper_ms = min(ms_a, ms_b)
+    plain_ms = min(plain_a, plain_b)
+    level_ms = min(level_a, level_b)
+    both = (tree + 8 * q + 16 * results) / HBM_BYTES_PER_S * 1e3
+    print(f"kernel k2_lines (s?? seed, Q={q}, h={lay.h}, tree {tree} B) ms={wrapper_ms:.6f} "
+          f"(both passes, scan and host read; runs {ms_a:.6f} {ms_b:.6f}) "
+          f"device_ms count={device.get('k2_lines_count', 'not measured')} "
+          f"write={device.get('k2_lines_write', 'not measured')} plain_ms={plain_ms:.6f} "
+          f"per_level_ms={level_ms:.6f} (runs {level_a:.6f} {level_b:.6f}) "
+          f"bound_ms={max(both, t_ops):.6f} ({'bytes' if both >= t_ops else 'operations'}; "
+          f"bit tests={tests}) results={results} heaviest_row={heaviest} library=none")
+    rows = []
+    for name, nbytes in (("k2_lines_count", tree + 16 * q),
+                         ("k2_lines_write", tree + 16 * q + 16 * results)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/bitvec_rank.cu",
+                     "replaces": "src/repro/kernels/bitvec_rank.py:33",
+                     "launches": main["counts"][name], "max_abs_err": errs[name],
+                     "ms": device.get(name, wrapper_ms), "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": None, "wrapper_ms": wrapper_ms, "per_level_ms": level_ms,
+                     "device_measured": name in device, "heaviest_row": heaviest})
+    return rows
 
 
 def _profile(torch, fn):
@@ -518,8 +651,18 @@ def breakdown(torch, main: dict) -> None:
     t0 = time.perf_counter()
     engine.incidence.rows_many(s)
     torch.cuda.synchronize()
-    print(f"s?? seed (k2 rows_many, {engine.incidence.h} levels) "
-          f"ms={(time.perf_counter() - t0) * 1e3:.3f}")
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    repeats = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.incidence.rows_many(s)
+        torch.cuda.synchronize()
+        repeats.append((time.perf_counter() - t0) * 1e3)
+    seed_syncs = _count_syncs(torch, lambda: engine.incidence.rows_many(s))
+    print(f"s?? seed (k2 rows_many, {engine.incidence.h} levels) ms={seed_ms:.3f} "
+          f"min_of_5_ms={min(repeats):.3f} host_syncs={seed_syncs}")
+    if seed_syncs != 1:
+        _fail(f"rows_many made {seed_syncs} host syncs at the s?? batch, not 1")
     t0 = time.perf_counter()
     digram_counts(main["graph"], main["table"], cap=64)
     torch.cuda.synchronize()
@@ -2511,6 +2654,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     errs = check_kernels(torch, np, args.seed)
+    errs.update(check_k2_lines(torch, np, args.seed))
     errs.update(check_recsys_kernels(torch, np, args.seed))
     errs["flash_attention"] = check_attention_kernel(torch, np, args.seed)
     errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)

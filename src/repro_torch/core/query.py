@@ -5,8 +5,9 @@ The port's engine behaves as the reference's ``TripleQueryEngine`` with
 the level-synchronous frontier.
 
 * S or O bound  -> the start graph's incidence k²-tree expands one row per
-  query (``rows_many``: one batched ``rank1`` per tree level, which on the
-  card is one launch of the ``bitvec_rank`` kernel) to seed the frontier.
+  query (``rows_many``: on the card one fused descent of the whole tree,
+  the ``k2_lines_count`` and ``k2_lines_write`` launches with one host
+  sync between them) to seed the frontier.
 * only P bound  -> start edges labeled P plus the edges of every
   nonterminal whose NT row says it can generate P.
 * nothing bound -> all start edges.

@@ -3,18 +3,22 @@
 Same layout as the reference: one :class:`BitVector` per level, and the
 child block of the j-th set bit of level t is block j of level t+1. The
 batched row / column expansion (:meth:`K2Tree.rows_many`,
-:meth:`K2Tree.cols_many`) keeps its frontier on the device and issues one
-batched ``rank1`` per level, which on the card is one launch of the
-``bitvec_rank`` kernel. Each level also syncs with the host once, to learn
-how many children survive its bit test.
+:meth:`K2Tree.cols_many`) reads the levels as one flat layout
+(:meth:`K2Tree.layout`, built once) through
+:func:`repro_torch.kernels.ops.k2_lines`. On the card that is one fused
+descent of the whole tree, two launches (a count pass and a write pass)
+and one host sync to size the output; on the CPU it is the reference's
+level loop, one batched ``rank1`` per level.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core._arrays import I64, empty, lexsort
-from repro_torch.core.succinct.bitvector import BitVector
+from repro_torch.core._arrays import I64
+from repro_torch.core.succinct.bitvector import BitVector, to_u32_bits
 from repro_torch.device import as_i64, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.k2_lines import K2Layout
 
 
 class K2Tree:
@@ -37,6 +41,7 @@ class K2Tree:
         self.side = k**h
         self.n_points = 0
         self._device = dev
+        self._layout = None
         self.levels: list[BitVector] = []
         self._build(rows, cols)
 
@@ -57,6 +62,7 @@ class K2Tree:
         dev = level_words[0].device if isinstance(level_words[0], torch.Tensor) \
             and device is None else resolve_device(device)
         self._device = dev
+        self._layout = None
         self.levels = [BitVector.from_words(w, int(nb), device=dev)
                        for w, nb in zip(level_words, level_bits)]
         return self
@@ -118,42 +124,31 @@ class K2Tree:
         return self._lines(cs, axis=1)
 
     def _lines(self, fixed, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
-        k, k2 = self.k, self.k * self.k
-        dev = self.device
-        fixed = as_i64(fixed, dev)
-        limit_fixed = self.n_rows if axis == 0 else self.n_cols
-        limit_free = self.n_cols if axis == 0 else self.n_rows
-        qids = torch.nonzero((fixed >= 0) & (fixed < limit_fixed)).reshape(-1)
-        fvals = fixed[qids]
-        blocks = torch.zeros_like(qids)
-        prefixes = torch.zeros_like(qids)  # free-axis coordinate prefix
-        free = torch.arange(k, dtype=I64, device=dev)
-        for t in range(self.h):
-            if blocks.numel() == 0:
-                return empty(dev), empty(dev)
-            scale = k ** (self.h - 1 - t)
-            fixed_digit = fvals // scale % k
-            # candidate children: fixed-axis digit fixed, free-axis digit 0..k-1
-            if axis == 0:
-                child = fixed_digit[:, None] * k + free[None, :]
-            else:
-                child = free[None, :] * k + fixed_digit[:, None]
-            bitpos = (blocks[:, None] * k2 + child).reshape(-1)
-            lv = self.levels[t]
-            valid = bitpos < lv.n
-            setbit = valid & (lv.access(torch.where(valid, bitpos, 0)) == 1)
-            sel = torch.nonzero(setbit).reshape(-1)  # the level's host sync
-            parent = sel // k
-            prefixes = (prefixes[parent] * k) + (sel % k)
-            qids, fvals = qids[parent], fvals[parent]
-            if t < self.h - 1:
-                blocks = lv.rank1(bitpos[sel])  # one batched rank per level
-            else:
-                keep = torch.nonzero(prefixes < limit_free).reshape(-1)
-                qids, coords = qids[keep], prefixes[keep]
-                order = lexsort((coords, qids))
-                return qids[order], coords[order]
-        return empty(dev), empty(dev)
+        return ops.k2_lines(self.layout(), as_i64(fixed, self.device).contiguous(), axis)
+
+    def layout(self) -> K2Layout:
+        """The levels as one flat layout (:class:`K2Layout`), built on first
+        use; the empty tree's missing levels have 0 bits."""
+        if self._layout is None:
+            dev = self.device
+            pad = torch.zeros(1, dtype=I64, device=dev)
+            words, ranks, offsets, bits = [], [], [0], []
+            for t in range(self.h):
+                if t < len(self.levels):
+                    lv = self.levels[t]
+                    words += [lv.words, pad]
+                    ranks.append(lv.word_ranks)
+                    bits.append(lv.n)
+                else:
+                    words.append(pad)
+                    ranks.append(pad)
+                    bits.append(0)
+                offsets.append(offsets[-1] + ranks[-1].numel())
+            self._layout = K2Layout(
+                self.k, self.h, self.n_rows, self.n_cols, to_u32_bits(torch.cat(words)),
+                torch.cat(ranks), torch.tensor(offsets, dtype=I64, device=dev),
+                torch.tensor(bits, dtype=I64, device=dev), tuple(offsets), tuple(bits))
+        return self._layout
 
     def to_dense(self) -> torch.Tensor:
         out = torch.zeros((self.n_rows, self.n_cols), dtype=torch.uint8,

@@ -35,7 +35,14 @@ _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # source name -> {kernel name: (C entry point, its argument types; the last
 # is the stream)}; each kernel name is a key of launch_counts
 SOURCES = {
-    "bitvec_rank": {"bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P])},
+    "bitvec_rank": {
+        "bitvec_rank": ("bitvec_rank_launch", [_P, _P, _P, _P, _I64, _P]),
+        # words, ranks, word_off, nbits, fixed, counts; q, k, h, axis,
+        # limit_fixed, limit_free, stack entries a warp
+        "k2_lines_count": ("k2_lines_count_launch", [_P] * 6 + [_I64] * 7 + [_P]),
+        # words, ranks, word_off, nbits, fixed, starts, out_idx, out_coord; the same
+        "k2_lines_write": ("k2_lines_write_launch", [_P] * 8 + [_I64] * 7 + [_P]),
+    },
     "digram_count": {"digram_pair_counts": ("digram_pair_counts_launch",
                                             [_P, _P, _P, _P, _P, _I64, _I64, _P])},
     "embedding_bag": {"embedding_bag": ("embedding_bag_launch",

@@ -1,8 +1,10 @@
 """Wrapper of the CUDA kernel ``csrc/bitvec_rank.cu``: batched rank1.
 
 It replaces the Pallas kernel ``bitvec_rank`` of the JAX package (a TPU
-kernel) and is the per-level rank of the k²-tree seed
-(:meth:`repro_torch.core.succinct.k2tree.K2Tree._lines`). Its plain twin is
+kernel) and serves :meth:`repro_torch.core.succinct.bitvector.BitVector.rank1`
+(the scalar ``K2Tree.access``). The batched k²-tree seed no longer calls
+it once a level: its rank is fused into the descent of
+:mod:`repro_torch.kernels.k2_lines`. Its plain twin is
 :func:`repro_torch.kernels.ref.bitvec_rank_ref`.
 """
 from __future__ import annotations

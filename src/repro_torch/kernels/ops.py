@@ -16,6 +16,7 @@ from repro_torch.kernels.digram_count import digram_pair_counts_cuda
 from repro_torch.kernels.dot_interaction import dot_interaction_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.k2_lines import K2Layout, k2_lines_cuda
 from repro_torch.kernels.segment_matmul import CSR, csr_spmm_cuda
 
 
@@ -25,6 +26,14 @@ def bitvec_rank(words: torch.Tensor, word_ranks: torch.Tensor,
     if positions.device.type == "cpu":
         return ref.bitvec_rank_ref(words, word_ranks, positions)
     return bitvec_rank_cuda(words, word_ranks, positions)
+
+
+def k2_lines(lay: K2Layout, fixed: torch.Tensor, axis: int):
+    """Rows (axis 0) or columns (axis 1) ``fixed`` of the k²-tree ``lay``:
+    (idx, coords) sorted by (idx, coord); see :func:`ref.k2_lines_ref`."""
+    if fixed.device.type == "cpu":
+        return ref.k2_lines_ref(lay, fixed, axis)
+    return k2_lines_cuda(lay, fixed, axis)
 
 
 def digram_pair_counts(its: torch.Tensor, cnts: torch.Tensor):
@@ -73,5 +82,5 @@ def csr_spmm(x: torch.Tensor, a: CSR) -> torch.Tensor:
     return csr_spmm_cuda(x, a)
 
 
-__all__ = ["bitvec_rank", "digram_pair_counts", "embedding_bag", "dot_interaction",
+__all__ = ["bitvec_rank", "k2_lines", "digram_pair_counts", "embedding_bag", "dot_interaction",
            "flash_attention", "csr_spmm", "build_all", "launch_counts", "reset_launch_counts", "ref"]

@@ -39,6 +39,111 @@ def bitvec_rank_ref(words: torch.Tensor, word_ranks: torch.Tensor,
     return word_ranks[w] + popcount32(word & mask)
 
 
+def k2_stack_cap(k: int, h: int) -> int:
+    """The most entries the k²-tree walk's stack holds: below the deepest
+    level at most 32 (k - 1) nodes a level, at the deepest 32 k."""
+    return 32 * (k - 1) * h + 32
+
+
+def k2_lines_ref(lay, fixed: torch.Tensor, axis: int, rank=bitvec_rank_ref):
+    """Rows (axis 0) or columns (axis 1) ``fixed`` of the k²-tree laid out
+    in ``lay`` (a :class:`repro_torch.kernels.k2_lines.K2Layout`), level by
+    level: each level tests every frontier node's k candidate bits, keeps
+    the set ones and takes their ranks, one batched ``rank(words, ranks,
+    positions)`` a level, as the reference does.
+
+    fixed: (Q,) int64. Returns (idx, coords), int64: query ``idx[i]`` has a
+    1 at free coordinate ``coords[i]``, sorted by (idx, coord). Fixed values
+    out of range yield nothing, duplicates are expanded independently, and
+    free coordinates past the matrix are dropped.
+    """
+    k, k2, h = lay.k, lay.k * lay.k, lay.h
+    dev = fixed.device
+    limit_fixed, limit_free = lay.limits(axis)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    qids = torch.nonzero((fixed >= 0) & (fixed < limit_fixed)).reshape(-1)
+    fvals = fixed[qids]
+    blocks = torch.zeros_like(qids)
+    prefixes = torch.zeros_like(qids)  # free-axis coordinate prefix
+    free = torch.arange(k, dtype=torch.int64, device=dev)
+    for t in range(h):
+        if blocks.numel() == 0:
+            break
+        fixed_digit = fvals // k ** (h - 1 - t) % k
+        # candidate children: fixed-axis digit fixed, free-axis digit 0..k-1
+        if axis == 0:
+            child = fixed_digit[:, None] * k + free[None, :]
+        else:
+            child = free[None, :] * k + fixed_digit[:, None]
+        bitpos = (blocks[:, None] * k2 + child).reshape(-1)
+        words, ranks = lay.level(t)
+        valid = bitpos < lay.bits[t]
+        pos = torch.where(valid, bitpos, 0)
+        setbit = valid & ((words[pos >> 5].to(torch.int64) >> (pos & 31)) & 1 == 1)
+        sel = torch.nonzero(setbit).reshape(-1)
+        parent = sel // k
+        prefixes = prefixes[parent] * k + sel % k
+        qids, fvals = qids[parent], fvals[parent]
+        if t < h - 1:
+            blocks = rank(words, ranks, bitpos[sel])
+        else:
+            keep = torch.nonzero(prefixes < limit_free).reshape(-1)
+            qids, coords = qids[keep], prefixes[keep]
+            order = torch.sort(coords, stable=True).indices
+            order = order[torch.sort(qids[order], stable=True).indices]
+            return qids[order], coords[order]
+    return none, none.clone()
+
+
+def k2_lines_walk_ref(lay, fixed: torch.Tensor, axis: int, peaks: list | None = None):
+    """:func:`k2_lines_ref` computed as the fused kernel walks, one query at
+    a time in plain Python: a stack of (level, block, coordinate prefix)
+    nodes, smallest coordinate on top; each step pops the top run of the
+    deepest level, up to 32 nodes (one a lane), tests their k candidate
+    bits, and at the last level emits the coordinates in lane order, else
+    pushes the children back in coordinate order. With ``peaks``, appends
+    each walked query's largest stack size (never above
+    :func:`k2_stack_cap`)."""
+    k, h = lay.k, lay.h
+    limit_fixed, limit_free = lay.limits(axis)
+    words = [w & _M32 for w in lay.words.tolist()]
+    ranks = lay.ranks.tolist()
+    idx, coords = [], []
+    for qi, f in enumerate(fixed.tolist()):
+        if not 0 <= f < limit_fixed:
+            continue
+        digits = [f // k ** (h - 1 - t) % k for t in range(h)]
+        stack = [(0, 0, 0)]
+        peak = 1
+        while stack:
+            t = stack[-1][0]
+            m = 1
+            while m < min(32, len(stack)) and stack[-1 - m][0] == t:
+                m += 1
+            lanes = stack[:-m - 1:-1]  # lane 0 holds the smallest coordinate
+            del stack[-m:]
+            off, fd = lay.offsets[t], digits[t]
+            pushed = []
+            for _, b, p in lanes:
+                for j in range(k):
+                    pos = b * k * k + (fd * k + j if axis == 0 else j * k + fd)
+                    if pos >= lay.bits[t] or not words[off + (pos >> 5)] >> (pos & 31) & 1:
+                        continue
+                    if t < h - 1:
+                        word = words[off + (pos >> 5)] & ((1 << (pos & 31)) - 1)
+                        pushed.append((t + 1, ranks[off + (pos >> 5)] + bin(word).count("1"),
+                                       p * k + j))
+                    elif p * k + j < limit_free:
+                        idx.append(qi)
+                        coords.append(p * k + j)
+            stack.extend(reversed(pushed))
+            peak = max(peak, len(stack))
+        if peaks is not None:
+            peaks.append(peak)
+    return (torch.tensor(idx, dtype=torch.int64, device=fixed.device),
+            torch.tensor(coords, dtype=torch.int64, device=fixed.device))
+
+
 def digram_pair_counts_ref(its: torch.Tensor, cnts: torch.Tensor):
     """Per-node pairwise digram counts (the paper's count_v formula).
 

@@ -20,6 +20,7 @@ from repro.kernels.bitvec_rank import bitvec_rank as pallas_bitvec_rank
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
 from repro_torch.kernels.digram_count import digram_pair_counts_cuda
+from repro_torch.kernels.k2_lines import K2Layout, k2_lines_cuda
 from repro_torch.kernels.segment_matmul import CSR
 
 
@@ -138,8 +139,10 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     q, kv = torch.zeros((1, 2, 3, 8)), torch.zeros((1, 1, 4, 8))
     ops.flash_attention(q, kv, kv)
     ops.csr_spmm(torch.ones((2, 3)), CSR(torch.tensor([0, 1]), torch.tensor([1], dtype=torch.int32), 2))
+    ops.k2_lines(_layout(), torch.tensor([0, 1, 3]), 0)
     assert ops.launch_counts["bitvec_rank"] == ops.launch_counts["digram_pair_counts"] == 0
-    assert set(ops.launch_counts) == {"bitvec_rank", "digram_pair_counts", "embedding_bag",
+    assert set(ops.launch_counts) == {"bitvec_rank", "k2_lines_count", "k2_lines_write",
+                                      "digram_pair_counts", "embedding_bag",
                                       "dot_interaction", "dot_interaction_simt",
                                       "flash_attention",
                                       "flash_attention_combine", "csr_spmm",
@@ -157,6 +160,67 @@ def test_cuda_wrappers_refuse_cpu_tensors(kernel):
         with pytest.raises(ValueError):
             digram_pair_counts_cuda(torch.zeros((2, 2), dtype=torch.int32),
                                     torch.zeros((2, 2), dtype=torch.int32))
+
+
+def _layout(**change):
+    """A 4 x 4 k²-tree (k = 2, h = 2) with points (0, 1) and (3, 3), on the CPU."""
+    lay = dict(k=2, h=2, n_rows=4, n_cols=4,
+               words=torch.tensor([0b1001, 0, 0b10000010, 0], dtype=torch.int32),
+               ranks=torch.tensor([0, 2, 0, 2]), word_off=torch.tensor([0, 2, 4]),
+               nbits=torch.tensor([4, 8]), offsets=(0, 2, 4), bits=(4, 8))
+    lay.update(change)
+    return K2Layout(**lay)
+
+
+def test_k2_layout_helper_is_a_tree():
+    from repro_torch.core.succinct import K2Tree
+
+    tree = K2Tree(torch.tensor([0, 3]), torch.tensor([1, 3]), 4, 4, device="cpu")
+    for f in ("words", "ranks", "word_off", "nbits"):
+        assert torch.equal(getattr(tree.layout(), f), getattr(_layout(), f))
+    idx, coords = ops.k2_lines(_layout(), torch.tensor([0, 3, 1, -1, 4, 0]), 0)
+    assert idx.tolist() == [0, 1, 5] and coords.tolist() == [1, 3, 1]
+    idx, coords = ops.k2_lines(_layout(), torch.tensor([3, 1]), 1)
+    assert idx.tolist() == [0, 1] and coords.tolist() == [3, 0]
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("cpu", ValueError, "CUDA device"),
+    ("int32 fixed", TypeError, "int64 fixed"),
+    ("int64 words", TypeError, "int32 words"),
+    ("int32 ranks", TypeError, "int64 ranks"),
+    ("2-D fixed", ValueError, "1-D"),
+    ("short ranks", ValueError, "one length"),
+    ("offsets", ValueError, "h \\+ 1 offsets"),
+    ("bit lengths", ValueError, "h bit lengths"),
+    ("strided fixed", ValueError, "contiguous"),
+    ("axis", ValueError, "axis"),
+    ("k", ValueError, "2 <= k <= 32"),
+    ("stack", ValueError, "shared memory"),
+    ("coordinates", ValueError, "int64 coordinates"),
+])
+def test_k2_lines_wrapper_refuses(case, exc, match):
+    """The CUDA wrapper raises on what its kernels do not take, before any
+    launch: types, shapes, the axis, k, a (k, h) whose walk stack would not
+    fit in a block's shared memory, coordinates past int64, then tensors
+    that are not on one CUDA device."""
+    lay, fixed, axis = _layout(), torch.tensor([0, 1]), 0
+    change = {"int64 words": dict(words=lay.words.long()),
+              "int32 ranks": dict(ranks=lay.ranks.int()),
+              "short ranks": dict(ranks=lay.ranks[:-1]),
+              "offsets": dict(word_off=lay.word_off[:-1]),
+              "bit lengths": dict(nbits=torch.tensor([4, 8, 0])),
+              "k": dict(k=33),
+              "stack": dict(k=32, h=18, word_off=torch.zeros(19, dtype=torch.int64),
+                            nbits=torch.zeros(18, dtype=torch.int64)),
+              "coordinates": dict(k=4, h=32, word_off=torch.zeros(33, dtype=torch.int64),
+                                  nbits=torch.zeros(32, dtype=torch.int64))}.get(case)
+    if change:
+        lay = _layout(**change)
+    fixed = {"int32 fixed": fixed.int(), "2-D fixed": fixed[None],
+             "strided fixed": torch.arange(4)[::2]}.get(case, fixed)
+    with pytest.raises(exc, match=match):
+        k2_lines_cuda(lay, fixed, 2 if case == "axis" else axis)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
