@@ -22,27 +22,44 @@ nothing of the JAX package. Phases:
    last field row zeroed) that must fail; the fused k²-tree descent
    ``k2_lines`` against its level-loop twin, exactly, at k = 2, 3, 4, on
    both axes, the empty tree, random trees up to 100,000 points and one
-   row holding 100,000, with 0, 1, 33 and 4,097 fixed values);
+   row holding 100,000, with 0, 1, 33 and 4,097 fixed values; the build's
+   ``digram_pair_accum`` against its twin, the nonzero (key, count) set
+   bit for bit, on random ragged batches of node histograms (empty; 20,000
+   rows of up to 7 types; 2,000 of 64; 100 of up to 300, past the
+   kernel's stage), each with sign +1 and then signed, with a control (one
+   row's sign flipped) that must fail, and ``digram_select`` against its
+   twin on those tables, with ties, skipped slots (a control with the
+   flags cleared must fail) and all counts zero);
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
    every query checked against ``query_oracle`` (a plain scan of the
    triples on the card), with the kernels' launch counts read around it:
-   each of the six batches with S or O bound seeds through one count and
-   one write launch of ``k2_lines``, and the standalone ``bitvec_rank``
-   is launched 0 times;
+   ``digram_pair_accum`` exactly 1 + the replacements (the Count, then one
+   Update Count each), ``digram_select`` at least once a replacement, the
+   dense ``digram_pair_counts`` 0 times; each of the six batches with S or
+   O bound seeds through one count and one write launch of ``k2_lines``,
+   and the standalone ``bitvec_rank`` is launched 0 times. The inputs of
+   the first 21 accumulations and the last selection's table are kept;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
-   peak, whichever is larger): ``bitvec_rank`` on the per-level inputs of
-   the level loop (the per-level seed) at the s?? batch, ``k2_lines`` on
-   that batch, as the wrapper runs it and each pass's device time, beside
-   its twin and that per-level path;
+   peak, whichever is larger): ``digram_pair_accum`` held against its twin
+   over those 21 calls (a control must fail) and timed at the initial
+   Count and a replacement, ``digram_select`` on the build's last table,
+   the dense ``digram_pair_counts`` (off the path) on the initial Count's
+   rows grouped by length, ``bitvec_rank`` on the per-level inputs of the
+   level loop (the per-level seed) at the s?? batch, ``k2_lines`` on that
+   batch, as the wrapper runs it and each pass's device time, beside its
+   twin and that per-level path;
 5. break the ITR path's time down: warm query repeats, the k² seed and
    its host syncs (exactly 1), the initial Count, the device's busy share
    (``torch.profiler``), the host syncs (torch's sync debug mode; a lower
-   bound), and the same build and s?? batch with ``device="cpu"`` as a
-   host yardstick;
+   bound) of the batches and of ``compress``, those of the counter's
+   Update Count and selections, the device time a launch of the two
+   digram kernels in ``compress``, and the same build and s?? batch with
+   ``device="cpu"`` as a host yardstick, whose grammar must equal the
+   card's bit for bit (stats, label ranks, start graph, every rule);
 6. serve ``dlrm-mlperf`` at its full published size (177,948,416 table rows
    x 128 in bfloat16 on the card) through ``build_cell`` under
    ``serve_p99`` (p50/p99 latency over 200 batches of 512), ``serve_bulk``
@@ -230,6 +247,141 @@ def check_k2_lines(torch, np, seed: int) -> dict:
     return {"k2_lines_count": 0, "k2_lines_write": 0}
 
 
+def _table_items(torch, t):
+    """(keys, counts) of a DigramTable's keys whose count is not 0, keys
+    ascending: what a hashed table and the twin's sorted one share."""
+    ok = t.counts != 0
+    keys, counts = t.keys[ok], t.counts[ok]
+    order = torch.argsort(keys)
+    return keys[order], counts[order]
+
+
+def _same_items(torch, a, b) -> bool:
+    (ka, ca), (kb, cb) = _table_items(torch, a), _table_items(torch, b)
+    return ka.shape == kb.shape and torch.equal(ka, kb) and torch.equal(ca, cb)
+
+
+def _hashed_for(calls):
+    """An empty hashed DigramTable with room for every pair of `calls` at
+    the counter's load."""
+    from repro_torch.core.digram import LOAD, MIN_SLOTS
+    from repro_torch.kernels.digram_count import DigramTable
+
+    pairs = 0
+    for row_ptr, _, _, _ in calls:
+        lens = row_ptr[1:] - row_ptr[:-1]
+        pairs += int((lens * (lens + 1) // 2).sum())
+    return DigramTable.hashed(max(MIN_SLOTS, int(pairs / LOAD) + 1), row_ptr.device)
+
+
+def _hold_accum(torch, calls, what: str) -> tuple:
+    """Run `calls` (row_ptr, its, cnts, sign), in order, through
+    ``digram_pair_accum`` into a hashed table and through its twin into a
+    sorted one on the card; the nonzero (key, count) sets must be equal,
+    bit for bit, after each. A control, the twin with the sign flipped in
+    the last call's last row whose counts sum to 2 or more (so some pair of
+    it is not 0), must differ. Returns the two tables."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.digram_count import DigramTable, digram_pair_accum_cuda
+
+    kern, twin = _hashed_for(calls), DigramTable.sorted(DEV)
+    for i, call in enumerate(calls):
+        digram_pair_accum_cuda(kern, *call)
+        ref.digram_pair_accum_ref(twin, *call)
+        torch.cuda.synchronize()
+        if int(kern.used[0]) > kern.capacity or not _same_items(torch, kern, twin):
+            _fail(f"digram_pair_accum differs from its twin on {what}, call {i}")
+    row_ptr, its, cnts, sign = calls[-1]
+    lens = row_ptr[1:] - row_ptr[:-1]
+    row = torch.repeat_interleave(torch.arange(lens.numel(), device=lens.device), lens)
+    sums = torch.zeros_like(lens).index_add_(0, row, cnts.to(torch.int64))
+    counting = torch.nonzero(sums >= 2).reshape(-1)
+    if counting.numel():
+        flipped = sign.clone()
+        flipped[counting[-1]] *= -1
+        control = DigramTable.sorted(DEV)
+        for call in calls[:-1]:
+            ref.digram_pair_accum_ref(control, *call)
+        ref.digram_pair_accum_ref(control, row_ptr, its, cnts, flipped)
+        if _same_items(torch, kern, control):
+            _fail(f"digram_pair_accum's control (one row's sign flipped) passed on {what}")
+    return kern, twin
+
+
+def _hold_select(torch, t, what: str, control: bool) -> None:
+    """``digram_select`` against its twin on the hashed table `t`: key,
+    count, slot and occupancy equal; with `control`, the twin on the table
+    with its flags cleared must differ."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.digram_count import DigramTable, digram_select_cuda
+
+    got = digram_select_cuda(t).tolist()
+    want = ref.digram_select_slot_ref(t).tolist()
+    if got != want:
+        _fail(f"digram_select differs from its twin on {what}: {got} vs {want}")
+    if control:
+        cleared = DigramTable(t.keys, t.counts, torch.zeros_like(t.flags), t.used, t.scratch)
+        if ref.digram_select_slot_ref(cleared).tolist() == got:
+            _fail(f"digram_select's control (flags cleared) passed on {what}")
+
+
+def _random_csr(torch, np, rng, n_rows: int, max_k: int, signed: bool, full: bool = False):
+    """A ragged CSR of node histograms on the card: distinct types a row
+    (of 1,000), counts 1..9, a fifth of the rows empty, every row of
+    `max_k` items when `full`; signs +1, or random with `signed`."""
+    lens = np.full(n_rows, max_k) if full else rng.integers(0, max_k + 1, n_rows)
+    lens[rng.random(n_rows) < 0.2] = 0
+    its = np.concatenate([rng.choice(1000, k, replace=False) for k in lens] + [[]])
+    cnts = rng.integers(1, 10, its.size)
+    sign = rng.choice([-1, 1], n_rows) if signed else np.ones(n_rows)
+    row_ptr = np.concatenate([[0], np.cumsum(lens)])
+    return (torch.from_numpy(row_ptr.astype(np.int64)).to(DEV),
+            torch.from_numpy(its.astype(np.int32)).to(DEV),
+            torch.from_numpy(cnts.astype(np.int32)).to(DEV),
+            torch.from_numpy(sign.astype(np.int32)).to(DEV))
+
+
+def check_digram_kernels(torch, np, seed: int) -> dict:
+    """Phase 2: ``digram_pair_accum`` and ``digram_select`` against their
+    twins on the card, exactly. The accumulation on random ragged batches,
+    each first with sign +1, then with random signs into the same table: an
+    empty batch, 20,000 rows of up to 7 types (the build's), 2,000 rows of
+    64 (the cap), 100 rows of up to 300 (no cap: past the kernel's stage);
+    the selection on those tables as they are (counts <= 0 among them),
+    with many ties, with skipped slots (the best among them) and all
+    zero."""
+    from repro_torch.kernels.digram_count import SKIP, digram_select_cuda
+
+    rng = np.random.default_rng(seed)
+    n_cases = 0
+    tables = []
+    for what, n_rows, max_k, full in (("an empty batch", 0, 1, False),
+                                      ("20000 rows of up to 7", 20000, 7, False),
+                                      ("2000 rows of 64", 2000, 64, True),
+                                      ("100 rows of up to 300", 100, 300, False)):
+        plus = _random_csr(torch, np, rng, n_rows, max_k, signed=False, full=full)
+        signed = plus[:3] + (torch.from_numpy(rng.choice([-1, 1], n_rows).astype(np.int32))
+                             .to(DEV),)
+        kern, _ = _hold_accum(torch, [plus, signed], what)
+        tables.append((what, kern))
+        n_cases += 2
+    for what, t in tables:
+        _hold_select(torch, t, what, control=False)
+        live = t.keys != -1
+        t.counts[live] = torch.from_numpy(rng.integers(1, 4, int(live.sum()))).to(DEV)
+        _hold_select(torch, t, f"{what}, ties", control=False)
+        if int(live.sum()):
+            best = int(digram_select_cuda(t)[2])
+            t.flags[torch.from_numpy(rng.random(t.capacity) < 0.3).to(DEV)] = SKIP
+            t.flags[best] = SKIP
+            _hold_select(torch, t, f"{what}, skipped", control=True)
+        t.counts.zero_()
+        _hold_select(torch, t, f"{what}, all zero", control=False)
+        n_cases += 4
+    print(f"digram kernels_vs_plain cases={n_cases} exact=True")
+    return {"digram_pair_accum": 0, "digram_select": 0}
+
+
 # Tolerances of the float kernels against their twins on the card. The
 # embedding bag sums rows in float32 in the twin's order, l = 0..L-1: one row
 # per bag is a copy and must be exact; for more rows the tolerance covers a
@@ -363,6 +515,20 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     rng = np.random.default_rng(seed)
     pick = ds.triples[rng.integers(0, ds.n_triples, n_queries)]
 
+    # record the counter's first 21 accumulations (the initial Count and 20
+    # replacements) and the table it selects from, for phase 4
+    accum_calls, select_table = [], []
+    real_accum, real_select = ops.digram_pair_accum, ops.digram_select
+
+    def rec_accum(t, *a):
+        if len(accum_calls) < 21:
+            accum_calls.append(tuple(x.clone() for x in a))
+        return real_accum(t, *a)
+
+    def rec_select(t):
+        select_table[:] = [t]
+        return real_select(t)
+
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     stages = {}
@@ -372,7 +538,11 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     torch.cuda.synchronize()
     stages["from_triples"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    grammar, stats = compress(graph, table)
+    ops.digram_pair_accum, ops.digram_select = rec_accum, rec_select
+    try:
+        grammar, stats = compress(graph, table)
+    finally:
+        ops.digram_pair_accum, ops.digram_select = real_accum, real_select
     torch.cuda.synchronize()
     stages["compress"] = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -397,7 +567,8 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
         query_s[pat] = time.perf_counter() - t1
         batches[pat] = cols
     counts = {k: ops.launch_counts[k] for k in ("bitvec_rank", "k2_lines_count",
-                                                 "k2_lines_write", "digram_pair_counts")}
+                                                 "k2_lines_write", "digram_pair_counts",
+                                                 "digram_pair_accum", "digram_select")}
 
     print(f"build_s {build_s:.6f} " + " ".join(f"{k}_s={v:.6f}" for k, v in stages.items()))
     print(f"grammar rules={len(grammar.rules)} start_edges={grammar.start.n_edges} "
@@ -406,8 +577,16 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     print(f"encoded_bytes {encoded.size_in_bytes()}")
     for name, c in counts.items():
         print(f"launches {name} {c}")
-    if counts["digram_pair_counts"] <= 0:
-        _fail("the main path never launched digram_pair_counts")
+    # the Count and each replacement's Update Count: one accumulation each;
+    # every replacement follows a selection; the dense pair kernel is off the path
+    if counts["digram_pair_accum"] != 1 + stats.iterations:
+        _fail(f"the main path launched digram_pair_accum {counts['digram_pair_accum']} times, "
+              f"not 1 + {stats.iterations}")
+    if counts["digram_select"] < stats.iterations:
+        _fail(f"the main path launched digram_select {counts['digram_select']} times, "
+              f"fewer than its {stats.iterations} replacements")
+    if counts["digram_pair_counts"] != 0:
+        _fail(f"the main path launched digram_pair_counts {counts['digram_pair_counts']} times")
     # each batch with S or O bound seeds through one rows_many: one count
     # and one write launch of the fused descent, no per-level rank
     seeds = sum(pat[0] != "?" or pat[2] != "?" for pat in PATTERNS)
@@ -438,103 +617,174 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
         print(f"query {pat} queries={n_q} unique={view.n_entries} results={total} "
               f"us_per_query={query_s[pat] / n_q * 1e6:.3f} oracle_equal=True")
     return {"engine": engine, "graph": graph, "table": table, "counts": counts,
-            "batches": batches, "build_s": build_s, "dataset": ds}
+            "batches": batches, "build_s": build_s, "dataset": ds, "grammar": grammar,
+            "stats": stats, "accum_calls": accum_calls, "select_table": select_table[0]}
 
 
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
     """Phase 4: each kernel on the inputs the main path gives it."""
-    from repro_torch.core.digram import digram_counts
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
-    from repro_torch.kernels.digram_count import digram_pair_counts_cuda
 
-    # capture the inputs of one initial Count, and the per-level rank inputs
-    # of one s?? seed batch as the level loop (the per-level path, which the
-    # main path no longer takes) gives them to the standalone rank kernel
-    calls = {"bitvec_rank": [], "digram_pair_counts": []}
-    real_pairs = ops.digram_pair_counts
+    # the per-level rank inputs of one s?? seed batch as the level loop (the
+    # per-level path, which the main path no longer takes) gives them to the
+    # standalone rank kernel
+    rank_calls = []
 
     def rec_rank(*a):
-        calls["bitvec_rank"].append(a)
+        rank_calls.append(a)
         return bitvec_rank_cuda(*a)
 
-    def rec_pairs(*a):
-        calls["digram_pair_counts"].append(a)
-        return real_pairs(*a)
-
-    ops.digram_pair_counts = rec_pairs
-    try:
-        digram_counts(main["graph"], main["table"], cap=64)
-    finally:
-        ops.digram_pair_counts = real_pairs
     s = main["batches"]["s??"][0]
     lay = main["engine"].incidence.layout()
     per_level = ref.k2_lines_ref(lay, s, 0, rank=rec_rank)
     torch.cuda.synchronize()
-
-    rank_calls = calls["bitvec_rank"]
-    pair_calls = calls["digram_pair_counts"]
-    for name, fn, twin, cs in (("bitvec_rank", bitvec_rank_cuda, ref.bitvec_rank_ref,
-                                rank_calls),
-                               ("digram_pair_counts", digram_pair_counts_cuda,
-                                ref.digram_pair_counts_ref, pair_calls)):
-        for a in cs:
-            got, want = fn(*a), twin(*a)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    _fail(f"{name} differs from its twin at main-path shapes")
-                if g.numel():
-                    errs[name] = max(errs[name], int((g - w).abs().max()))
-
+    for a in rank_calls:
+        got, want = bitvec_rank_cuda(*a), ref.bitvec_rank_ref(*a)
+        if not torch.equal(got, want):
+            _fail("bitvec_rank differs from its twin at main-path shapes")
+        if got.numel():
+            errs["bitvec_rank"] = max(errs["bitvec_rank"], int((got - want).abs().max()))
     rank_bytes = sum(16 * a[2].numel() + min(64 * a[2].numel(), 12 * a[0].numel())
                      for a in rank_calls)
     rank_ops = sum(12 * a[2].numel() for a in rank_calls)
-    pair_bytes = sum(8 * a[0].numel() + 12 * a[0].shape[0] * (a[0].shape[1] * (a[0].shape[1] + 1) // 2)
-                     for a in pair_calls)
-    pair_ops = sum(16 * a[0].shape[0] * (a[0].shape[1] * (a[0].shape[1] + 1) // 2)
-                   for a in pair_calls)
     print(f"bitvec_rank per-level shapes: {len(rank_calls)} calls (one s?? seed batch), "
           f"Q per level={[a[2].numel() for a in rank_calls]}, "
           f"W+1 per level={[a[0].numel() for a in rank_calls]}")
-    print(f"digram_pair_counts main-path shapes: {len(pair_calls)} calls (one initial Count), "
-          f"(N, K)={[tuple(a[0].shape) for a in pair_calls]}")
-
-    out = []
-    for name, src, replaces, fn, twin, cs, nbytes, nops in (
-            ("bitvec_rank", "src/repro_torch/csrc/bitvec_rank.cu",
-             "src/repro/kernels/bitvec_rank.py:33", bitvec_rank_cuda,
-             ref.bitvec_rank_ref, rank_calls, rank_bytes, rank_ops),
-            ("digram_pair_counts", "src/repro_torch/csrc/digram_count.cu",
-             "src/repro/kernels/digram_count.py:39", digram_pair_counts_cuda,
-             ref.digram_pair_counts_ref, pair_calls, pair_bytes, pair_ops)):
-        def run_kernel(fn=fn, cs=cs):
-            for a in cs:
-                fn(*a)
-
-        def run_plain(twin=twin, cs=cs):
-            for a in cs:
-                twin(*a)
-
-        plain_a = _time_ms(torch, run_plain, 20)
-        ms_a = _time_ms(torch, run_kernel, 50)
-        ms_b = _time_ms(torch, run_kernel, 50)
-        plain_b = _time_ms(torch, run_plain, 20)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / CORE_OPS_PER_S * 1e3
-        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": main["counts"][name], "max_abs_err": errs[name],
-                 "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                 "library_ms": None}
-        print(f"kernel {name} ms={entry['ms']:.6f} plain_ms={entry['plain_ms']:.6f} "
-              f"bound_ms={entry['bound_ms']:.6f} ({entry['bound_by']}, {nbytes} B) "
-              f"launches={entry['launches']} library=none")
-        out.append(entry)
+    out = [_kernel_row(torch, "bitvec_rank", "src/repro_torch/csrc/bitvec_rank.cu",
+                       "src/repro/kernels/bitvec_rank.py:33", main["counts"]["bitvec_rank"],
+                       errs["bitvec_rank"], lambda: [bitvec_rank_cuda(*a) for a in rank_calls],
+                       lambda: [ref.bitvec_rank_ref(*a) for a in rank_calls],
+                       rank_bytes, rank_ops)]
+    out += _digram_rows(torch, main, errs)
     out += _k2_lines_rows(torch, main, errs, lay, s, per_level, rank_calls)
     return out
+
+
+def _kernel_row(torch, name, src, replaces, launches, err, run_kernel, run_plain, nbytes, nops,
+                reps=(50, 20)) -> dict:
+    """A kernel's row: its time and its twin's on the same inputs, in turns
+    (plain, kernel, kernel, plain), and its bound."""
+    plain_a = _time_ms(torch, run_plain, reps[1])
+    ms_a, ms_b = _time_ms(torch, run_kernel, reps[0]), _time_ms(torch, run_kernel, reps[0])
+    plain_b = _time_ms(torch, run_plain, reps[1])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / CORE_OPS_PER_S * 1e3
+    entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": min(ms_a, ms_b),
+             "plain_ms": min(plain_a, plain_b), "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    print(f"kernel {name} ms={entry['ms']:.6f} plain_ms={entry['plain_ms']:.6f} "
+          f"bound_ms={entry['bound_ms']:.6f} ({entry['bound_by']}, {nbytes} B, {nops} ops) "
+          f"launches={launches} library=none")
+    return entry
+
+
+def _accum_work(torch, call) -> tuple:
+    """(bytes, operations) one accumulation must spend: its CSR read once
+    and each distinct key it touches written once (key and count, 16 B);
+    12 integer operations a slot pair walked."""
+    from repro_torch.kernels import ref
+
+    row_ptr, its, cnts, sign = call
+    lens = row_ptr[1:] - row_ptr[:-1]
+    keys, _ = ref.digram_pairs_ref(*call)
+    nbytes = 8 * row_ptr.numel() + 8 * its.numel() + 4 * sign.numel() \
+        + 16 * torch.unique(keys).numel()
+    return nbytes, 12 * int((lens * (lens + 1) // 2).sum())
+
+
+def _dense_groups(torch, row_ptr, its, cnts) -> list:
+    """The CSR's rows grouped by length d as (N, d) matrices: the dense
+    pair kernel's inputs for the same Count (one launch a group)."""
+    lens = row_ptr[1:] - row_ptr[:-1]
+    groups = []
+    for d in torch.unique(lens).tolist():
+        if d == 0:
+            continue
+        starts = row_ptr[:-1][lens == d]
+        idx = starts[:, None] + torch.arange(d, device=row_ptr.device)[None, :]
+        groups.append((its[idx].contiguous(), cnts[idx].contiguous()))
+    return groups
+
+
+def _digram_rows(torch, main: dict, errs: dict) -> list:
+    """The build's digram kernels on the main path's inputs. The
+    accumulation is held against its twin over the recorded initial Count
+    and first 20 replacements (a control must fail) and timed at both: the
+    initial Count's one launch, and a replacement's launch (the mean over
+    the 20, run in sequence); the selection on the table the build ended
+    with; the dense ``digram_pair_counts``, off the path, on the initial
+    Count's rows grouped by length, as the build launched it before."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.digram_count import (DigramTable, digram_pair_accum_cuda,
+                                                  digram_pair_counts_cuda, digram_select_cuda)
+
+    calls = main["accum_calls"]
+    _hold_accum(torch, calls, "the main path's initial Count and first 20 replacements")
+    init, deltas = calls[0], calls[1:]
+    kern, twin = _hashed_for(calls), DigramTable.sorted(DEV)
+    digram_pair_accum_cuda(kern, *init)
+    ref.digram_pair_accum_ref(twin, *init)
+    init_bytes, init_ops = _accum_work(torch, init)
+    work = [_accum_work(torch, c) for c in deltas]
+    rows_per_delta = [c[3].numel() for c in deltas]
+    print(f"digram_pair_accum main-path shapes: initial Count {init[3].numel()} rows, "
+          f"{init[1].numel()} items; replacements 1-20 rows={rows_per_delta} "
+          f"items={[c[1].numel() for c in deltas]}")
+    first = _kernel_row(torch, "digram_pair_accum (initial Count)",
+                        "src/repro_torch/csrc/digram_count.cu",
+                        "src/repro/kernels/digram_count.py:39", 1, errs["digram_pair_accum"],
+                        lambda: digram_pair_accum_cuda(kern, *init),
+                        lambda: ref.digram_pair_accum_ref(twin, *init), init_bytes, init_ops,
+                        reps=(20, 5))
+    n = len(deltas)
+    row = _kernel_row(torch, "digram_pair_accum", "src/repro_torch/csrc/digram_count.cu",
+                      "src/repro/kernels/digram_count.py:39",
+                      main["counts"]["digram_pair_accum"], errs["digram_pair_accum"],
+                      lambda: [digram_pair_accum_cuda(kern, *c) for c in deltas],
+                      lambda: [ref.digram_pair_accum_ref(twin, *c) for c in deltas],
+                      sum(b for b, _ in work), sum(o for _, o in work), reps=(10, 3))
+    for key in ("ms", "plain_ms", "bound_ms"):  # a replacement's launch: the mean of the 20
+        row[key] /= n
+    row.update(initial_ms=first["ms"], initial_plain_ms=first["plain_ms"],
+               initial_bound_ms=first["bound_ms"], initial_bound_by=first["bound_by"])
+    print(f"kernel digram_pair_accum per replacement launch: ms={row['ms']:.6f} "
+          f"plain_ms={row['plain_ms']:.6f} bound_ms={row['bound_ms']:.6f}")
+
+    table = main["select_table"]
+    got, want = digram_select_cuda(table).tolist(), ref.digram_select_slot_ref(table).tolist()
+    if got != want:
+        _fail(f"digram_select differs from its twin on the build's last table: {got} {want}")
+    print(f"digram_select main-path table: capacity {table.capacity}, used {got[3]}, "
+          f"counts above 0 {int((table.counts > 0).sum())}")
+    # it must read every count, and the key and flag of each count above 0
+    positive = int((table.counts > 0).sum())
+    sel = _kernel_row(torch, "digram_select", "src/repro_torch/csrc/digram_count.cu",
+                      "src/repro/kernels/digram_count.py:39", main["counts"]["digram_select"],
+                      errs["digram_select"], lambda: digram_select_cuda(table),
+                      lambda: ref.digram_select_slot_ref(table),
+                      8 * table.capacity + 9 * positive + 32, table.capacity + 4 * positive)
+
+    groups = _dense_groups(torch, *init[:3])
+    for a in groups:
+        for g, w in zip(digram_pair_counts_cuda(*a), ref.digram_pair_counts_ref(*a)):
+            if not torch.equal(g, w):
+                _fail("digram_pair_counts differs from its twin at the initial Count's groups")
+            errs["digram_pair_counts"] = max(errs["digram_pair_counts"], int((g - w).abs().max()))
+    print(f"digram_pair_counts (off the path) on the initial Count's groups: "
+          f"(N, K)={[tuple(a[0].shape) for a in groups]}")
+    pair_bytes = sum(8 * a[0].numel() + 12 * a[0].shape[0] * (a[0].shape[1] * (a[0].shape[1] + 1) // 2)
+                     for a in groups)
+    pair_ops = sum(16 * a[0].shape[0] * (a[0].shape[1] * (a[0].shape[1] + 1) // 2)
+                   for a in groups)
+    dense = _kernel_row(torch, "digram_pair_counts", "src/repro_torch/csrc/digram_count.cu",
+                        "src/repro/kernels/digram_count.py:39",
+                        main["counts"]["digram_pair_counts"], errs["digram_pair_counts"],
+                        lambda: [digram_pair_counts_cuda(*a) for a in groups],
+                        lambda: [ref.digram_pair_counts_ref(*a) for a in groups],
+                        pair_bytes, pair_ops)
+    return [dense, row, sel]
 
 
 def _k2_lines_rows(torch, main: dict, errs: dict, lay, s, per_level, rank_calls) -> list:
@@ -634,6 +884,61 @@ def _count_syncs(torch, fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def _same_graph(torch, a, b) -> bool:
+    return a.n_nodes == b.n_nodes and all(
+        torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+        for f in ("labels", "nodes_flat", "offsets"))
+
+
+def _same_grammar(torch, a, b) -> bool:
+    """Label ranks, start graph and every rule's rank and right-hand side."""
+    return torch.equal(a.table.ranks.cpu(), b.table.ranks.cpu()) \
+        and _same_graph(torch, a.start, b.start) and sorted(a.rules) == sorted(b.rules) \
+        and all(a.rules[lbl].rank == b.rules[lbl].rank
+                and _same_graph(torch, a.rules[lbl].rhs, b.rules[lbl].rhs) for lbl in a.rules)
+
+
+def _counter_syncs(torch, fn, iterations: int) -> None:
+    """Host syncs of one call of fn (a compress) made inside the counter's
+    Update Count (``DigramCounter.apply_delta``) and its selections
+    (``pop_best``, ``peek_pop``), by torch's sync debug mode."""
+    import warnings
+
+    from repro_torch.core.digram import DigramCounter
+
+    inside = {"apply_delta": 0, "pop_best": 0, "peek_pop": 0}
+    real = {name: getattr(DigramCounter, name) for name in inside}
+    log = []
+
+    def wrap(name):
+        def run(self, *a, **kw):
+            before = len(log[0])
+            try:
+                return real[name](self, *a, **kw)
+            finally:
+                inside[name] += sum("synchroniz" in str(w.message) for w in log[0][before:])
+        return run
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            log.append(caught)
+            for name in inside:
+                setattr(DigramCounter, name, wrap(name))
+            fn()
+    finally:
+        for name, f in real.items():
+            setattr(DigramCounter, name, f)
+        torch.cuda.set_sync_debug_mode("default")
+    total = sum("synchroniz" in str(w.message) for w in log[0])
+    counter = sum(inside.values())
+    print(f"compress host_syncs={total}: counter {counter} (apply_delta {inside['apply_delta']}, "
+          f"selections {inside['pop_best'] + inside['peek_pop']}) over {iterations} "
+          f"replacements, {counter / max(iterations, 1):.3f} a replacement; "
+          f"the rest {(total - counter) / max(iterations, 1):.3f} a replacement")
+
+
 def breakdown(torch, main: dict) -> None:
     """Phase 5: where the main path's time goes (warm repeats)."""
     from repro_torch.core import compress
@@ -670,11 +975,18 @@ def breakdown(torch, main: dict) -> None:
     for what, fn in (("s?? batch", lambda: engine.query_batch_view(*batches["s??"])),
                      ("?p? batch", lambda: engine.query_batch_view(*batches["?p?"])),
                      ("compress", lambda: compress(main["graph"], main["table"]))):
-        wall, dev, _ = _profile(torch, fn)
+        wall, dev, avgs = _profile(torch, fn)
         share = f"{dev / wall:.4f}" if dev > 0 else "not measured"
         syncs = _count_syncs(torch, fn)
         print(f"device busy {what}: wall_s={wall:.6f} kernel_s={dev:.6f} busy_share={share} "
               f"host_syncs={syncs}")
+    for name in ("digram_pair_accum", "digram_select"):  # the last profile: compress
+        hits = [e for e in avgs if f"{name}_kernel" in e.key]
+        seen = sum(e.count for e in hits)
+        device = sum(getattr(e, "self_device_time_total", 0) for e in hits) / seen / 1e3 \
+            if seen else "not measured"
+        print(f"compress {name}: launches in the trace={seen} device_ms_per_launch={device}")
+    _counter_syncs(torch, lambda: compress(main["graph"], main["table"]), main["stats"].iterations)
 
     # the same port code on the host CPU, as a yardstick for the host-bound
     # parts (a CPU time, not a device metric)
@@ -682,10 +994,14 @@ def breakdown(torch, main: dict) -> None:
 
     ds = main["dataset"]
     t0 = time.perf_counter()
-    grammar, _ = compress(Hypergraph.from_triples(ds.triples, ds.n_nodes, device="cpu"),
-                          LabelTable.terminals([2] * ds.n_preds, device="cpu"))
+    grammar, stats = compress(Hypergraph.from_triples(ds.triples, ds.n_nodes, device="cpu"),
+                              LabelTable.terminals([2] * ds.n_preds, device="cpu"))
     cpu_engine = TripleQueryEngine(grammar, encode(grammar))
     build_s = time.perf_counter() - t0
+    if vars(stats) != vars(main["stats"]) or not _same_grammar(torch, grammar, main["grammar"]):
+        _fail("the card's grammar differs from the CPU path's")
+    print(f"card grammar == CPU grammar: stats {vars(stats)}, {len(grammar.rules)} rules, "
+          f"start graph of {grammar.start.n_edges} edges, bit for bit")
     cols = [c.cpu() for c in batches["s??"]]
     t0 = time.perf_counter()
     cpu_engine.query_batch_view(*cols)
@@ -2655,6 +2971,7 @@ def main(argv=None) -> int:
     torch.set_float32_matmul_precision("highest")
     errs = check_kernels(torch, np, args.seed)
     errs.update(check_k2_lines(torch, np, args.seed))
+    errs.update(check_digram_kernels(torch, np, args.seed))
     errs.update(check_recsys_kernels(torch, np, args.seed))
     errs["flash_attention"] = check_attention_kernel(torch, np, args.seed)
     errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)

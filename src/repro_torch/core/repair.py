@@ -5,9 +5,9 @@ candidate edges are classed by which digram side(s) they can serve, paired
 greedily, and cross-node conflicts are resolved by pair priority over a few
 rounds. Every sort whose order matters is stable, and each ``np.lexsort`` is
 a chain of stable sorts, so the grammar comes out identical to the
-reference's. The initial Count runs through the ``digram_pair_counts``
-kernel (:func:`repro_torch.core.digram.digram_counts`); the Update Count
-step and the heap stay host Python.
+reference's. The Count, the Update Count and the selection of the most
+frequent digram run on the device (:class:`repro_torch.core.digram.DigramCounter`:
+the ``digram_pair_accum`` and ``digram_select`` kernels).
 """
 from __future__ import annotations
 

@@ -43,8 +43,14 @@ SOURCES = {
         # words, ranks, word_off, nbits, fixed, starts, out_idx, out_coord; the same
         "k2_lines_write": ("k2_lines_write_launch", [_P] * 8 + [_I64] * 7 + [_P]),
     },
-    "digram_count": {"digram_pair_counts": ("digram_pair_counts_launch",
-                                            [_P, _P, _P, _P, _P, _I64, _I64, _P])},
+    "digram_count": {
+        "digram_pair_counts": ("digram_pair_counts_launch", [_P] * 5 + [_I64] * 2 + [_P]),
+        # keys, counts, used; capacity; row_ptr, its, cnts, sign; n_rows
+        "digram_pair_accum": ("digram_pair_accum_launch", [_P] * 3 + [_I64] + [_P] * 4
+                              + [_I64, _P]),
+        # keys, counts, flags, used, scratch, out; capacity
+        "digram_select": ("digram_select_launch", [_P] * 6 + [_I64, _P]),
+    },
     "embedding_bag": {"embedding_bag": ("embedding_bag_launch",
                                         [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                          _P])},

@@ -12,7 +12,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import build_all, launch_counts, reset_launch_counts
 from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
-from repro_torch.kernels.digram_count import digram_pair_counts_cuda
+from repro_torch.kernels.digram_count import (DigramTable, digram_pair_accum_cuda,
+                                              digram_pair_counts_cuda, digram_select_cuda)
 from repro_torch.kernels.dot_interaction import dot_interaction_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -41,6 +42,23 @@ def digram_pair_counts(its: torch.Tensor, cnts: torch.Tensor):
     if its.device.type == "cpu":
         return ref.digram_pair_counts_ref(its, cnts)
     return digram_pair_counts_cuda(its, cnts)
+
+
+def digram_pair_accum(table: DigramTable, row_ptr: torch.Tensor, its: torch.Tensor,
+                      cnts: torch.Tensor, sign: torch.Tensor) -> None:
+    """Add the signed pair counts of each CSR row of node histograms to
+    `table`, in place; see :func:`ref.digram_pair_accum_ref`."""
+    if row_ptr.device.type == "cpu":
+        return ref.digram_pair_accum_ref(table, row_ptr, its, cnts, sign)
+    return digram_pair_accum_cuda(table, row_ptr, its, cnts, sign)
+
+
+def digram_select(table: DigramTable) -> torch.Tensor:
+    """(key, count, slot, used) of the most frequent unflagged digram of
+    `table`; see :func:`ref.digram_select_slot_ref`."""
+    if table.keys.device.type == "cpu":
+        return ref.digram_select_slot_ref(table)
+    return digram_select_cuda(table)
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -82,5 +100,6 @@ def csr_spmm(x: torch.Tensor, a: CSR) -> torch.Tensor:
     return csr_spmm_cuda(x, a)
 
 
-__all__ = ["bitvec_rank", "k2_lines", "digram_pair_counts", "embedding_bag", "dot_interaction",
+__all__ = ["bitvec_rank", "k2_lines", "digram_pair_counts", "digram_pair_accum", "digram_select",
+           "embedding_bag", "dot_interaction",
            "flash_attention", "csr_spmm", "build_all", "launch_counts", "reset_launch_counts", "ref"]

@@ -161,6 +161,82 @@ def digram_pair_counts_ref(its: torch.Tensor, cnts: torch.Tensor):
     return torch.minimum(it1, it2), torch.maximum(it1, it2), cv
 
 
+def digram_pairs_ref(row_ptr: torch.Tensor, its: torch.Tensor, cnts: torch.Tensor,
+                     sign: torch.Tensor):
+    """The signed pair values of a CSR of node histograms.
+
+    For every row r (items ``row_ptr[r]:row_ptr[r+1]`` of its, cnts) and slot
+    pair i <= j of it, in ``triu_indices`` order, the key ``min(it_i, it_j)
+    << 32 | max(...)`` and the value ``sign[r] * (c_i // 2 if i == j else
+    min(c_i, c_j))``, where that value is not 0. Returns (keys, values),
+    int64.
+    """
+    dev = row_ptr.device
+    lens = row_ptr[1:] - row_ptr[:-1]
+    n_items = its.numel()
+    ar = torch.arange(n_items, dtype=torch.int64, device=dev)
+    item_row = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens,
+                                       output_size=n_items)
+    partners = row_ptr[1:][item_row] - ar  # slot i pairs with j = i .. K-1
+    total = int(partners.sum())
+    i = torch.repeat_interleave(ar, partners, output_size=total)
+    j = i + torch.arange(total, dtype=torch.int64, device=dev) \
+        - (torch.cumsum(partners, 0) - partners)[i]
+    it1, it2 = its[i].to(torch.int64), its[j].to(torch.int64)
+    c1, c2 = cnts[i].to(torch.int64), cnts[j].to(torch.int64)
+    v = torch.where(i == j, torch.div(c1, 2, rounding_mode="floor"), torch.minimum(c1, c2))
+    v = v * sign.to(torch.int64)[item_row[i]]
+    keep = v != 0
+    keys = (torch.minimum(it1, it2) << 32) | torch.maximum(it1, it2)
+    return keys[keep], v[keep]
+
+
+def digram_pair_accum_ref(table, row_ptr: torch.Tensor, its: torch.Tensor,
+                          cnts: torch.Tensor, sign: torch.Tensor) -> None:
+    """Add :func:`digram_pairs_ref` of the CSR to the sorted
+    :class:`repro_torch.kernels.digram_count.DigramTable` `table`, in place:
+    the twin of ``digram_pair_accum``. A key keeps its flag; a new key
+    gets flag 0; a count that falls to 0 keeps its key."""
+    if table.used is not None:
+        raise ValueError("digram_pair_accum_ref takes a sorted DigramTable")
+    keys, vals = digram_pairs_ref(row_ptr, its, cnts, sign)
+    m = table.keys.numel()
+    uk, inv = torch.unique(torch.cat([table.keys, keys]), return_inverse=True)
+    table.counts = torch.zeros(uk.numel(), dtype=torch.int64, device=uk.device).index_add_(
+        0, inv, torch.cat([table.counts, vals]))
+    table.flags = torch.zeros(uk.numel(), dtype=torch.uint8, device=uk.device).index_copy_(
+        0, inv[:m], table.flags)
+    table.keys = uk
+
+
+def digram_select_slot_ref(table) -> torch.Tensor:
+    """(key, count, slot, used), int64, on the table's device: the twin of
+    ``digram_select`` on a hashed or a sorted table (``used``: its
+    entries). Among the slots with flag 0 and count > 0, the largest
+    count, and among equal counts the smallest key; key and slot -1 and
+    count 0 when there is none."""
+    dev = table.keys.device
+    used = table.used[0] if table.used is not None else \
+        torch.full((), table.keys.numel(), dtype=torch.int64, device=dev)
+    if table.keys.numel() == 0:
+        return torch.stack([torch.full_like(used, -1), torch.zeros_like(used),
+                            torch.full_like(used, -1), used])
+    ok = (table.flags == 0) & (table.counts > 0)
+    c = torch.where(ok, table.counts, 0)
+    best = c.max()
+    k = torch.where(ok & (c == best), table.keys, torch.iinfo(torch.int64).max)
+    slot = torch.argmin(k)
+    found = best > 0
+    return torch.stack([torch.where(found, k[slot], -1), best,
+                        torch.where(found, slot, -1), used])
+
+
+def digram_select_ref(table) -> tuple[int, int] | None:
+    """(key, count) that ``digram_select`` picks from `table`, or None."""
+    key, count, _, _ = digram_select_slot_ref(table).tolist()
+    return None if key < 0 else (key, count)
+
+
 def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
                       combiner: str = "sum") -> torch.Tensor:
     """Sum or mean of the table rows of each bag.

@@ -142,7 +142,8 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.k2_lines(_layout(), torch.tensor([0, 1, 3]), 0)
     assert ops.launch_counts["bitvec_rank"] == ops.launch_counts["digram_pair_counts"] == 0
     assert set(ops.launch_counts) == {"bitvec_rank", "k2_lines_count", "k2_lines_write",
-                                      "digram_pair_counts", "embedding_bag",
+                                      "digram_pair_counts", "digram_pair_accum",
+                                      "digram_select", "embedding_bag",
                                       "dot_interaction", "dot_interaction_simt",
                                       "flash_attention",
                                       "flash_attention_combine", "csr_spmm",
