@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR, DLRM and LM
-serving, GNN training.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR, DLRM serving
+and training, LM serving, GNN training.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
 
@@ -29,7 +29,13 @@ nothing of the JAX package. Phases:
    kernel's stage), each with sign +1 and then signed, with a control (one
    row's sign flipped) that must fail, and ``digram_select`` against its
    twin on those tables, with ties, skipped slots (a control with the
-   flags cleared must fail) and all counts zero);
+   flags cleared must fail) and all counts zero); DLRM training's kernels:
+   ``embedding_bag_backward`` (and its combine) against its split twin bit
+   for bit and its plain twin within a tolerance on random bags (L 1-8,
+   duplicates, padding, long runs of one id), sum and mean, bf16 and
+   float32, ``dot_interaction_backward`` at F 27 and 13 in both types, and
+   ``sgd_rows`` on small registered host buffers, every row bit for bit,
+   each with a control that must fail;
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -74,6 +80,25 @@ nothing of the JAX package. Phases:
    serve_p99 batch's, beside two ``torch.bmm`` yardsticks (fp32 upcast;
    bf16 with float32 output), a sweep of its launch plan, its HMMA count
    (SASS), and the device time of the two ``torch.cat`` passes around it;
+   6b. with the serve tables freed, train ``dlrm-mlperf`` at full size
+   (``train_batch``: B = 65,536, the bf16 tables on the card, their float32
+   master, 91.1 GB, registered in host memory) through ``build_cell``: the
+   host probe (memory, cgroup, PCIe link), init and registration seconds;
+   one step with the launch counts at 0 before it (each of the five
+   kernels of the step exactly once); the step held against the same step
+   through the twins from one snapshot (loss, lr, grad_norm, the compact
+   gradient, the touched rows' master and bf16 values, the MLP leaves),
+   the kernel step's rows equal to ``sgd_rows_ref`` of its own gradient
+   bit for bit and 100,000 untouched rows unchanged bit for bit; every
+   touched row's gradient within the bound that the paths' own dz and
+   field differences and bf16 roundings allow, with 26 planted faults (a
+   field's gradient dropped) that must break it; ``sgd_rows`` on the
+   step's own compact gradient and the model's master at lr 0.05, clip
+   0.3, the touched rows bit for bit against ``sgd_rows_ref``, most rows
+   moved, a control (clip left out) that must fail; 10 timed
+   steps after 2 warm-ups (ms, samples/s), the busy share, host syncs a
+   step (at most 2), device time by kernel, peak memory; phase 4's rows of
+   the new kernels; then the master is released;
 7. with the DLRM tables freed, serve ``qwen2-1.5b`` at full width (28
    layers, d_model 1536, 12 query and 2 KV heads of 128, vocab 151,936):
    a small model on the card against the host CPU; the full-width model in
@@ -115,6 +140,7 @@ Without a CUDA device, or without ``src/repro_torch`` beside it, it exits 2.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -123,6 +149,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+PCIE_BYTES_PER_S = 64e9       # PCIe Gen5 x16, the H100 SXM's host link, each way
 CORE_OPS_PER_S = 67e12        # H100 SXM rate outside the tensor cores (fp32 table entry)
 DEV = "cuda"
 PATTERNS = ("s??", "?p?", "??o", "sp?", "s?o", "?po", "spo")
@@ -1012,12 +1039,15 @@ def breakdown(torch, main: dict) -> None:
 
 class _Twins:
     """Route ``ops.embedding_bag``, ``ops.dot_interaction``,
-    ``ops.flash_attention`` and ``ops.csr_spmm`` to their plain twins inside
-    the block, for the twin paths of the DLRM, LM and GNN checks;
+    ``ops.flash_attention``, ``ops.csr_spmm`` and DLRM training's
+    ``ops.embedding_bag_backward``, ``ops.dot_interaction_backward`` and
+    ``ops.sgd_rows`` to their plain twins inside the block, for the twin
+    paths of the DLRM, LM and GNN checks;
     ``attention`` replaces the attention twin (the LM checks' witness and
     control)."""
 
-    NAMES = ("embedding_bag", "dot_interaction", "flash_attention", "csr_spmm")
+    NAMES = ("embedding_bag", "dot_interaction", "flash_attention", "csr_spmm",
+             "embedding_bag_backward", "dot_interaction_backward", "sgd_rows")
 
     def __init__(self, attention=None):
         self.attention = attention
@@ -1452,6 +1482,749 @@ def drive_dlrm(torch, np, seed: int, errs: dict) -> list:
           f"ms_min={min(times) * 1e3:.6f}")
     del cell, cands
     torch.cuda.empty_cache()
+    return rows
+
+
+# DLRM training: the kernels of the train step against their twins (phase
+# 2) and the full-size train_batch step (phase 6b).
+EMB_BWD_TOL = dict(rtol=1e-5, scaled=1e-5)  # float32 sums in another order: atol 1e-5 max|want|
+DOT_BWD_TOL = {"float32": dict(rtol=1e-5, scaled=1e-5),
+               "bfloat16": dict(rtol=2.0 ** -7, scaled=1e-5)}  # + one bf16 rounding apart
+TRAIN_STEPS = 10       # timed steps of train_batch, after TRAIN_WARMUP
+TRAIN_WARMUP = 2
+TRAIN_MAX_SYNCS = 2    # host syncs a step may make
+UNTOUCHED_SAMPLE = 100_000
+# the full-size step against the same step through the twins: loss and
+# grad_norm within 1e-4 relative (float32 sums in another order over 65,536
+# samples); the compact gradient within EMB_BWD_TOL of the twin on the
+# kernel path's own input, and against the twin path's, every entry within
+# the bound that the paths' own dz and field differences and roundings give
+# it (_grad_bound: the twin path's dz differs, by the forward's order of
+# sums and by ReLU inputs of the top MLP within float32 noise of 0, G X can
+# cancel below that, and each path rounds the lookup's gradient to bf16),
+# and within GRAD_PATH_RTOL in norm; the touched rows' master within 1e-7
+# absolute (a step moves a row by lr x clip x g, 6e-6 x |g| at the held
+# step, so gradient differences land far below it, and so does most of the
+# update itself: sgd_rows' arithmetic is held apart, at SGD_CHECK_LR and
+# SGD_CHECK_CLIP); their bf16 values within one bf16 step (2^-8 relative),
+# where the two masters straddle a rounding boundary; the MLP leaves within
+# 2 lr (an AdamW step moves an entry by about lr, as in the CPU test).
+STEP_RTOL = 1e-4
+GRAD_PATH_RTOL = 1e-2  # the compact gradient's relative norm difference between the paths
+DZ_DIVERGED = 1e-4     # a sample's dz gap past this share of its max|dz| (counted)
+MASTER_ATOL = 1e-7
+F32_EPS = 2.0 ** -24   # float32 unit roundoff: a sum of m terms is off by at most m u sum|terms|
+BF16_HALF_STEP = 2.0 ** -8  # bf16 rounding moves a value by at most this share of it
+SGD_CHECK_LR, SGD_CHECK_CLIP = 0.05, 0.3  # sgd_rows at train_batch shapes, large enough to move
+SGD_MOVED_SHARE = 0.5  # ... most touched rows, else the check fails
+EMB_BWD_REPLACES = "src/repro/kernels/embedding_bag.py:29"
+DOT_BWD_REPLACES = "src/repro/kernels/dot_interaction.py:26"
+SGD_REPLACES = "src/repro/train/optimizer.py:93"
+
+
+def _close(torch, got, want, rtol: float, scaled: float) -> bool:
+    """|got - want| <= scaled max|want| + rtol |want| everywhere."""
+    want = want.float()
+    lim = scaled * float(want.abs().max()) + rtol * want.abs()
+    return bool(((got.float() - want).abs() <= lim).all())
+
+
+def _bwd_case(torch, np, rng, b: int, bag_len: int, n_rows: int, d: int, dt, pad: bool):
+    idx = rng.integers(0, n_rows, (b, bag_len))
+    if pad:
+        idx[rng.random((b, bag_len)) < 0.25] = -1
+        idx[: min(b, 2)] = -1
+    g = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dt)
+    return idx, g
+
+
+def check_train_kernels(torch, np, seed: int) -> dict:
+    """Phase 2, DLRM training's kernels against their twins on the card.
+
+    ``embedding_bag_backward`` (both launches) equals its split twin bit for
+    bit (the kernels' order of additions, on the host) and the plain twin
+    within EMB_BWD_TOL, on random bags (L 1-8, duplicates, padding, empty
+    bags, runs of one id cut by many chunks), sum and mean, bf16 and float32
+    gradients, D 5, 16, 128; a control (one occurrence's gradient zeroed)
+    must fail. ``dot_interaction_backward`` within DOT_BWD_TOL of its twin at
+    F 27 and 13, D 16 and 128, B 1-4,097, bf16 and float32; a control (the
+    last field row zeroed) must fail. ``sgd_rows`` on small registered host
+    buffers: every row of the master and the table equal to the twin's bit
+    for bit (the touched rows updated, the others untouched); a control
+    (clip left out) must fail."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
+    from repro_torch.kernels.embedding_bag import (BACKWARD_CHUNK, embedding_bag_backward_cuda,
+                                                   register_host, sgd_rows_cuda,
+                                                   unregister_host)
+
+    rng = np.random.default_rng(seed + 20)
+    err = {"embedding_bag_backward": 0.0, "embedding_bag_backward_combine": 0.0,
+           "dot_interaction_backward": 0.0, "sgd_rows": 0.0}
+    n_cases = 0
+    cases = [(1, 1, 10, False), (300, 1, 7, False), (300, 3, 10_000, True), (1000, 8, 50, True),
+             (129, 8, 3, True), (2000, 2, 4, True)]
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (5, 16, 128):
+            for b, bag_len, n_rows, pad in cases:
+                idx, g = _bwd_case(torch, np, rng, b, bag_len, n_rows, d, dt, pad)
+                idx_t = torch.from_numpy(idx).to(DEV, torch.int32)
+                for combiner in ("sum", "mean"):
+                    before = dict(ops.launch_counts)
+                    rows, grads, n_u = embedding_bag_backward_cuda(idx_t, g.to(DEV), combiner,
+                                                                   n_rows)
+                    launched = {k: ops.launch_counts[k] - before[k] for k in before}
+                    if {k: v for k, v in launched.items() if v} != {
+                            "embedding_bag_backward": 1, "embedding_bag_backward_combine": 1}:
+                        _fail(f"embedding_bag_backward launched {launched}")
+                    torch.cuda.synchronize()
+                    n = int(n_u)
+                    s_rows, s_grads, s_n = ref.embedding_bag_backward_split_ref(
+                        torch.from_numpy(idx), g, combiner, BACKWARD_CHUNK)
+                    p_rows, p_grads, p_n = ref.embedding_bag_backward_ref(
+                        idx_t, g.to(DEV), combiner, n_rows)
+                    what = f"{dt} D={d} B={b} L={bag_len} V={n_rows} {combiner}"
+                    if n != int(s_n) or n != int(p_n) or not torch.equal(rows[:n].cpu(),
+                                                                         s_rows[:n]):
+                        _fail(f"embedding_bag_backward rows differ from the twins at {what}")
+                    if not torch.equal(grads[:n].cpu(), s_grads[:n]):
+                        _fail(f"embedding_bag_backward is not its split twin bit for bit at "
+                              f"{what}")
+                    if not _close(torch, grads[:n], p_grads[:n], **EMB_BWD_TOL):
+                        _fail(f"embedding_bag_backward differs from its twin at {what}")
+                    if n:
+                        err["embedding_bag_backward"] = max(err["embedding_bag_backward"], float(
+                            (grads[:n] - p_grads[:n]).abs().max()))
+                        hit = int(np.flatnonzero((idx >= 0).any(axis=1))[-1])
+                        ctrl_g = g.clone()
+                        ctrl_g[hit] = 0
+                        _, c_grads, _ = ref.embedding_bag_backward_ref(idx_t, ctrl_g.to(DEV),
+                                                                       combiner)
+                        if _close(torch, grads[:n], c_grads[:n], **EMB_BWD_TOL):
+                            _fail(f"the embedding_bag_backward check does not tell the control "
+                                  f"(bag {hit} dropped) from the twin at {what}")
+                    n_cases += 1
+    print(f"embedding_bag_backward vs split twin (bit for bit) and plain twin: cases={n_cases} "
+          f"max_abs_err={err['embedding_bag_backward']} tol={EMB_BWD_TOL}; controls fail")
+
+    n_dot = 0
+    for dt in (torch.bfloat16, torch.float32):
+        tol = DOT_BWD_TOL[str(dt).split(".")[-1]]
+        for f in (27, 13):
+            for d in (16, 128):
+                for b in (1, 129, 4097):
+                    x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(DEV, dt)
+                    dz = torch.from_numpy(rng.normal(size=(b, f * (f - 1) // 2))
+                                          .astype(np.float32)).to(DEV)
+                    before = ops.launch_counts["dot_interaction_backward"]
+                    got = dot_interaction_backward_cuda(x, dz)
+                    if ops.launch_counts["dot_interaction_backward"] != before + 1:
+                        _fail("dot_interaction_backward did not count its launch")
+                    want = ref.dot_interaction_backward_ref(x, dz)
+                    ctrl_x = x.clone()
+                    ctrl_x[:, -1] = 0
+                    ctrl = ref.dot_interaction_backward_ref(ctrl_x, dz)
+                    torch.cuda.synchronize()
+                    what = f"{dt} F={f} D={d} B={b}"
+                    if got.dtype != dt or got.shape != x.shape or not _close(torch, got, want,
+                                                                            **tol):
+                        _fail(f"dot_interaction_backward differs from its twin at {what}")
+                    if _close(torch, got, ctrl, **tol):
+                        _fail(f"the dot_interaction_backward check does not tell the control "
+                              f"(last field row zeroed) from the twin at {what}")
+                    err["dot_interaction_backward"] = max(err["dot_interaction_backward"], float(
+                        (got.float() - want.float()).abs().max()))
+                    n_dot += 1
+    print(f"dot_interaction_backward vs twin: cases={n_dot} max_abs_err="
+          f"{err['dot_interaction_backward']} tol={DOT_BWD_TOL}; controls fail")
+
+    n_sgd = 0
+    for dt, d in ((torch.bfloat16, 128), (torch.float32, 16), (torch.bfloat16, 5)):
+        v, n, cap = 1000, 300, 400
+        master = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
+        reg_s = register_host(master)
+        try:
+            table = master.to(DEV, dt)
+            rows = torch.full((cap,), 10**9, dtype=torch.int64)  # slots past n: never read
+            rows[:n] = torch.from_numpy(np.sort(rng.choice(v, n, replace=False)))
+            grads = torch.full((cap, d), float("nan"))
+            grads[:n] = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) * 40
+            args = [t.to(DEV) for t in (rows, grads, torch.tensor(n), torch.tensor(0.05),
+                                        torch.tensor(0.3))]
+            want_m, want_t = master.clone(), table.clone()
+            ref.sgd_rows_ref(want_m, want_t, *args)
+            ctrl_m, ctrl_t = master.clone(), table.clone()
+            ref.sgd_rows_ref(ctrl_m, ctrl_t, *args[:4], torch.tensor(1.0, device=DEV))
+            before = ops.launch_counts["sgd_rows"]
+            sgd_rows_cuda(master, table, *args)
+            torch.cuda.synchronize()
+            if ops.launch_counts["sgd_rows"] != before + 1:
+                _fail("sgd_rows did not count its launch")
+            if not (torch.equal(master, want_m) and torch.equal(table, want_t)):
+                _fail(f"sgd_rows differs from its twin at {dt} D={d}")
+            if torch.equal(master, ctrl_m):
+                _fail(f"the sgd_rows check does not tell the control (clip left out) at {dt}")
+        finally:
+            unregister_host(master)
+        n_sgd += 1
+    print(f"sgd_rows vs twin on registered host memory: cases={n_sgd}, every row bit for bit "
+          f"(last registration {reg_s:.6f} s); control fails")
+    return err
+
+
+def _train_counts(counts: dict) -> dict:
+    """The train step's launch counts; fail unless each kernel of the path
+    ran exactly once and the SIMT interaction never."""
+    want = {"embedding_bag": 1, "dot_interaction": 1, "dot_interaction_simt": 0,
+            "dot_interaction_backward": 1, "embedding_bag_backward": 1,
+            "embedding_bag_backward_combine": 1, "sgd_rows": 1}
+    got = {k: counts[k] for k in want}
+    print(f"launches in one train_batch step (dlrm train): {got}")
+    if got != want:
+        _fail(f"the train_batch step launched {got}, not {want}")
+    return got
+
+
+def _mlp_state(model, opt_state) -> dict:
+    keys = [k for k in model.leaves() if k != "tables"]
+    return {"p": {k: model.leaves()[k].detach().clone() for k in keys},
+            **{n: {k: opt_state[n][k].clone() for k in keys} for n in ("master", "m", "v")},
+            "step": opt_state["step"].clone()}
+
+
+def _set_mlp_state(torch, model, opt_state, snap) -> None:
+    with torch.no_grad():
+        for k, p in model.leaves().items():
+            if k != "tables":
+                p.copy_(snap["p"][k])
+                for n in ("master", "m", "v"):
+                    opt_state[n][k].copy_(snap[n][k])
+        opt_state["step"].copy_(snap["step"])
+
+
+def _one_step(torch, model, opt_state, batch, opt_cfg, touched, touched_d) -> dict:
+    """One train step through ops as they stand: the loss, metrics, the
+    lookup's gradient (the backward's input), the compact gradient, and the
+    touched rows and MLP leaves after it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.dlrm import dlrm_grads
+    from repro_torch.train.optimizer import adamw_update
+
+    seen, real, real_dot = {}, ops.embedding_bag_backward, ops.dot_interaction_backward
+
+    def record(indices, grad_out, *rest):
+        seen["g_emb"] = grad_out
+        return real(indices, grad_out, *rest)
+
+    def record_dot(x, dz):
+        seen["x"], seen["dz"] = x, dz
+        return real_dot(x, dz)
+
+    ops.embedding_bag_backward, ops.dot_interaction_backward = record, record_dot
+    try:
+        loss, grads = dlrm_grads(model, *batch)
+    finally:
+        ops.embedding_bag_backward, ops.dot_interaction_backward = real, real_dot
+    met = adamw_update(model.leaves(), grads, opt_state, opt_cfg)
+    torch.cuda.synchronize()
+    g = grads["tables"]
+    n = int(g.n_unique)
+    return {"loss": float(loss), "lr": met["lr"].clone(), "grad_norm": met["grad_norm"].clone(),
+            "n": n, "rows": g.rows[:n].clone(), "grads": g.grads[:n].clone(),
+            "g_emb": seen["g_emb"], "dz": seen["dz"], "x": seen["x"],
+            "master": model.master[touched], "table": model.table[touched_d].clone(),
+            "mlp": {k: p.detach().clone() for k, p in model.leaves().items() if k != "tables"}}
+
+
+def _hold_train_step(torch, np, model, opt_state, batch, opt_cfg, seed: int) -> dict:
+    """The full-size step against the same step through the twins, from one
+    snapshot: loss, lr and grad_norm, the compact gradient (every entry
+    within :func:`_grad_bound`, which 26 planted faults must break), the
+    touched rows' master and bf16 values and the MLP leaves; the kernel
+    step's master rows equal ``sgd_rows_ref`` on the snapshot and its own
+    gradient bit for bit, and how many entries that step moved;
+    :func:`_hold_sgd_rows` on its gradient; a sample of untouched rows
+    unchanged bit for bit."""
+    from repro_torch.kernels import ref
+
+    dense, sparse, labels = batch
+    touched_d = torch.unique((sparse + model.row_offsets).reshape(-1)).to(torch.int64)
+    touched = touched_d.cpu()
+    n_rows = model.table.shape[0]
+    rng = np.random.default_rng(seed + 30)
+    cand = rng.integers(0, n_rows, UNTOUCHED_SAMPLE * 2)
+    far = np.setdiff1d(cand, touched.numpy())[:UNTOUCHED_SAMPLE]
+    far_t = torch.from_numpy(far)
+    far_d = far_t.to(DEV)
+    snap_master, snap_table = model.master[touched], model.table[touched_d].clone()
+    far_master, far_table = model.master[far_t], model.table[far_d].clone()
+    mlp = _mlp_state(model, opt_state)
+
+    kern = _one_step(torch, model, opt_state, batch, opt_cfg, touched, touched_d)
+    # the kernel step's rows: sgd_rows_ref on the snapshot with its own gradient
+    clip = torch.clamp(opt_cfg.grad_clip / (kern["grad_norm"] + 1e-9), max=1.0)
+    want_m, want_t = snap_master.to(DEV, copy=True), snap_table.clone()
+    local = torch.arange(kern["n"], device=DEV)
+    ref.sgd_rows_ref(want_m, want_t, local, kern["grads"], torch.tensor(kern["n"], device=DEV),
+                     kern["lr"], clip)
+    if not (torch.equal(kern["master"], want_m.cpu()) and torch.equal(kern["table"], want_t)):
+        _fail("the train step's master or table rows are not sgd_rows_ref of its gradient")
+    # back to the snapshot, then the twin path
+    model.master[touched] = snap_master
+    model.table[touched_d] = snap_table
+    _set_mlp_state(torch, model, opt_state, mlp)
+    with _Twins():
+        twin = _one_step(torch, model, opt_state, batch, opt_cfg, touched, touched_d)
+    res = {"n_unique": kern["n"], "touched": int(touched.numel())}
+    for k in ("lr", "grad_norm"):
+        res[k] = (float(kern[k]), float(twin[k]))
+    res["loss"] = (kern["loss"], twin["loss"])
+    for k in ("loss", "lr", "grad_norm"):
+        a, b = res[k]
+        if not abs(a - b) <= STEP_RTOL * abs(b):
+            _fail(f"train step {k}: kernel path {a} against twin path {b}")
+    if kern["n"] != twin["n"] or kern["n"] != touched.numel() \
+            or not torch.equal(kern["rows"], twin["rows"]) \
+            or not torch.equal(kern["rows"], touched_d):
+        _fail("the train step's compact gradient rows differ from the twin path's")
+    # the kernels on the kernel path's own input: float32 summation order only
+    bags = (sparse + model.row_offsets).reshape(-1, 1)
+    _, own, _ = ref.embedding_bag_backward_ref(bags, kern["g_emb"], "sum")
+    res["grads_vs_twin_same_input"] = float((kern["grads"] - own[:kern["n"]]).abs().max())
+    if not _close(torch, kern["grads"], own[:kern["n"]], **EMB_BWD_TOL):
+        _fail(f"the train step's compact gradient differs from the twin of its own input by "
+              f"{res['grads_vs_twin_same_input']}")
+    # the twin path's, which reaches the kernels through other inputs: the
+    # forward's interaction sums in another order, so dz differs (and where a
+    # ReLU input of the top MLP lies within float32 noise of 0, opens in one
+    # path only), G X can cancel below that difference, and each path rounds
+    # the lookup's gradient to bf16. Every row is held to the bound that
+    # follows from these alone (_grad_bound); 26 planted faults, a field's
+    # gradient dropped, must each break it, and the norm reading is kept
+    # beside theirs
+    n = kern["n"]
+    with torch.no_grad():
+        bound, why = _grad_bound(torch, ref, bags, kern, twin, n)
+        diff = (kern["grads"] - twin["grads"]).abs()
+        res["grads_max_abs_err"] = float(diff.max())
+        res["grads_max_abs"] = float(twin["grads"].abs().max())
+        res["grads_rel_norm_err"] = _rel_norm(torch, kern["grads"], twin["grads"])
+        res["grads_rows_past_bound"] = int((diff > bound).any(dim=1).sum())
+        res["grads_worst_share_of_bound"] = float((diff / bound.clamp(min=1e-38)).max())
+        res.update(why)
+        res["faults"] = _planted_faults(torch, ref, bags, kern["g_emb"], twin["grads"], bound, n)
+    shown = {k: v for k, v in res.items() if k not in ("lr", "grad_norm", "loss")}
+    print(f"train_batch compact gradient, kernel path vs twin path: {shown}")
+    if res["grads_rows_past_bound"]:
+        _fail(f"{res['grads_rows_past_bound']} rows of the train step's compact gradient differ "
+              f"from the twin path's past what the paths' inputs explain")
+    if not res["grads_rel_norm_err"] <= GRAD_PATH_RTOL:
+        _fail(f"the train step's compact gradient differs from the twin path's by "
+              f"{res['grads_rel_norm_err']} in norm (at most {GRAD_PATH_RTOL})")
+    if res["faults"]["caught_by_bound"] != res["faults"]["planted"]:
+        _fail(f"the gradient's bound check misses planted faults: {res['faults']}")
+    del own, diff, bound
+    moved = kern["master"] != snap_master
+    res["held_step_master_entries_changed"] = int(moved.sum())
+    res["held_step_master_rows_changed"] = int(moved.any(dim=1).sum())
+    del moved
+    res["sgd_rows_at_check_lr"] = _hold_sgd_rows(torch, model, kern["rows"], kern["grads"],
+                                                 touched, touched_d)
+    for k in ("g_emb", "dz", "x"):
+        kern.pop(k), twin.pop(k)
+    res["master_max_abs_err"] = float((kern["master"] - twin["master"]).abs().max())
+    if res["master_max_abs_err"] > MASTER_ATOL:
+        _fail(f"the touched master rows differ from the twin path's by "
+              f"{res['master_max_abs_err']} (atol {MASTER_ATOL})")
+    tk, tt = kern["table"].float(), twin["table"].float()
+    if not bool(((tk - tt).abs() <= 2.0 ** -8 * tt.abs()).all()):
+        _fail(f"the touched table rows differ from the twin path's by more than one bf16 "
+              f"step: max abs {float((tk - tt).abs().max())}")
+    res["table_rows_differing"] = int((tk != tt).any(dim=1).sum())
+    lr = float(kern["lr"])
+    res["mlp_max_abs_err"] = max(float((kern["mlp"][k] - twin["mlp"][k]).abs().max())
+                                 for k in kern["mlp"])
+    if res["mlp_max_abs_err"] > 2 * lr:
+        _fail(f"the MLP leaves differ from the twin path's by {res['mlp_max_abs_err']}")
+    if not (torch.equal(model.master[far_t], far_master)
+            and torch.equal(model.table[far_d], far_table)):
+        _fail("an untouched row moved")
+    if not np.isfinite(kern["loss"]):
+        _fail("the train step's loss is not finite")
+    print(f"train_batch step kernel path vs twin path: {res} (tolerances: loss, lr, grad_norm "
+          f"rtol {STEP_RTOL}; gradient on the same input {EMB_BWD_TOL}, against the twin "
+          f"path's every row within its bound and {GRAD_PATH_RTOL} in norm; master atol "
+          f"{MASTER_ATOL}; table one "
+          f"bf16 step; MLP 2 lr = {2 * lr}); the kernel step's rows equal sgd_rows_ref of "
+          f"its gradient bit for bit; {far.size} untouched rows unchanged bit for bit")
+    return res
+
+
+def _rel_norm(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def _grad_bound(torch, ref, bags, kern, twin, n: int) -> tuple:
+    """Per entry of the compact gradient's first n rows, how far the kernel
+    path's may lie from the twin path's given only what feeds the two
+    backward passes, summed over the row's occurrences: a sample's largest
+    dz difference e_b times the sum of |X| over the other fields (dX_i =
+    sum_j dz_ij X_j), max|dz_b| times the sum of the fields' own
+    differences, float32 sums of 27 terms in each path (27 u max|dz_b| sum
+    |X|), each path's bf16 rounding of dX (BF16_HALF_STEP of |g|), and the
+    two row sums' float32 order (m u sum|g| for a row of m occurrences).
+    Returns the bound and its inputs' readings."""
+    x_k, x_t = kern["x"].float(), twin["x"].float()
+    dz_k, dz_t = kern["dz"], twin["dz"]
+    e = (dz_k - dz_t).abs().amax(dim=1)
+    top = torch.maximum(dz_k.abs().amax(dim=1), dz_t.abs().amax(dim=1))
+    ax = x_k.abs()
+    per = (e + 2 * 27 * F32_EPS * top)[:, None, None] * (ax.sum(dim=1, keepdim=True) - ax)
+    per += top[:, None, None] * (x_k - x_t).abs().sum(dim=1, keepdim=True)
+    g_k, g_t = kern["g_emb"].float().abs(), twin["g_emb"].float().abs()
+    per = per[:, 1:].reshape(g_k.shape) + BF16_HALF_STEP * (1 + 2.0 ** -7) * (g_k + g_t)
+    del ax
+    _, bound, _ = ref.embedding_bag_backward_ref(bags, per, "sum")
+    _, mag, _ = ref.embedding_bag_backward_ref(bags, g_k + g_t, "sum")
+    _, occ = torch.unique(bags.reshape(-1), return_counts=True)
+    bound = bound[:n] + occ[:, None] * F32_EPS * mag[:n]
+    why = {"fields_max_abs_diff": float((x_k - x_t).abs().max()),
+           "dz_max_abs_diff": float(e.max()),
+           "samples_dz_diverged": int((e > DZ_DIVERGED * top).sum()),
+           "most_occurrences_of_a_row": int(occ.max())}
+    return bound, why
+
+
+def _planted_faults(torch, ref, bags, g_emb, want, bound, n: int) -> dict:
+    """The bound and norm checks on the kernel path's own gradient with
+    one field's part of the lookup's gradient dropped, for each of the 26
+    fields: how many the bound catches and the norm readings."""
+    b = g_emb.shape[0] // 26
+    norms, caught = [], 0
+    for f in range(26):
+        g = g_emb.view(b, 26, -1).clone()
+        g[:, f] = 0
+        _, got, _ = ref.embedding_bag_backward_ref(bags, g.view_as(g_emb), "sum")
+        caught += bool(((got[:n] - want).abs() > bound).any())
+        norms.append(_rel_norm(torch, got[:n], want))
+        del g, got
+    return {"planted": 26, "caught_by_bound": caught,
+            "caught_by_norm": sum(x > GRAD_PATH_RTOL for x in norms),
+            "rel_norm_min": min(norms), "rel_norm_max": max(norms)}
+
+
+def _hold_sgd_rows(torch, model, rows, grads, touched, touched_d) -> dict:
+    """``sgd_rows`` at the train_batch shapes: the step's own compact
+    gradient on the model's registered master and its table, at lr
+    SGD_CHECK_LR and clip SGD_CHECK_CLIP (the held step's lr moves few
+    master entries); the touched rows' master and table equal
+    ``sgd_rows_ref`` on a snapshot bit for bit, at least SGD_MOVED_SHARE of
+    them moved, and a control (clip left out) must differ. The rows are put
+    back afterwards."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import sgd_rows_cuda
+
+    n = rows.numel()
+    snap_m, snap_t = model.master[touched], model.table[touched_d].clone()
+    n_t = torch.tensor(n, device=DEV)
+    lr, clip = (torch.tensor(v, device=DEV) for v in (SGD_CHECK_LR, SGD_CHECK_CLIP))
+    local = torch.arange(n, device=DEV)
+    want_m, want_t = snap_m.to(DEV, copy=True), snap_t.clone()
+    ref.sgd_rows_ref(want_m, want_t, local, grads, n_t, lr, clip)
+    ctrl_m, ctrl_t = snap_m.to(DEV, copy=True), snap_t.clone()
+    ref.sgd_rows_ref(ctrl_m, ctrl_t, local, grads, n_t, lr, torch.ones((), device=DEV))
+    sgd_rows_cuda(model.master, model.table, rows, grads, n_t, lr, clip)
+    torch.cuda.synchronize()
+    got_m, got_t = model.master[touched], model.table[touched_d].clone()
+    model.master[touched] = snap_m
+    model.table[touched_d] = snap_t
+    moved = got_m != snap_m
+    res = {"lr": SGD_CHECK_LR, "clip": SGD_CHECK_CLIP, "rows": n,
+           "largest_row": int(rows.max()), "master_entries_changed": int(moved.sum()),
+           "master_rows_changed": int(moved.any(dim=1).sum()),
+           "table_rows_changed": int((got_t != snap_t).any(dim=1).sum()),
+           "control_rows_differing": int((got_m != ctrl_m.cpu()).any(dim=1).sum())}
+    print(f"sgd_rows at train_batch shapes on the model's master: {res}")
+    if not (torch.equal(got_m, want_m.cpu()) and torch.equal(got_t, want_t)):
+        _fail("sgd_rows at train_batch shapes is not sgd_rows_ref bit for bit")
+    if res["master_rows_changed"] < SGD_MOVED_SHARE * n:
+        _fail(f"sgd_rows moved {res['master_rows_changed']} of {n} touched rows: the check "
+              f"cannot tell a kernel that skips the update")
+    if torch.equal(got_m, ctrl_m.cpu()):
+        _fail("the sgd_rows check does not tell the control (clip left out) at train_batch "
+              "shapes")
+    return res
+
+
+def _train_inputs(torch, model, batch) -> dict:
+    """The inputs the train step gives each new kernel: the lookup's bags
+    and gradient, the fields and the interaction's gradient."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.dlrm import dlrm_loss, logit_loss
+
+    dense, sparse, labels = batch
+    loss, look = dlrm_loss(model, dense, sparse, labels)
+    (g_emb,) = torch.autograd.grad(loss, [look.emb])
+    x_bot, fields = model.fields(dense, sparse)
+    inter = ops.dot_interaction(fields).requires_grad_()
+    logits = model.top(torch.cat([x_bot, inter], dim=1))[:, 0]
+    (dz,) = torch.autograd.grad(logit_loss(logits, labels), [inter])
+    return {"bags": look.bags, "g_emb": g_emb.contiguous(), "fields": fields,
+            "dz": dz.contiguous()}
+
+
+def _row(name, src, replaces, launches, err, ms, plain_ms, nbytes, nops, rate, library_ms,
+         link_bytes: int = 0, **extra) -> dict:
+    """A kernel row: bound_ms the largest of its device bytes at
+    HBM_BYTES_PER_S, its bytes over the host link each way at
+    PCIE_BYTES_PER_S (link_bytes, the larger direction) and its operations
+    at rate."""
+    t_bytes = max(nbytes / HBM_BYTES_PER_S, link_bytes / PCIE_BYTES_PER_S) * 1e3
+    t_ops = nops / rate * 1e3
+    row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+           else "operations", "library_ms": library_ms, "bytes": nbytes, "ops": nops, **extra}
+    print(f"kernel {name} ms={ms:.6f} plain_ms={plain_ms:.6f} bound_ms={row['bound_ms']:.6f} "
+          f"({row['bound_by']}, {nbytes} B, {nops} ops) library_ms={library_ms} "
+          f"launches={launches} max_abs_err={err} {extra}")
+    return row
+
+
+def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: dict) -> list:
+    """Phase 4's rows for the three training kernels (the backward's two
+    launches as two rows), on the inputs the train_batch step gives them,
+    each beside its plain twin, its bound and a PyTorch call that computes
+    the same function where one does."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward_combine_cuda,
+                                                   embedding_bag_backward_cuda,
+                                                   embedding_bag_backward_pieces_cuda,
+                                                   sgd_rows_cuda)
+
+    inp = _train_inputs(torch, model, batch)
+    bags, g_emb, fields, dz = inp["bags"], inp["g_emb"], inp["fields"], inp["dz"]
+    n_rows, d = model.table.shape
+    rows_out = []
+
+    # embedding_bag_backward (with its combine)
+    kern = lambda: embedding_bag_backward_cuda(bags, g_emb, "sum", n_rows)  # noqa: E731
+    twin = lambda: ref.embedding_bag_backward_ref(bags, g_emb, "sum", n_rows)  # noqa: E731
+    rows, grads, n_u, pieces = embedding_bag_backward_pieces_cuda(bags, g_emb, "sum", n_rows)
+    p_rows, p_grads, p_n = twin()
+    torch.cuda.synchronize()
+    n = int(n_u)
+    # the combine against its twin on the kernel's own pieces (atomics on
+    # the card: within EMB_BWD_TOL), then the whole against the plain twin
+    c_kern, c_twin = grads.clone(), grads.clone()
+    embedding_bag_backward_combine_cuda(*pieces, c_kern)
+    ref.embedding_bag_backward_combine_ref(*pieces, c_twin)
+    if not (n == int(p_n) and torch.equal(rows[:n], p_rows[:n])
+            and _close(torch, c_kern[:n], p_grads[:n], **EMB_BWD_TOL)
+            and _close(torch, c_kern[:n], c_twin[:n], **EMB_BWD_TOL)):
+        _fail("embedding_bag_backward differs from its twins at train_batch shapes")
+    errs["embedding_bag_backward"] = max(errs["embedding_bag_backward"], float(
+        (c_kern[:n] - p_grads[:n]).abs().max()))
+    errs["embedding_bag_backward_combine"] = float((c_kern[:n] - c_twin[:n]).abs().max())
+    last_slot = pieces[2]
+    n_cut = int((last_slot >= 0).sum())
+    n_cont = int((pieces[3] > 0).sum())
+    ids = bags.reshape(-1)
+    uniq, inverse = torch.unique(ids, return_inverse=True)
+    lib = lambda: torch.zeros((uniq.numel(), d), device=DEV).index_add_(  # noqa: E731
+        0, inverse, g_emb.float())
+    lib_out = lib()
+    if not _close(torch, lib_out, p_grads[:n], **EMB_BWD_TOL):
+        _fail("the index_add_ yardstick is not the backward's function")
+    del lib_out, c_twin, p_grads
+    plain_a = _time_ms(torch, twin, 3)
+    ms_a = _time_ms(torch, kern, 20)
+    lib_a = _time_ms(torch, lib, 20)
+    lib_b = _time_ms(torch, lib, 20)
+    ms_b = _time_ms(torch, kern, 20)
+    plain_b = _time_ms(torch, twin, 3)
+    comb = lambda: embedding_bag_backward_combine_cuda(*pieces, c_kern)  # noqa: E731
+    comb_twin = lambda: ref.embedding_bag_backward_combine_ref(*pieces, c_kern)  # noqa: E731
+    comb_ms = min(_time_ms(torch, comb, 50), _time_ms(torch, comb, 50))
+    comb_plain = min(_time_ms(torch, comb_twin, 5), _time_ms(torch, comb_twin, 5))
+    dev_ms = _kernel_device_ms(torch, kern, 10)
+    n_pos = ids.numel()
+    bwd_bytes = (g_emb.numel() * g_emb.element_size() + n_pos * (ids.element_size() + 8 + 8)
+                 + n * (d * 4 + 8))
+    rows_out.append(_row(
+        "embedding_bag_backward", "src/repro_torch/csrc/embedding_bag.cu", EMB_BWD_REPLACES,
+        counts["embedding_bag_backward"], errs["embedding_bag_backward"], min(ms_a, ms_b),
+        min(plain_a, plain_b), bwd_bytes, n_pos * d, CORE_OPS_PER_S, min(lib_a, lib_b),
+        runs=[ms_a, ms_b], device_ms=dev_ms, n_positions=n_pos, n_unique=n,
+        cut_runs=n_cut, library="torch.zeros(U, D).index_add_(0, inverse, g.float()) "
+        "after torch.unique (not timed)", shape=f"bags {tuple(bags.shape)}, "
+        f"grad {tuple(g_emb.shape)} {g_emb.dtype}"))
+    comb_bytes = (2 * n_cut + n_cont) * d * 4  # part_last and slots of cut runs, part_first
+    rows_out.append(_row(
+        "embedding_bag_backward_combine", "src/repro_torch/csrc/embedding_bag.cu",
+        EMB_BWD_REPLACES, counts["embedding_bag_backward_combine"],
+        errs["embedding_bag_backward_combine"], comb_ms, comb_plain, comb_bytes,
+        n_cont * d, CORE_OPS_PER_S, None, cut_runs=n_cut, pieces_added=n_cont,
+        library="none: no single call adds a cut run's pieces into its slot"))
+    del rows, grads, pieces, c_kern, uniq, inverse
+
+    # dot_interaction_backward
+    x = fields
+    b, f, _ = x.shape
+    ii, jj = torch.tril_indices(f, f, -1, device=DEV)
+    s = torch.zeros((b, f, f), device=DEV)
+    s[:, ii, jj] = dz
+    s = s + s.transpose(1, 2)
+    kern = lambda: dot_interaction_backward_cuda(x, dz)  # noqa: E731
+    twin = lambda: ref.dot_interaction_backward_ref(x, dz)  # noqa: E731
+    lib = lambda: torch.bmm(s, x.float())  # noqa: E731
+    got, want = kern(), twin()
+    tol = DOT_BWD_TOL[str(x.dtype).split(".")[-1]]
+    if not (_close(torch, got, want, **tol) and _close(torch, lib(), want.float(), **tol)):
+        _fail("dot_interaction_backward (or its yardstick) differs from its twin at "
+              "train_batch shapes")
+    errs["dot_interaction_backward"] = max(errs["dot_interaction_backward"], float(
+        (got.float() - want.float()).abs().max()))
+    del got, want
+    plain_a = _time_ms(torch, twin, 3)
+    ms_a = _time_ms(torch, kern, 20)
+    lib_a = _time_ms(torch, lib, 20)
+    lib_b = _time_ms(torch, lib, 20)
+    ms_b = _time_ms(torch, kern, 20)
+    plain_b = _time_ms(torch, twin, 3)
+    dot_bytes = 2 * x.numel() * x.element_size() + dz.numel() * 4
+    rows_out.append(_row(
+        "dot_interaction_backward", "src/repro_torch/csrc/dot_interaction.cu",
+        DOT_BWD_REPLACES, counts["dot_interaction_backward"], errs["dot_interaction_backward"],
+        min(ms_a, ms_b), min(plain_a, plain_b), dot_bytes, 2 * b * f * (f - 1) * x.shape[2],
+        CORE_OPS_PER_S, min(lib_a, lib_b), runs=[ms_a, ms_b],
+        library="torch.bmm(G + G^T, x.float()), G built beforehand",
+        shape=f"x {tuple(x.shape)} {x.dtype}, dz {tuple(dz.shape)}"))
+    del s
+
+    # sgd_rows on the step's own compact gradient, in place on the model's
+    # master and table with lr = 0: the same traffic, and no row moves
+    rows, grads, n_u = embedding_bag_backward_cuda(bags, g_emb, "sum", n_rows)
+    n = int(n_u)
+    zero, one = torch.zeros((), device=DEV), torch.ones((), device=DEV)
+    args = (model.master, model.table, rows, grads, n_u, zero, one)
+    kern = lambda: sgd_rows_cuda(*args)  # noqa: E731
+    twin = lambda: ref.sgd_rows_ref(*args)  # noqa: E731
+    plain_a = _time_ms(torch, twin, 2)
+    ms_a = _time_ms(torch, kern, 10)
+    ms_b = _time_ms(torch, kern, 10)
+    plain_b = _time_ms(torch, twin, 2)
+    es = model.table.element_size()
+    sgd_bytes = n * d * (4 + es) + n * 8  # on the card: grads and rows read, table rows written
+    each_way = n * d * 4                  # the master rows, read and written over PCIe
+    rows_out.append(_row(
+        "sgd_rows", "src/repro_torch/csrc/embedding_bag.cu", SGD_REPLACES, counts["sgd_rows"],
+        errs["sgd_rows"], min(ms_a, ms_b), min(plain_a, plain_b), sgd_bytes, 3 * n * d,
+        CORE_OPS_PER_S, None, link_bytes=each_way, runs=[ms_a, ms_b], rows=n,
+        pcie_bytes=2 * each_way, device_bound_ms=sgd_bytes / HBM_BYTES_PER_S * 1e3,
+        library="none: no single call updates rows of host-mapped memory",
+        note=f"bound_ms: the master rows over PCIe Gen5 x16 at {PCIE_BYTES_PER_S / 1e9:g} GB/s "
+        "each way (read and written); the card's own bytes are device_bound_ms"))
+    rows_out[-1]["pcie_GBps"] = 2 * each_way / (rows_out[-1]["ms"] / 1e3) / 1e9
+    return rows_out
+
+
+def _kernel_device_ms(torch, fn, reps: int) -> dict:
+    """Device ms of each kernel of this repository in one call of fn (the
+    profiler, over reps calls)."""
+    fn()
+    torch.cuda.synchronize()
+    _, _, avgs = _profile(torch, lambda: [fn() for _ in range(reps)])
+    return {e.key[:60]: e.self_device_time_total / reps / 1e3 for e in avgs
+            if getattr(e, "self_device_time_total", 0) > 0 and "embedding_bag" in e.key}
+
+
+def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
+    """Phase 6b: dlrm-mlperf train_batch at full size (177,948,416 rows x 128,
+    B = 65,536), the tables' float32 master in registered host memory."""
+    from repro_torch.launch.host_probe import host_report
+    from repro_torch.launch.steps import build_cell
+
+    left = torch.cuda.memory_allocated()
+    if left > 1 << 30:
+        _fail(f"the DLRM train phase starts with {left} bytes still allocated")
+    probe = host_report()
+    print(f"dlrm train host probe: {json.dumps(probe)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell("dlrm-mlperf", "train_batch", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, opt_state, dense, sparse, labels = cell.args
+    batch = (dense, sparse, labels)
+    opt_cfg = cell.fn.keywords["opt_cfg"]
+    master = model.master
+    print(f"dlrm train init_s={init_s:.3f} master_bytes={master.numel() * 4} "
+          f"master_register_s={model.master_register_s:.3f} table {tuple(model.table.shape)} "
+          f"{model.table.dtype} batch={dense.shape[0]} label_rate={float(labels.mean()):.4f} "
+          f"MemAvailable_after={host_report()['meminfo']['MemAvailable']} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+
+    counts, (loss, met) = _served_counts(torch, cell.run)
+    counts = _train_counts(counts)
+    if not bool(torch.isfinite(loss)):
+        _fail("the train_batch loss is not finite")
+    print(f"train_batch first step loss={float(loss)} lr={float(met['lr'])} "
+          f"grad_norm={float(met['grad_norm'])}")
+    hold = _hold_train_step(torch, np, model, opt_state, batch, opt_cfg, seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        cell.run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, met = cell.run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(loss)):
+        _fail("the train_batch loss is not finite after the timed steps")
+    step_ms = float(np.median(times)) * 1e3
+    syncs = _count_syncs(torch, cell.run)
+    if syncs > TRAIN_MAX_SYNCS:
+        _fail(f"a train_batch step made {syncs} host syncs (at most {TRAIN_MAX_SYNCS})")
+    wall, dev, avgs = _profile(torch, cell.run)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train_batch B={dense.shape[0]} steps={TRAIN_STEPS} step_ms_median={step_ms:.6f} "
+          f"step_ms={[round(t * 1e3, 6) for t in times]} "
+          f"samples_per_s={dense.shape[0] / (step_ms / 1e3):.1f} host_syncs_per_step={syncs} "
+          f"loss={float(loss)} grad_norm={float(met['grad_norm'])}")
+    print(f"device busy train_batch step: wall_s={wall:.6f} kernel_s={dev:.6f} "
+          f"busy_share={dev / wall if dev > 0 else 'not measured'}")
+    print(f"train_batch kernels by device time: {_top_kernels(avgs, 16)}")
+    print(f"train_batch peak max_memory_allocated={peak}")
+    rows = time_train_kernels(torch, np, model, opt_state, batch, errs, counts)
+    for r in rows:
+        r["train_step_ms"] = step_ms
+    summary = {"init_s": init_s, "register_s": model.master_register_s, "step_ms": step_ms,
+               "samples_per_s": dense.shape[0] / (step_ms / 1e3), "syncs": syncs,
+               "busy": dev / wall if dev > 0 else None, "peak": peak, "hold": hold}
+    print(f"dlrm train summary: {json.dumps(summary)}")
+    t0 = time.perf_counter()
+    model.release_master()
+    del cell, model, opt_state, dense, sparse, labels, batch, master, loss, met
+    # the backward's GEMMs ran on autograd's thread, whose cuBLAS handle got
+    # its own 32 MiB workspace, carved from one of this phase's segments: a
+    # live block there would keep the whole segment reserved for the phases
+    # after this one
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    host = host_report()
+    print(f"dlrm train master released in {time.perf_counter() - t0:.3f} s; "
+          f"MemAvailable={host['meminfo']['MemAvailable']} rss={host['rss']} "
+          f"memory_allocated={after} (at the start {left}) "
+          f"memory_reserved={torch.cuda.memory_reserved()}")
+    if after > left:
+        _fail(f"the DLRM train phase left {after - left} bytes allocated")
     return rows
 
 
@@ -2973,6 +3746,7 @@ def main(argv=None) -> int:
     errs.update(check_k2_lines(torch, np, args.seed))
     errs.update(check_digram_kernels(torch, np, args.seed))
     errs.update(check_recsys_kernels(torch, np, args.seed))
+    errs.update(check_train_kernels(torch, np, args.seed))
     errs["flash_attention"] = check_attention_kernel(torch, np, args.seed)
     errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
@@ -2980,6 +3754,7 @@ def main(argv=None) -> int:
     breakdown(torch, main_res)
     del main_res
     kernels += drive_dlrm(torch, np, args.seed, errs)
+    kernels += drive_dlrm_train(torch, np, args.seed, errs)
     kernels += drive_lm(torch, np, args.seed, errs)
     kernels += drive_gnn(torch, np, args.seed, errs, card)
     if sys.modules.get("jax") is not None or any(

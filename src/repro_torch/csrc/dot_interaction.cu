@@ -70,6 +70,21 @@
 //   stores it, so few loads are in flight (3.2 ms for DLRM's bfloat16 batch
 //   on an H100, 20% of its byte bound): it serves only what the
 //   tensor-core kernel does not take.
+//
+// - `dot_interaction_backward_kernel`: the gradient of the interaction (the
+//   Pallas kernel has none; this is the vjp of DLRM's `_interact`). Per
+//   sample, dX = (G + G^T) X, where G (F, F) holds dZ at tril_indices(F, -1)
+//   and zero elsewhere: dX[i] = sum over j != i of dZ[pair(i, j)] X[j]. Summed
+//   in float32 over j = 0..F-1 and rounded once to X's type. What bounds it:
+//   bytes (X and dX once each, dZ once: 2 * 6,912 + 1,404 B a sample against
+//   2 * 27 * 26 * 128 operations at DLRM's shape, 12.1 a byte, under the
+//   card's float32 balance of 20). A SIMT kernel: a block a sample at a
+//   time (a grid-stride loop), X upcast to float32 in shared memory and the
+//   symmetric S = G + G^T stored beside it with rows padded to a multiple
+//   of 4, so that a thread reads S[j][i..i+3] as one 16-byte broadcast; a
+//   thread owns one column d and computes four output rows per sweep over
+//   j, one shared load of X[j][d] feeding four multiply-adds. The tensor
+//   cores are left for later.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -479,6 +494,81 @@ int launch_tc(const void* x, void* out, int64_t B, int64_t F, int64_t D, int64_t
   }
 }
 
+// ------------------------------------------------------------ backward
+
+__device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void dot_interaction_backward_kernel(const T* __restrict__ x,
+                                                const float* __restrict__ dz,
+                                                T* __restrict__ dx, int64_t B, int F,
+                                                int D, int F4) {
+  extern __shared__ float4 smem_bwd[];
+  float* sym = reinterpret_cast<float*>(smem_bwd);  // (F, F4): S[j][i] = S[i][j]
+  float* xs = sym + F * F4;                          // (F, D) float32
+  const int P = F * (F - 1) / 2;
+  for (int64_t b = blockIdx.x; b < B; b += gridDim.x) {
+    __syncthreads();  // the previous sample's reads are done
+    const T* xb = x + b * F * D;
+    for (int e = threadIdx.x; e < F * D; e += blockDim.x) xs[e] = to_f32(xb[e]);
+    const float* dzb = dz + b * P;
+    for (int e = threadIdx.x; e < F * F4; e += blockDim.x) {
+      const int j = e / F4, i = e % F4;
+      float v = 0.0f;
+      if (i < F && i != j) {
+        const int hi = i > j ? i : j, lo = i > j ? j : i;
+        v = dzb[hi * (hi - 1) / 2 + lo];
+      }
+      sym[e] = v;
+    }
+    __syncthreads();
+    T* dxb = dx + b * F * D;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      for (int i0 = 0; i0 < F; i0 += 4) {
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+        for (int j = 0; j < F; ++j) {
+          const float xv = xs[j * D + d];
+          const float4 sv = *reinterpret_cast<const float4*>(sym + j * F4 + i0);
+          a0 += sv.x * xv;
+          a1 += sv.y * xv;
+          a2 += sv.z * xv;
+          a3 += sv.w * xv;
+        }
+        const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (i0 + r < F) from_f32(a[r], &dxb[(int64_t)(i0 + r) * D + d]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_backward(const void* x, const void* dz, void* dx, int64_t B, int64_t F,
+                    int64_t D, int64_t grid, cudaStream_t stream) {
+  const int F4 = (int)((F + 3) / 4 * 4);
+  const int64_t smem = ((int64_t)F * F4 + F * D) * (int64_t)sizeof(float);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 49152) {
+    const cudaError_t e = cudaFuncSetAttribute(dot_interaction_backward_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int64_t threads = (D + 31) / 32 * 32;
+  if (threads > 256) threads = 256;
+  if (grid > B) grid = B;
+  if (grid < 1 || grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dot_interaction_backward_kernel<T><<<(unsigned)grid, (unsigned)threads, (size_t)smem,
+                                       stream>>>((const T*)x, (const float*)dz, (T*)dx, B,
+                                                 (int)F, (int)D, F4);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. spg > 0 asks for the tensor-core kernel
@@ -497,4 +587,17 @@ extern "C" int dot_interaction_launch(const void* x, void* out, int64_t B,
   }
   if (dtype == 0) return launch_vec<float>(x, out, B, F, D, s);
   return launch_vec<__nv_bfloat16>(x, out, B, F, D, s);
+}
+
+// x (B, F, D), dtype 0 float32 or 1 bfloat16; dz (B, F(F-1)/2) float32 in
+// tril_indices(F, -1) order; dx (B, F, D) in x's type; `grid` blocks, each
+// taking samples blockIdx.x, + grid, ...
+extern "C" int dot_interaction_backward_launch(const void* x, const void* dz, void* dx,
+                                               int64_t B, int64_t F, int64_t D,
+                                               int64_t dtype, int64_t grid, void* stream) {
+  if (B <= 0 || F <= 0 || D <= 0) return 0;
+  if (F > 4096 || D > (1 << 20)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return launch_backward<float>(x, dz, dx, B, F, D, grid, s);
+  return launch_backward<__nv_bfloat16>(x, dz, dx, B, F, D, grid, s);
 }

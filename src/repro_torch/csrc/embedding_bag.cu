@@ -21,6 +21,39 @@
 // table holds 48.9M rows * 128 = 6.3e9 elements, past 2^31. Any B and D
 // are accepted (no block multiple); B == 0 launches nothing. An index >= V
 // stops the kernel with an error instead of reading out of bounds.
+//
+// The same source holds DLRM training's two table kernels (the Pallas
+// kernel has no backward; these are the gradient of its function and the
+// SGD of the reference's table leaf, src/repro/train/optimizer.py:93):
+//
+// - `embedding_bag_backward_kernel` + `embedding_bag_backward_combine_kernel`:
+//   the float32 gradient of every distinct row of a batch's bags,
+//     grads[s, :] = sum over (b, l) with idx[b, l] == rows[s] of grad_out[b, :]
+//                   (each term divided by max(#valid_b, 1) for the mean),
+//   in ascending row order, one slot a distinct row. The wrapper sorts the
+//   flattened ids (stable), flags the head of each run of equal ids and
+//   gives each head its slot by a prefix sum, all on the card. What bounds
+//   it: bytes (each gradient row read once, each slot written once). What
+//   is hard: skew. Criteo's small tables (3, 4, 10 rows) put 16,000-22,000
+//   of a 65,536 batch's ids on one row, so a warp a distinct row would wait
+//   on the longest run. Instead each warp takes a fixed chunk of CHUNK
+//   sorted positions and sums each run's piece in it in sorted order, with
+//   U rows in flight; a run inside one chunk is written out directly, a
+//   run cut by chunk boundaries leaves its pieces in two small arrays (the
+//   chunk's first and last piece), and the combine kernel adds a cut run's
+//   pieces in chunk order. Every sum has one fixed order, so the result
+//   is deterministic. Padding (negative ids) sorts first and is skipped.
+// - `sgd_rows_kernel`: for each slot s < n_unique, in float32,
+//     master[rows[s]] -= lr * (clip * grads[s]);  table[rows[s]] = round(master[rows[s]])
+//   in the reference's order of operations, each rounded (no fused
+//   multiply-add), with round-to-nearest-even to the table's type as
+//   `.to(bfloat16)` does. lr, clip and n_unique are read from device
+//   memory, so the step needs no host read. `master` is float32 host memory
+//   registered with the card (`cudaHostRegister`; under unified addressing
+//   pinned and mapped at its host address): a warp reads and writes its row
+//   over PCIe, 16 bytes a lane. What bounds it:
+//   the PCIe link (each touched master row read and written once); untouched
+//   rows are never read.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +134,225 @@ int launch_vec(const void* table, const void* indices, void* out,
   return launch<T, I, 1>(table, indices, out, n_bags, n_rows, L, D, mean, stream);
 }
 
+// ------------------------------------------------------------ backward
+
+constexpr int CHUNK = 256;  // sorted positions a warp
+constexpr int U = 8;        // gradient rows in flight a warp
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_row(const T* p, float* v) {
+  const Pack<T, VEC> q = *reinterpret_cast<const Pack<T, VEC>*>(p);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) v[k] = to_f32(q.v[k]);
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_f32(float* p, const float* v) {
+  Pack<float, VEC> q;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) q.v[k] = v[k];
+  *reinterpret_cast<Pack<float, VEC>*>(p) = q;
+}
+
+// One warp a chunk of CHUNK sorted positions; lane l holds columns
+// col0 + l * VEC .. + VEC - 1 of each row, for col0 = 0, 32 VEC, ...
+// first_kind[k]: 0 if chunk k's first piece begins a run, 1 if it continues
+// a run that ends in chunk k, 2 if the whole chunk lies inside a run that
+// goes on. last_slot[k]: the slot of a run that begins in chunk k and goes
+// on past it (its piece is in part_last[k]), else -1.
+template <typename G, typename I, int VEC>
+__global__ void embedding_bag_backward_kernel(
+    const I* __restrict__ ids, const int64_t* __restrict__ perm,
+    const int64_t* __restrict__ slot, const G* __restrict__ grad,
+    const float* __restrict__ denom, int64_t* __restrict__ rows_out,
+    float* __restrict__ grads_out, float* __restrict__ part_first,
+    float* __restrict__ part_last, int64_t* __restrict__ last_slot,
+    int32_t* __restrict__ first_kind, int64_t n, int64_t n_rows, int L, int D) {
+  const int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
+  if (k >= n_chunks) return;
+  const int64_t c0 = k * CHUNK;
+  const int64_t c1 = c0 + CHUNK < n ? c0 + CHUNK : n;
+  const bool cont_in = c0 > 0 && ids[c0] >= 0 && ids[c0 - 1] == ids[c0];
+  const bool cont_out = c1 < n && ids[c1 - 1] >= 0 && ids[c1] == ids[c1 - 1];
+  if (lane == 0) {
+    first_kind[k] = cont_in ? ((cont_out && ids[c0] == ids[c1 - 1]) ? 2 : 1) : 0;
+    last_slot[k] = -1;
+  }
+  for (int col0 = 0; col0 < D; col0 += 32 * VEC) {
+    const int d = col0 + lane * VEC;
+    const bool active = d < D;
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    int64_t seg = -1;  // first position of the piece being summed
+    for (int64_t q0 = c0; q0 < c1; q0 += U) {
+      I id[U + 1];
+      int64_t bag[U];
+#pragma unroll
+      for (int u = 0; u <= U; ++u) id[u] = q0 + u < c1 ? ids[q0 + u] : (I)-1;
+#pragma unroll
+      for (int u = 0; u < U; ++u) bag[u] = id[u] >= 0 ? perm[q0 + u] / L : -1;
+      float val[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (bag[u] >= 0 && active) {
+          load_row<G, VEC>(grad + bag[u] * D + d, val[u]);
+          if (denom != nullptr) {
+            const float den = denom[bag[u]];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) val[u][v] = val[u][v] / den;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t q = q0 + u;
+        if (q >= c1 || id[u] < 0) continue;
+        if ((int64_t)id[u] >= n_rows) __trap();
+        if (seg < 0) seg = q;
+        if (active) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[v] += val[u][v];
+        }
+        if (q + 1 < c1 && id[u + 1] == id[u]) continue;
+        // the piece [seg, q] ends here
+        float* dst;
+        if (seg == c0 && cont_in) {
+          dst = part_first + k * D;
+        } else {
+          const int64_t s = slot[seg];
+          if (lane == 0) rows_out[s] = (int64_t)id[u];
+          if (q + 1 == c1 && cont_out) {
+            dst = part_last + k * D;
+            if (lane == 0) last_slot[k] = s;
+          } else {
+            dst = grads_out + s * D;
+          }
+        }
+        if (active) store_f32<VEC>(dst + d, acc);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+        seg = -1;
+      }
+    }
+  }
+}
+
+// One warp a chunk with a run that goes on past it: its piece, then the
+// first piece of each following chunk the run reaches, in chunk order.
+template <int VEC>
+__global__ void embedding_bag_backward_combine_kernel(
+    const float* __restrict__ part_first, const float* __restrict__ part_last,
+    const int64_t* __restrict__ last_slot, const int32_t* __restrict__ first_kind,
+    float* __restrict__ grads_out, int64_t n_chunks, int D) {
+  const int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (k >= n_chunks) return;
+  const int64_t s = last_slot[k];
+  if (s < 0) return;
+  for (int d = lane * VEC; d < D; d += 32 * VEC) {
+    float acc[VEC];
+    const Pack<float, VEC> p = *reinterpret_cast<const Pack<float, VEC>*>(part_last + k * D + d);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = p.v[v];
+    for (int64_t j = k + 1; j < n_chunks; ++j) {
+      const Pack<float, VEC> f =
+          *reinterpret_cast<const Pack<float, VEC>*>(part_first + j * D + d);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] += f.v[v];
+      if (first_kind[j] != 2) break;
+    }
+    store_f32<VEC>(grads_out + s * D + d, acc);
+  }
+}
+
+template <typename G, typename I, int VEC>
+int launch_backward(const void* ids, const void* perm, const void* slot, const void* grad,
+                    const void* denom, void* rows_out, void* grads_out, void* part_first,
+                    void* part_last, void* last_slot, void* first_kind, int64_t n,
+                    int64_t n_rows, int64_t L, int64_t D, cudaStream_t stream) {
+  const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
+  const int64_t blocks = (n_chunks + 7) / 8;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  embedding_bag_backward_kernel<G, I, VEC><<<(unsigned)blocks, 256, 0, stream>>>(
+      (const I*)ids, (const int64_t*)perm, (const int64_t*)slot, (const G*)grad,
+      (const float*)denom, (int64_t*)rows_out, (float*)grads_out, (float*)part_first,
+      (float*)part_last, (int64_t*)last_slot, (int32_t*)first_kind, n, n_rows, (int)L,
+      (int)D);
+  return (int)cudaGetLastError();
+}
+
+template <typename G, typename I>
+int backward_vec(const void* ids, const void* perm, const void* slot, const void* grad,
+                 const void* denom, void* rows_out, void* grads_out, void* part_first,
+                 void* part_last, void* last_slot, void* first_kind, int64_t n,
+                 int64_t n_rows, int64_t L, int64_t D, cudaStream_t s) {
+  const bool aligned = (uintptr_t)grad % (4 * sizeof(G)) == 0 &&
+                       (uintptr_t)grads_out % 16 == 0 && (uintptr_t)part_first % 16 == 0 &&
+                       (uintptr_t)part_last % 16 == 0;
+  if (aligned && D % 4 == 0)
+    return launch_backward<G, I, 4>(ids, perm, slot, grad, denom, rows_out, grads_out,
+                                    part_first, part_last, last_slot, first_kind, n, n_rows,
+                                    L, D, s);
+  return launch_backward<G, I, 1>(ids, perm, slot, grad, denom, rows_out, grads_out,
+                                  part_first, part_last, last_slot, first_kind, n, n_rows, L,
+                                  D, s);
+}
+
+// ------------------------------------------------------------ SGD of rows
+
+template <typename T, int VEC>
+__global__ void sgd_rows_kernel(float* __restrict__ master, T* __restrict__ table,
+                                const int64_t* __restrict__ rows,
+                                const float* __restrict__ grads,
+                                const int64_t* __restrict__ n_unique,
+                                const float* __restrict__ lr, const float* __restrict__ clip,
+                                int64_t cap, int64_t n_rows, int D) {
+  const int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (s >= cap || s >= *n_unique) return;
+  const int64_t r = rows[s];
+  if (r < 0 || r >= n_rows) __trap();
+  const float l = *lr, c = *clip;
+  for (int d = lane * VEC; d < D; d += 32 * VEC) {
+    Pack<float, VEC> m = *reinterpret_cast<const Pack<float, VEC>*>(master + r * D + d);
+    const Pack<float, VEC> g = *reinterpret_cast<const Pack<float, VEC>*>(grads + s * D + d);
+    Pack<T, VEC> t;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      m.v[v] = __fsub_rn(m.v[v], __fmul_rn(l, __fmul_rn(g.v[v], c)));
+      from_f32(m.v[v], &t.v[v]);
+    }
+    *reinterpret_cast<Pack<float, VEC>*>(master + r * D + d) = m;
+    *reinterpret_cast<Pack<T, VEC>*>(table + r * D + d) = t;
+  }
+}
+
+template <typename T, int VEC>
+int launch_sgd(void* master, void* table, const void* rows, const void* grads,
+               const void* n_unique, const void* lr, const void* clip, int64_t cap,
+               int64_t n_rows, int64_t D, cudaStream_t stream) {
+  const int64_t blocks = (cap + 7) / 8;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  sgd_rows_kernel<T, VEC><<<(unsigned)blocks, 256, 0, stream>>>(
+      (float*)master, (T*)table, (const int64_t*)rows, (const float*)grads,
+      (const int64_t*)n_unique, (const float*)lr, (const float*)clip, cap, n_rows, (int)D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int sgd_vec(void* master, void* table, const void* rows, const void* grads,
+            const void* n_unique, const void* lr, const void* clip, int64_t cap,
+            int64_t n_rows, int64_t D, cudaStream_t s) {
+  const bool aligned = (uintptr_t)master % 16 == 0 && (uintptr_t)grads % 16 == 0 &&
+                       (uintptr_t)table % (4 * sizeof(T)) == 0;
+  if (aligned && D % 4 == 0)
+    return launch_sgd<T, 4>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows, D, s);
+  return launch_sgd<T, 1>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows, D, s);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; idx64: 0 int32 indices, 1 int64; mean: 0/1.
@@ -118,4 +370,73 @@ extern "C" int embedding_bag_launch(const void* table, const void* indices,
   if (idx64 == 0)
     return launch_vec<__nv_bfloat16, int32_t>(table, indices, out, n_bags, n_rows, L, D, mean, s);
   return launch_vec<__nv_bfloat16, int64_t>(table, indices, out, n_bags, n_rows, L, D, mean, s);
+}
+
+// ids (n,) sorted, int32 (idx64 0) or int64; perm, slot (n,) int64; grad
+// (n_bags, D), dtype 0 float32 or 1 bfloat16; denom (n_bags,) float32 for
+// the mean, null for the sum; rows_out (cap,) int64 and grads_out (cap, D)
+// float32; part_first, part_last (n_chunks, D) float32 and last_slot
+// (n_chunks,) int64, first_kind (n_chunks,) int32, n_chunks = ceil(n / 256).
+extern "C" int embedding_bag_backward_launch(
+    const void* ids, const void* perm, const void* slot, const void* grad, const void* denom,
+    void* rows_out, void* grads_out, void* part_first, void* part_last, void* last_slot,
+    void* first_kind, int64_t n, int64_t n_rows, int64_t L, int64_t D, int64_t dtype,
+    int64_t idx64, void* stream) {
+  if (n <= 0 || D <= 0) return 0;
+  if (L <= 0 || D > (1 << 30) || L > (1 << 30)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define EBB_ARGS ids, perm, slot, grad, denom, rows_out, grads_out, part_first, part_last, \
+                 last_slot, first_kind, n, n_rows, L, D, s
+  if (dtype == 0 && idx64 == 0) return backward_vec<float, int32_t>(EBB_ARGS);
+  if (dtype == 0) return backward_vec<float, int64_t>(EBB_ARGS);
+  if (idx64 == 0) return backward_vec<__nv_bfloat16, int32_t>(EBB_ARGS);
+  return backward_vec<__nv_bfloat16, int64_t>(EBB_ARGS);
+#undef EBB_ARGS
+}
+
+extern "C" int embedding_bag_backward_combine_launch(const void* part_first,
+                                                     const void* part_last,
+                                                     const void* last_slot,
+                                                     const void* first_kind, void* grads_out,
+                                                     int64_t n_chunks, int64_t D,
+                                                     void* stream) {
+  if (n_chunks <= 0 || D <= 0) return 0;
+  const int64_t blocks = (n_chunks + 7) / 8;
+  if (blocks > 0x7fffffff || D > (1 << 30)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned = (uintptr_t)part_first % 16 == 0 && (uintptr_t)part_last % 16 == 0 &&
+                       (uintptr_t)grads_out % 16 == 0;
+  if (aligned && D % 4 == 0)
+    embedding_bag_backward_combine_kernel<4><<<(unsigned)blocks, 256, 0, s>>>(
+        (const float*)part_first, (const float*)part_last, (const int64_t*)last_slot,
+        (const int32_t*)first_kind, (float*)grads_out, n_chunks, (int)D);
+  else
+    embedding_bag_backward_combine_kernel<1><<<(unsigned)blocks, 256, 0, s>>>(
+        (const float*)part_first, (const float*)part_last, (const int64_t*)last_slot,
+        (const int32_t*)first_kind, (float*)grads_out, n_chunks, (int)D);
+  return (int)cudaGetLastError();
+}
+
+// master (n_rows, D) float32 in registered host memory, at its host address
+// (refused where the card cannot use that address for registered memory);
+// table (n_rows, D), dtype 0 float32 or 1 bfloat16; rows (cap,) int64,
+// grads (cap, D) float32; n_unique int64, lr and clip float32, each one
+// value in device memory.
+extern "C" int sgd_rows_launch(void* master, void* table, const void* rows, const void* grads,
+                               const void* n_unique, const void* lr, const void* clip,
+                               int64_t cap, int64_t n_rows, int64_t D, int64_t dtype,
+                               void* stream) {
+  if (cap <= 0 || D <= 0) return 0;
+  if (D > (1 << 30)) return (int)cudaErrorInvalidValue;
+  int dev = 0, host_ptr_ok = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&host_ptr_ok, cudaDevAttrCanUseHostPointerForRegisteredMem, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!host_ptr_ok) return (int)cudaErrorNotSupported;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return sgd_vec<float>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows, D, s);
+  return sgd_vec<__nv_bfloat16>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows,
+                                D, s);
 }

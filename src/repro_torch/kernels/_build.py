@@ -51,14 +51,27 @@ SOURCES = {
         # keys, counts, flags, used, scratch, out; capacity
         "digram_select": ("digram_select_launch", [_P] * 6 + [_I64, _P]),
     },
-    "embedding_bag": {"embedding_bag": ("embedding_bag_launch",
-                                        [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                                         _P])},
+    "embedding_bag": {
+        "embedding_bag": ("embedding_bag_launch",
+                          [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]),
+        # ids, perm, slot, grad, denom, rows, grads, part_first, part_last,
+        # last_slot, first_kind; n, n_rows, L, D, dtype, idx64
+        "embedding_bag_backward": ("embedding_bag_backward_launch",
+                                   [_P] * 11 + [_I64] * 6 + [_P]),
+        # part_first, part_last, last_slot, first_kind, grads; n_chunks, D
+        "embedding_bag_backward_combine": ("embedding_bag_backward_combine_launch",
+                                           [_P] * 5 + [_I64] * 2 + [_P]),
+        # master, table, rows, grads, n_unique, lr, clip; cap, n_rows, D, dtype
+        "sgd_rows": ("sgd_rows_launch", [_P] * 7 + [_I64] * 4 + [_P]),
+    },
     # x, out; B, F, D, dtype, spg, stages, grid: one entry point, counted
     # under the path the wrapper asked for (spg > 0: tensor cores)
     "dot_interaction": {
         "dot_interaction": ("dot_interaction_launch", [_P, _P] + [_I64] * 7 + [_P]),
         "dot_interaction_simt": ("dot_interaction_launch", [_P, _P] + [_I64] * 7 + [_P]),
+        # x, dz, dx; B, F, D, dtype, grid
+        "dot_interaction_backward": ("dot_interaction_backward_launch",
+                                     [_P] * 3 + [_I64] * 5 + [_P]),
     },
     "flash_attention": {
         # q, k, v, o, part; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal,

@@ -16,6 +16,11 @@ tensor cores (DLRM's fields), whose tiling twin is
 ``dot_interaction_simt``, float32 FMAs, for the rest. The tensor-core kernel
 walks groups of samples through a ring in shared memory with persistent
 blocks, planned here by :func:`tc_plan`.
+
+The gradient, ``dot_interaction_backward`` (its twin
+:func:`repro_torch.kernels.ref.dot_interaction_backward_ref`), is a third
+kernel of the same source, SIMT, counted under its own name; DLRM's
+training forward reaches both through :class:`DotInteraction`.
 """
 from __future__ import annotations
 
@@ -128,3 +133,54 @@ def dot_interaction_cuda(x: torch.Tensor, plan: TcPlan | None = None) -> torch.T
         _build.launch("dot_interaction", "dot_interaction_simt", x.device, x.data_ptr(),
                       out.data_ptr(), b, f, d, _DTYPES[x.dtype], 0, 0, 0)
     return out
+
+
+BACKWARD_BLOCKS_PER_SM = 16  # resident blocks a backward launch aims at on each SM
+
+
+def dot_interaction_backward_cuda(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`dot_interaction_cuda` with respect to x: x (B,
+    F, D) float32 or bfloat16 and dz (B, F(F-1)/2) float32, contiguous on one
+    CUDA device -> (G + Gᵀ) x per sample, G (F, F) holding dz at
+    ``tril_indices(F, -1)``, summed in float32 and rounded once to x's
+    dtype. One sample's x and G, in float32, must fit in a block's shared
+    memory; the kernel refuses a larger one and the launch raises."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dot_interaction_backward_cuda takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError("dot_interaction_backward_cuda takes a (B, F, D) tensor")
+    b, f, d = x.shape
+    if dz.shape != (b, f * (f - 1) // 2) or dz.dtype != torch.float32:
+        raise ValueError(f"dz must be (B, F(F-1)/2) = {(b, f * (f - 1) // 2)} float32, not "
+                         f"{tuple(dz.shape)} {dz.dtype}")
+    if x.device.type != "cuda" or dz.device != x.device:
+        raise ValueError("dot_interaction_backward_cuda needs both tensors on one CUDA device")
+    if not (x.is_contiguous() and dz.is_contiguous()):
+        raise ValueError("dot_interaction_backward_cuda takes contiguous tensors")
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    grid = min(b, _sm_count(x.device) * BACKWARD_BLOCKS_PER_SM)
+    _build.launch("dot_interaction", "dot_interaction_backward", x.device, x.data_ptr(),
+                  dz.data_ptr(), dx.data_ptr(), b, f, d, _DTYPES[x.dtype], grid)
+    return dx
+
+
+class DotInteraction(torch.autograd.Function):
+    """``ops.dot_interaction`` with its gradient, ``ops.dot_interaction_backward``
+    (the kernels on the card, the twins on the CPU): the interaction of
+    DLRM's training forward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        ctx.save_for_backward(x)
+        return ops.dot_interaction(x)
+
+    @staticmethod
+    def backward(ctx, dz: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import ops
+
+        (x,) = ctx.saved_tensors
+        return ops.dot_interaction_backward(x, dz.contiguous())

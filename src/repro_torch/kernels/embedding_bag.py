@@ -1,16 +1,31 @@
-"""Wrapper of the CUDA kernel ``csrc/embedding_bag.cu``: sum or mean of the
-table rows of each bag.
+"""Wrappers of the CUDA kernels ``csrc/embedding_bag.cu``: sum or mean of the
+table rows of each bag, its gradient by distinct row, and the SGD of those
+rows.
 
-It replaces the Pallas kernel ``embedding_bag`` of the JAX package (a TPU
-kernel) and is DLRM's lookup (:meth:`repro_torch.models.dlrm.DLRM.fields`):
-one launch per batch over B * 26 single-row bags of the concatenated
-tables. Its plain twin is :func:`repro_torch.kernels.ref.embedding_bag_ref`.
+``embedding_bag`` replaces the Pallas kernel ``embedding_bag`` of the JAX
+package (a TPU kernel) and is DLRM's lookup
+(:meth:`repro_torch.models.dlrm.DLRM.fields`): one launch per batch over B *
+26 single-row bags of the concatenated tables. Its plain twin is
+:func:`repro_torch.kernels.ref.embedding_bag_ref`.
+
+DLRM training adds two more, whose twins are
+:func:`~repro_torch.kernels.ref.embedding_bag_backward_ref` and
+:func:`~repro_torch.kernels.ref.sgd_rows_ref`:
+``embedding_bag_backward`` (with ``embedding_bag_backward_combine``, two
+launches a call) sums the gradient of each distinct row of a batch into a
+compact float32 buffer, and ``sgd_rows`` applies the table's SGD to those
+rows of the float32 master and writes their rounding into the table. The
+master lives in host memory registered with the card
+(:func:`register_host`), which ``sgd_rows`` reads and writes over PCIe.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import bag_runs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX_DTYPES = {torch.int32: 0, torch.int64: 1}
@@ -44,3 +59,169 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
                   indices.data_ptr(), out.data_ptr(), n_bags, n_rows, bag_len, d,
                   _DTYPES[table.dtype], _INDEX_DTYPES[indices.dtype], _COMBINERS[combiner])
     return out
+
+
+def embedding_bag_backward_cuda(indices: torch.Tensor, grad_out: torch.Tensor,
+                                combiner: str = "sum", n_rows: int | None = None) -> tuple:
+    """The gradient of :func:`embedding_bag_cuda` with respect to the table,
+    by distinct row: indices (B, L) int32 or int64 (negative = padding),
+    grad_out (B, D) float32 or bfloat16, on one CUDA device. Returns (rows,
+    grads, n_unique): rows (B * L,) int64 and grads (B * L, D) float32, whose
+    first n_unique slots hold the distinct valid ids in ascending order and
+    their summed gradients (slots past it are not written), and n_unique a
+    0-dim int64 tensor on the device. Sized from B * L, so nothing is read
+    back; an id >= n_rows stops the kernel with an error. Two launches:
+    :func:`embedding_bag_backward_pieces_cuda`, then
+    :func:`embedding_bag_backward_combine_cuda`."""
+    rows, grads, n_unique, pieces = embedding_bag_backward_pieces_cuda(indices, grad_out,
+                                                                       combiner, n_rows)
+    embedding_bag_backward_combine_cuda(*pieces, grads)
+    return rows, grads, n_unique
+
+
+def embedding_bag_backward_pieces_cuda(indices: torch.Tensor, grad_out: torch.Tensor,
+                                       combiner: str = "sum",
+                                       n_rows: int | None = None) -> tuple:
+    """The backward's first launch (``embedding_bag_backward``): (rows,
+    grads, n_unique, pieces), every run that lies inside one chunk of
+    ``BACKWARD_CHUNK`` sorted positions already summed into its slot, and
+    ``pieces`` = (part_first, part_last, last_slot, first_kind), the sums of
+    the runs cut by chunk boundaries, for the combine (``csrc`` explains
+    the layout; :func:`repro_torch.kernels.ref.embedding_bag_backward_combine_ref`
+    is their plain reading)."""
+    if grad_out.dtype not in _DTYPES:
+        raise TypeError(f"embedding_bag_backward_cuda takes float32 or bfloat16 gradients, "
+                        f"not {grad_out.dtype}")
+    if indices.dtype not in _INDEX_DTYPES:
+        raise TypeError(f"embedding_bag_backward_cuda takes int32 or int64 indices, "
+                        f"not {indices.dtype}")
+    if combiner not in _COMBINERS:
+        raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
+    if indices.dim() != 2 or grad_out.dim() != 2 or grad_out.shape[0] != indices.shape[0]:
+        raise ValueError("embedding_bag_backward_cuda takes (B, L) indices and (B, D) gradients")
+    dev = grad_out.device
+    if dev.type != "cuda" or indices.device != dev:
+        raise ValueError("embedding_bag_backward_cuda needs both tensors on one CUDA device")
+    grad_out = grad_out.contiguous()
+    (n_bags, bag_len), d = indices.shape, grad_out.shape[1]
+    n = n_bags * bag_len
+    ids, perm, slot, n_unique = bag_runs(indices)
+    rows = torch.empty((n,), dtype=torch.int64, device=dev)
+    grads = torch.empty((n, d), dtype=torch.float32, device=dev)
+    n_chunks = -(-n // BACKWARD_CHUNK)
+    pieces = (torch.empty((n_chunks, d), dtype=torch.float32, device=dev),
+              torch.empty((n_chunks, d), dtype=torch.float32, device=dev),
+              torch.full((n_chunks,), -1, dtype=torch.int64, device=dev),
+              torch.zeros((n_chunks,), dtype=torch.int32, device=dev))
+    if n == 0 or d == 0:
+        return rows, grads, n_unique, pieces
+    denom = ((indices >= 0).sum(dim=1).clamp(min=1).float() if combiner == "mean"
+             else None)
+    limit = n_rows if n_rows is not None else 2**62
+    _build.launch("embedding_bag", "embedding_bag_backward", dev, ids.data_ptr(),
+                  perm.data_ptr(), slot.data_ptr(), grad_out.data_ptr(),
+                  denom.data_ptr() if denom is not None else None, rows.data_ptr(),
+                  grads.data_ptr(), *(p.data_ptr() for p in pieces), n, limit, bag_len, d,
+                  _DTYPES[grad_out.dtype], _INDEX_DTYPES[ids.dtype])
+    return rows, grads, n_unique, pieces
+
+
+def embedding_bag_backward_combine_cuda(part_first: torch.Tensor, part_last: torch.Tensor,
+                                        last_slot: torch.Tensor, first_kind: torch.Tensor,
+                                        grads: torch.Tensor) -> None:
+    """The backward's second launch (``embedding_bag_backward_combine``): in
+    place on ``grads``, each run cut by chunk boundaries gets the sum of its
+    pieces, in chunk order."""
+    n_chunks, d = part_first.shape
+    if grads.dim() != 2 or grads.shape[1] != d or part_last.shape != part_first.shape:
+        raise ValueError("embedding_bag_backward_combine_cuda: pieces and grads disagree")
+    if n_chunks == 0 or d == 0:
+        return
+    _build.launch("embedding_bag", "embedding_bag_backward_combine", grads.device,
+                  part_first.data_ptr(), part_last.data_ptr(), last_slot.data_ptr(),
+                  first_kind.data_ptr(), grads.data_ptr(), n_chunks, d)
+
+
+BACKWARD_CHUNK = 256  # sorted positions a warp of the backward (CHUNK in the source)
+
+# host address -> bytes of each registration of host memory
+_registered: dict[int, int] = {}
+
+
+def register_host(t: torch.Tensor) -> float:
+    """Pin the memory of the contiguous CPU tensor ``t`` for the card with
+    ``cudaHostRegister`` (default flags: under unified addressing, pinned
+    and mapped, its device address its host address), so that
+    :func:`sgd_rows_cuda` can update it in place; returns the seconds the
+    registration took. Undo it with :func:`unregister_host` before ``t``'s
+    memory is freed."""
+    if t.device.type != "cpu" or not t.is_contiguous():
+        raise ValueError("register_host takes a contiguous CPU tensor")
+    nbytes = t.numel() * t.element_size()
+    t0 = time.perf_counter()
+    err = int(torch.cuda.cudart().cudaHostRegister(t.data_ptr(), nbytes, 0))
+    if err != 0:
+        raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed with CUDA error {err}")
+    _registered[t.data_ptr()] = nbytes
+    return time.perf_counter() - t0
+
+
+def unregister_host(t: torch.Tensor) -> None:
+    """Release a registration made by :func:`register_host`."""
+    if _registered.pop(t.data_ptr(), None) is not None:
+        err = int(torch.cuda.cudart().cudaHostUnregister(t.data_ptr()))
+        if err != 0:
+            raise RuntimeError(f"cudaHostUnregister failed with CUDA error {err}")
+
+
+def mapped_ptr(t: torch.Tensor) -> int:
+    """The address the card reads a CPU tensor at, which must lie inside
+    memory registered by :func:`register_host`; raises if it does not."""
+    start, end = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+    for host, nbytes in _registered.items():
+        if host <= start and end <= host + nbytes:
+            return start
+    raise ValueError("the master is host memory that is not registered with the card "
+                     "(kernels.embedding_bag.register_host)")
+
+
+def sgd_rows_cuda(master: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                  grads: torch.Tensor, n_unique: torch.Tensor, lr: torch.Tensor,
+                  clip: torch.Tensor) -> None:
+    """In place, for each slot s < n_unique: ``master[rows[s]] -= lr * (clip *
+    grads[s])`` in float32, then ``table[rows[s]] = master[rows[s]]`` rounded
+    to the table's type. master (V, D) float32, in host memory registered
+    with :func:`register_host`; table (V, D) float32
+    or bfloat16 on a CUDA device; rows (cap,) int64, grads (cap, D) float32,
+    n_unique 0-dim int64, lr and clip 0-dim float32, all on that device
+    (:func:`embedding_bag_backward_cuda`'s layout). A row outside [0, V)
+    stops the kernel with an error."""
+    if table.dtype not in _DTYPES or master.dtype != torch.float32:
+        raise TypeError("sgd_rows_cuda takes a float32 master and a float32 or bfloat16 table")
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError("sgd_rows_cuda needs the table on a CUDA device")
+    if master.shape != table.shape or table.dim() != 2:
+        raise ValueError(f"master {tuple(master.shape)} and table {tuple(table.shape)} "
+                         "must be one (V, D) shape")
+    cap, d = grads.shape if grads.dim() == 2 else (-1, -1)
+    if (rows.shape != (cap,) or d != table.shape[1] or rows.dtype != torch.int64
+            or grads.dtype != torch.float32 or n_unique.shape != ()
+            or n_unique.dtype != torch.int64 or lr.shape != () or clip.shape != ()
+            or lr.dtype != torch.float32 or clip.dtype != torch.float32):
+        raise ValueError("sgd_rows_cuda takes rows (cap,) int64, grads (cap, D) float32, "
+                         "n_unique int64 and lr, clip float32 scalars")
+    if any(t.device != dev for t in (rows, grads, n_unique, lr, clip)):
+        raise ValueError("sgd_rows_cuda needs rows, grads, n_unique, lr and clip on the "
+                         "table's device")
+    if not (master.is_contiguous() and table.is_contiguous() and rows.is_contiguous()
+            and grads.is_contiguous()):
+        raise ValueError("sgd_rows_cuda takes contiguous tensors")
+    if master.device.type != "cpu":
+        raise ValueError("sgd_rows_cuda needs the master in registered host memory")
+    master_ptr = mapped_ptr(master)
+    if cap == 0:
+        return
+    _build.launch("embedding_bag", "sgd_rows", dev, master_ptr, table.data_ptr(),
+                  rows.data_ptr(), grads.data_ptr(), n_unique.data_ptr(), lr.data_ptr(),
+                  clip.data_ptr(), cap, table.shape[0], d, _DTYPES[table.dtype])

@@ -14,8 +14,10 @@ from repro_torch.kernels._build import build_all, launch_counts, reset_launch_co
 from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
 from repro_torch.kernels.digram_count import (DigramTable, digram_pair_accum_cuda,
                                               digram_pair_counts_cuda, digram_select_cuda)
-from repro_torch.kernels.dot_interaction import dot_interaction_cuda
-from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.dot_interaction import (dot_interaction_backward_cuda,
+                                                 dot_interaction_cuda)
+from repro_torch.kernels.embedding_bag import (embedding_bag_backward_cuda, embedding_bag_cuda,
+                                               sgd_rows_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.k2_lines import K2Layout, k2_lines_cuda
 from repro_torch.kernels.segment_matmul import CSR, csr_spmm_cuda
@@ -70,12 +72,39 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     return embedding_bag_cuda(table, indices, combiner)
 
 
+def embedding_bag_backward(indices: torch.Tensor, grad_out: torch.Tensor,
+                           combiner: str = "sum", n_rows: int | None = None) -> tuple:
+    """(rows, grads, n_unique): the table's gradient by distinct row, in a
+    compact float32 buffer sized B * L; see :func:`ref.embedding_bag_backward_ref`."""
+    if grad_out.device.type == "cpu":
+        return ref.embedding_bag_backward_ref(indices, grad_out, combiner, n_rows)
+    return embedding_bag_backward_cuda(indices, grad_out, combiner, n_rows)
+
+
+def sgd_rows(master: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+             grads: torch.Tensor, n_unique: torch.Tensor, lr: torch.Tensor,
+             clip: torch.Tensor) -> None:
+    """SGD of the first n_unique rows of the float32 master, in place, and
+    their rounding into the table; see :func:`ref.sgd_rows_ref`."""
+    if table.device.type == "cpu":
+        return ref.sgd_rows_ref(master, table, rows, grads, n_unique, lr, clip)
+    return sgd_rows_cuda(master, table, rows, grads, n_unique, lr, clip)
+
+
 def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     """Strictly lower triangle of x @ x^T per sample, float32; see
     :func:`ref.dot_interaction_ref`."""
     if x.device.type == "cpu":
         return ref.dot_interaction_ref(x)
     return dot_interaction_cuda(x)
+
+
+def dot_interaction_backward(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """(G + Gᵀ) x per sample, in x's dtype; see
+    :func:`ref.dot_interaction_backward_ref`."""
+    if x.device.type == "cpu":
+        return ref.dot_interaction_backward_ref(x, dz)
+    return dot_interaction_backward_cuda(x, dz)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -101,5 +130,6 @@ def csr_spmm(x: torch.Tensor, a: CSR) -> torch.Tensor:
 
 
 __all__ = ["bitvec_rank", "k2_lines", "digram_pair_counts", "digram_pair_accum", "digram_select",
-           "embedding_bag", "dot_interaction",
+           "embedding_bag", "embedding_bag_backward", "sgd_rows", "dot_interaction",
+           "dot_interaction_backward",
            "flash_attention", "csr_spmm", "build_all", "launch_counts", "reset_launch_counts", "ref"]

@@ -259,6 +259,145 @@ def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
     return out.to(table.dtype)
 
 
+def bag_runs(indices: torch.Tensor) -> tuple:
+    """The sorted runs of a batch's ids, the preparation that the
+    ``embedding_bag`` backward shares with its twin: (ids, perm, slot,
+    n_unique), where ids are the flattened (B, L) indices sorted stably
+    (padding first), perm their positions in the flattening, slot (int64)
+    the running count of run heads less one (a valid run's head holds its
+    slot among the distinct valid ids), and n_unique that count, a 0-dim
+    int64 tensor. No host read."""
+    ids, perm = torch.sort(indices.reshape(-1), stable=True)
+    head = ids >= 0
+    head[1:] &= ids[1:] != ids[:-1]
+    slot = torch.cumsum(head, 0) - 1
+    return ids, perm, slot, head.sum()
+
+
+def embedding_bag_backward_ref(indices: torch.Tensor, grad_out: torch.Tensor,
+                               combiner: str = "sum", n_rows: int | None = None) -> tuple:
+    """The gradient of :func:`embedding_bag_ref` with respect to the table,
+    by distinct row: (rows, grads, n_unique), rows (B * L,) int64 and grads
+    (B * L, D) float32, whose first n_unique slots hold the distinct valid
+    ids ascending and the float32 sums of ``grad_out[b]`` (divided by
+    max(#valid_b, 1) for the mean, in float32) over their occurrences, added
+    in the stable sorted order; the other slots hold -1 and zeros. An id >=
+    ``n_rows`` raises ValueError."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
+    n, d = indices.numel(), grad_out.shape[1]
+    ids, perm, slot, n_unique = bag_runs(indices)
+    valid = ids >= 0
+    if n_rows is not None and bool((ids >= n_rows).any()):
+        raise ValueError(f"an id lies outside [0, {n_rows})")
+    bag = perm // max(indices.shape[1], 1)
+    g = grad_out.float()[bag]
+    if combiner == "mean":
+        g = g / (indices >= 0).sum(dim=1).clamp(min=1).float()[bag, None]
+    rows = torch.full((n,), -1, dtype=torch.int64, device=grad_out.device)
+    rows[slot[valid]] = ids[valid].to(torch.int64)
+    grads = torch.zeros((n, d), dtype=torch.float32, device=grad_out.device)
+    grads.index_add_(0, slot[valid], g[valid])
+    return rows, grads, n_unique
+
+
+def embedding_bag_backward_pieces_ref(indices: torch.Tensor, grad_out: torch.Tensor,
+                                      combiner: str = "sum", chunk: int = 256) -> tuple:
+    """The first launch of the ``embedding_bag`` backward in its order of
+    additions, bit for bit: (rows, grads, n_unique, (part_first, part_last,
+    last_slot, first_kind)). The sorted positions are cut into chunks of
+    ``chunk``; each run's piece in a chunk is summed from zero in sorted
+    order; a run inside one chunk goes to its slot, a run cut by chunk
+    boundaries leaves its first piece in ``part_last`` of the chunk where it
+    begins (``last_slot`` its slot) and each later piece in ``part_first``
+    of its chunk (``first_kind`` 1 where the run ends in that chunk, 2 where
+    it goes on). Slots of cut runs are left zero. A loop over positions:
+    small inputs only."""
+    n, d = indices.numel(), grad_out.shape[1]
+    ids, perm, slot, n_unique = bag_runs(indices)
+    bag = perm // max(indices.shape[1], 1)
+    g = grad_out.float()[bag]
+    if combiner == "mean":
+        g = g / (indices >= 0).sum(dim=1).clamp(min=1).float()[bag, None]
+    dev = grad_out.device
+    rows = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    grads = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    n_chunks = -(-n // chunk)
+    part_first = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
+    part_last = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
+    last_slot = torch.full((n_chunks,), -1, dtype=torch.int64, device=dev)
+    first_kind = torch.zeros((n_chunks,), dtype=torch.int32, device=dev)
+    id_l, slot_l = ids.tolist(), slot.tolist()
+    for k, c0 in enumerate(range(0, n, chunk)):
+        c1 = min(c0 + chunk, n)
+        cont_in = c0 > 0 and id_l[c0] >= 0 and id_l[c0 - 1] == id_l[c0]
+        cont_out = c1 < n and id_l[c1 - 1] >= 0 and id_l[c1] == id_l[c1 - 1]
+        first_kind[k] = (2 if cont_out and id_l[c0] == id_l[c1 - 1] else 1) if cont_in else 0
+        seg, acc = None, None
+        for q in range(c0, c1):
+            if id_l[q] < 0:
+                continue
+            if seg is None:
+                seg, acc = q, torch.zeros(d, dtype=torch.float32, device=dev)
+            acc = acc + g[q]
+            if q + 1 < c1 and id_l[q + 1] == id_l[q]:
+                continue
+            if seg == c0 and cont_in:
+                part_first[k] = acc
+            else:
+                rows[slot_l[seg]] = id_l[q]
+                if q + 1 == c1 and cont_out:
+                    part_last[k], last_slot[k] = acc, slot_l[seg]
+                else:
+                    grads[slot_l[seg]] = acc
+            seg = None
+    return rows, grads, n_unique, (part_first, part_last, last_slot, first_kind)
+
+
+def embedding_bag_backward_combine_ref(part_first: torch.Tensor, part_last: torch.Tensor,
+                                       last_slot: torch.Tensor, first_kind: torch.Tensor,
+                                       grads: torch.Tensor) -> None:
+    """The second launch of the ``embedding_bag`` backward, in place on
+    ``grads``: a run cut by chunk boundaries, begun in chunk k, gets
+    ``part_last[k]`` plus ``part_first[j]`` of each later chunk j it reaches,
+    added in chunk order (on the CPU; on the card ``index_add_`` adds them
+    in any order)."""
+    idx = torch.arange(last_slot.shape[0], device=last_slot.device)
+    begun = torch.where(last_slot >= 0, idx, -1).cummax(dim=0).values
+    owner = torch.cat([begun.new_full((1,), -1), begun[:-1]])  # the run chunk j continues
+    cont = (first_kind > 0) & (owner >= 0)
+    sums = part_last.clone()
+    sums.index_add_(0, owner[cont], part_first[cont])
+    live = last_slot >= 0
+    grads[last_slot[live]] = sums[live]
+
+
+def embedding_bag_backward_split_ref(indices: torch.Tensor, grad_out: torch.Tensor,
+                                     combiner: str = "sum", chunk: int = 256) -> tuple:
+    """:func:`embedding_bag_backward_ref` in the kernels' order of additions,
+    bit for bit on the CPU: the pieces, then their combine."""
+    rows, grads, n_unique, pieces = embedding_bag_backward_pieces_ref(indices, grad_out,
+                                                                      combiner, chunk)
+    embedding_bag_backward_combine_ref(*pieces, grads)
+    return rows, grads, n_unique
+
+
+def sgd_rows_ref(master: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
+                 grads: torch.Tensor, n_unique: torch.Tensor, lr: torch.Tensor,
+                 clip: torch.Tensor) -> None:
+    """The table's SGD on the rows a batch touched, in place: for the first
+    n_unique slots, ``master[rows] -= lr * (clip * grads)`` in float32 (the
+    reference's SGD leaf, in its order of operations), then ``table[rows] =
+    master[rows]`` in the table's type. Computed on the gradients' device;
+    the master may lie on another."""
+    n = int(n_unique)
+    r = rows[:n]
+    upd = lr * (grads[:n] * clip)
+    m = master[r.to(master.device)].to(grads.device) - upd
+    master[r.to(master.device)] = m.to(master.device)
+    table[r.to(table.device)] = m.to(table.device, table.dtype)
+
+
 def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
     """DLRM dot interaction: x (B, F, D) float32 or bfloat16 -> the strictly
     lower triangle of x @ x^T per sample, (B, F(F-1)/2) float32 in
@@ -268,6 +407,18 @@ def dot_interaction_ref(x: torch.Tensor) -> torch.Tensor:
     z = torch.bmm(xf, xf.transpose(1, 2))
     ii, jj = torch.tril_indices(f, f, -1, device=x.device)
     return z[:, ii, jj]
+
+
+def dot_interaction_backward_ref(x: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`dot_interaction_ref` with respect to x: dz (B,
+    F(F-1)/2) float32 in ``tril_indices(F, -1)`` order -> (G + Gᵀ) x per
+    sample, G (F, F) holding dz at those indices, in float32, rounded to
+    x's dtype."""
+    b, f, _ = x.shape
+    ii, jj = torch.tril_indices(f, f, -1, device=x.device)
+    g = torch.zeros((b, f, f), dtype=torch.float32, device=x.device)
+    g[:, ii, jj] = dz.float()
+    return torch.bmm(g + g.transpose(1, 2), x.float()).to(x.dtype)
 
 
 def _tc_fragment_rows_cols(f: int):

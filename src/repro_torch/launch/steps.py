@@ -1,8 +1,8 @@
 """Step functions per (arch, shape) cell, with real inputs made from a seed.
 
 The twin of ``repro.launch.steps`` for the kinds the port runs: the LM's
-prefill and decode cells, the recsys serve and retrieval cells, and the
-GNN's full-graph training cells. The reference returns abstract shapes for
+prefill and decode cells, the recsys serve, retrieval and train cells, and
+the GNN's full-graph training cells. The reference returns abstract shapes for
 an ahead-of-time compile on a mesh; the port runs eagerly on one GPU, so a
 cell here holds the model on the device and inputs drawn from the seed,
 ready to call.
@@ -18,11 +18,11 @@ import torch
 from repro_torch.configs.registry import ShapeSpec, get_arch
 from repro_torch.data.graphs import node_graph
 from repro_torch.device import resolve_device
-from repro_torch.models.dlrm import DLRM, DLRMConfig, retrieval_scores
+from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_grads, retrieval_scores
 from repro_torch.models.gnn import GCN, Graph, gcn_loss
 from repro_torch.models.transformer import DTYPES, Transformer, normal_chunked
 from repro_torch.train.loop import train_step
-from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
 
 @dataclass
@@ -52,6 +52,28 @@ def dlrm_batch(cfg: DLRMConfig, batch: int, generator: torch.Generator):
                    dtype=torch.float64)
     sparse = torch.minimum((u * rows).floor(), rows - 1).to(torch.int32)
     return dense, sparse
+
+
+LABEL_RATE = 0.5  # P(label = 1) of a synthetic train batch: a fair coin, no dataset's rate
+
+
+def dlrm_train_batch(cfg: DLRMConfig, batch: int, generator: torch.Generator):
+    """(dense, sparse, labels): :func:`dlrm_batch`, then labels (B,) float32
+    in {0, 1}, 1 with probability ``LABEL_RATE``, from the same generator."""
+    dense, sparse = dlrm_batch(cfg, batch, generator)
+    u = torch.rand((batch,), generator=generator, device=generator.device)
+    return dense, sparse, (u < LABEL_RATE).to(torch.float32)
+
+
+def dlrm_train_step(model: DLRM, opt_state: dict, dense: torch.Tensor, sparse: torch.Tensor,
+                    labels: torch.Tensor, opt_cfg: AdamWConfig) -> tuple:
+    """One train step of the DLRM cell, the twin of the reference cell's
+    ``train_step``: ``dlrm_loss``, its gradients (:func:`dlrm_grads`), then
+    AdamW on the MLPs and SGD on the touched table rows, in place on the
+    model and ``opt_state``. Returns (loss, {"lr", "grad_norm"}) as tensors
+    on the device; one host sync (the id check)."""
+    loss, grads = dlrm_grads(model, dense, sparse, labels)
+    return loss, adamw_update(model.leaves(), grads, opt_state, opt_cfg)
 
 
 def lm_cache(model: Transformer, batch: int, seq_len: int,
@@ -153,6 +175,13 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     opt_state, batch) and ``cell.run()`` one train step, returning (loss,
     metrics) and updating the parameters and ``opt_state`` in place. The
     minibatch and molecule kinds raise NotImplementedError.
+
+    train (DLRM): the DLRM built by :meth:`DLRM.from_config` from ``seed``
+    with its float32 master in host memory (``master=True``), its AdamW
+    state (SGD on ``tables``, whose master is the model's) and one batch of
+    65,536 (32 when reduced) from :func:`dlrm_train_batch`; ``cell.args``
+    is (model, opt_state, dense, sparse, labels) and ``cell.run()`` one
+    :func:`dlrm_train_step`, returning (loss, metrics).
     """
     dev = resolve_device(device)
     arch = get_arch(arch_id)
@@ -165,11 +194,14 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
             raise ValueError(f"{arch_id} {shape_name}: batch= cuts LM cells only; a "
                              "full-graph step takes the whole graph")
         return _gnn_cell(arch_id, shape, cfg, reduced, dev, seed)
-    if shape.kind == "train":
-        raise NotImplementedError(
-            f"{arch_id} {shape_name}: DLRM training is not ported yet "
-            "(ROADMAP.md queue A, item 3: DLRM training and the embedding_bag backward)")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    if shape.kind == "train":
+        model = DLRM.from_config(cfg, device=dev, seed=seed, master=True)
+        batch = dlrm_train_batch(cfg, 32 if reduced else shape.params["batch"], gen)
+        opt_cfg = AdamWConfig(sgd_paths=("tables",))
+        opt_state = init_opt_state(model.leaves(), opt_cfg, master={"tables": model.master})
+        return Cell(arch_id, shape_name, partial(dlrm_train_step, opt_cfg=opt_cfg),
+                    (model, opt_state, *batch), model)
     if shape.kind == "retrieval":
         n_cand = 1024 if reduced else _r256(shape.params["n_candidates"])
         query = torch.randn((cfg.embed_dim,), generator=gen, device=dev)

@@ -59,14 +59,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 class MLP(nn.Module):
     """``x @ w + b`` per layer with ReLU between layers, and after the last
-    one too when ``final_act`` (``mlp_apply``). Weights are frozen: the port
-    serves, it does not train yet."""
+    one too when ``final_act`` (``mlp_apply``). The weights are trainable
+    leaves (:meth:`leaves`); a serving caller runs it under
+    ``torch.no_grad()``, so serving records no autograd graph."""
 
     def __init__(self, layers: list[dict], final_act: bool = False):
         super().__init__()
-        self.w = nn.ParameterList([nn.Parameter(p["w"], requires_grad=False) for p in layers])
-        self.b = nn.ParameterList([nn.Parameter(p["b"], requires_grad=False) for p in layers])
+        self.w = nn.ParameterList([nn.Parameter(p["w"]) for p in layers])
+        self.b = nn.ParameterList([nn.Parameter(p["b"]) for p in layers])
         self.final_act = final_act
+
+    def leaves(self, prefix: str) -> dict[str, torch.Tensor]:
+        """The parameters under the reference's pytree paths below
+        ``prefix``, in its leaf order (``<prefix>/0/b``, ``<prefix>/0/w``, ...)."""
+        return {f"{prefix}/{i}/{k}": getattr(self, k)[i]
+                for i in range(len(self.w)) for k in ("b", "w")}
 
     @classmethod
     def init(cls, sizes, *, generator: torch.Generator, device: torch.device,

@@ -84,7 +84,7 @@ def test_mlp_matches_mlp_apply(final_act):
     want = jcommon.mlp_apply(layers, jnp.asarray(x), act=jax.nn.relu, final_act=final_act)
     mlp = MLP([{"w": torch.from_numpy(np.array(p["w"])), "b": torch.from_numpy(np.array(p["b"]))}
                for p in layers], final_act=final_act)
-    got = mlp(torch.from_numpy(x))
+    got = mlp(torch.from_numpy(x)).detach()  # trainable weights: the output records a graph
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     if final_act:
         assert (got.numpy() >= 0).all()
@@ -251,8 +251,12 @@ def test_dlrm_batch_covers_every_row_range():
     assert sparse.min(dim=0).values.tolist() == [0] * cfg.n_sparse
 
 
-def test_build_cell_train_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_cell("dlrm-mlperf", "train_batch", reduced=True, device="cpu")
+def test_build_cell_train_builds_and_unknown_shape_raises():
+    """The train_batch cell builds (its steps are held against the reference
+    in test_torch_dlrm_train.py); an unknown shape still raises."""
+    cell = steps.build_cell("dlrm-mlperf", "train_batch", reduced=True, device="cpu")
+    model, opt_state, dense, sparse, labels = cell.args
+    assert cell.model is model and model.master is opt_state["master"]["tables"]
+    assert (dense.shape, sparse.shape, labels.shape) == ((32, 13), (32, 26), (32,))
     with pytest.raises(KeyError):
         steps.build_cell("dlrm-mlperf", "decode_32k", reduced=True, device="cpu")

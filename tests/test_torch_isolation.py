@@ -77,7 +77,8 @@ def _zero_lm_params(cfg):
                                    "dlrm_from_numpy_params", "build_cell",
                                    "transformer_from_config", "transformer_from_numpy_params",
                                    "lm_build_cell", "gcn_from_config",
-                                   "gcn_from_numpy_params", "gnn_build_cell"])
+                                   "gcn_from_numpy_params", "gnn_build_cell",
+                                   "dlrm_train_build_cell"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
@@ -116,6 +117,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
             gcn_cora.reduced(), device=dev),
         "gnn_build_cell": lambda dev: build_cell("gcn-cora", "full_graph_sm", reduced=True,
                                                  device=dev),
+        "dlrm_train_build_cell": lambda dev: build_cell("dlrm-mlperf", "train_batch",
+                                                        reduced=True, device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)

@@ -140,11 +140,18 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.flash_attention(q, kv, kv)
     ops.csr_spmm(torch.ones((2, 3)), CSR(torch.tensor([0, 1]), torch.tensor([1], dtype=torch.int32), 2))
     ops.k2_lines(_layout(), torch.tensor([0, 1, 3]), 0)
+    rows, grads, n = ops.embedding_bag_backward(torch.tensor([[1], [0], [1]]), torch.ones(3, 4))
+    ops.dot_interaction_backward(torch.ones((2, 3, 4)), torch.ones((2, 3)))
+    ops.sgd_rows(torch.zeros((2, 4)), torch.zeros((2, 4)), rows, grads, n, torch.tensor(0.5),
+                 torch.tensor(1.0))
     assert ops.launch_counts["bitvec_rank"] == ops.launch_counts["digram_pair_counts"] == 0
     assert set(ops.launch_counts) == {"bitvec_rank", "k2_lines_count", "k2_lines_write",
                                       "digram_pair_counts", "digram_pair_accum",
                                       "digram_select", "embedding_bag",
+                                      "embedding_bag_backward",
+                                      "embedding_bag_backward_combine", "sgd_rows",
                                       "dot_interaction", "dot_interaction_simt",
+                                      "dot_interaction_backward",
                                       "flash_attention",
                                       "flash_attention_combine", "csr_spmm",
                                       "csr_spmm_combine"}
