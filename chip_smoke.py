@@ -34,8 +34,12 @@ nothing of the JAX package. Phases:
    for bit and its plain twin within a tolerance on random bags (L 1-8,
    duplicates, padding, long runs of one id), sum and mean, bf16 and
    float32, ``dot_interaction_backward`` at F 27 and 13 in both types, and
-   ``sgd_rows`` on small registered host buffers, every row bit for bit,
-   each with a control that must fail;
+   ``sgd_rows`` on registered host buffers (``SGD_CASES``: n_unique 0, 1,
+   not a multiple of the rows a warp, equal to cap, 700,000 slots of a
+   2M-row master, both host backings) under the wrapper's plan and, on
+   bfloat16 tables of D = 128, every instance of the sweep's rows a warp
+   on a persistent grid, every row bit for bit, each with a control that
+   must fail;
 3. drive the ITR path once at full size: geo-coordinates-en (50,000
    triples) -> ``Hypergraph.from_triples`` -> ``compress`` -> ``encode`` ->
    ``TripleQueryEngine`` -> ``query_batch_view`` for all eight patterns,
@@ -83,7 +87,9 @@ nothing of the JAX package. Phases:
    6b. with the serve tables freed, train ``dlrm-mlperf`` at full size
    (``train_batch``: B = 65,536, the bf16 tables on the card, their float32
    master, 91.1 GB, registered in host memory) through ``build_cell``: the
-   host probe (memory, cgroup, PCIe link), init and registration seconds;
+   host probe (memory, cgroup, PCIe link, huge-page mode, NUMA, IOMMU)
+   and the master's pages on its host backing, init and registration
+   seconds;
    one step with the launch counts at 0 before it (each of the five
    kernels of the step exactly once); the step held against the same step
    through the twins from one snapshot (loss, lr, grad_norm, the compact
@@ -98,7 +104,9 @@ nothing of the JAX package. Phases:
    moved, a control (clip left out) that must fail; 10 timed
    steps after 2 warm-ups (ms, samples/s), the busy share, host syncs a
    step (at most 2), device time by kernel, peak memory; phase 4's rows of
-   the new kernels; then the master is released;
+   the new kernels (``sgd_rows`` with its occupancy, beside its read and
+   write halves, a page probe and the link while it runs);
+   then the master is released;
 7. with the DLRM tables freed, serve ``qwen2-1.5b`` at full width (28
    layers, d_model 1536, 12 query and 2 KV heads of 128, vocab 151,936):
    a small model on the card against the host CPU; the full-width model in
@@ -145,6 +153,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1548,15 +1557,14 @@ def check_train_kernels(torch, np, seed: int) -> dict:
     gradients, D 5, 16, 128; a control (one occurrence's gradient zeroed)
     must fail. ``dot_interaction_backward`` within DOT_BWD_TOL of its twin at
     F 27 and 13, D 16 and 128, B 1-4,097, bf16 and float32; a control (the
-    last field row zeroed) must fail. ``sgd_rows`` on small registered host
-    buffers: every row of the master and the table equal to the twin's bit
-    for bit (the touched rows updated, the others untouched); a control
-    (clip left out) must fail."""
+    last field row zeroed) must fail. ``sgd_rows`` on registered host
+    buffers (SGD_CASES, :func:`_check_sgd_case`): every row of the master
+    and the table equal to the twin's bit for bit (the touched rows
+    updated, the others untouched) under several launch plans; a control
+    must fail."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
-    from repro_torch.kernels.embedding_bag import (BACKWARD_CHUNK, embedding_bag_backward_cuda,
-                                                   register_host, sgd_rows_cuda,
-                                                   unregister_host)
+    from repro_torch.kernels.embedding_bag import BACKWARD_CHUNK, embedding_bag_backward_cuda
 
     rng = np.random.default_rng(seed + 20)
     err = {"embedding_bag_backward": 0.0, "embedding_bag_backward_combine": 0.0,
@@ -1639,37 +1647,93 @@ def check_train_kernels(torch, np, seed: int) -> dict:
           f"{err['dot_interaction_backward']} tol={DOT_BWD_TOL}; controls fail")
 
     n_sgd = 0
-    for dt, d in ((torch.bfloat16, 128), (torch.float32, 16), (torch.bfloat16, 5)):
-        v, n, cap = 1000, 300, 400
-        master = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32))
-        reg_s = register_host(master)
-        try:
-            table = master.to(DEV, dt)
-            rows = torch.full((cap,), 10**9, dtype=torch.int64)  # slots past n: never read
-            rows[:n] = torch.from_numpy(np.sort(rng.choice(v, n, replace=False)))
-            grads = torch.full((cap, d), float("nan"))
-            grads[:n] = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) * 40
-            args = [t.to(DEV) for t in (rows, grads, torch.tensor(n), torch.tensor(0.05),
-                                        torch.tensor(0.3))]
-            want_m, want_t = master.clone(), table.clone()
-            ref.sgd_rows_ref(want_m, want_t, *args)
-            ctrl_m, ctrl_t = master.clone(), table.clone()
-            ref.sgd_rows_ref(ctrl_m, ctrl_t, *args[:4], torch.tensor(1.0, device=DEV))
+    for case in SGD_CASES:
+        n_sgd += _check_sgd_case(torch, np, rng, *case)
+    print(f"sgd_rows vs twin on registered host memory: cases={len(SGD_CASES)} launches={n_sgd} "
+          f"(the wrapper's plan; on bfloat16 D=128 every instance of rows a warp, persistent "
+          f"and one warp a group), every row bit for bit; controls fail")
+    return err
+
+
+# sgd_rows' phase-2 cases: (dtype, D, V, n_unique, cap, host backing); the
+# first three were the kernel's before its redesign; then n_unique 0 and 1,
+# not a multiple of any R > 1, equal to cap, persistent grids that stride
+# many times (700,000 slots: 42 strides on the wrapper's grid, 663, 332,
+# 166 and 83 at 1, 2, 4 and 8 rows a warp on one block an SM, on 132 SMs;
+# the check requires at least 2), and the huge-page backing
+SGD_CASES = (("bfloat16", 128, 1000, 300, 400, "plain"), ("float32", 16, 1000, 300, 400, "plain"),
+             ("bfloat16", 5, 1000, 300, 400, "plain"), ("bfloat16", 128, 1000, 0, 400, "plain"),
+             ("bfloat16", 128, 1000, 1, 400, "plain"), ("bfloat16", 128, 1000, 301, 400, "plain"),
+             ("float32", 5, 1000, 299, 400, "plain"), ("bfloat16", 128, 1000, 400, 400, "plain"),
+             ("bfloat16", 128, 2_000_000, 700_000, 800_000, "huge"),
+             ("float32", 128, 5000, 777, 1000, "huge"))
+
+
+def _check_sgd_case(torch, np, rng, dt_name, d, v, n, cap, backing) -> int:
+    """One phase-2 case of ``sgd_rows``: distinct sorted rows, gradients of
+    40 x N(0, 1) (slots past n NaN, at rows past V: never read), lr 0.05,
+    clip 0.3, on a master of ``backing`` registered with the card. Under the
+    wrapper's own plan and, where the source has the sweep's instances (a
+    bfloat16 table of D % 4 == 0), one warp a group at R = 1 and each R at
+    one block an SM, every row of the master and the table equals
+    ``sgd_rows_ref``'s bit for bit; the control (clip left out; with n = 0,
+    every slot up to cap updated) must differ. A case of more than 100,000
+    slots must make every persistent grid stride at least twice. Returns
+    the launches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.embedding_bag import (SGD_BLOCKS_AN_SM, SGD_R, SGD_ROWS_PER_WARP,
+                                                   host_empty, register_host, sgd_rows_cuda,
+                                                   sgd_rows_plan, unregister_host)
+
+    dt = getattr(torch, dt_name)
+    orig = host_empty((v, d), backing)
+    orig.copy_(torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)))
+    rows = torch.full((cap,), 10**9, dtype=torch.int64)  # slots past n: never read
+    live = torch.from_numpy(np.sort(rng.choice(v, cap, replace=False)))
+    rows[:n] = live[:n]
+    grads = torch.full((cap, d), float("nan"))
+    grads[:n] = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) * 40
+    args = [t.to(DEV) for t in (rows, grads, torch.tensor(n), torch.tensor(0.05),
+                                torch.tensor(0.3))]
+    want_m, want_t = orig.clone(), orig.to(DEV, dt, copy=True)
+    ref.sgd_rows_ref(want_m, want_t, *args)
+    ctrl_m, ctrl_t = orig.clone(), orig.to(DEV, dt, copy=True)
+    if n:
+        ref.sgd_rows_ref(ctrl_m, ctrl_t, *args[:4], torch.tensor(1.0, device=DEV))
+    else:  # a kernel that ignored n_unique would update every slot it was given
+        full = [t.to(DEV) for t in (live, torch.ones(cap, d))]
+        ref.sgd_rows_ref(ctrl_m, ctrl_t, *full, torch.tensor(cap, device=DEV), *args[3:])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [None]  # the wrapper's: SGD_R rows a warp, SGD_BLOCKS_AN_SM[SGD_R] blocks an SM
+    persistent = [sgd_rows_plan(cap, SGD_R, n_sms * SGD_BLOCKS_AN_SM[SGD_R])]
+    if dt_name == "bfloat16" and d % 4 == 0:
+        persistent += [sgd_rows_plan(cap, r, n_sms) for r in SGD_ROWS_PER_WARP]
+        if cap > 100_000 and min(p.strides(n) for p in persistent) < 2:
+            _fail(f"sgd_rows case cap={cap} n_unique={n}: a persistent grid strides "
+                  f"{[p.strides(n) for p in persistent]} times, fewer than 2")
+        plans += [sgd_rows_plan(cap, 1)] + persistent[1:]
+    what = f"{dt_name} D={d} V={v} n_unique={n} cap={cap} {backing}"
+    master = host_empty((v, d), backing)
+    reg_s = register_host(master)
+    try:
+        for plan in plans:
+            master.copy_(orig)
+            table = orig.to(DEV, dt, copy=True)
             before = ops.launch_counts["sgd_rows"]
-            sgd_rows_cuda(master, table, *args)
+            sgd_rows_cuda(master, table, *args, plan=plan)
             torch.cuda.synchronize()
             if ops.launch_counts["sgd_rows"] != before + 1:
                 _fail("sgd_rows did not count its launch")
             if not (torch.equal(master, want_m) and torch.equal(table, want_t)):
-                _fail(f"sgd_rows differs from its twin at {dt} D={d}")
+                _fail(f"sgd_rows differs from its twin at {what} under {plan}")
             if torch.equal(master, ctrl_m):
-                _fail(f"the sgd_rows check does not tell the control (clip left out) at {dt}")
-        finally:
-            unregister_host(master)
-        n_sgd += 1
-    print(f"sgd_rows vs twin on registered host memory: cases={n_sgd}, every row bit for bit "
-          f"(last registration {reg_s:.6f} s); control fails")
-    return err
+                _fail(f"the sgd_rows check does not tell the control at {what}")
+    finally:
+        unregister_host(master)
+    strides = [p.strides(n) for p in persistent]
+    print(f"sgd_rows {what}: {len(plans)} plans bit for bit, strides {strides} (registered "
+          f"in {reg_s:.6f} s)")
+    return len(plans)
 
 
 def _train_counts(counts: dict) -> dict:
@@ -2001,7 +2065,9 @@ def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: d
     from repro_torch.kernels.embedding_bag import (embedding_bag_backward_combine_cuda,
                                                    embedding_bag_backward_cuda,
                                                    embedding_bag_backward_pieces_cuda,
-                                                   sgd_rows_cuda)
+                                                   SGD_BLOCKS_AN_SM, SGD_R, sgd_rows_cuda,
+                                                   sgd_rows_occupancy, sgd_rows_plan)
+    from repro_torch.launch.sgd_sweep import link_while, page_probe
 
     inp = _train_inputs(torch, model, batch)
     bags, g_emb, fields, dz = inp["bags"], inp["g_emb"], inp["fields"], inp["dz"]
@@ -2104,17 +2170,40 @@ def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: d
     del s
 
     # sgd_rows on the step's own compact gradient, in place on the model's
-    # master and table with lr = 0: the same traffic, and no row moves
+    # master and table with lr = 0: the same traffic, and no row moves;
+    # beside the read and the write alone over the same rows (the link's
+    # ceiling for them)
     rows, grads, n_u = embedding_bag_backward_cuda(bags, g_emb, "sum", n_rows)
     n = int(n_u)
     zero, one = torch.zeros((), device=DEV), torch.ones((), device=DEV)
     args = (model.master, model.table, rows, grads, n_u, zero, one)
+    n_sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    plan = sgd_rows_plan(rows.numel(), SGD_R, n_sms * SGD_BLOCKS_AN_SM[SGD_R])
+    occupancy = sgd_rows_occupancy(SGD_R)
+    if occupancy["blocks_an_sm"] != SGD_BLOCKS_AN_SM[SGD_R]:
+        _fail(f"sgd_rows' grid assumes {SGD_BLOCKS_AN_SM[SGD_R]} blocks an SM, the card fits "
+              f"{occupancy}")
     kern = lambda: sgd_rows_cuda(*args)  # noqa: E731
     twin = lambda: ref.sgd_rows_ref(*args)  # noqa: E731
     plain_a = _time_ms(torch, twin, 2)
     ms_a = _time_ms(torch, kern, 10)
     ms_b = _time_ms(torch, kern, 10)
     plain_b = _time_ms(torch, twin, 2)
+    touched = rows[:n].cpu()
+    snap_m, snap_t = model.master[touched], model.table[rows[:n]].clone()
+    read_ms = _time_ms(torch, lambda: sgd_rows_cuda(*args, plan=replace(plan, mode="read")), 10)
+    write_ms = _time_ms(torch, lambda: sgd_rows_cuda(*args, plan=replace(plan, mode="write")),
+                        10)
+    read_changed = int((model.table[rows[:n]] != snap_t).any(dim=1).sum())
+    model.master[touched] = snap_m
+    model.table[rows[:n]] = snap_t
+    del snap_m, snap_t
+    if read_changed:
+        _fail(f"sgd_rows' read pass changed {read_changed} table rows: it must leave the "
+              f"table as the master rounds")
+    link = link_while(kern)
+    probe = page_probe(model.master, model.table)
+    print(f"sgd_rows read pass, ns a row by the rows' distance: {probe}")
     es = model.table.element_size()
     sgd_bytes = n * d * (4 + es) + n * 8  # on the card: grads and rows read, table rows written
     each_way = n * d * 4                  # the master rows, read and written over PCIe
@@ -2122,10 +2211,15 @@ def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: d
         "sgd_rows", "src/repro_torch/csrc/embedding_bag.cu", SGD_REPLACES, counts["sgd_rows"],
         errs["sgd_rows"], min(ms_a, ms_b), min(plain_a, plain_b), sgd_bytes, 3 * n * d,
         CORE_OPS_PER_S, None, link_bytes=each_way, runs=[ms_a, ms_b], rows=n,
+        plan=f"{plan.rows_per_warp} rows a warp, {plan.blocks} blocks",
+        occupancy=occupancy, read_ms=read_ms, write_ms=write_ms,
+        link_ceiling_ms=max(read_ms, write_ms), link_during=link,
+        page_probe_ns_per_row=probe,
         pcie_bytes=2 * each_way, device_bound_ms=sgd_bytes / HBM_BYTES_PER_S * 1e3,
         library="none: no single call updates rows of host-mapped memory",
         note=f"bound_ms: the master rows over PCIe Gen5 x16 at {PCIE_BYTES_PER_S / 1e9:g} GB/s "
-        "each way (read and written); the card's own bytes are device_bound_ms"))
+        "each way (read and written); the card's own bytes are device_bound_ms; "
+        "link_ceiling_ms: the slower of the read and the write alone over these rows"))
     rows_out[-1]["pcie_GBps"] = 2 * each_way / (rows_out[-1]["ms"] / 1e3) / 1e9
     return rows_out
 
@@ -2143,7 +2237,7 @@ def _kernel_device_ms(torch, fn, reps: int) -> dict:
 def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
     """Phase 6b: dlrm-mlperf train_batch at full size (177,948,416 rows x 128,
     B = 65,536), the tables' float32 master in registered host memory."""
-    from repro_torch.launch.host_probe import host_report
+    from repro_torch.launch.host_probe import host_report, pages
     from repro_torch.launch.steps import build_cell
 
     left = torch.cuda.memory_allocated()
@@ -2165,6 +2259,12 @@ def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
           f"{model.table.dtype} batch={dense.shape[0]} label_rate={float(labels.mean()):.4f} "
           f"MemAvailable_after={host_report()['meminfo']['MemAvailable']} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    master_pages = pages(master)
+    print(f"dlrm train master on its host backing 'huge' (2 MB-aligned, MADV_HUGEPAGE): "
+          f"{json.dumps(master_pages)}")
+    if master_pages["huge_bytes"] == 0:
+        print(f"dlrm train: the host gave the master no huge pages (transparent huge pages "
+              f"{probe['thp']}): it is on 4 KB pages")
 
     counts, (loss, met) = _served_counts(torch, cell.run)
     counts = _train_counts(counts)
@@ -2205,7 +2305,8 @@ def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
         r["train_step_ms"] = step_ms
     summary = {"init_s": init_s, "register_s": model.master_register_s, "step_ms": step_ms,
                "samples_per_s": dense.shape[0] / (step_ms / 1e3), "syncs": syncs,
-               "busy": dev / wall if dev > 0 else None, "peak": peak, "hold": hold}
+               "busy": dev / wall if dev > 0 else None, "peak": peak, "hold": hold,
+               "master_backing": "huge", "master_pages": master_pages}
     print(f"dlrm train summary: {json.dumps(summary)}")
     t0 = time.perf_counter()
     model.release_master()

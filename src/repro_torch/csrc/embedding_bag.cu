@@ -50,10 +50,35 @@
 //   `.to(bfloat16)` does. lr, clip and n_unique are read from device
 //   memory, so the step needs no host read. `master` is float32 host memory
 //   registered with the card (`cudaHostRegister`; under unified addressing
-//   pinned and mapped at its host address): a warp reads and writes its row
-//   over PCIe, 16 bytes a lane. What bounds it:
-//   the PCIe link (each touched master row read and written once); untouched
-//   rows are never read.
+//   pinned and mapped at its host address), 2 MB-aligned and advised for
+//   huge pages (kernels/embedding_bag.py, host_empty); every live row is
+//   read and written back over PCIe, the master and the table, whatever its
+//   update. What bounds it is not the bytes at the link's rate (318.6 MB
+//   each way a train_batch step, 4.98 ms at 64 GB/s) but how fast the host
+//   serves the card's own loads of its memory, which differs from host to
+//   host: on an H100 80GB HBM3 at 700 W the read of a row took 11-12 ns
+//   when rows lie 512 B apart on the fastest host measured and 17-23 ns on
+//   the others, more the farther apart they lie (26-35 ns at 2 MB; the page
+//   probe of launch/sgd_sweep.py); a step's rows lie about 146 KB apart in
+//   the large tables. The read alone over the step's rows takes 84-94% of
+//   the update's time, the write alone 66-81%; the update is held by the
+//   reads. What the sweep found on the slower hosts: no launch plan (1-8
+//   rows a warp with all their loads issued before any is used, up to 128
+//   rows in flight an SM; a grid of every slot or a persistent one) more
+//   than 4% ahead of one row a warp over every slot, none more than 9%
+//   behind it; at 2-8 rows a warp a persistent grid whose blocks are all
+//   resident at or below the grid of every slot; neither a cp.async.bulk
+//   copy of whole rows into shared memory nor a 256-byte L2 fetch hint
+//   beat plain loads, so neither is kept. On the fastest host 4 rows a warp on a persistent
+//   grid took 10.9 ms against 13.2 for one row a warp over every slot. The
+//   2 MB-aligned backing was 5-21% faster than torch.empty's in every
+//   comparison on one host. The design: 4 rows a warp (SGD_R) on a
+//   persistent grid of 4 blocks an SM, all resident (launch bounds:
+//   sgd_blocks_an_sm), walking the slots below n_unique read on the card;
+//   offsets in int64 (row 177,948,194 x 128 is past 2^31 elements); a row
+//   outside [0, V) traps. The sweep's other counts of rows a warp and its
+//   read and write halves are instances of the same kernel on a bfloat16
+//   table (SGD_READ, SGD_WRITE).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,54 +328,105 @@ int backward_vec(const void* ids, const void* perm, const void* slot, const void
 
 // ------------------------------------------------------------ SGD of rows
 
-template <typename T, int VEC>
-__global__ void sgd_rows_kernel(float* __restrict__ master, T* __restrict__ table,
-                                const int64_t* __restrict__ rows,
-                                const float* __restrict__ grads,
-                                const int64_t* __restrict__ n_unique,
-                                const float* __restrict__ lr, const float* __restrict__ clip,
-                                int64_t cap, int64_t n_rows, int D) {
-  const int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// What a launch of sgd_rows does to each live slot: the update (read the
+// master row over the link, write it and the table row back), or one of
+// the two halves the sweep times on their own (launch/sgd_sweep.py): a
+// read (the master row read, its rounding written to the table, which
+// leaves a consistent master and table as they were) and a write (the
+// gradient row written over the master row).
+enum { SGD_UPDATE = 0, SGD_READ = 1, SGD_WRITE = 2 };
+
+// Rows a warp of the update on every table (kernels/embedding_bag.py,
+// SGD_R); the other counts, and the read and write halves, are instanced
+// for the sweep on a bfloat16 table in 16-byte pieces only.
+constexpr int SGD_R = 4;
+
+// Blocks of 256 threads an SM that each count of rows a warp is compiled
+// to fit (its registers capped to match): 64, 96, 128 and 128 rows in
+// flight an SM.
+__host__ __device__ constexpr int sgd_blocks_an_sm(int R) {
+  return R == 1 ? 8 : R == 2 ? 6 : R == 4 ? 4 : 2;
+}
+
+__device__ __forceinline__ float sgd_step(float m, float g, float l, float c) {
+  return __fsub_rn(m, __fmul_rn(l, __fmul_rn(g, c)));
+}
+
+// Warp w of the grid takes groups w, w + warps, ... of R consecutive slots
+// below n = min(*n_unique, cap) (kernels/embedding_bag.py, SgdPlan), and
+// issues the loads of all its live rows before it uses any.
+template <typename T, int VEC, int R, int MODE>
+__global__ void __launch_bounds__(256, sgd_blocks_an_sm(R))
+sgd_rows_kernel(float* __restrict__ master, T* __restrict__ table,
+                const int64_t* __restrict__ rows, const float* __restrict__ grads,
+                const int64_t* __restrict__ n_unique, const float* __restrict__ lr,
+                const float* __restrict__ clip, int64_t cap, int64_t n_rows, int D) {
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (s >= cap || s >= *n_unique) return;
-  const int64_t r = rows[s];
-  if (r < 0 || r >= n_rows) __trap();
+  const int64_t nu = *n_unique;
+  const int64_t n = nu < cap ? nu : cap;
   const float l = *lr, c = *clip;
-  for (int d = lane * VEC; d < D; d += 32 * VEC) {
-    Pack<float, VEC> m = *reinterpret_cast<const Pack<float, VEC>*>(master + r * D + d);
-    const Pack<float, VEC> g = *reinterpret_cast<const Pack<float, VEC>*>(grads + s * D + d);
-    Pack<T, VEC> t;
+  for (int64_t g = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; g * R < n;
+       g += warps) {
+    int64_t r[R];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      m.v[v] = __fsub_rn(m.v[v], __fmul_rn(l, __fmul_rn(g.v[v], c)));
-      from_f32(m.v[v], &t.v[v]);
+    for (int u = 0; u < R; ++u) {
+      const int64_t s = g * R + u;
+      r[u] = s < n ? rows[s] : -1;
+      if (s < n && (r[u] < 0 || r[u] >= n_rows)) __trap();
     }
-    *reinterpret_cast<Pack<float, VEC>*>(master + r * D + d) = m;
-    *reinterpret_cast<Pack<T, VEC>*>(table + r * D + d) = t;
+    for (int d = lane * VEC; d < D; d += 32 * VEC) {
+      Pack<float, VEC> m[R], gr[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        if (r[u] < 0) continue;
+        if (MODE != SGD_WRITE)
+          m[u] = *reinterpret_cast<const Pack<float, VEC>*>(master + r[u] * D + d);
+        if (MODE != SGD_READ)
+          gr[u] = *reinterpret_cast<const Pack<float, VEC>*>(grads + (g * R + u) * D + d);
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        if (r[u] < 0) continue;
+        Pack<T, VEC> t;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          if (MODE == SGD_UPDATE) m[u].v[v] = sgd_step(m[u].v[v], gr[u].v[v], l, c);
+          if (MODE == SGD_WRITE) m[u].v[v] = gr[u].v[v];
+          from_f32(m[u].v[v], &t.v[v]);
+        }
+        if (MODE != SGD_READ)
+          *reinterpret_cast<Pack<float, VEC>*>(master + r[u] * D + d) = m[u];
+        if (MODE != SGD_WRITE) *reinterpret_cast<Pack<T, VEC>*>(table + r[u] * D + d) = t;
+      }
+    }
   }
 }
 
-template <typename T, int VEC>
-int launch_sgd(void* master, void* table, const void* rows, const void* grads,
-               const void* n_unique, const void* lr, const void* clip, int64_t cap,
-               int64_t n_rows, int64_t D, cudaStream_t stream) {
-  const int64_t blocks = (cap + 7) / 8;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  sgd_rows_kernel<T, VEC><<<(unsigned)blocks, 256, 0, stream>>>(
-      (float*)master, (T*)table, (const int64_t*)rows, (const float*)grads,
-      (const int64_t*)n_unique, (const float*)lr, (const float*)clip, cap, n_rows, (int)D);
-  return (int)cudaGetLastError();
+// The instance of sgd_rows_kernel for (R, mode) on a bfloat16 table in
+// 16-byte pieces, the sweep's; nullptr where the source has none.
+template <int MODE>
+const void* sgd_sweep_instance(int64_t R) {
+  switch (R) {
+    case 1: return (const void*)sgd_rows_kernel<__nv_bfloat16, 4, 1, MODE>;
+    case 2: return (const void*)sgd_rows_kernel<__nv_bfloat16, 4, 2, MODE>;
+    case 4: return (const void*)sgd_rows_kernel<__nv_bfloat16, 4, 4, MODE>;
+    case 8: return (const void*)sgd_rows_kernel<__nv_bfloat16, 4, 8, MODE>;
+    default: return nullptr;
+  }
 }
 
-template <typename T>
-int sgd_vec(void* master, void* table, const void* rows, const void* grads,
-            const void* n_unique, const void* lr, const void* clip, int64_t cap,
-            int64_t n_rows, int64_t D, cudaStream_t s) {
-  const bool aligned = (uintptr_t)master % 16 == 0 && (uintptr_t)grads % 16 == 0 &&
-                       (uintptr_t)table % (4 * sizeof(T)) == 0;
-  if (aligned && D % 4 == 0)
-    return launch_sgd<T, 4>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows, D, s);
-  return launch_sgd<T, 1>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows, D, s);
+const void* sgd_instance(int64_t dtype, bool vec4, int64_t R, int64_t mode) {
+  if (dtype == 1 && vec4) {
+    if (mode == SGD_UPDATE) return sgd_sweep_instance<SGD_UPDATE>(R);
+    if (mode == SGD_READ) return sgd_sweep_instance<SGD_READ>(R);
+    if (mode == SGD_WRITE) return sgd_sweep_instance<SGD_WRITE>(R);
+    return nullptr;
+  }
+  if (R != SGD_R || mode != SGD_UPDATE) return nullptr;
+  if (dtype == 1) return (const void*)sgd_rows_kernel<__nv_bfloat16, 1, SGD_R, SGD_UPDATE>;
+  return vec4 ? (const void*)sgd_rows_kernel<float, 4, SGD_R, SGD_UPDATE>
+              : (const void*)sgd_rows_kernel<float, 1, SGD_R, SGD_UPDATE>;
 }
 
 }  // namespace
@@ -421,22 +497,47 @@ extern "C" int embedding_bag_backward_combine_launch(const void* part_first,
 // (refused where the card cannot use that address for registered memory);
 // table (n_rows, D), dtype 0 float32 or 1 bfloat16; rows (cap,) int64,
 // grads (cap, D) float32; n_unique int64, lr and clip float32, each one
-// value in device memory.
+// value in device memory. R rows a warp on `blocks` blocks of 256 threads
+// (kernels/embedding_bag.py, sgd_rows_plan); mode SGD_UPDATE for the SGD,
+// the others for the sweep. A pair of R and mode without an instance for
+// this table is refused.
 extern "C" int sgd_rows_launch(void* master, void* table, const void* rows, const void* grads,
                                const void* n_unique, const void* lr, const void* clip,
                                int64_t cap, int64_t n_rows, int64_t D, int64_t dtype,
-                               void* stream) {
+                               int64_t R, int64_t blocks, int64_t mode, void* stream) {
   if (cap <= 0 || D <= 0) return 0;
-  if (D > (1 << 30)) return (int)cudaErrorInvalidValue;
+  if (D > (1 << 30) || blocks <= 0 || blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   int dev = 0, host_ptr_ok = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&host_ptr_ok, cudaDevAttrCanUseHostPointerForRegisteredMem, dev);
   if (e != cudaSuccess) return (int)e;
   if (!host_ptr_ok) return (int)cudaErrorNotSupported;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return sgd_vec<float>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows, D, s);
-  return sgd_vec<__nv_bfloat16>(master, table, rows, grads, n_unique, lr, clip, cap, n_rows,
-                                D, s);
+  const size_t tsize = dtype == 0 ? 4 : 2;
+  const bool vec4 = (uintptr_t)master % 16 == 0 && (uintptr_t)grads % 16 == 0 &&
+                    (uintptr_t)table % (4 * tsize) == 0 && D % 4 == 0;
+  const void* fn = sgd_instance(dtype, vec4, R, mode);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int d32 = (int)D;
+  void* args[] = {&master, &table, (void*)&rows, (void*)&grads, (void*)&n_unique, (void*)&lr,
+                  (void*)&clip, &cap, &n_rows, &d32};
+  e = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(256), args, 0, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// What the card fits of the sweep's instance (R, mode) (a bfloat16 table in
+// 16-byte pieces): out[0] its blocks of 256 threads an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] its registers a
+// thread. Nothing is launched.
+extern "C" int sgd_rows_occupancy(int64_t R, int64_t mode, int64_t* out) {
+  const void* fn = sgd_instance(1, true, R, mode);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 256, 0);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  return 0;
 }

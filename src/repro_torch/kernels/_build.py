@@ -61,8 +61,9 @@ SOURCES = {
         # part_first, part_last, last_slot, first_kind, grads; n_chunks, D
         "embedding_bag_backward_combine": ("embedding_bag_backward_combine_launch",
                                            [_P] * 5 + [_I64] * 2 + [_P]),
-        # master, table, rows, grads, n_unique, lr, clip; cap, n_rows, D, dtype
-        "sgd_rows": ("sgd_rows_launch", [_P] * 7 + [_I64] * 4 + [_P]),
+        # master, table, rows, grads, n_unique, lr, clip; cap, n_rows, D, dtype,
+        # rows a warp, blocks, mode
+        "sgd_rows": ("sgd_rows_launch", [_P] * 7 + [_I64] * 7 + [_P]),
     },
     # x, out; B, F, D, dtype, spg, stages, grid: one entry point, counted
     # under the path the wrapper asked for (spg > 0: tensor cores)

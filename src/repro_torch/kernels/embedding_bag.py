@@ -20,7 +20,10 @@ master lives in host memory registered with the card
 """
 from __future__ import annotations
 
+import ctypes
+import mmap
 import time
+from dataclasses import dataclass
 
 import torch
 
@@ -144,8 +147,34 @@ def embedding_bag_backward_combine_cuda(part_first: torch.Tensor, part_last: tor
 
 BACKWARD_CHUNK = 256  # sorted positions a warp of the backward (CHUNK in the source)
 
+HUGE_PAGE = 2 << 20  # bytes of a transparent huge page on x86-64
+BACKINGS = ("huge", "plain")
+
 # host address -> bytes of each registration of host memory
 _registered: dict[int, int] = {}
+
+
+def host_empty(shape: tuple, backing: str = "huge") -> torch.Tensor:
+    """An uninitialised contiguous float32 CPU tensor of ``shape``, for memory
+    the card reads and writes over PCIe (:func:`register_host`). ``"huge"``:
+    anonymous memory aligned to HUGE_PAGE and advised ``MADV_HUGEPAGE``
+    before anything touches it, so that the kernel backs it with 2 MB pages
+    where its transparent-huge-page mode allows (``launch/host_probe.py``
+    reads what it got); ``"plain"``: ``torch.empty``. The tensor keeps its
+    mapping alive."""
+    if backing not in BACKINGS:
+        raise ValueError(f"backing must be one of {BACKINGS}, not {backing!r}")
+    numel = 1
+    for n in shape:
+        numel *= n
+    if backing == "plain" or numel == 0:
+        return torch.empty(shape, dtype=torch.float32)
+    nbytes = numel * 4
+    buf = mmap.mmap(-1, nbytes + HUGE_PAGE, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
+    base = torch.frombuffer(buf, dtype=torch.uint8, count=1).data_ptr()
+    lead = -base % HUGE_PAGE
+    buf.madvise(mmap.MADV_HUGEPAGE, lead, nbytes)
+    return torch.frombuffer(buf, dtype=torch.float32, offset=lead, count=numel).view(shape)
 
 
 def register_host(t: torch.Tensor) -> float:
@@ -185,9 +214,64 @@ def mapped_ptr(t: torch.Tensor) -> int:
                      "(kernels.embedding_bag.register_host)")
 
 
+SGD_THREADS = 256  # threads a block of sgd_rows: 8 warps
+SGD_ROWS_PER_WARP = (1, 2, 4, 8)  # the sweep's instances (bfloat16 table, D % 4 == 0)
+SGD_MODES = {"update": 0, "read": 1, "write": 2}  # SGD_UPDATE ... in the source
+SGD_R = 4  # rows a warp of the update on every table (SGD_R in the source)
+# blocks an SM each count of rows a warp is compiled to fit (sgd_blocks_an_sm
+# in the source; sgd_rows_occupancy reads it back on the card)
+SGD_BLOCKS_AN_SM = {1: 8, 2: 6, 4: 4, 8: 2}
+
+
+@dataclass(frozen=True)
+class SgdPlan:
+    """A launch of ``sgd_rows``: ``blocks`` blocks of SGD_THREADS threads;
+    warp w of the grid takes the groups w, w + warps, ... of
+    ``rows_per_warp`` consecutive slots below n_unique; ``mode`` the update
+    or one of the sweep's passes (SGD_MODES)."""
+    rows_per_warp: int
+    blocks: int
+    mode: str = "update"
+
+    def strides(self, n_unique: int) -> int:
+        """The most groups one warp of the grid takes for ``n_unique`` live
+        slots: 1 where the grid has a warp for every group."""
+        groups = -(-max(n_unique, 0) // self.rows_per_warp)
+        return -(-groups // (self.blocks * (SGD_THREADS // 32)))
+
+
+def sgd_rows_plan(cap: int, rows_per_warp: int = SGD_R, blocks: int | None = None,
+                  mode: str = "update") -> SgdPlan:
+    """The launch for ``cap`` slots: with ``blocks``, a persistent grid of
+    that many blocks (fewer where ``cap`` needs fewer), which walk only the
+    slots below n_unique; without, one warp a group of ``rows_per_warp``
+    slots for every group up to ``cap``, live or not (a warp past
+    n_unique, read on the card, exits at once)."""
+    if rows_per_warp not in SGD_ROWS_PER_WARP or mode not in SGD_MODES:
+        raise ValueError(f"sgd_rows_plan: rows_per_warp in {SGD_ROWS_PER_WARP}, mode in "
+                         f"{tuple(SGD_MODES)}")
+    full = max(1, -(-cap // (rows_per_warp * (SGD_THREADS // 32))))
+    return SgdPlan(rows_per_warp, full if blocks is None else max(1, min(full, blocks)), mode)
+
+
+def sgd_rows_occupancy(rows_per_warp: int, mode: str = "update") -> dict:
+    """What the card fits of the sweep's instance of ``sgd_rows`` (a
+    bfloat16 table, D % 4 == 0): its blocks of SGD_THREADS an SM, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports them, its
+    registers a thread and the rows in flight an SM. Launches nothing."""
+    fn = _build.load("embedding_bag").sgd_rows_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int64 * 2)()
+    err = fn(rows_per_warp, SGD_MODES[mode], ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"sgd_rows_occupancy failed with error {err}")
+    return {"blocks_an_sm": out[0], "registers": out[1],
+            "rows_in_flight_an_sm": out[0] * SGD_THREADS // 32 * rows_per_warp}
+
+
 def sgd_rows_cuda(master: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
                   grads: torch.Tensor, n_unique: torch.Tensor, lr: torch.Tensor,
-                  clip: torch.Tensor) -> None:
+                  clip: torch.Tensor, plan: SgdPlan | None = None) -> None:
     """In place, for each slot s < n_unique: ``master[rows[s]] -= lr * (clip *
     grads[s])`` in float32, then ``table[rows[s]] = master[rows[s]]`` rounded
     to the table's type. master (V, D) float32, in host memory registered
@@ -195,7 +279,10 @@ def sgd_rows_cuda(master: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
     or bfloat16 on a CUDA device; rows (cap,) int64, grads (cap, D) float32,
     n_unique 0-dim int64, lr and clip 0-dim float32, all on that device
     (:func:`embedding_bag_backward_cuda`'s layout). A row outside [0, V)
-    stops the kernel with an error."""
+    stops the kernel with an error. The launch is SGD_R rows a warp on a
+    persistent grid of SGD_BLOCKS_AN_SM[SGD_R] blocks on each SM of the
+    card; ``plan`` (:func:`sgd_rows_plan`) forces another, for
+    ``launch/sgd_sweep.py``."""
     if table.dtype not in _DTYPES or master.dtype != torch.float32:
         raise TypeError("sgd_rows_cuda takes a float32 master and a float32 or bfloat16 table")
     dev = table.device
@@ -222,6 +309,10 @@ def sgd_rows_cuda(master: torch.Tensor, table: torch.Tensor, rows: torch.Tensor,
     master_ptr = mapped_ptr(master)
     if cap == 0:
         return
+    if plan is None:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = sgd_rows_plan(cap, SGD_R, n_sms * SGD_BLOCKS_AN_SM[SGD_R])
     _build.launch("embedding_bag", "sgd_rows", dev, master_ptr, table.data_ptr(),
                   rows.data_ptr(), grads.data_ptr(), n_unique.data_ptr(), lr.data_ptr(),
-                  clip.data_ptr(), cap, table.shape[0], d, _DTYPES[table.dtype])
+                  clip.data_ptr(), cap, table.shape[0], d, _DTYPES[table.dtype],
+                  plan.rows_per_warp, plan.blocks, SGD_MODES[plan.mode])

@@ -1,8 +1,11 @@
 """What the host offers DLRM training's float32 master rows: its memory,
-its cgroup limit and the card's PCIe link, and whether a plain CPU
-tensor of a given size can be registered with the card (pinned and
-mapped, through the call DLRM training's master uses:
-``kernels.embedding_bag.register_host``) and how long that takes.
+its cgroup limit and the card's PCIe link, the conditions that decide how
+the card reaches host memory (the transparent-huge-page mode, the card's
+NUMA node, an IOMMU), and whether a plain CPU tensor of a given size can
+be registered with the card (pinned and mapped, through the call DLRM
+training's master uses: ``kernels.embedding_bag.register_host``) and how
+long that takes. :func:`pages` reads where a registered tensor's pages
+ended up: the share on huge pages and the NUMA nodes they sit on.
 
     PYTHONPATH=src python3 src/repro_torch/launch/host_probe.py [--register-bytes N]
 
@@ -69,11 +72,134 @@ def smi(fields: str) -> str:
     return out.strip().splitlines()[0] if out.strip() else ""
 
 
+def _read(path) -> str | None:
+    try:
+        return Path(path).read_text()
+    except OSError:
+        return None
+
+
+def thp_mode(root: str = "/sys/kernel/mm/transparent_hugepage") -> dict | None:
+    """The transparent-huge-page modes, e.g. {"enabled": "madvise", "defrag":
+    "madvise"} (the bracketed word of each file); None where the host has
+    no such directory."""
+    out = {}
+    for key in ("enabled", "defrag"):
+        text = _read(Path(root, key))
+        if text is not None and "[" in text:
+            out[key] = text.split("[", 1)[1].split("]", 1)[0]
+    return out or None
+
+
+def sysfs_bus_id(bus_id: str) -> str | None:
+    """nvidia-smi's PCI bus id ("00000000:18:00.0") as sysfs names the
+    device ("0000:18:00.0"); None where it is no such id ("[N/A]")."""
+    parts = bus_id.strip().lower().split(":")
+    try:
+        return f"{int(parts[0], 16):04x}:{parts[1]}:{parts[2]}" if len(parts) == 3 else None
+    except ValueError:
+        return None
+
+
+def card_bus_id() -> str | None:
+    """The first card's PCI address as sysfs names it: nvidia-smi's, else
+    the CUDA device's own properties'; None where neither says."""
+    got = sysfs_bus_id(smi("pci.bus_id"))
+    props = torch.cuda.get_device_properties(0)
+    if got is None and all(hasattr(props, k) for k in ("pci_domain_id", "pci_bus_id",
+                                                       "pci_device_id")):
+        got = f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:{props.pci_device_id:02x}.0"
+    return got
+
+
+def card_numa_node(bus: str | None, root: str = "/sys/bus/pci/devices") -> int | None:
+    """The NUMA node of the PCI device ``bus`` (sysfs' form); None where
+    sysfs does not say (-1 there means no affinity)."""
+    text = _read(Path(root, bus, "numa_node")) if bus else None
+    return int(text) if text is not None and text.strip() else None
+
+
+def pcie_sysfs(bus: str | None, root: str = "/sys/bus/pci/devices") -> dict | None:
+    """The link's current and greatest speed and width as sysfs reads them
+    for the PCI device ``bus``; None where absent."""
+    if not bus:
+        return None
+    dev = Path(root, bus)
+    out = {k: t.strip() for k in ("current_link_speed", "current_link_width",
+                                  "max_link_speed", "max_link_width")
+           if (t := _read(dev / k)) is not None}
+    return out or None
+
+
+def iommu(root: str = "/sys/class/iommu") -> list | None:
+    """The IOMMUs the kernel registered (an empty list: none); None where
+    sysfs has no such class."""
+    path = Path(root)
+    return sorted(p.name for p in path.iterdir()) if path.is_dir() else None
+
+
+def anon_huge_pages(path: str = "/proc/self/smaps_rollup") -> int | None:
+    """The process's anonymous memory on transparent huge pages, in bytes."""
+    text = _read(path)
+    if text is None:
+        return None
+    for line in text.splitlines():
+        if line.startswith("AnonHugePages:"):
+            return int(line.split()[1]) * 1024
+    return None
+
+
+def pages(t, smaps: str = "/proc/self/smaps", numa_maps: str = "/proc/self/numa_maps") -> dict:
+    """Where the pages of the CPU tensor ``t`` lie, over the mappings that
+    hold it: ``huge_bytes`` on transparent huge pages (smaps'
+    AnonHugePages) and ``huge_share`` of ``t``'s bytes, and ``numa_bytes``,
+    the bytes on each NUMA node (numa_maps' N<node>= pages), each None
+    where its file is absent; ``address`` its first byte's."""
+    start = t.data_ptr()
+    nbytes = t.numel() * t.element_size()
+    out = {"bytes": nbytes, "address": start, "huge_bytes": None, "huge_share": None,
+           "numa_bytes": None}
+    text = _read(smaps)
+    if text is None:
+        return out
+    vmas, huge, inside = set(), 0, False
+    for line in text.splitlines():
+        head = line.split(maxsplit=1)[0] if line.strip() else ""
+        if "-" in head and not head.endswith(":"):
+            lo, hi = (int(x, 16) for x in head.split("-"))
+            inside = lo < start + nbytes and start < hi
+            if inside:
+                vmas.add(lo)
+        elif inside and head == "AnonHugePages:":
+            huge += int(line.split()[1]) * 1024
+    out["huge_bytes"] = huge
+    out["huge_share"] = huge / nbytes if nbytes else None
+    text = _read(numa_maps)
+    if text is None:
+        return out
+    nodes: dict = {}
+    for line in text.splitlines():
+        fields = line.split()
+        if not fields or int(fields[0], 16) not in vmas:
+            continue
+        kb = next((int(f.split("=")[1]) for f in fields if f.startswith("kernelpagesize_kB=")), 4)
+        for f in fields[1:]:
+            if f[0] == "N" and "=" in f and f[1:f.index("=")].isdigit():
+                node = int(f[1:f.index("=")])
+                nodes[node] = nodes.get(node, 0) + int(f.split("=")[1]) * kb * 1024
+    out["numa_bytes"] = nodes
+    return out
+
+
 def host_report() -> dict:
+    bus = card_bus_id()
     return {"meminfo": meminfo(), "cgroup": cgroup_memory(), "rss": rss_bytes(),
             "card": smi("name,power.limit"),
             "pcie": smi("pcie.link.gen.current,pcie.link.width.current,"
-                        "pcie.link.gen.max,pcie.link.width.max")}
+                        "pcie.link.gen.max,pcie.link.width.max"),
+            "pcie_sysfs": pcie_sysfs(bus), "bus_id": bus, "card_numa_node": card_numa_node(bus),
+            "thp": thp_mode(), "iommu": iommu(), "anon_huge_pages": anon_huge_pages(),
+            "kernel": (_read("/proc/version") or "").strip() or None}
 
 
 def try_register(nbytes: int) -> dict:

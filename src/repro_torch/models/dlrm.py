@@ -31,11 +31,12 @@ Port decisions:
   a float32 master copy of every leaf (``src/repro/train/optimizer.py:60``):
   91.1 GB at full size, more than the card's 80 GB beside the 45.6 GB bf16
   table. So the bf16 table stays on the card, as the forward reads it, and
-  the master (``DLRM.master``, built with ``master=True``) is one plain CPU
-  tensor of (rows, D) float32, registered once with the card
-  (``cudaHostRegister``, pinned and mapped:
+  the master (``DLRM.master``, built with ``master=True``) is one CPU
+  tensor of (rows, D) float32 on 2 MB-aligned anonymous memory advised
+  for huge pages (``kernels.embedding_bag.host_empty``),
+  registered once with the card (``cudaHostRegister``, pinned and mapped:
   ``kernels.embedding_bag.register_host``; on an H100 host with 108 GB of
-  memory, 91.1 GB registered in 46-49 s). The tables are SGD
+  memory, 91.1 GB registered in 41-57 s). The tables are SGD
   leaves, with no moments and no weight decay, so a row whose gradient is
   zero keeps its master bit for bit; a step updates only the rows its batch
   touched, reading and writing their master rows over PCIe from the
@@ -72,7 +73,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.dot_interaction import DotInteraction
-from repro_torch.kernels.embedding_bag import register_host, unregister_host
+from repro_torch.kernels.embedding_bag import host_empty, register_host, unregister_host
 from repro_torch.models.common import MLP
 from repro_torch.train.optimizer import SparseRows
 
@@ -137,10 +138,11 @@ class Lookup:
 
 
 def _host_master(n_rows: int, d: int, dev: torch.device) -> tuple:
-    """(master, seconds): an empty (n_rows, d) float32 CPU tensor, registered
-    with the card when ``dev`` is one (decision (d)), and the seconds the
-    registration took (0.0 on the CPU)."""
-    master = torch.empty((n_rows, d), dtype=torch.float32)
+    """(master, seconds): an empty (n_rows, d) float32 CPU tensor on
+    huge-page-advised memory (``host_empty``), registered with the card when
+    ``dev`` is one (decision (d)), and the seconds the registration took
+    (0.0 on the CPU)."""
+    master = host_empty((n_rows, d))
     return master, register_host(master) if dev.type == "cuda" else 0.0
 
 

@@ -461,9 +461,44 @@ def test_mapped_pointer_of_a_view_inside_a_registration(monkeypatch):
 
 
 def test_host_probe_reads_the_host():
+    """The probe's readings on this host, without nvidia-smi: memory, the
+    huge-page mode and share, where a tensor's pages lie; each reading of
+    a file the host does not have is None."""
+    from repro_torch.kernels.embedding_bag import host_empty
     from repro_torch.launch import host_probe
 
     mem = host_probe.meminfo()
     assert 0 < mem["MemAvailable"] <= mem["MemTotal"]
     assert set(host_probe.cgroup_memory()) == {"limit", "current"}
     assert host_probe.rss_bytes() > 0
+    thp = host_probe.thp_mode()
+    assert thp is None or thp["enabled"] in ("always", "madvise", "never")
+    assert host_probe.thp_mode("/nonexistent") is None
+    assert host_probe.anon_huge_pages() is None or host_probe.anon_huge_pages() >= 0
+    assert host_probe.anon_huge_pages("/nonexistent") is None
+    io = host_probe.iommu()
+    assert io is None or all(isinstance(name, str) for name in io)
+    assert host_probe.iommu("/nonexistent") is None
+    assert host_probe.card_numa_node("0000:18:00.0", "/nonexistent") is None
+    assert host_probe.pcie_sysfs("0000:18:00.0", "/nonexistent") is None
+    t = host_empty((1024, 128))
+    t.fill_(1.0)
+    got = host_probe.pages(t)
+    assert got["bytes"] == t.numel() * 4
+    if got["huge_bytes"] is not None:
+        assert 0 <= got["huge_bytes"] and 0 <= got["huge_share"] <= 1.0 + 1e-9
+    if got["numa_bytes"] is not None:
+        assert sum(got["numa_bytes"].values()) >= t.numel() * 4
+    assert host_probe.pages(t, "/nonexistent")["huge_share"] is None
+
+
+def test_host_master_is_a_contiguous_float32_tensor():
+    """``_host_master`` on the CPU: an unregistered, contiguous (n, d)
+    float32 tensor on the master's backing, which the model keeps."""
+    from repro_torch.models import dlrm as tdlrm
+
+    master, secs = tdlrm._host_master(1000, 16, torch.device("cpu"))
+    assert master.shape == (1000, 16) and master.dtype == torch.float32
+    assert master.is_contiguous() and master.device.type == "cpu" and secs == 0.0
+    master[:] = 2.5
+    assert float(master.sum()) == 2.5 * 16_000
