@@ -33,7 +33,11 @@ nothing of the JAX package. Phases:
    ``embedding_bag_backward`` (and its combine) against its split twin bit
    for bit and its plain twin within a tolerance on random bags (L 1-8,
    duplicates, padding, long runs of one id), sum and mean, bf16 and
-   float32, ``dot_interaction_backward`` at F 27 and 13 in both types, and
+   float32, ``dot_interaction_backward`` on both routes (tensor cores:
+   bf16 at F 27, 13 and the other instances' 2, 40, 64, 70, against the
+   plain and the tiling twin, with a control that drops the split's lo
+   term on inputs where lo decides; SIMT: float32, bf16 at D = 24,
+   misaligned bf16), each case counted under its route's name, and
    ``sgd_rows`` on registered host buffers (``SGD_CASES``: n_unique 0, 1,
    not a multiple of the rows a warp, equal to cap, 700,000 slots of a
    2M-row master, both host backings) under the wrapper's plan and, on
@@ -91,7 +95,8 @@ nothing of the JAX package. Phases:
    and the master's pages on its host backing, init and registration
    seconds;
    one step with the launch counts at 0 before it (each of the five
-   kernels of the step exactly once); the step held against the same step
+   kernels of the step exactly once, the SIMT interaction kernels, forward
+   and backward, never); the step held against the same step
    through the twins from one snapshot (loss, lr, grad_norm, the compact
    gradient, the touched rows' master and bf16 values, the MLP leaves),
    the kernel step's rows equal to ``sgd_rows_ref`` of its own gradient
@@ -102,10 +107,13 @@ nothing of the JAX package. Phases:
    step's own compact gradient and the model's master at lr 0.05, clip
    0.3, the touched rows bit for bit against ``sgd_rows_ref``, most rows
    moved, a control (clip left out) that must fail; 10 timed
-   steps after 2 warm-ups (ms, samples/s), the busy share, host syncs a
-   step (at most 2), device time by kernel, peak memory; phase 4's rows of
-   the new kernels (``sgd_rows`` with its occupancy, beside its read and
-   write halves, a page probe and the link while it runs);
+   steps after 2 warm-ups (ms, samples/s), the step timed with each
+   ``dot_interaction_backward`` route in turns, the busy share, host syncs
+   a step (at most 2), device time by kernel, peak memory; phase 4's rows
+   of the training kernels (``dot_interaction_backward`` on the tensor
+   cores beside its SIMT route, a plan sweep and its occupancy;
+   ``sgd_rows`` with its occupancy, beside its read and write halves, a
+   page probe and the link while it runs);
    then the master is released;
 7. with the DLRM tables freed, serve ``qwen2-1.5b`` at full width (28
    layers, d_model 1536, 12 query and 2 KV heads of 128, vocab 151,936):
@@ -1555,20 +1563,18 @@ def check_train_kernels(torch, np, seed: int) -> dict:
     within EMB_BWD_TOL, on random bags (L 1-8, duplicates, padding, empty
     bags, runs of one id cut by many chunks), sum and mean, bf16 and float32
     gradients, D 5, 16, 128; a control (one occurrence's gradient zeroed)
-    must fail. ``dot_interaction_backward`` within DOT_BWD_TOL of its twin at
-    F 27 and 13, D 16 and 128, B 1-4,097, bf16 and float32; a control (the
-    last field row zeroed) must fail. ``sgd_rows`` on registered host
+    must fail. ``dot_interaction_backward`` on both routes
+    (:func:`_check_dot_backward`). ``sgd_rows`` on registered host
     buffers (SGD_CASES, :func:`_check_sgd_case`): every row of the master
     and the table equal to the twin's bit for bit (the touched rows
     updated, the others untouched) under several launch plans; a control
     must fail."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
     from repro_torch.kernels.embedding_bag import BACKWARD_CHUNK, embedding_bag_backward_cuda
 
     rng = np.random.default_rng(seed + 20)
     err = {"embedding_bag_backward": 0.0, "embedding_bag_backward_combine": 0.0,
-           "dot_interaction_backward": 0.0, "sgd_rows": 0.0}
+           "sgd_rows": 0.0}
     n_cases = 0
     cases = [(1, 1, 10, False), (300, 1, 7, False), (300, 3, 10_000, True), (1000, 8, 50, True),
              (129, 8, 3, True), (2000, 2, 4, True)]
@@ -1615,36 +1621,8 @@ def check_train_kernels(torch, np, seed: int) -> dict:
     print(f"embedding_bag_backward vs split twin (bit for bit) and plain twin: cases={n_cases} "
           f"max_abs_err={err['embedding_bag_backward']} tol={EMB_BWD_TOL}; controls fail")
 
-    n_dot = 0
-    for dt in (torch.bfloat16, torch.float32):
-        tol = DOT_BWD_TOL[str(dt).split(".")[-1]]
-        for f in (27, 13):
-            for d in (16, 128):
-                for b in (1, 129, 4097):
-                    x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(DEV, dt)
-                    dz = torch.from_numpy(rng.normal(size=(b, f * (f - 1) // 2))
-                                          .astype(np.float32)).to(DEV)
-                    before = ops.launch_counts["dot_interaction_backward"]
-                    got = dot_interaction_backward_cuda(x, dz)
-                    if ops.launch_counts["dot_interaction_backward"] != before + 1:
-                        _fail("dot_interaction_backward did not count its launch")
-                    want = ref.dot_interaction_backward_ref(x, dz)
-                    ctrl_x = x.clone()
-                    ctrl_x[:, -1] = 0
-                    ctrl = ref.dot_interaction_backward_ref(ctrl_x, dz)
-                    torch.cuda.synchronize()
-                    what = f"{dt} F={f} D={d} B={b}"
-                    if got.dtype != dt or got.shape != x.shape or not _close(torch, got, want,
-                                                                            **tol):
-                        _fail(f"dot_interaction_backward differs from its twin at {what}")
-                    if _close(torch, got, ctrl, **tol):
-                        _fail(f"the dot_interaction_backward check does not tell the control "
-                              f"(last field row zeroed) from the twin at {what}")
-                    err["dot_interaction_backward"] = max(err["dot_interaction_backward"], float(
-                        (got.float() - want.float()).abs().max()))
-                    n_dot += 1
-    print(f"dot_interaction_backward vs twin: cases={n_dot} max_abs_err="
-          f"{err['dot_interaction_backward']} tol={DOT_BWD_TOL}; controls fail")
+    err["dot_interaction_backward"], err["dot_interaction_backward_simt"] = \
+        _check_dot_backward(torch, np, rng)
 
     n_sgd = 0
     for case in SGD_CASES:
@@ -1653,6 +1631,92 @@ def check_train_kernels(torch, np, seed: int) -> dict:
           f"(the wrapper's plan; on bfloat16 D=128 every instance of rows a warp, persistent "
           f"and one warp a group), every row bit for bit; controls fail")
     return err
+
+
+DOT_BWD_ROUTES = ("dot_interaction_backward", "dot_interaction_backward_simt")  # TC, SIMT
+DOT_BWD_MORE_F = (2, 40, 64, 70)  # the tensor-core backward's other instances: 3, 4, any m-tiles
+
+
+def _dot_bwd_cases(torch):
+    """(dtype, F, D, B, misaligned) of phase 2's backward cases: both types
+    at F 27 and 13, D 16 and 128, B 1, 129 and 4,097; bf16 at D = 24 (the
+    SIMT route); bf16 at DOT_BWD_MORE_F; misaligned bf16 fields."""
+    cases = [(dt, f, d, b, False) for dt in (torch.bfloat16, torch.float32) for f in (27, 13)
+             for d in (16, 128) for b in (1, 129, 4097)]
+    cases += [(torch.bfloat16, f, 24, b, False) for f in (27, 13) for b in (1, 129, 4097)]
+    cases += [(torch.bfloat16, f, d, 129, False) for f in DOT_BWD_MORE_F for d in (16, 128)]
+    return cases + [(torch.bfloat16, 27, 128, 129, True)]
+
+
+def _check_dot_backward(torch, np, rng) -> tuple:
+    """``dot_interaction_backward`` on the card against its twins, each case
+    on the route ``backward_uses_tensor_cores`` picks (tensor cores: bf16,
+    D % 16 == 0, 16-byte aligned; else SIMT), which must be the one its
+    type, width and alignment call for and must count one launch under its
+    own name and none under the other's. Both routes within DOT_BWD_TOL of
+    the plain twin, the tensor cores also of the tiling twin; a control
+    (the last field row zeroed) must fail. On the tensor cores, also the
+    split's control: on ``ref.split_decisive_case`` (dX depends on the lo
+    term alone) the kernel within DOT_BWD_TOL of the plain twin and the
+    tiling twin without lo outside it. Returns each route's max abs error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dot_interaction import (backward_uses_tensor_cores,
+                                                     dot_interaction_backward_cuda)
+
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    err = dict.fromkeys(DOT_BWD_ROUTES, 0.0)
+    n_by_route, n_split = dict.fromkeys(DOT_BWD_ROUTES, 0), 0
+    for dt, f, d, b, misaligned in _dot_bwd_cases(torch):
+        tol = DOT_BWD_TOL[str(dt).split(".")[-1]]
+        x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)).to(DEV, dt)
+        dz = torch.from_numpy(rng.normal(size=(b, f * (f - 1) // 2)).astype(np.float32)).to(DEV)
+        if misaligned:
+            x = torch.empty(1 + x.numel(), dtype=dt, device=DEV)[1:].view(b, f, d).copy_(x)
+        what = f"{dt} F={f} D={d} B={b}{' misaligned' if misaligned else ''}"
+        tc = dt == torch.bfloat16 and d % 16 == 0 and not misaligned
+        route = DOT_BWD_ROUTES[0 if tc else 1]
+        if backward_uses_tensor_cores(x, dz) != tc:
+            _fail(f"dot_interaction_backward dispatch at {what}")
+        before = {k: ops.launch_counts[k] for k in DOT_BWD_ROUTES}
+        got = dot_interaction_backward_cuda(x, dz)
+        launched = {k: ops.launch_counts[k] - before[k] for k in DOT_BWD_ROUTES}
+        if launched != {k: int(k == route) for k in DOT_BWD_ROUTES}:
+            _fail(f"dot_interaction_backward at {what} launched {launched}, not one {route}")
+        twins = [ref.dot_interaction_backward_ref(x, dz)]
+        if tc:
+            twins.append(ref.dot_interaction_backward_tc_ref(x, dz))
+        ctrl_x = x.clone()
+        ctrl_x[:, -1] = 0
+        ctrl = ref.dot_interaction_backward_ref(ctrl_x, dz)
+        torch.cuda.synchronize()
+        if got.dtype != dt or got.shape != x.shape or not all(
+                _close(torch, got, w, **tol) for w in twins):
+            _fail(f"dot_interaction_backward ({route}) differs from its twins at {what}")
+        if _close(torch, got, ctrl, **tol):
+            _fail(f"the dot_interaction_backward check does not tell the control (last field "
+                  f"row zeroed) from the twin at {what}")
+        err[route] = max(err[route], float((got.float() - twins[0].float()).abs().max()))
+        n_by_route[route] += 1
+        if tc and f >= 3:
+            xd, dzd = ref.split_decisive_case(b, f, d, gen)
+            xd, dzd = xd.to(DEV), dzd.to(DEV)
+            got_d = dot_interaction_backward_cuda(xd, dzd)
+            want_d = ref.dot_interaction_backward_ref(xd, dzd)
+            no_lo = ref.dot_interaction_backward_tc_ref(xd, dzd, terms=2)
+            torch.cuda.synchronize()
+            if not _close(torch, got_d, want_d, **tol):
+                _fail(f"dot_interaction_backward differs from its twin where the split's lo "
+                      f"term decides, at {what}")
+            if _close(torch, no_lo, want_d, **tol) or _close(torch, got_d, no_lo, **tol):
+                _fail(f"the dot_interaction_backward check does not tell the control (the "
+                      f"split without lo) from the twin at {what}")
+            err[route] = max(err[route], float((got_d.float() - want_d.float()).abs().max()))
+            n_split += 1
+    print(f"dot_interaction_backward vs twins (plain; tensor cores also the tiling twin): "
+          f"cases by route {n_by_route}, split-decisive cases {n_split}, max_abs_err {err} "
+          f"tol={DOT_BWD_TOL}; each case counted on its own route; controls (last field row "
+          f"zeroed; the split without lo) fail")
+    return err[DOT_BWD_ROUTES[0]], err[DOT_BWD_ROUTES[1]]
 
 
 # sgd_rows' phase-2 cases: (dtype, D, V, n_unique, cap, host backing); the
@@ -1738,9 +1802,10 @@ def _check_sgd_case(torch, np, rng, dt_name, d, v, n, cap, backing) -> int:
 
 def _train_counts(counts: dict) -> dict:
     """The train step's launch counts; fail unless each kernel of the path
-    ran exactly once and the SIMT interaction never."""
+    ran exactly once and the SIMT interaction, forward or backward, never."""
     want = {"embedding_bag": 1, "dot_interaction": 1, "dot_interaction_simt": 0,
-            "dot_interaction_backward": 1, "embedding_bag_backward": 1,
+            "dot_interaction_backward": 1, "dot_interaction_backward_simt": 0,
+            "embedding_bag_backward": 1,
             "embedding_bag_backward_combine": 1, "sgd_rows": 1}
     got = {k: counts[k] for k in want}
     print(f"launches in one train_batch step (dlrm train): {got}")
@@ -2061,7 +2126,6 @@ def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: d
     each beside its plain twin, its bound and a PyTorch call that computes
     the same function where one does."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
     from repro_torch.kernels.embedding_bag import (embedding_bag_backward_combine_cuda,
                                                    embedding_bag_backward_cuda,
                                                    embedding_bag_backward_pieces_cuda,
@@ -2135,39 +2199,7 @@ def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: d
         library="none: no single call adds a cut run's pieces into its slot"))
     del rows, grads, pieces, c_kern, uniq, inverse
 
-    # dot_interaction_backward
-    x = fields
-    b, f, _ = x.shape
-    ii, jj = torch.tril_indices(f, f, -1, device=DEV)
-    s = torch.zeros((b, f, f), device=DEV)
-    s[:, ii, jj] = dz
-    s = s + s.transpose(1, 2)
-    kern = lambda: dot_interaction_backward_cuda(x, dz)  # noqa: E731
-    twin = lambda: ref.dot_interaction_backward_ref(x, dz)  # noqa: E731
-    lib = lambda: torch.bmm(s, x.float())  # noqa: E731
-    got, want = kern(), twin()
-    tol = DOT_BWD_TOL[str(x.dtype).split(".")[-1]]
-    if not (_close(torch, got, want, **tol) and _close(torch, lib(), want.float(), **tol)):
-        _fail("dot_interaction_backward (or its yardstick) differs from its twin at "
-              "train_batch shapes")
-    errs["dot_interaction_backward"] = max(errs["dot_interaction_backward"], float(
-        (got.float() - want.float()).abs().max()))
-    del got, want
-    plain_a = _time_ms(torch, twin, 3)
-    ms_a = _time_ms(torch, kern, 20)
-    lib_a = _time_ms(torch, lib, 20)
-    lib_b = _time_ms(torch, lib, 20)
-    ms_b = _time_ms(torch, kern, 20)
-    plain_b = _time_ms(torch, twin, 3)
-    dot_bytes = 2 * x.numel() * x.element_size() + dz.numel() * 4
-    rows_out.append(_row(
-        "dot_interaction_backward", "src/repro_torch/csrc/dot_interaction.cu",
-        DOT_BWD_REPLACES, counts["dot_interaction_backward"], errs["dot_interaction_backward"],
-        min(ms_a, ms_b), min(plain_a, plain_b), dot_bytes, 2 * b * f * (f - 1) * x.shape[2],
-        CORE_OPS_PER_S, min(lib_a, lib_b), runs=[ms_a, ms_b],
-        library="torch.bmm(G + G^T, x.float()), G built beforehand",
-        shape=f"x {tuple(x.shape)} {x.dtype}, dz {tuple(dz.shape)}"))
-    del s
+    rows_out += _dot_bwd_rows(torch, fields, dz, errs, counts)
 
     # sgd_rows on the step's own compact gradient, in place on the model's
     # master and table with lr = 0: the same traffic, and no row moves;
@@ -2234,6 +2266,185 @@ def _kernel_device_ms(torch, fn, reps: int) -> dict:
             if getattr(e, "self_device_time_total", 0) > 0 and "embedding_bag" in e.key}
 
 
+DOT_BWD_SWEEP = ((8, 3), (8, 2), (4, 3), (4, 2), (2, 3))  # (samples, stages) at train_batch
+
+
+def _dot_bwd_rows(torch, x, dz, errs: dict, counts: dict) -> list:
+    """Phase 4's rows for ``dot_interaction_backward`` on the train step's
+    own fields and dz: the tensor-core kernel and the SIMT kernel (reached
+    through its explicit route) held against the plain twin (and the
+    tensor cores against the tiling twin) within DOT_BWD_TOL, then timed in
+    turns beside the plain twin and the ``torch.bmm(G + Gᵀ, x.float())``
+    yardstick (plain, tc, simt, bmm, bmm, simt, tc, plain) and a copy of x
+    (the card's rate for such a stream), a sweep of the tensor-core plan
+    (each plan's output bit-identical to the wrapper's: a sample's
+    arithmetic does not depend on its group), what the card fits of the
+    instance, and its HMMA count in SASS."""
+    from dataclasses import asdict
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import (_sm_count, backward_occupancy,
+                                                     backward_uses_tensor_cores,
+                                                     dot_interaction_backward_cuda,
+                                                     tc_backward_plan)
+
+    if not backward_uses_tensor_cores(x, dz):
+        _fail("the train step's fields do not take the tensor-core dot_interaction_backward")
+    b, f, d = x.shape
+    ii, jj = torch.tril_indices(f, f, -1, device=DEV)
+    s = torch.zeros((b, f, f), device=DEV)
+    s[:, ii, jj] = dz
+    s = s + s.transpose(1, 2)
+    tc = lambda: dot_interaction_backward_cuda(x, dz)  # noqa: E731
+    simt = lambda: dot_interaction_backward_cuda(x, dz, simt=True)  # noqa: E731
+    twin = lambda: ref.dot_interaction_backward_ref(x, dz)  # noqa: E731
+    lib = lambda: torch.bmm(s, x.float())  # noqa: E731
+    tol = DOT_BWD_TOL[str(x.dtype).split(".")[-1]]
+    want = twin()
+    got_tc, got_simt, tiled = tc(), simt(), ref.dot_interaction_backward_tc_ref(x, dz)
+    if not (_close(torch, got_tc, want, **tol) and _close(torch, got_tc, tiled, **tol)
+            and _close(torch, got_simt, want, **tol) and _close(torch, lib(), want.float(), **tol)):
+        _fail("dot_interaction_backward (a route, or the yardstick) differs from its twins at "
+              "train_batch shapes")
+    for name, got in zip(DOT_BWD_ROUTES, (got_tc, got_simt)):
+        errs[name] = max(errs[name], float((got.float() - want.float()).abs().max()))
+    tiled_err = float((got_tc.float() - tiled.float()).abs().max())
+    del got_simt, tiled, want
+    n_sm = _sm_count(x.device)
+    plan = tc_backward_plan(b, f, d, n_sm)
+    sweep = {}
+    for samples, stages in DOT_BWD_SWEEP:
+        sp = tc_backward_plan(b, f, d, n_sm, samples=samples, stages=stages)
+        if not torch.equal(dot_interaction_backward_cuda(x, dz, sp), got_tc):
+            _fail(f"dot_interaction_backward's output depends on its plan ({samples}, {stages})")
+        sweep[f"{samples}x{stages}"] = {
+            "blocks": sp.blocks, "smem": sp.smem,
+            "ms": _time_ms(torch, lambda sp=sp: dot_interaction_backward_cuda(x, dz, sp), 20)}
+    del got_tc
+    # what a plain copy of x reaches on this card: the practical rate for
+    # a stream read and written in about equal parts, as this kernel's is
+    x_copy = torch.empty_like(x)
+    copy_ms = min(_time_ms(torch, lambda: x_copy.copy_(x), 20) for _ in range(2))
+    del x_copy
+    plain_a = _time_ms(torch, twin, 3)
+    tc_a, simt_a = _time_ms(torch, tc, 20), _time_ms(torch, simt, 20)
+    lib_a, lib_b = _time_ms(torch, lib, 20), _time_ms(torch, lib, 20)
+    simt_b, tc_b = _time_ms(torch, simt, 20), _time_ms(torch, tc, 20)
+    plain_b = _time_ms(torch, twin, 3)
+    occupancy = backward_occupancy(f, plan)
+    mma = _mma_counts("dot_interaction")
+    hmma = sum(v["HMMA"] for k, v in mma.items() if "backward_tc" in k) if mma else None
+    if mma and not hmma:
+        _fail("no HMMA in the tensor-core dot_interaction_backward kernel's SASS")
+    print(f"dot_interaction_backward plan at train_batch {asdict(plan)}; the card fits "
+          f"{occupancy}; sweep (samples x stages): {sweep}; HMMA in the tensor-core backward "
+          f"(SASS, static) {hmma}; max_abs_err vs the tiling twin {tiled_err}")
+    nbytes = 2 * x.numel() * x.element_size() + dz.numel() * 4
+    products = 2 * b * f * (f - 1) * d  # one (G + Gᵀ) X
+    shape = f"x {tuple(x.shape)} {x.dtype}, dz {tuple(dz.shape)}"
+    library = "torch.bmm(G + G^T, x.float()), G built beforehand"
+    rows = [_row(DOT_BWD_ROUTES[0], "src/repro_torch/csrc/dot_interaction.cu", DOT_BWD_REPLACES,
+                 counts[DOT_BWD_ROUTES[0]], errs[DOT_BWD_ROUTES[0]], min(tc_a, tc_b),
+                 min(plain_a, plain_b), nbytes, 3 * products, H100_BF16_FLOPS,
+                 min(lib_a, lib_b), runs=[tc_a, tc_b], simt_ms=min(simt_a, simt_b),
+                 copy_ms=copy_ms, copy_GBps=2 * x.numel() * x.element_size() / copy_ms / 1e6,
+                 GBps=nbytes / min(tc_a, tc_b) / 1e6,
+                 plan=asdict(plan), occupancy=occupancy, plan_sweep_ms=sweep,
+                 hmma_sass=hmma, max_abs_err_vs_tiling_twin=tiled_err, library=library,
+                 note="ops: the three bf16 terms' products at the bf16 tensor-core rate",
+                 shape=shape),
+            _row(DOT_BWD_ROUTES[1], "src/repro_torch/csrc/dot_interaction.cu", DOT_BWD_REPLACES,
+                 counts[DOT_BWD_ROUTES[1]], errs[DOT_BWD_ROUTES[1]], min(simt_a, simt_b),
+                 min(plain_a, plain_b), nbytes, products, CORE_OPS_PER_S, min(lib_a, lib_b),
+                 runs=[simt_a, simt_b], library=library,
+                 note="the SIMT route, forced (simt=True) at the train step's inputs; the step "
+                 "takes the tensor cores", shape=shape)]
+    del s
+    return rows
+
+
+ROUTE_STEPS = 10  # steps a turn when the step is timed with each backward route
+
+
+def _step_ms_by_route(torch, np, run) -> dict:
+    """The train step's median ms with the tensor-core
+    ``dot_interaction_backward`` (the step as it is) and with the SIMT one
+    (``ops.dot_interaction_backward`` forced to it), in turns tc, simt,
+    simt, tc of ROUTE_STEPS steps each: the two kernels on one host, in one
+    process; then one profiled step on each (:func:`_step_trace`). Fails
+    unless each turn launched its route's kernel once a step and the
+    other's never."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
+
+    real = ops.dot_interaction_backward
+    forced = {"tc": real, "simt": lambda x, dz: dot_interaction_backward_cuda(x, dz, simt=True)}
+    times = {"tc": [], "simt": []}
+    try:
+        for route in ("tc", "simt", "simt", "tc"):
+            ops.dot_interaction_backward = forced[route]
+            before = {k: ops.launch_counts[k] for k in DOT_BWD_ROUTES}
+            for _ in range(ROUTE_STEPS):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times[route].append(time.perf_counter() - t0)
+            launched = {k: ops.launch_counts[k] - before[k] for k in DOT_BWD_ROUTES}
+            if launched != {k: ROUTE_STEPS * (k == DOT_BWD_ROUTES[route == "simt"])
+                            for k in DOT_BWD_ROUTES}:
+                _fail(f"the train steps timed on the {route} backward launched {launched}")
+        traces = {}
+        for route in ("tc", "simt"):
+            ops.dot_interaction_backward = forced[route]
+            traces[route] = _step_trace(torch, run, "dot_interaction_backward")
+    finally:
+        ops.dot_interaction_backward = real
+    res = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    print(f"train_batch step ms by dot_interaction_backward route (median of "
+          f"{2 * ROUTE_STEPS} steps each, in turns tc, simt, simt, tc): {res}; "
+          f"simt - tc = {res['simt'] - res['tc']:.6f} ms; steps "
+          f"{ {k: [round(t * 1e3, 6) for t in v] for k, v in times.items()} }; "
+          f"one profiled step each: {traces}")
+    return {**res, "trace": traces}
+
+
+def _step_trace(torch, run, name: str) -> dict:
+    """One profiled call of run: its wall ms, the device's kernel ms and
+    idle ms (no kernel running) inside the kernels' span, and, for the
+    kernel whose name holds `name`, its device ms, the idle just before
+    and after it and the kernel that follows it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ks = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start))
+    res = {"wall_ms": wall * 1e3, "kernels": len(ks)}
+    if not ks:
+        return res
+    idle, end, gaps = 0.0, ks[0][0], []
+    for start, stop, _ in ks:
+        gaps.append(max(0.0, start - end))
+        idle += gaps[-1]
+        end = max(end, stop)
+    res.update(kernel_ms=sum(b - a for a, b, _ in ks) / 1e3, idle_ms=idle / 1e3,
+               span_ms=(end - ks[0][0]) / 1e3)
+    for i, (start, stop, kname) in enumerate(ks):
+        if name in kname:
+            res.update(kernel=kname[:60], kernel_device_ms=(stop - start) / 1e3,
+                       idle_before_ms=gaps[i] / 1e3,
+                       idle_after_ms=gaps[i + 1] / 1e3 if i + 1 < len(ks) else None,
+                       next=ks[i + 1][2][:60] if i + 1 < len(ks) else None)
+            break
+    return res
+
+
 def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
     """Phase 6b: dlrm-mlperf train_batch at full size (177,948,416 rows x 128,
     B = 65,536), the tables' float32 master in registered host memory."""
@@ -2290,6 +2501,7 @@ def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
     syncs = _count_syncs(torch, cell.run)
     if syncs > TRAIN_MAX_SYNCS:
         _fail(f"a train_batch step made {syncs} host syncs (at most {TRAIN_MAX_SYNCS})")
+    by_route = _step_ms_by_route(torch, np, cell.run)
     wall, dev, avgs = _profile(torch, cell.run)
     peak = torch.cuda.max_memory_allocated()
     print(f"train_batch B={dense.shape[0]} steps={TRAIN_STEPS} step_ms_median={step_ms:.6f} "
@@ -2303,7 +2515,10 @@ def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
     rows = time_train_kernels(torch, np, model, opt_state, batch, errs, counts)
     for r in rows:
         r["train_step_ms"] = step_ms
+        if r["name"] in DOT_BWD_ROUTES:
+            r["train_step_ms_by_route"] = by_route
     summary = {"init_s": init_s, "register_s": model.master_register_s, "step_ms": step_ms,
+               "step_ms_by_backward_route": by_route,
                "samples_per_s": dense.shape[0] / (step_ms / 1e3), "syncs": syncs,
                "busy": dev / wall if dev > 0 else None, "peak": peak, "hold": hold,
                "master_backing": "huge", "master_pages": master_pages}

@@ -71,20 +71,63 @@
 //   on an H100, 20% of its byte bound): it serves only what the
 //   tensor-core kernel does not take.
 //
-// - `dot_interaction_backward_kernel`: the gradient of the interaction (the
-//   Pallas kernel has none; this is the vjp of DLRM's `_interact`). Per
-//   sample, dX = (G + G^T) X, where G (F, F) holds dZ at tril_indices(F, -1)
-//   and zero elsewhere: dX[i] = sum over j != i of dZ[pair(i, j)] X[j]. Summed
-//   in float32 over j = 0..F-1 and rounded once to X's type. What bounds it:
-//   bytes (X and dX once each, dZ once: 2 * 6,912 + 1,404 B a sample against
-//   2 * 27 * 26 * 128 operations at DLRM's shape, 12.1 a byte, under the
-//   card's float32 balance of 20). A SIMT kernel: a block a sample at a
-//   time (a grid-stride loop), X upcast to float32 in shared memory and the
-//   symmetric S = G + G^T stored beside it with rows padded to a multiple
-//   of 4, so that a thread reads S[j][i..i+3] as one 16-byte broadcast; a
-//   thread owns one column d and computes four output rows per sweep over
-//   j, one shared load of X[j][d] feeding four multiply-adds. The tensor
-//   cores are left for later.
+// - `dot_interaction_backward`: the gradient of the interaction (the Pallas
+//   kernel has none; this is the vjp of DLRM's `_interact`). Per sample,
+//   dX = S X with S = G + G^T, G (F, F) holding dZ at tril_indices(F, -1)
+//   and zero elsewhere: dX[i] = sum over j != i of dZ[pair(i, j)] X[j],
+//   rounded once to X's type. Two kernels, chosen like the forward's:
+//
+//   * bfloat16 with D % 16 == 0, `dot_interaction_backward_tc_kernel`: the
+//     tensor cores. What bounds it: bytes. At DLRM's shape (F = 27, D = 128)
+//     a sample reads 6,912 B of X and 1,404 B of dZ and writes 6,912 B of
+//     dX against 2 * 27 * 26 * 128 operations (3 x that with the split
+//     below), 19.5 a byte, far below the tensor cores' balance of 295. So
+//     it is built like the forward: persistent blocks walk groups of `spg`
+//     samples through a ring of `stages` slots filled by 16-byte
+//     cp.async.cg, stages - 1 groups in flight while one is multiplied; a
+//     slot holds the group's X rows (padded to 2 D + 16 bytes, so ldmatrix
+//     phases are conflict-free) and its dZ span (after a lead of 0-3
+//     floats that aligns it to 16 bytes; the last piece zero-filled past
+//     the span). One warp a sample: A = S (F padded to 16-row tiles: 2 x 2
+//     tiles at F = 27), each lane's fragment built straight from the staged
+//     dZ, 0 on the diagonal and past F; B = X (k = field row, n = d) by
+//     ldmatrix.x4.trans, the last k-step's rows past F (the next sample's)
+//     masked to 0; mma.sync m16n8k16, bf16 in, float32 accumulate, over
+//     chunks of 32 columns of dX (all of a sample's 2 x 16 accumulators
+//     would take 128 registers a lane). wgmma's 64-row tile would pad a
+//     27-row sample to 64.
+//     dZ is float32, S exactly three bf16 terms: hi = bf16_rn(S), mid =
+//     bf16_rn(S - hi), lo = bf16_rn(S - hi - mid). Both subtractions are
+//     exact, and three 8-bit significands hold float32's 24 bits, so hi +
+//     mid + lo = S for every finite S whose lo is normal (|S| above about
+//     2^-110); a non-finite hi keeps mid = lo = 0. Each term times bf16 X
+//     is exact in float32, so a tile takes three mma into one float32
+//     accumulator and dX differs from the plain twin only by the order of
+//     its float32 sums, before the same one rounding to bf16
+//     (`ref.dot_interaction_backward_tc_ref` repeats the arithmetic). 192
+//     mma a sample at F = 27, D = 128.
+//     On an H100 80GB HBM3 at 700 W, at DLRM's train_batch shapes (B =
+//     65,536): 0.355-0.362 ms against a byte bound of 0.298 ms (82-84%),
+//     the SIMT kernel 1.302-1.303 ms in the same runs (chip_smoke.py).
+//     A chunk's B fragments of every k-step are loaded before any of its
+//     results is stored, so the warp writes its rounded dX over its own X
+//     rows in the slot (rows below F only; another warp reads them only as
+//     its masked pad rows), then writes the sample's dX out as one
+//     contiguous span in 16-byte stores while the other warps compute, so
+//     a group costs one barrier. The instances for 1-4 m-tiles
+//     (F <= 64) unroll the tiles (at 1-2 m-tiles every A fragment is built
+//     once a sample and held); the generic one (any F) rebuilds them a
+//     tile at a time and stores dX straight from the fragments. The wrapper
+//     plans spg, stages and the grid (`tc_backward_plan`).
+//   * float32, or bfloat16 with another D or misaligned,
+//     `dot_interaction_backward_kernel`: SIMT, a block a sample at a time
+//     (a grid-stride loop), X upcast to float32 in shared memory and S
+//     stored beside it with rows padded to a multiple of 4, so that a
+//     thread reads S[j][i..i+3] as one 16-byte broadcast; a thread owns one
+//     column d and computes four output rows per sweep over j = 0..F-1,
+//     summed in float32. It loads each sample before it computes it, so few
+//     loads are in flight: 1.30 ms for DLRM's bf16 train_batch step on an
+//     H100 (23% of its byte bound).
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -569,6 +612,345 @@ int launch_backward(const void* x, const void* dz, void* dx, int64_t B, int64_t 
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------- bf16 tensor-core backward
+
+constexpr int BWD_PAIRS = 2;  // n-tile pairs (32 columns of dX) a chunk accumulates
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// the first `bytes` (0-16) of 16 from src, the rest zero-filled
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S[r][c] of a sample whose dZ row is dzs: dZ[pair(max, min)] off the
+// diagonal inside F x F, else 0
+__device__ __forceinline__ float sym_at(const float* dzs, int r, int c, int F) {
+  if (r >= F || c >= F || r == c) return 0.0f;
+  const int h = r > c ? r : c, l = r > c ? c : r;
+  return dzs[h * (h - 1) / 2 + l];
+}
+
+// Two entries of S (v0 in the low half) as three bf16 pairs, hi + mid + lo
+// = v exactly: hi = bf16_rn(v), mid = bf16_rn(v - hi), lo = bf16_rn(v - hi -
+// mid), both subtractions exact; a non-finite hi keeps mid = lo = 0.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  const float r0 = (hi & 0x7f80u) != 0x7f80u ? v0 - hf.x : 0.0f;  // hi's exponent not all ones
+  const float r1 = (hi & 0x7f800000u) != 0x7f800000u ? v1 - hf.y : 0.0f;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+// a[term][q]: the m16n8k16 A fragment of S's tile (rows 16 mt.., columns
+// 16 kt..) for each term (hi, mid, lo): a0 (row g, columns 2t, 2t + 1), a1
+// (row g + 8), a2 (columns + 8), a3 (both)
+__device__ __forceinline__ void sym_frag(uint32_t (&a)[3][4], const float* dzs, int F, int mt,
+                                         int kt, int g, int t) {
+  const int r0 = 16 * mt + g, c0 = 16 * kt + 2 * t;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = r0 + 8 * (q & 1), c = c0 + 8 * (q >> 1);
+    split3(sym_at(dzs, r, c, F), sym_at(dzs, r, c + 1, F), a[0][q], a[1][q], a[2][q]);
+  }
+}
+
+// ldmatrix.x4.trans of X's 16 rows from k-step kt at columns n..n + 15: the
+// B fragments (b0, b1) of n-tiles n / 8 (r[0], r[1]) and n / 8 + 1 (r[2],
+// r[3]), lane holding rows 16 kt + 2t, + 1 (r[0], r[2]) and + 8, + 9 (r[1],
+// r[3]) at column g; in the last k-step the rows past F are masked to 0
+// (m_lo, m_hi: the lane's halves below F).
+__device__ __forceinline__ void x_frag(uint32_t (&b)[4], uint32_t addr, bool last,
+                                       uint32_t m_lo, uint32_t m_hi) {
+  ldmatrix_x4_trans(b, addr);
+  if (last) {
+    b[0] &= m_lo;
+    b[1] &= m_hi;
+    b[2] &= m_lo;
+    b[3] &= m_hi;
+  }
+}
+
+// c (+)= a_term b for the three terms, hi first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a)[3][4], uint32_t b0,
+                                     uint32_t b1) {
+#pragma unroll
+  for (int term = 0; term < 3; ++term) mma_bf16(c, a[term], b0, b1);
+}
+
+// accumulator entries (2h, 2h + 1) of n-tile q of the chunk at column n0:
+// row 16 mt + g + 8h, columns n0 + 8q + 2t, + 1, rounded to bf16 as a pair
+// and stored at row stride rs (elements) from `out`
+__device__ __forceinline__ void store_tile(__nv_bfloat16* out, int rs, const float (&c)[4],
+                                           int mt, int q, int n0, int F, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = 16 * mt + g + 8 * h;
+    if (i < F)
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)i * rs + n0 + 8 * q + 2 * t) =
+          __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+  }
+}
+
+// One sample on one warp, F <= 16 MT: xs its row 0 in the slot (rows of rb
+// bytes, 16 MT of them readable), dzs its dZ row, lane_off this lane's
+// ldmatrix offset inside a 16 x 16 tile. dX overwrites the sample's rows
+// below F in place, chunk by chunk: a chunk's B fragments of every k-step
+// are in registers before any of its results is stored.
+template <int MT>
+__device__ __forceinline__ void bwd_tc_sample(unsigned char* xs, const float* dzs, int F, int D,
+                                              int rb, uint32_t lane_off, int lane) {
+  constexpr bool HOLD = MT <= 2;  // every A fragment built once and held (12 MT^2 registers)
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t xa = smem_u32(xs) + lane_off;
+  const int kl = 16 * (MT - 1) + 2 * t;
+  const uint32_t m_lo = (kl < F ? 0xffffu : 0u) | (kl + 1 < F ? 0xffff0000u : 0u);
+  const uint32_t m_hi = (kl + 8 < F ? 0xffffu : 0u) | (kl + 9 < F ? 0xffff0000u : 0u);
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(xs);
+  const int rs = rb / 2;
+  uint32_t ah[HOLD ? MT : 1][HOLD ? MT : 1][3][4];
+  if constexpr (HOLD) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kt = 0; kt < MT; ++kt) sym_frag(ah[mt][kt], dzs, F, mt, kt, g, t);
+  }
+  for (int n0 = 0; n0 < D; n0 += 16 * BWD_PAIRS) {
+    const bool two = n0 + 16 < D;  // D % 32 == 16 leaves one pair in the last chunk
+    uint32_t b[MT][BWD_PAIRS][4];
+#pragma unroll
+    for (int kt = 0; kt < MT; ++kt)
+#pragma unroll
+      for (int p = 0; p < BWD_PAIRS; ++p) {
+        if (p == 0 || two) {
+          x_frag(b[kt][p], xa + kt * 16 * rb + (n0 + 16 * p) * 2, kt == MT - 1, m_lo, m_hi);
+        } else {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) b[kt][p][r] = 0u;
+        }
+      }
+    __syncwarp();  // the chunk's columns are read: its results may overwrite them
+    if constexpr (HOLD) {
+      float acc[MT][2 * BWD_PAIRS][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 2 * BWD_PAIRS; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mt][q][r] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < MT; ++kt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int p = 0; p < BWD_PAIRS; ++p)
+            if (p == 0 || two) {
+              mma3(acc[mt][2 * p], ah[mt][kt], b[kt][p][0], b[kt][p][1]);
+              mma3(acc[mt][2 * p + 1], ah[mt][kt], b[kt][p][2], b[kt][p][3]);
+            }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 2 * BWD_PAIRS; ++q)
+          if (q < 2 || two) store_tile(out, rs, acc[mt][q], mt, q, n0, F, g, t);
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float acc[2 * BWD_PAIRS][4];
+#pragma unroll
+        for (int q = 0; q < 2 * BWD_PAIRS; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[q][r] = 0.0f;
+#pragma unroll
+        for (int kt = 0; kt < MT; ++kt) {
+          uint32_t a[3][4];
+          sym_frag(a, dzs, F, mt, kt, g, t);
+#pragma unroll
+          for (int p = 0; p < BWD_PAIRS; ++p)
+            if (p == 0 || two) {
+              mma3(acc[2 * p], a, b[kt][p][0], b[kt][p][1]);
+              mma3(acc[2 * p + 1], a, b[kt][p][2], b[kt][p][3]);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 2 * BWD_PAIRS; ++q)
+          if (q < 2 || two) store_tile(out, rs, acc[q], mt, q, n0, F, g, t);
+      }
+    }
+  }
+}
+
+// The same for any F, a 16-column pair and an m-tile at a time, every
+// fragment built when it is used; dX goes straight to dxs (the sample's
+// rows in device memory) and the slot is left as it was.
+__device__ __forceinline__ void bwd_tc_sample_any(uint32_t xa, const float* dzs,
+                                                  __nv_bfloat16* dxs, int F, int D, int rb,
+                                                  uint32_t lane_off, int lane) {
+  const int MT = (F + 15) / 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int kl = 16 * (MT - 1) + 2 * t;
+  const uint32_t m_lo = (kl < F ? 0xffffu : 0u) | (kl + 1 < F ? 0xffff0000u : 0u);
+  const uint32_t m_hi = (kl + 8 < F ? 0xffffu : 0u) | (kl + 9 < F ? 0xffff0000u : 0u);
+  for (int mt = 0; mt < MT; ++mt)
+    for (int n0 = 0; n0 < D; n0 += 16) {
+      float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      for (int kt = 0; kt < MT; ++kt) {
+        uint32_t b[4], a[3][4];
+        x_frag(b, xa + lane_off + kt * 16 * rb + n0 * 2, kt == MT - 1, m_lo, m_hi);
+        sym_frag(a, dzs, F, mt, kt, g, t);
+        mma3(acc[0], a, b[0], b[1]);
+        mma3(acc[1], a, b[2], b[3]);
+      }
+      store_tile(dxs, D, acc[0], mt, 0, n0, F, g, t);
+      store_tile(dxs, D, acc[1], mt, 1, n0, F, g, t);
+    }
+}
+
+// A ring slot of the backward: the group's X rows as in the forward
+// (tc_slot_bytes), then its dZ span after a lead of 0-3 floats, rounded up
+// to 16 bytes.
+__host__ __device__ __forceinline__ int64_t bwd_dz_bytes(int64_t F, int64_t spg) {
+  return (spg * (F * (F - 1) / 2) + 3 + 3) / 4 * 16;
+}
+__host__ __device__ __forceinline__ int64_t bwd_slot_bytes(int64_t F, int64_t D, int64_t spg) {
+  return tc_slot_bytes(F, D, spg) + bwd_dz_bytes(F, spg);
+}
+
+// MT: ceil(F / 16) for F <= 64, 0 for any F.
+template <int MT>
+__global__ void __launch_bounds__(32 * TC_MAX_WARPS)
+    dot_interaction_backward_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                                       const float* __restrict__ dz,
+                                       __nv_bfloat16* __restrict__ dx, int64_t B, int F, int D,
+                                       int spg, int stages, int64_t n_groups) {
+  extern __shared__ float4 smem_bwd_tc[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem_bwd_tc);
+  const int rb = 2 * D + 16, chunks = D / 8, P = F * (F - 1) / 2;
+  const int x_bytes = (int)tc_slot_bytes(F, D, spg), slot_bytes = (int)bwd_slot_bytes(F, D, spg);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  // c / chunks = umulhi(c, magic) for every index of a group that fits in
+  // shared memory
+  const uint32_t magic = (uint32_t)((0x100000000ull + chunks - 1) / chunks);
+  // ldmatrix.x4 address of this lane inside a 16 x 16 tile: matrices (rows
+  // 0-7, columns 0-7), (rows 8-15, 0-7), (rows 0-7, 8-15), (rows 8-15, 8-15)
+  const uint32_t lane_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * rb + (lane >> 4) * 16;
+
+  // this block's groups: blockIdx.x + i * gridDim.x for i < mine
+  const int64_t mine = (n_groups - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto load = [&](int64_t i) {
+    const int64_t s0 = (blockIdx.x + i * gridDim.x) * (int64_t)spg;
+    const int nb = (int)(B - s0 < spg ? B - s0 : spg);
+    const uint32_t dst = smem_u32(ring + (int)(i % stages) * slot_bytes);
+    const char* src = reinterpret_cast<const char*>(x + s0 * F * D);
+    const int n = nb * F * chunks;
+    for (int c = tid; c < n; c += blockDim.x) {
+      const int r = (int)__umulhi((uint32_t)c, magic);  // c / chunks
+      cp_async16(dst + r * rb + (c - r * chunks) * 16, src + (int64_t)c * 16);
+    }
+    // dZ floats [s0 P - lead, (s0 + nb) P), 16-byte aligned at its start
+    const int lead = (int)((s0 * P) & 3), nf = lead + nb * P;
+    const float* zsrc = dz + (s0 * P - lead);
+    for (int q = tid; 4 * q < nf; q += blockDim.x) {
+      const int left = nf - 4 * q;
+      cp_async16_n(dst + x_bytes + q * 16, zsrc + 4 * q, left >= 4 ? 16 : 4 * left);
+    }
+  };
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < mine) load(i);
+    cp_async_commit();
+  }
+  for (int64_t i = 0; i < mine; ++i) {
+    if (stages == 1) {
+      __syncthreads();  // the slot's last copy-out is done
+      load(i);
+      cp_async_commit();
+    }
+    if (stages >= 3) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    // group i is in its slot; every warp is done with group i - 1, whose
+    // slot takes group i + stages - 1
+    __syncthreads();
+    if (stages > 1) {
+      if (i + stages - 1 < mine) load(i + stages - 1);
+      cp_async_commit();
+    }
+
+    const int64_t s0 = (blockIdx.x + i * gridDim.x) * (int64_t)spg;
+    const int nb = (int)(B - s0 < spg ? B - s0 : spg);
+    unsigned char* slot = ring + (int)(i % stages) * slot_bytes;
+    const float* dzg = reinterpret_cast<const float*>(slot + x_bytes) + ((s0 * P) & 3);
+    for (int s = warp; s < nb; s += nwarps) {
+      unsigned char* xs = slot + s * F * rb;
+      __nv_bfloat16* dxs = dx + (s0 + s) * F * D;
+      if constexpr (MT > 0) {
+        bwd_tc_sample<MT>(xs, dzg + s * P, F, D, rb, lane_off, lane);
+        __syncwarp();  // the sample's dX is in its rows
+        // ... and leaves as one contiguous span of F D values in 16-byte
+        // stores while the other warps compute
+        uint4* out = reinterpret_cast<uint4*>(dxs);
+        for (int c = lane; c < F * chunks; c += 32) {
+          const int r = (int)__umulhi((uint32_t)c, magic);
+          out[c] = *reinterpret_cast<const uint4*>(xs + r * rb + (c - r * chunks) * 16);
+        }
+      } else {
+        bwd_tc_sample_any(smem_u32(xs), dzg + s * P, dxs, F, D, rb, lane_off, lane);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+const void* bwd_tc_instance(int64_t F) {
+  switch ((F + 15) / 16) {
+    case 1: return (const void*)dot_interaction_backward_tc_kernel<1>;
+    case 2: return (const void*)dot_interaction_backward_tc_kernel<2>;
+    case 3: return (const void*)dot_interaction_backward_tc_kernel<3>;
+    case 4: return (const void*)dot_interaction_backward_tc_kernel<4>;
+    default: return (const void*)dot_interaction_backward_tc_kernel<0>;
+  }
+}
+
+int launch_backward_tc(const void* x, const void* dz, void* dx, int64_t B, int64_t F,
+                       int64_t D, int64_t spg, int64_t stages, int64_t grid,
+                       cudaStream_t stream) {
+  if (D <= 0 || D % 16 != 0 || (uintptr_t)x % 16 != 0 || (uintptr_t)dz % 16 != 0 ||
+      (uintptr_t)dx % 16 != 0 || spg < 1 || spg > 1024 || stages < 1 || stages > 3 ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t smem = stages * bwd_slot_bytes(F, D, spg);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;  // what one block may use on sm_90
+  const int64_t n_groups = (B + spg - 1) / spg;
+  if (grid > n_groups) grid = n_groups;
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const void* fn = bwd_tc_instance(F);
+  if (smem > 49152) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const __nv_bfloat16* xp = (const __nv_bfloat16*)x;
+  const float* dzp = (const float*)dz;
+  __nv_bfloat16* dxp = (__nv_bfloat16*)dx;
+  int Fi = (int)F, Di = (int)D, spgi = (int)spg, st = (int)stages;
+  void* args[] = {&xp, &dzp, &dxp, &B, &Fi, &Di, &spgi, &st, (void*)&n_groups};
+  const unsigned threads = 32 * (unsigned)(spg < TC_MAX_WARPS ? spg : TC_MAX_WARPS);
+  const cudaError_t e =
+      cudaLaunchKernel(fn, dim3((unsigned)grid), dim3(threads), args, (size_t)smem, stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. spg > 0 asks for the tensor-core kernel
@@ -590,14 +972,47 @@ extern "C" int dot_interaction_launch(const void* x, void* out, int64_t B,
 }
 
 // x (B, F, D), dtype 0 float32 or 1 bfloat16; dz (B, F(F-1)/2) float32 in
-// tril_indices(F, -1) order; dx (B, F, D) in x's type; `grid` blocks, each
-// taking samples blockIdx.x, + grid, ...
+// tril_indices(F, -1) order; dx (B, F, D) in x's type. spg > 0 asks for the
+// tensor-core kernel (bfloat16, D % 16 == 0, x, dz and dx 16-byte aligned)
+// with groups of spg samples, a ring of `stages` and `grid` persistent
+// blocks; spg == 0 for the SIMT kernel on `grid` blocks, each taking samples
+// blockIdx.x, + grid, ..., which ignores stages.
 extern "C" int dot_interaction_backward_launch(const void* x, const void* dz, void* dx,
-                                               int64_t B, int64_t F, int64_t D,
-                                               int64_t dtype, int64_t grid, void* stream) {
+                                               int64_t B, int64_t F, int64_t D, int64_t dtype,
+                                               int64_t spg, int64_t stages, int64_t grid,
+                                               void* stream) {
   if (B <= 0 || F <= 0 || D <= 0) return 0;
-  if (F > 4096 || D > (1 << 20)) return (int)cudaErrorInvalidValue;
+  if (F > 4096 || D > (1 << 20) || spg < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (spg > 0) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_backward_tc(x, dz, dx, B, F, D, spg, stages, grid, s);
+  }
   if (dtype == 0) return launch_backward<float>(x, dz, dx, B, F, D, grid, s);
   return launch_backward<__nv_bfloat16>(x, dz, dx, B, F, D, grid, s);
+}
+
+// What the card fits of the tensor-core backward's instance for F at
+// `threads` threads and `smem` bytes of shared memory a block: out[0] its
+// blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] its
+// registers a thread, out[2] its local memory a thread (spills). Nothing is
+// launched.
+extern "C" int dot_interaction_backward_occupancy(int64_t F, int64_t threads, int64_t smem,
+                                                  int64_t* out) {
+  if (F <= 0 || F > 4096 || threads < 32 || threads > 32 * TC_MAX_WARPS || smem < 0 ||
+      smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = bwd_tc_instance(F);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(smem > 49152 ? smem : 49152));
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, (int)threads, (size_t)smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  out[2] = (int64_t)attr.localSizeBytes;
+  return 0;
 }

@@ -70,9 +70,12 @@ SOURCES = {
     "dot_interaction": {
         "dot_interaction": ("dot_interaction_launch", [_P, _P] + [_I64] * 7 + [_P]),
         "dot_interaction_simt": ("dot_interaction_launch", [_P, _P] + [_I64] * 7 + [_P]),
-        # x, dz, dx; B, F, D, dtype, grid
+        # x, dz, dx; B, F, D, dtype, spg, stages, grid: the same, spg > 0 for
+        # the tensor cores
         "dot_interaction_backward": ("dot_interaction_backward_launch",
-                                     [_P] * 3 + [_I64] * 5 + [_P]),
+                                     [_P] * 3 + [_I64] * 7 + [_P]),
+        "dot_interaction_backward_simt": ("dot_interaction_backward_launch",
+                                          [_P] * 3 + [_I64] * 7 + [_P]),
     },
     "flash_attention": {
         # q, k, v, o, part; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal,

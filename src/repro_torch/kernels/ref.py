@@ -421,6 +421,77 @@ def dot_interaction_backward_ref(x: torch.Tensor, dz: torch.Tensor) -> torch.Ten
     return torch.bmm(g + g.transpose(1, 2), x.float()).to(x.dtype)
 
 
+def bf16_split(v: torch.Tensor) -> tuple:
+    """float32 v as three bfloat16 terms, the tensor-core backward's split
+    of S: hi = bf16_rn(v), mid = bf16_rn(v - hi), lo = bf16_rn(v - hi - mid),
+    with hi + mid + lo == v exactly for every finite v whose lo is normal;
+    where hi is not finite, mid = lo = 0."""
+    v = v.float()
+    hi = v.to(torch.bfloat16)
+    h = hi.float()
+    r = torch.where(torch.isfinite(h), v - h, torch.zeros_like(v))
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def dot_interaction_backward_tc_ref(x: torch.Tensor, dz: torch.Tensor,
+                                    terms: int = 3) -> torch.Tensor:
+    """The tensor-core backward's arithmetic, like
+    :func:`dot_interaction_backward_ref`: S = G + Gᵀ padded with zeros to
+    16-row tiles and split by :func:`bf16_split`; dX summed in float32 one
+    16-wide k-step (16 fields) at a time, each term's product in turn (hi,
+    mid, lo), and rounded once to x's dtype. `terms` = 2 drops lo (a
+    control that a case where lo decides must catch)."""
+    b, f, d = x.shape
+    fp = -(-f // 16) * 16
+    ii, jj = torch.tril_indices(f, f, -1, device=x.device)
+    s = torch.zeros((b, fp, fp), dtype=torch.float32, device=x.device)
+    s[:, ii, jj] = dz.float()
+    s[:, jj, ii] = dz.float()
+    parts = [t.float() for t in bf16_split(s)[:terms]]
+    xp = torch.zeros((b, fp, d), dtype=torch.float32, device=x.device)
+    xp[:, :f] = x.float()
+    acc = torch.zeros((b, fp, d), dtype=torch.float32, device=x.device)
+    for k0 in range(0, fp, 16):
+        for t in parts:
+            acc += torch.bmm(t[:, :, k0:k0 + 16], xp[:, k0:k0 + 16])
+    return acc[:, :f].to(x.dtype)
+
+
+def split_decisive_case(b: int, f: int, d: int, gen: torch.Generator) -> tuple:
+    """Inputs (x bfloat16, dz float32) on which dX depends on the split's lo
+    term alone: per sample, fields j1 and j2 share a row v of signed powers
+    of two, field i is zero, and dz is zero but for a at (i, j1) and -(a +
+    δ) at (i, j2), where a = hi + mid has lo = 0 and a + δ splits into the
+    same hi and mid with lo = δ (|mid| under half of hi's last bit, |δ| of
+    1-63 float32 steps of a, under half of mid's). So dX is zero but row i,
+    -δ v, exact in float32, and a split that drops lo gives 0 there. Needs
+    f >= 3."""
+    rnd = lambda *shape: torch.rand(shape, generator=gen)  # noqa: E731
+    ints = lambda lo, hi, *shape: torch.randint(lo, hi, shape, generator=gen)  # noqa: E731
+    x = torch.randn((b, f, d), generator=gen).to(torch.bfloat16)
+    ijk = rnd(b, f).argsort(dim=1)[:, :3]
+    i, j1, j2 = ijk[:, 0], ijk[:, 1], ijk[:, 2]
+    v = torch.where(rnd(b, d) < 0.5, -1.0, 1.0) * torch.exp2(ints(-2, 3, b, d).float())
+    rows = torch.arange(b)
+    x[rows, i] = 0
+    x[rows, j1] = v.to(torch.bfloat16)
+    x[rows, j2] = v.to(torch.bfloat16)
+    e = ints(-6, 7, b).float()
+    sign = torch.where(rnd(b) < 0.5, -1.0, 1.0)
+    hi = sign * (1 + ints(0, 128, b).float() / 128) * torch.exp2(e)
+    mid = sign * (1.25 + ints(0, 32, b).float() / 64) * torch.exp2(e - 9)
+    a = hi + mid
+    k = ints(1, 64, b).float() * torch.where(rnd(b) < 0.5, -1.0, 1.0)
+    a_delta = a + k * torch.exp2(e - 23)
+    pair = lambda p, q: torch.maximum(p, q) * (torch.maximum(p, q) - 1) // 2 \
+        + torch.minimum(p, q)  # noqa: E731
+    dz = torch.zeros((b, f * (f - 1) // 2), dtype=torch.float32)
+    dz[rows, pair(i, j1)] = a
+    dz[rows, pair(i, j2)] = -a_delta
+    return x, dz
+
+
 def _tc_fragment_rows_cols(f: int):
     """Row i and column j of Z = X Xᵀ that each accumulator entry of the
     tensor-core kernel holds, indexed (m-tile, n-tile, lane, register) over

@@ -152,6 +152,7 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
                                       "embedding_bag_backward_combine", "sgd_rows",
                                       "dot_interaction", "dot_interaction_simt",
                                       "dot_interaction_backward",
+                                      "dot_interaction_backward_simt",
                                       "flash_attention",
                                       "flash_attention_combine", "csr_spmm",
                                       "csr_spmm_combine"}
