@@ -30,10 +30,14 @@ nothing of the JAX package. Phases:
    row's sign flipped) that must fail, and ``digram_select`` against its
    twin on those tables, with ties, skipped slots (a control with the
    flags cleared must fail) and all counts zero); DLRM training's kernels:
-   ``embedding_bag_backward`` (and its combine) against its split twin bit
-   for bit and its plain twin within a tolerance on random bags (L 1-8,
-   duplicates, padding, long runs of one id), sum and mean, bf16 and
-   float32, ``dot_interaction_backward`` on both routes (tensor cores:
+   ``embedding_bag_backward`` on both routes (the one-pass kernel, and the
+   two-pass kernel with its combine) against its split twin bit for bit
+   and its plain twin within a tolerance on random bags (L 1-8,
+   duplicates, padding, long runs of one id), int32 and int64 ids, every
+   gathering path (16-byte, 8-byte and scalar pieces, misaligned
+   gradients), a batch under one chunk, one id over more chunks than the
+   grid holds at once, other plans of the one-pass kernel, sum and mean,
+   bf16 and float32, ``dot_interaction_backward`` on both routes (tensor cores:
    bf16 at F 27, 13 and the other instances' 2, 40, 64, 70, against the
    plain and the tiling twin, with a control that drops the split's lo
    term on inputs where lo decides; SIMT: float32, bf16 at D = 24,
@@ -95,8 +99,8 @@ nothing of the JAX package. Phases:
    and the master's pages on its host backing, init and registration
    seconds;
    one step with the launch counts at 0 before it (each of the five
-   kernels of the step exactly once, the SIMT interaction kernels, forward
-   and backward, never); the step held against the same step
+   kernels of the step exactly once; the SIMT interaction kernels, forward
+   and backward, and the two-pass backward and its combine never); the step held against the same step
    through the twins from one snapshot (loss, lr, grad_norm, the compact
    gradient, the touched rows' master and bf16 values, the MLP leaves),
    the kernel step's rows equal to ``sgd_rows_ref`` of its own gradient
@@ -108,9 +112,14 @@ nothing of the JAX package. Phases:
    0.3, the touched rows bit for bit against ``sgd_rows_ref``, most rows
    moved, a control (clip left out) that must fail; 10 timed
    steps after 2 warm-ups (ms, samples/s), the step timed with each
-   ``dot_interaction_backward`` route in turns, the busy share, host syncs
-   a step (at most 2), device time by kernel, peak memory; phase 4's rows
-   of the training kernels (``dot_interaction_backward`` on the tensor
+   ``dot_interaction_backward`` route and with each
+   ``embedding_bag_backward`` route in turns (20 steps a route, one traced
+   step each), the busy share, host syncs a step (at most 2), device time by kernel, peak memory; phase 4's rows
+   of the training kernels (``embedding_bag_backward``: the one-pass
+   kernel bit for bit against its split twin on the step's own bags, the
+   wrapper, the two-pass route, the sort, ``index_add_`` and an
+   ``index_select`` gather in turns, device time by kernel, a plan sweep
+   with occupancy; ``dot_interaction_backward`` on the tensor
    cores beside its SIMT route, a plan sweep and its occupancy;
    ``sgd_rows`` with its occupancy, beside its read and write halves, a
    page probe and the link while it runs);
@@ -1555,71 +1564,187 @@ def _bwd_case(torch, np, rng, b: int, bag_len: int, n_rows: int, d: int, dt, pad
     return idx, g
 
 
+# embedding_bag_backward's routes: the one-pass kernel (the wrapper's), the
+# two-pass kernel and its combine (two_pass=True, kept to be timed beside it)
+EMB_BWD_ROUTES = {"one_pass": {"embedding_bag_backward": 1},
+                  "two_pass": {"embedding_bag_backward_two_pass": 1,
+                               "embedding_bag_backward_combine": 1}}
+# other plans of the one-pass kernel, held bit for bit: other chunks on every
+# path, other rings on bfloat16 rows in 16-byte pieces (their instances)
+EMB_BWD_OTHER_CHUNKS = ("128:32", "512:32")
+EMB_BWD_OTHER_RINGS = ("256:16", "256:64")
+
+
+def _misaligned(torch, g, elems: int):
+    """g's values in a contiguous view whose pointer lies `elems` elements
+    past an allocation's start."""
+    buf = torch.empty(g.numel() + elems, dtype=g.dtype, device=DEV)
+    out = buf[elems:].view(g.shape)
+    out.copy_(g.to(DEV))
+    return out
+
+
+def _longest_run_chunks(np, idx, chunk: int) -> int:
+    """The most chunks of `chunk` sorted positions one id's run spans, as
+    the wrapper sorts `idx` (padding first)."""
+    ids, start, count = np.unique(np.sort(idx.ravel()), return_index=True, return_counts=True)
+    start, count = start[ids >= 0], count[ids >= 0]
+    return int(((start + count - 1) // chunk - start // chunk + 1).max()) if count.size else 0
+
+
+def _bwd_cases(torch, np, rng, in_flight: int) -> list:
+    """(idx, g, n_rows, index dtype, misalign elems, what) of phase 2's
+    backward cases: random bags (L 1-8, duplicates, padding, empty bags,
+    runs of one id cut by many chunks) in bf16 and float32 at D 5, 16, 128
+    with int32 ids, and at D 37 and 200 (more than one slab of columns);
+    int64 ids at D 5 and 128; bf16 at D 12 (8-byte pieces);
+    a batch under one chunk; misaligned gradients (one element off: scalar
+    pieces; bf16 four off: 8-byte pieces); and one id in about 96% of the
+    positions of a batch sized so that its run spans more chunks than the
+    `in_flight` the one-pass grid holds at once, among sparse other ids and
+    padding."""
+    base = [(1, 1, 10, False), (300, 1, 7, False), (300, 3, 10_000, True), (1000, 8, 50, True),
+            (129, 8, 3, True), (2000, 2, 4, True)]
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (5, 16, 128):
+            for b, bag_len, n_rows, pad in base:
+                idx, g = _bwd_case(torch, np, rng, b, bag_len, n_rows, d, dt, pad)
+                out.append((idx, g, n_rows, torch.int32, 0, f"{dt} D={d} B={b} L={bag_len} "
+                            f"V={n_rows}"))
+                if d in (5, 128) and bag_len > 1:
+                    out.append((idx, g, n_rows, torch.int64, 0, f"{dt} D={d} B={b} "
+                                f"L={bag_len} V={n_rows} int64"))
+        for d in (37, 200):  # more than one slab of 32 or 128 columns
+            for b, bag_len, n_rows, pad in base[2:4]:
+                idx, g = _bwd_case(torch, np, rng, b, bag_len, n_rows, d, dt, pad)
+                out.append((idx, g, n_rows, torch.int32, 0, f"{dt} D={d} B={b} L={bag_len} "
+                            f"V={n_rows}"))
+        idx, g = _bwd_case(torch, np, rng, 37, 3, 20, 12, dt, True)
+        out.append((idx, g, 20, torch.int32, 0, f"{dt} D=12 B=37 L=3 (under one chunk)"))
+        for elems in ((1, 4) if dt == torch.bfloat16 else (1,)):
+            idx, g = _bwd_case(torch, np, rng, 500, 2, 30, 128, dt, True)
+            out.append((idx, g, 30, torch.int32, elems, f"{dt} D=128 misaligned by {elems}"))
+    # bags of 2, so many that 95% of the positions fill 64 chunks more than the grid holds
+    b = -(-(in_flight + 64) * 256 // 2 * 100 // 95)
+    idx = np.full((b, 2), 3)
+    other = rng.random(idx.shape)
+    idx[other < 0.02] = rng.choice([0, 1, 2, 4, 5, 6, 7], size=int((other < 0.02).sum()))
+    idx[(other >= 0.02) & (other < 0.04)] = -1
+    g = torch.from_numpy(rng.normal(size=(b, 16)).astype(np.float32)).to(torch.bfloat16)
+    out.append((idx, g, 8, torch.int32, 0, f"one id over most of {2 * b} positions, bf16 D=16"))
+    return out
+
+
+def _hold_backward(torch, rows, grads, n_u, s_rows, s_grads, n: int, p_n, p_grads,
+                   what: str) -> None:
+    """A backward's output against its split twin's (rows and sums bit for
+    bit, on the host) and the plain twin's (n_unique; sums within
+    EMB_BWD_TOL)."""
+    if int(n_u) != n or n != int(p_n) or not torch.equal(rows[:n].cpu(), s_rows[:n]):
+        _fail(f"embedding_bag_backward rows differ from the twins at {what}")
+    if not torch.equal(grads[:n].cpu(), s_grads[:n]):
+        _fail(f"embedding_bag_backward is not its split twin bit for bit at {what}")
+    if not _close(torch, grads[:n], p_grads[:n], **EMB_BWD_TOL):
+        _fail(f"embedding_bag_backward differs from its twin at {what}")
+
+
 def check_train_kernels(torch, np, seed: int) -> dict:
     """Phase 2, DLRM training's kernels against their twins on the card.
 
-    ``embedding_bag_backward`` (both launches) equals its split twin bit for
-    bit (the kernels' order of additions, on the host) and the plain twin
-    within EMB_BWD_TOL, on random bags (L 1-8, duplicates, padding, empty
-    bags, runs of one id cut by many chunks), sum and mean, bf16 and float32
-    gradients, D 5, 16, 128; a control (one occurrence's gradient zeroed)
-    must fail. ``dot_interaction_backward`` on both routes
-    (:func:`_check_dot_backward`). ``sgd_rows`` on registered host
-    buffers (SGD_CASES, :func:`_check_sgd_case`): every row of the master
-    and the table equal to the twin's bit for bit (the touched rows
-    updated, the others untouched) under several launch plans; a control
-    must fail."""
+    ``embedding_bag_backward`` on both routes (the one-pass kernel the
+    wrapper launches, and the two-pass kernel with its combine) equals its
+    split twin bit for bit (the kernels' order of additions, on the host)
+    and the plain twin within EMB_BWD_TOL, sum and mean, on
+    :func:`_bwd_cases`, each route counting its own launches; the one-pass
+    kernel also at EMB_BWD_OTHER_CHUNKS (and EMB_BWD_OTHER_RINGS where the
+    gradient is bf16 in 16-byte pieces) on the skewed case and the first
+    random ones; a control (one occurrence's gradient zeroed) must fail.
+    ``dot_interaction_backward`` on both routes (:func:`_check_dot_backward`).
+    ``sgd_rows`` on registered host buffers (SGD_CASES,
+    :func:`_check_sgd_case`): every row of the master and the table equal to
+    the twin's bit for bit (the touched rows updated, the others untouched)
+    under several launch plans; a control must fail."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.embedding_bag import BACKWARD_CHUNK, embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag import (BACKWARD_CHUNK, BACKWARD_MAX_CHUNK,
+                                                   BackwardPlan, backward_occupancy,
+                                                   backward_path, embedding_bag_backward_cuda)
 
     rng = np.random.default_rng(seed + 20)
-    err = {"embedding_bag_backward": 0.0, "embedding_bag_backward_combine": 0.0,
-           "sgd_rows": 0.0}
-    n_cases = 0
-    cases = [(1, 1, 10, False), (300, 1, 7, False), (300, 3, 10_000, True), (1000, 8, 50, True),
-             (129, 8, 3, True), (2000, 2, 4, True)]
-    for dt in (torch.bfloat16, torch.float32):
-        for d in (5, 16, 128):
-            for b, bag_len, n_rows, pad in cases:
-                idx, g = _bwd_case(torch, np, rng, b, bag_len, n_rows, d, dt, pad)
-                idx_t = torch.from_numpy(idx).to(DEV, torch.int32)
-                for combiner in ("sum", "mean"):
-                    before = dict(ops.launch_counts)
-                    rows, grads, n_u = embedding_bag_backward_cuda(idx_t, g.to(DEV), combiner,
-                                                                   n_rows)
-                    launched = {k: ops.launch_counts[k] - before[k] for k in before}
-                    if {k: v for k, v in launched.items() if v} != {
-                            "embedding_bag_backward": 1, "embedding_bag_backward_combine": 1}:
-                        _fail(f"embedding_bag_backward launched {launched}")
+    err = {"embedding_bag_backward": 0.0, "embedding_bag_backward_two_pass": 0.0,
+           "embedding_bag_backward_combine": 0.0, "sgd_rows": 0.0}
+    occ = backward_occupancy()
+    n_sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    in_flight = 2 * occ["warps_an_sm"] * n_sms  # chunks a full grid holds: each warp's and the next
+    # every instance fits a block at the largest chunk a plan may have
+    for dt, it, path, ring in ((torch.float32, torch.int64, "16-byte", 32),
+                               (torch.bfloat16, torch.int64, "16-byte", 64),
+                               (torch.float32, torch.int64, "scalar", 32)):
+        top = backward_occupancy(BackwardPlan(BACKWARD_MAX_CHUNK, ring), dt, it, path)
+        if top["blocks_an_sm"] < 1:
+            _fail(f"the backward at chunk {BACKWARD_MAX_CHUNK} fits no block: {dt} {it} {path}")
+    n_cases, paths, n_plans, span = 0, set(), 0, 0
+    for idx, g, n_rows, it, elems, what in _bwd_cases(torch, np, rng, in_flight):
+        idx_t = torch.from_numpy(idx).to(DEV, it)
+        g_d = _misaligned(torch, g, elems) if elems else g.to(DEV)
+        paths.add(backward_path(g_d))
+        skew = what.startswith("one id")
+        if skew:
+            span = _longest_run_chunks(np, idx, BACKWARD_CHUNK)
+            if span <= in_flight:
+                _fail(f"the skewed backward case's run spans {span} chunks, not more than the "
+                      f"{in_flight} the grid holds at once")
+        for combiner in ("sum", "mean"):
+            s_rows, s_grads, s_n = ref.embedding_bag_backward_split_ref(
+                torch.from_numpy(idx), g, combiner, BACKWARD_CHUNK)
+            p_rows, p_grads, p_n = ref.embedding_bag_backward_ref(idx_t, g_d, combiner, n_rows)
+            n = int(s_n)
+            for route, want_launches in EMB_BWD_ROUTES.items():
+                before = dict(ops.launch_counts)
+                rows, grads, n_u = embedding_bag_backward_cuda(idx_t, g_d, combiner, n_rows,
+                                                               two_pass=route == "two_pass")
+                launched = {k: ops.launch_counts[k] - before[k] for k in before}
+                if {k: v for k, v in launched.items() if v} != want_launches:
+                    _fail(f"embedding_bag_backward ({route}) launched {launched} at {what}")
+                torch.cuda.synchronize()
+                _hold_backward(torch, rows, grads, n_u, s_rows, s_grads, n, p_n, p_grads,
+                               f"{route}, {what}, {combiner}")
+                name = "embedding_bag_backward" if route == "one_pass" else \
+                    "embedding_bag_backward_two_pass"
+                if n:
+                    err[name] = max(err[name], float((grads[:n] - p_grads[:n]).abs().max()))
+                    hit = int(np.flatnonzero((idx >= 0).any(axis=1))[-1])
+                    ctrl_g = g.clone()
+                    ctrl_g[hit] = 0
+                    _, c_grads, _ = ref.embedding_bag_backward_ref(idx_t, ctrl_g.to(DEV),
+                                                                   combiner)
+                    if _close(torch, grads[:n], c_grads[:n], **EMB_BWD_TOL):
+                        _fail(f"the embedding_bag_backward check does not tell the control "
+                              f"(bag {hit} dropped) from the twin at {route}, {what}")
+                n_cases += 1
+            if skew or n_cases <= 8:
+                rings = EMB_BWD_OTHER_RINGS if (g.dtype == torch.bfloat16
+                                                and backward_path(g_d) == "16-byte") else ()
+                for text in EMB_BWD_OTHER_CHUNKS + rings:
+                    chunk, ring = (int(x) for x in text.split(":"))
+                    rows, grads, n_u = embedding_bag_backward_cuda(
+                        idx_t, g_d, combiner, n_rows, plan=BackwardPlan(chunk, ring))
+                    c_rows, c_grads, _ = ref.embedding_bag_backward_split_ref(
+                        torch.from_numpy(idx), g, combiner, chunk)
                     torch.cuda.synchronize()
-                    n = int(n_u)
-                    s_rows, s_grads, s_n = ref.embedding_bag_backward_split_ref(
-                        torch.from_numpy(idx), g, combiner, BACKWARD_CHUNK)
-                    p_rows, p_grads, p_n = ref.embedding_bag_backward_ref(
-                        idx_t, g.to(DEV), combiner, n_rows)
-                    what = f"{dt} D={d} B={b} L={bag_len} V={n_rows} {combiner}"
-                    if n != int(s_n) or n != int(p_n) or not torch.equal(rows[:n].cpu(),
-                                                                         s_rows[:n]):
-                        _fail(f"embedding_bag_backward rows differ from the twins at {what}")
-                    if not torch.equal(grads[:n].cpu(), s_grads[:n]):
-                        _fail(f"embedding_bag_backward is not its split twin bit for bit at "
-                              f"{what}")
-                    if not _close(torch, grads[:n], p_grads[:n], **EMB_BWD_TOL):
-                        _fail(f"embedding_bag_backward differs from its twin at {what}")
-                    if n:
-                        err["embedding_bag_backward"] = max(err["embedding_bag_backward"], float(
-                            (grads[:n] - p_grads[:n]).abs().max()))
-                        hit = int(np.flatnonzero((idx >= 0).any(axis=1))[-1])
-                        ctrl_g = g.clone()
-                        ctrl_g[hit] = 0
-                        _, c_grads, _ = ref.embedding_bag_backward_ref(idx_t, ctrl_g.to(DEV),
-                                                                       combiner)
-                        if _close(torch, grads[:n], c_grads[:n], **EMB_BWD_TOL):
-                            _fail(f"the embedding_bag_backward check does not tell the control "
-                                  f"(bag {hit} dropped) from the twin at {what}")
-                    n_cases += 1
-    print(f"embedding_bag_backward vs split twin (bit for bit) and plain twin: cases={n_cases} "
-          f"max_abs_err={err['embedding_bag_backward']} tol={EMB_BWD_TOL}; controls fail")
+                    _hold_backward(torch, rows, grads, n_u, c_rows, c_grads, n, p_n, p_grads,
+                                   f"plan {text}, {what}, {combiner}")
+                    n_plans += 1
+    if paths != {"16-byte", "8-byte", "scalar"}:
+        _fail(f"the backward cases took the paths {paths}, not all three")
+    print(f"embedding_bag_backward (one pass) and its two-pass route vs split twin (bit for "
+          f"bit) and plain twin: cases={n_cases} (routes x combiners) + {n_plans} at plans "
+          f"{EMB_BWD_OTHER_CHUNKS + EMB_BWD_OTHER_RINGS}; paths {sorted(paths)}; one id's run "
+          f"over {span} chunks "
+          f"(the grid holds {in_flight} at once: {occ}); max_abs_err one pass "
+          f"{err['embedding_bag_backward']}, two pass {err['embedding_bag_backward_two_pass']} "
+          f"tol={EMB_BWD_TOL}; controls fail")
+    err["embedding_bag_backward_combine"] = err["embedding_bag_backward_two_pass"]
 
     err["dot_interaction_backward"], err["dot_interaction_backward_simt"] = \
         _check_dot_backward(torch, np, rng)
@@ -1805,8 +1930,8 @@ def _train_counts(counts: dict) -> dict:
     ran exactly once and the SIMT interaction, forward or backward, never."""
     want = {"embedding_bag": 1, "dot_interaction": 1, "dot_interaction_simt": 0,
             "dot_interaction_backward": 1, "dot_interaction_backward_simt": 0,
-            "embedding_bag_backward": 1,
-            "embedding_bag_backward_combine": 1, "sgd_rows": 1}
+            "embedding_bag_backward": 1, "embedding_bag_backward_two_pass": 0,
+            "embedding_bag_backward_combine": 0, "sgd_rows": 1}
     got = {k: counts[k] for k in want}
     print(f"launches in one train_batch step (dlrm train): {got}")
     if got != want:
@@ -2120,85 +2245,186 @@ def _row(name, src, replaces, launches, err, ms, plain_ms, nbytes, nops, rate, l
     return row
 
 
-def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: dict) -> list:
-    """Phase 4's rows for the three training kernels (the backward's two
-    launches as two rows), on the inputs the train_batch step gives them,
-    each beside its plain twin, its bound and a PyTorch call that computes
-    the same function where one does."""
+EMB_BWD_PLANS = ("256:32", "256:16", "256:64", "128:32", "512:32")  # phase 4's sweep
+
+
+def _emb_bwd_rows(torch, np, bags, g_emb, n_rows: int, errs: dict, counts: dict) -> list:
+    """Phase 4's rows for ``embedding_bag_backward`` on the train step's own
+    bags and lookup gradient. The one-pass kernel held bit for bit against
+    its split twin (on the host) and within EMB_BWD_TOL against the plain
+    twin, the two-pass route within EMB_BWD_TOL, its combine against its
+    twin on the kernel's own pieces (no atomics: bit for bit). Then, by CUDA
+    events in turns: the one-pass wrapper (sort, fill, kernel), the
+    two-pass wrapper, the sort alone, the one-pass kernel on ids sorted
+    beforehand (its fill included), ``index_add_`` after ``torch.unique``
+    and the gather ``g.index_select(0, perm)`` (the card's rate for these
+    rows in PyTorch); each wrapper's device time by kernel (profiler); the
+    one-pass kernel's device time three ways (the profiler over 10 calls,
+    the events on sorted ids, and the traced step of phase 6b, added there);
+    a sweep of its plan (chunk, ring) with what the card fits of each and
+    the share of the bound. The bound is the bytes the function needs: the
+    gradient rows read once, 4 or 8 + 8 bytes of sorted id and order a
+    position, each distinct row's 512 + 8 bytes written once. Beside it
+    are PR 20's bound (8 more bytes a position, for the slot array that the
+    one-pass kernel no longer reads) and the bytes the one-pass kernel
+    moves (each cut run's pieces written and read once)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.embedding_bag import (embedding_bag_backward_combine_cuda,
+    from repro_torch.kernels.embedding_bag import (BACKWARD_CHUNK, BackwardPlan,
+                                                   backward_occupancy,
+                                                   embedding_bag_backward_combine_cuda,
                                                    embedding_bag_backward_cuda,
                                                    embedding_bag_backward_pieces_cuda,
-                                                   SGD_BLOCKS_AN_SM, SGD_R, sgd_rows_cuda,
+                                                   embedding_bag_backward_sorted_cuda)
+
+    d = g_emb.shape[1]
+    one = lambda: embedding_bag_backward_cuda(bags, g_emb, "sum", n_rows)  # noqa: E731
+    two = lambda: embedding_bag_backward_cuda(bags, g_emb, "sum", n_rows,  # noqa: E731
+                                              two_pass=True)
+    twin = lambda: ref.embedding_bag_backward_ref(bags, g_emb, "sum", n_rows)  # noqa: E731
+    p_rows, p_grads, p_n = twin()
+    rows, grads, n_u = one()
+    t_rows, t_grads, t_n = two()
+    torch.cuda.synchronize()
+    n = int(p_n)
+    if not (int(n_u) == int(t_n) == n and torch.equal(rows[:n], p_rows[:n])
+            and torch.equal(t_rows[:n], p_rows[:n])
+            and _close(torch, grads[:n], p_grads[:n], **EMB_BWD_TOL)
+            and _close(torch, t_grads[:n], p_grads[:n], **EMB_BWD_TOL)):
+        _fail("embedding_bag_backward (a route) differs from its twin at train_batch shapes")
+    s_rows, s_grads, s_n = ref.embedding_bag_backward_split_ref(bags, g_emb, "sum",
+                                                                BACKWARD_CHUNK)
+    if int(s_n) != n or not (torch.equal(rows[:n], s_rows[:n])
+                             and torch.equal(grads[:n], s_grads[:n])):
+        _fail("the one-pass embedding_bag_backward is not its split twin bit for bit at "
+              "train_batch shapes")
+    del s_rows, s_grads
+    errs["embedding_bag_backward"] = max(errs["embedding_bag_backward"], float(
+        (grads[:n] - p_grads[:n]).abs().max()))
+    errs["embedding_bag_backward_two_pass"] = max(errs["embedding_bag_backward_two_pass"], float(
+        (t_grads[:n] - p_grads[:n]).abs().max()))
+    # the combine against its twin on the two-pass kernel's own pieces: both
+    # add a cut run's pieces in chunk order, so bit for bit
+    _, c_grads, _, pieces = embedding_bag_backward_pieces_cuda(bags, g_emb, "sum", n_rows)
+    c_kern, c_twin = c_grads.clone(), c_grads.clone()
+    embedding_bag_backward_combine_cuda(*pieces, c_kern)
+    ref.embedding_bag_backward_combine_ref(*pieces, c_twin)
+    if not torch.equal(c_kern[:n], c_twin[:n]):
+        _fail("embedding_bag_backward_combine differs from its twin at train_batch shapes")
+    errs["embedding_bag_backward_combine"] = float((c_kern[:n] - c_twin[:n]).abs().max())
+    n_cut = int((pieces[2] >= 0).sum())
+    n_cont = int((pieces[3] > 0).sum())
+    del rows, grads, t_rows, t_grads, c_grads, c_twin, p_rows
+    flat = bags.reshape(-1)
+    ids, perm = torch.sort(flat, stable=True)
+    uniq, inverse = torch.unique(flat, return_inverse=True)
+    lib = lambda: torch.zeros((uniq.numel(), d), device=DEV).index_add_(  # noqa: E731
+        0, inverse, g_emb.float())
+    if not _close(torch, lib(), p_grads[:n], **EMB_BWD_TOL):
+        _fail("the index_add_ yardstick is not the backward's function")
+    del p_grads
+    fns = {"one_pass": one, "two_pass": two,
+           "sort": lambda: torch.sort(flat, stable=True),
+           "one_pass_sorted": lambda: embedding_bag_backward_sorted_cuda(ids, perm, g_emb, 1,
+                                                                         None, n_rows),
+           "index_add": lib, "index_select": lambda: g_emb.index_select(0, perm)}
+    ms = {k: [] for k in fns}
+    for name in list(fns) + list(reversed(fns)):
+        ms[name].append(_time_ms(torch, fns[name], 20))
+    best = {k: min(v) for k, v in ms.items()}
+    plain = min(_time_ms(torch, twin, 3), _time_ms(torch, twin, 3))
+    parts = {"one_pass": _device_parts(torch, one, 10), "two_pass": _device_parts(torch, two, 10)}
+    dev_one, dev_two = _kernel_device_ms(torch, one, 10), _kernel_device_ms(torch, two, 10)
+    kernel_dev = sum(v for k, v in dev_one.items() if "backward_kernel" in k)
+    occupancy = {"one_pass": backward_occupancy(), "two_pass": backward_occupancy(
+        two_pass=True)}
+    n_pos = flat.numel()
+    bwd_bytes = (g_emb.numel() * g_emb.element_size() + n_pos * (flat.element_size() + 8)
+                 + n * (d * 4 + 8))
+    pr20_bytes = bwd_bytes + n_pos * 8  # and the int64 slot of each position
+    moved = bwd_bytes + (2 * n_cut + n_cont) * d * 4
+    bound_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    bound_pr20 = {"bound_ms_pr20": pr20_bytes / HBM_BYTES_PER_S * 1e3, "bytes_pr20": pr20_bytes}
+    sweep = {}
+    ref_at = {}
+    for text in EMB_BWD_PLANS:
+        chunk, ring = (int(x) for x in text.split(":"))
+        plan = BackwardPlan(chunk, ring)
+        fn = lambda p=plan: embedding_bag_backward_sorted_cuda(ids, perm, g_emb, 1,  # noqa: E731
+                                                               None, n_rows, p)
+        got = fn()[1][:n]
+        if chunk in ref_at and not torch.equal(got, ref_at[chunk]):
+            _fail(f"embedding_bag_backward's sums depend on its ring ({text})")
+        ref_at.setdefault(chunk, got.clone())
+        t = min(_time_ms(torch, fn, 20), _time_ms(torch, fn, 20))
+        sweep[text] = {"ms": t, "bound_share": bound_ms / t,
+                       "occupancy": backward_occupancy(plan)}
+        del got
+    del ref_at
+    gather_GBps = 2 * g_emb.numel() * g_emb.element_size() / best["index_select"] / 1e6
+    print(f"embedding_bag_backward at train_batch: events ms (min of 2 runs of 20, in turns) "
+          f"{best}; runs {ms}; plain twin {plain:.6f}; index_select {gather_GBps:.1f} GB/s "
+          f"read and written; device ms by kernel, one pass {parts['one_pass']}, two pass "
+          f"{parts['two_pass']}; one-pass kernel device ms: profiler {kernel_dev:.6f}, events "
+          f"on sorted ids (fill included) {best['one_pass_sorted']:.6f}; the card fits "
+          f"{occupancy}; plan sweep (chunk:ring) {sweep}; bound {bound_ms:.6f} ms "
+          f"({bwd_bytes} B; PR 20's {bound_pr20}), the one-pass kernel moves {moved} B; cut "
+          f"runs {n_cut}")
+    shape = f"bags {tuple(bags.shape)}, grad {tuple(g_emb.shape)} {g_emb.dtype}"
+    library = "torch.zeros(U, D).index_add_(0, inverse, g.float()) after torch.unique"
+    src = "src/repro_torch/csrc/embedding_bag.cu"
+    rows_out = [
+        _row("embedding_bag_backward", src, EMB_BWD_REPLACES, counts["embedding_bag_backward"],
+             errs["embedding_bag_backward"], best["one_pass"], plain, bwd_bytes, n_pos * d,
+             CORE_OPS_PER_S, best["index_add"], runs=ms["one_pass"], kernel_ms=kernel_dev,
+             kernel_events_ms=best["one_pass_sorted"], sort_ms=best["sort"],
+             device_ms=dev_one, device_parts=parts["one_pass"], moved_bytes=moved,
+             kernel_bound_share=bound_ms / kernel_dev if kernel_dev else None,
+             occupancy=occupancy["one_pass"], plan_sweep=sweep,
+             index_select_ms=best["index_select"], index_select_GBps=gather_GBps,
+             n_positions=n_pos, n_unique=n, cut_runs=n_cut, library=library, shape=shape,
+             **bound_pr20,
+             note="ms: the wrapper as the step runs it (sort, fill, kernel); kernel_ms the "
+             "kernel's device time (profiler); bound_ms the kernel's"),
+        _row("embedding_bag_backward_two_pass", src, EMB_BWD_REPLACES,
+             counts["embedding_bag_backward_two_pass"], errs["embedding_bag_backward_two_pass"],
+             best["two_pass"], plain, bwd_bytes, n_pos * d, CORE_OPS_PER_S, best["index_add"],
+             runs=ms["two_pass"], device_ms=dev_two, device_parts=parts["two_pass"],
+             occupancy=occupancy["two_pass"], library=library, shape=shape, **bound_pr20,
+             note="the first design, off the path (two_pass=True): the sort and bag_runs' "
+             "slots, then its kernel and the combine; ms the wrapper as a whole")]
+    comb_twin = lambda: ref.embedding_bag_backward_combine_ref(*pieces, c_kern)  # noqa: E731
+    comb = lambda: embedding_bag_backward_combine_cuda(*pieces, c_kern)  # noqa: E731
+    comb_ms = min(_time_ms(torch, comb, 50), _time_ms(torch, comb, 50))
+    comb_plain = min(_time_ms(torch, comb_twin, 5), _time_ms(torch, comb_twin, 5))
+    comb_bytes = (2 * n_cut + n_cont) * d * 4  # part_last and slots of cut runs, part_first
+    rows_out.append(_row(
+        "embedding_bag_backward_combine", src, EMB_BWD_REPLACES,
+        counts["embedding_bag_backward_combine"], errs["embedding_bag_backward_combine"],
+        comb_ms, comb_plain, comb_bytes, n_cont * d, CORE_OPS_PER_S, None, cut_runs=n_cut,
+        pieces_added=n_cont, note="the two-pass route's second launch, off the path; the "
+        "one-pass kernel completes a cut run in the chunk that brings its last piece",
+        library="none: no single call adds a cut run's pieces into its slot"))
+    del pieces, c_kern, uniq, inverse, ids, perm
+    return rows_out
+
+
+def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: dict) -> list:
+    """Phase 4's rows for the three training kernels, on the inputs the
+    train_batch step gives them, each beside its plain twin, its bound and
+    a PyTorch call that computes the same function where one does: the
+    backward's one-pass kernel and the two-pass route it replaced (its two
+    launches as two rows, :func:`_emb_bwd_rows`), the interaction's
+    backward, ``sgd_rows``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import (SGD_BLOCKS_AN_SM, SGD_R,
+                                                   embedding_bag_backward_cuda, sgd_rows_cuda,
                                                    sgd_rows_occupancy, sgd_rows_plan)
     from repro_torch.launch.sgd_sweep import link_while, page_probe
 
     inp = _train_inputs(torch, model, batch)
     bags, g_emb, fields, dz = inp["bags"], inp["g_emb"], inp["fields"], inp["dz"]
     n_rows, d = model.table.shape
-    rows_out = []
-
-    # embedding_bag_backward (with its combine)
-    kern = lambda: embedding_bag_backward_cuda(bags, g_emb, "sum", n_rows)  # noqa: E731
-    twin = lambda: ref.embedding_bag_backward_ref(bags, g_emb, "sum", n_rows)  # noqa: E731
-    rows, grads, n_u, pieces = embedding_bag_backward_pieces_cuda(bags, g_emb, "sum", n_rows)
-    p_rows, p_grads, p_n = twin()
-    torch.cuda.synchronize()
-    n = int(n_u)
-    # the combine against its twin on the kernel's own pieces (atomics on
-    # the card: within EMB_BWD_TOL), then the whole against the plain twin
-    c_kern, c_twin = grads.clone(), grads.clone()
-    embedding_bag_backward_combine_cuda(*pieces, c_kern)
-    ref.embedding_bag_backward_combine_ref(*pieces, c_twin)
-    if not (n == int(p_n) and torch.equal(rows[:n], p_rows[:n])
-            and _close(torch, c_kern[:n], p_grads[:n], **EMB_BWD_TOL)
-            and _close(torch, c_kern[:n], c_twin[:n], **EMB_BWD_TOL)):
-        _fail("embedding_bag_backward differs from its twins at train_batch shapes")
-    errs["embedding_bag_backward"] = max(errs["embedding_bag_backward"], float(
-        (c_kern[:n] - p_grads[:n]).abs().max()))
-    errs["embedding_bag_backward_combine"] = float((c_kern[:n] - c_twin[:n]).abs().max())
-    last_slot = pieces[2]
-    n_cut = int((last_slot >= 0).sum())
-    n_cont = int((pieces[3] > 0).sum())
-    ids = bags.reshape(-1)
-    uniq, inverse = torch.unique(ids, return_inverse=True)
-    lib = lambda: torch.zeros((uniq.numel(), d), device=DEV).index_add_(  # noqa: E731
-        0, inverse, g_emb.float())
-    lib_out = lib()
-    if not _close(torch, lib_out, p_grads[:n], **EMB_BWD_TOL):
-        _fail("the index_add_ yardstick is not the backward's function")
-    del lib_out, c_twin, p_grads
-    plain_a = _time_ms(torch, twin, 3)
-    ms_a = _time_ms(torch, kern, 20)
-    lib_a = _time_ms(torch, lib, 20)
-    lib_b = _time_ms(torch, lib, 20)
-    ms_b = _time_ms(torch, kern, 20)
-    plain_b = _time_ms(torch, twin, 3)
-    comb = lambda: embedding_bag_backward_combine_cuda(*pieces, c_kern)  # noqa: E731
-    comb_twin = lambda: ref.embedding_bag_backward_combine_ref(*pieces, c_kern)  # noqa: E731
-    comb_ms = min(_time_ms(torch, comb, 50), _time_ms(torch, comb, 50))
-    comb_plain = min(_time_ms(torch, comb_twin, 5), _time_ms(torch, comb_twin, 5))
-    dev_ms = _kernel_device_ms(torch, kern, 10)
-    n_pos = ids.numel()
-    bwd_bytes = (g_emb.numel() * g_emb.element_size() + n_pos * (ids.element_size() + 8 + 8)
-                 + n * (d * 4 + 8))
-    rows_out.append(_row(
-        "embedding_bag_backward", "src/repro_torch/csrc/embedding_bag.cu", EMB_BWD_REPLACES,
-        counts["embedding_bag_backward"], errs["embedding_bag_backward"], min(ms_a, ms_b),
-        min(plain_a, plain_b), bwd_bytes, n_pos * d, CORE_OPS_PER_S, min(lib_a, lib_b),
-        runs=[ms_a, ms_b], device_ms=dev_ms, n_positions=n_pos, n_unique=n,
-        cut_runs=n_cut, library="torch.zeros(U, D).index_add_(0, inverse, g.float()) "
-        "after torch.unique (not timed)", shape=f"bags {tuple(bags.shape)}, "
-        f"grad {tuple(g_emb.shape)} {g_emb.dtype}"))
-    comb_bytes = (2 * n_cut + n_cont) * d * 4  # part_last and slots of cut runs, part_first
-    rows_out.append(_row(
-        "embedding_bag_backward_combine", "src/repro_torch/csrc/embedding_bag.cu",
-        EMB_BWD_REPLACES, counts["embedding_bag_backward_combine"],
-        errs["embedding_bag_backward_combine"], comb_ms, comb_plain, comb_bytes,
-        n_cont * d, CORE_OPS_PER_S, None, cut_runs=n_cut, pieces_added=n_cont,
-        library="none: no single call adds a cut run's pieces into its slot"))
-    del rows, grads, pieces, c_kern, uniq, inverse
-
+    rows_out = _emb_bwd_rows(torch, np, bags, g_emb, n_rows, errs, counts)
     rows_out += _dot_bwd_rows(torch, fields, dz, errs, counts)
 
     # sgd_rows on the step's own compact gradient, in place on the model's
@@ -2254,6 +2480,17 @@ def time_train_kernels(torch, np, model, opt_state, batch, errs: dict, counts: d
         "link_ceiling_ms: the slower of the read and the write alone over these rows"))
     rows_out[-1]["pcie_GBps"] = 2 * each_way / (rows_out[-1]["ms"] / 1e3) / 1e9
     return rows_out
+
+
+def _device_parts(torch, fn, reps: int) -> dict:
+    """Device ms and calls a call of fn spends in each kernel, memset or
+    copy, by name (the profiler, over reps calls), the longest first."""
+    fn()
+    torch.cuda.synchronize()
+    _, _, avgs = _profile(torch, lambda: [fn() for _ in range(reps)])
+    out = {e.key[:90]: {"ms": e.self_device_time_total / reps / 1e3, "calls": e.count / reps}
+           for e in avgs if getattr(e, "self_device_time_total", 0) > 0}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
 
 
 def _kernel_device_ms(torch, fn, reps: int) -> dict:
@@ -2366,53 +2603,80 @@ def _dot_bwd_rows(torch, x, dz, errs: dict, counts: dict) -> list:
 ROUTE_STEPS = 10  # steps a turn when the step is timed with each backward route
 
 
-def _step_ms_by_route(torch, np, run) -> dict:
-    """The train step's median ms with the tensor-core
-    ``dot_interaction_backward`` (the step as it is) and with the SIMT one
-    (``ops.dot_interaction_backward`` forced to it), in turns tc, simt,
-    simt, tc of ROUTE_STEPS steps each: the two kernels on one host, in one
-    process; then one profiled step on each (:func:`_step_trace`). Fails
-    unless each turn launched its route's kernel once a step and the
-    other's never."""
+def _step_ms_by_route(torch, np, run, op: str, forced: dict, a_step: dict, name: str) -> dict:
+    """The train step's median ms with ``ops.<op>`` set to each of the two
+    routes of ``forced`` (route -> function; the first is the step as it
+    is), in turns a, b, b, a of ROUTE_STEPS steps each: the two kernels on
+    one host, in one process; then one profiled step on each
+    (:func:`_step_trace` of the kernels whose name holds ``name``). Fails
+    unless each turn launched its route's kernels as ``a_step`` says (route
+    -> {kernel: launches a step}) and the other's never."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
 
-    real = ops.dot_interaction_backward
-    forced = {"tc": real, "simt": lambda x, dz: dot_interaction_backward_cuda(x, dz, simt=True)}
-    times = {"tc": [], "simt": []}
+    real = getattr(ops, op)
+    first, second = forced
+    names = sorted({k for launches in a_step.values() for k in launches})
+    times = {route: [] for route in forced}
     try:
-        for route in ("tc", "simt", "simt", "tc"):
-            ops.dot_interaction_backward = forced[route]
-            before = {k: ops.launch_counts[k] for k in DOT_BWD_ROUTES}
+        for route in (first, second, second, first):
+            setattr(ops, op, forced[route])
+            before = {k: ops.launch_counts[k] for k in names}
             for _ in range(ROUTE_STEPS):
                 t0 = time.perf_counter()
                 run()
                 torch.cuda.synchronize()
                 times[route].append(time.perf_counter() - t0)
-            launched = {k: ops.launch_counts[k] - before[k] for k in DOT_BWD_ROUTES}
-            if launched != {k: ROUTE_STEPS * (k == DOT_BWD_ROUTES[route == "simt"])
-                            for k in DOT_BWD_ROUTES}:
-                _fail(f"the train steps timed on the {route} backward launched {launched}")
+            launched = {k: ops.launch_counts[k] - before[k] for k in names}
+            if launched != {k: ROUTE_STEPS * a_step[route].get(k, 0) for k in names}:
+                _fail(f"the train steps timed on the {route} {op} launched {launched}")
         traces = {}
-        for route in ("tc", "simt"):
-            ops.dot_interaction_backward = forced[route]
-            traces[route] = _step_trace(torch, run, "dot_interaction_backward")
+        for route in forced:
+            setattr(ops, op, forced[route])
+            traces[route] = _step_trace(torch, run, name)
     finally:
-        ops.dot_interaction_backward = real
+        setattr(ops, op, real)
     res = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
-    print(f"train_batch step ms by dot_interaction_backward route (median of "
-          f"{2 * ROUTE_STEPS} steps each, in turns tc, simt, simt, tc): {res}; "
-          f"simt - tc = {res['simt'] - res['tc']:.6f} ms; steps "
+    print(f"train_batch step ms by {op} route (median of {2 * ROUTE_STEPS} steps each, in "
+          f"turns {first}, {second}, {second}, {first}): {res}; {second} - {first} = "
+          f"{res[second] - res[first]:.6f} ms; steps "
           f"{ {k: [round(t * 1e3, 6) for t in v] for k, v in times.items()} }; "
           f"one profiled step each: {traces}")
     return {**res, "trace": traces}
 
 
+def _step_ms_by_dot_route(torch, np, run) -> dict:
+    """:func:`_step_ms_by_route` of ``dot_interaction_backward``: the
+    tensor-core kernel (the step's) and the SIMT one."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dot_interaction import dot_interaction_backward_cuda
+
+    forced = {"tc": ops.dot_interaction_backward,
+              "simt": lambda x, dz: dot_interaction_backward_cuda(x, dz, simt=True)}
+    a_step = {"tc": {DOT_BWD_ROUTES[0]: 1}, "simt": {DOT_BWD_ROUTES[1]: 1}}
+    return _step_ms_by_route(torch, np, run, "dot_interaction_backward", forced, a_step,
+                             "dot_interaction_backward")
+
+
+def _step_ms_by_emb_route(torch, np, run) -> dict:
+    """:func:`_step_ms_by_route` of ``embedding_bag_backward``: the one-pass
+    kernel (the step's) and the two-pass route (its kernel and combine)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_cuda
+
+    forced = {"one_pass": ops.embedding_bag_backward,
+              "two_pass": lambda idx, g, combiner="sum", n_rows=None: embedding_bag_backward_cuda(
+                  idx, g, combiner, n_rows, two_pass=True)}
+    return _step_ms_by_route(torch, np, run, "embedding_bag_backward", forced,
+                             {r: EMB_BWD_ROUTES[r] for r in forced}, "embedding_bag_backward")
+
+
 def _step_trace(torch, run, name: str) -> dict:
-    """One profiled call of run: its wall ms, the device's kernel ms and
-    idle ms (no kernel running) inside the kernels' span, and, for the
-    kernel whose name holds `name`, its device ms, the idle just before
-    and after it and the kernel that follows it."""
+    """One profiled call of run: its wall ms, the device's kernel ms (also
+    without ``sgd_rows``, whose time the host sets and which moves by more
+    than a kernel's gain from step to step) and idle ms (no kernel running)
+    inside the kernels' span, and, for the kernels whose name holds
+    `name`, their device ms, the idle just before the first and after the
+    last, and the kernel that follows them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2434,14 +2698,17 @@ def _step_trace(torch, run, name: str) -> dict:
         idle += gaps[-1]
         end = max(end, stop)
     res.update(kernel_ms=sum(b - a for a, b, _ in ks) / 1e3, idle_ms=idle / 1e3,
-               span_ms=(end - ks[0][0]) / 1e3)
-    for i, (start, stop, kname) in enumerate(ks):
-        if name in kname:
-            res.update(kernel=kname[:60], kernel_device_ms=(stop - start) / 1e3,
-                       idle_before_ms=gaps[i] / 1e3,
-                       idle_after_ms=gaps[i + 1] / 1e3 if i + 1 < len(ks) else None,
-                       next=ks[i + 1][2][:60] if i + 1 < len(ks) else None)
-            break
+               span_ms=(end - ks[0][0]) / 1e3,
+               kernel_ms_without_sgd_rows=sum(b - a for a, b, k in ks if "sgd_rows" not in k)
+               / 1e3)
+    hits = [i for i, (_, _, kname) in enumerate(ks) if name in kname]
+    if hits:
+        i, j = hits[0], hits[-1]
+        res.update(kernel=[ks[h][2][:60] for h in hits],
+                   kernel_device_ms=sum(ks[h][1] - ks[h][0] for h in hits) / 1e3,
+                   idle_before_ms=gaps[i] / 1e3,
+                   idle_after_ms=gaps[j + 1] / 1e3 if j + 1 < len(ks) else None,
+                   next=ks[j + 1][2][:60] if j + 1 < len(ks) else None)
     return res
 
 
@@ -2501,7 +2768,8 @@ def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
     syncs = _count_syncs(torch, cell.run)
     if syncs > TRAIN_MAX_SYNCS:
         _fail(f"a train_batch step made {syncs} host syncs (at most {TRAIN_MAX_SYNCS})")
-    by_route = _step_ms_by_route(torch, np, cell.run)
+    by_route = _step_ms_by_dot_route(torch, np, cell.run)
+    by_emb_route = _step_ms_by_emb_route(torch, np, cell.run)
     wall, dev, avgs = _profile(torch, cell.run)
     peak = torch.cuda.max_memory_allocated()
     print(f"train_batch B={dense.shape[0]} steps={TRAIN_STEPS} step_ms_median={step_ms:.6f} "
@@ -2517,8 +2785,14 @@ def drive_dlrm_train(torch, np, seed: int, errs: dict) -> list:
         r["train_step_ms"] = step_ms
         if r["name"] in DOT_BWD_ROUTES:
             r["train_step_ms_by_route"] = by_route
+        if r["name"].startswith("embedding_bag_backward"):
+            r["train_step_ms_by_route"] = by_emb_route
+        if r["name"] == "embedding_bag_backward":  # its device time, the third reading
+            r["kernel_step_trace_ms"] = by_emb_route["trace"]["one_pass"].get(
+                "kernel_device_ms")
     summary = {"init_s": init_s, "register_s": model.master_register_s, "step_ms": step_ms,
                "step_ms_by_backward_route": by_route,
+               "step_ms_by_embedding_backward_route": by_emb_route,
                "samples_per_s": dense.shape[0] / (step_ms / 1e3), "syncs": syncs,
                "busy": dev / wall if dev > 0 else None, "peak": peak, "hold": hold,
                "master_backing": "huge", "master_pages": master_pages}

@@ -54,10 +54,15 @@ SOURCES = {
     "embedding_bag": {
         "embedding_bag": ("embedding_bag_launch",
                           [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]),
-        # ids, perm, slot, grad, denom, rows, grads, part_first, part_last,
-        # last_slot, first_kind; n, n_rows, L, D, dtype, idx64
+        # ids, perm, grad, denom, rows, grads, part, work; n, n_rows, L, D,
+        # dtype, idx64, chunk, rows a stage
         "embedding_bag_backward": ("embedding_bag_backward_launch",
-                                   [_P] * 11 + [_I64] * 6 + [_P]),
+                                   [_P] * 8 + [_I64] * 8 + [_P]),
+        # the two-pass kernel, kept to be timed beside it: ids, perm, slot,
+        # grad, denom, rows, grads, part_first, part_last, last_slot,
+        # first_kind; n, n_rows, L, D, dtype, idx64
+        "embedding_bag_backward_two_pass": ("embedding_bag_backward_two_pass_launch",
+                                            [_P] * 11 + [_I64] * 6 + [_P]),
         # part_first, part_last, last_slot, first_kind, grads; n_chunks, D
         "embedding_bag_backward_combine": ("embedding_bag_backward_combine_launch",
                                            [_P] * 5 + [_I64] * 2 + [_P]),

@@ -11,12 +11,12 @@ package (a TPU kernel) and is DLRM's lookup
 DLRM training adds two more, whose twins are
 :func:`~repro_torch.kernels.ref.embedding_bag_backward_ref` and
 :func:`~repro_torch.kernels.ref.sgd_rows_ref`:
-``embedding_bag_backward`` (with ``embedding_bag_backward_combine``, two
-launches a call) sums the gradient of each distinct row of a batch into a
-compact float32 buffer, and ``sgd_rows`` applies the table's SGD to those
-rows of the float32 master and writes their rounding into the table. The
-master lives in host memory registered with the card
-(:func:`register_host`), which ``sgd_rows`` reads and writes over PCIe.
+``embedding_bag_backward`` (one launch after the ids' sort) sums the
+gradient of each distinct row of a batch into a compact float32 buffer,
+and ``sgd_rows`` applies the table's SGD to those rows of the float32
+master and writes their rounding into the table. The master lives in host
+memory registered with the card (:func:`register_host`), which
+``sgd_rows`` reads and writes over PCIe.
 """
 from __future__ import annotations
 
@@ -64,34 +64,75 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
-def embedding_bag_backward_cuda(indices: torch.Tensor, grad_out: torch.Tensor,
-                                combiner: str = "sum", n_rows: int | None = None) -> tuple:
-    """The gradient of :func:`embedding_bag_cuda` with respect to the table,
-    by distinct row: indices (B, L) int32 or int64 (negative = padding),
-    grad_out (B, D) float32 or bfloat16, on one CUDA device. Returns (rows,
-    grads, n_unique): rows (B * L,) int64 and grads (B * L, D) float32, whose
-    first n_unique slots hold the distinct valid ids in ascending order and
-    their summed gradients (slots past it are not written), and n_unique a
-    0-dim int64 tensor on the device. Sized from B * L, so nothing is read
-    back; an id >= n_rows stops the kernel with an error. Two launches:
-    :func:`embedding_bag_backward_pieces_cuda`, then
-    :func:`embedding_bag_backward_combine_cuda`."""
-    rows, grads, n_unique, pieces = embedding_bag_backward_pieces_cuda(indices, grad_out,
-                                                                       combiner, n_rows)
-    embedding_bag_backward_combine_cuda(*pieces, grads)
-    return rows, grads, n_unique
+BACKWARD_CHUNK = 256  # sorted positions a chunk, both backward kernels (CHUNK in the source)
+BACKWARD_STAGES = 4   # stages of the one-pass kernel's ring of rows (EBB_STAGES)
+BACKWARD_RING = 32    # rows of the ring a warp: BACKWARD_STAGES stages of EBB_RS = 8
+BACKWARD_RINGS = (16, 32, 64)  # the source's rings (16 and 64: bfloat16, 16-byte pieces)
+BACKWARD_MAX_CHUNK = 1024  # the largest chunk every instance fits in a block (EBB_MAX_CHUNK)
+# the one-pass kernel's ways of gathering a slab of a row (ebb_path in the source)
+BACKWARD_PATHS = {"scalar": 0, "16-byte": 1, "8-byte": 2}
 
 
-def embedding_bag_backward_pieces_cuda(indices: torch.Tensor, grad_out: torch.Tensor,
-                                       combiner: str = "sum",
-                                       n_rows: int | None = None) -> tuple:
-    """The backward's first launch (``embedding_bag_backward``): (rows,
-    grads, n_unique, pieces), every run that lies inside one chunk of
-    ``BACKWARD_CHUNK`` sorted positions already summed into its slot, and
-    ``pieces`` = (part_first, part_last, last_slot, first_kind), the sums of
-    the runs cut by chunk boundaries, for the combine (``csrc`` explains
-    the layout; :func:`repro_torch.kernels.ref.embedding_bag_backward_combine_ref`
-    is their plain reading)."""
+@dataclass(frozen=True)
+class BackwardPlan:
+    """A launch of the one-pass ``embedding_bag_backward``: each warp takes
+    ``chunk`` sorted positions at a time (a multiple of 32, at most
+    BACKWARD_MAX_CHUNK)
+    and gathers their rows through a ring of ``ring`` rows, BACKWARD_STAGES
+    stages of ``ring / BACKWARD_STAGES``. Every path has a ring of
+    BACKWARD_RING; bfloat16 rows in 16-byte pieces also 16 and 64, for the
+    sweep (the source's instances)."""
+    chunk: int = BACKWARD_CHUNK
+    ring: int = BACKWARD_RING
+
+    def __post_init__(self):
+        if not (32 <= self.chunk <= BACKWARD_MAX_CHUNK and self.chunk % 32 == 0):
+            raise ValueError(f"a backward chunk is a multiple of 32 up to {BACKWARD_MAX_CHUNK}, "
+                             f"not {self.chunk}")
+        if self.ring not in BACKWARD_RINGS:
+            raise ValueError(f"a backward ring holds one of {BACKWARD_RINGS} rows, not {self.ring}")
+
+    @property
+    def stage_rows(self) -> int:
+        return self.ring // BACKWARD_STAGES
+
+
+def backward_path(grad_out: torch.Tensor) -> str:
+    """How the one-pass kernel gathers ``grad_out``'s rows (its ebb_path):
+    16-byte pieces where D and the pointer allow them, 8-byte pieces of a
+    bfloat16 row of D % 4 == 0, scalar pieces otherwise."""
+    d, es = grad_out.shape[1], grad_out.element_size()
+    if d % 4 == 0 and (d * es) % 16 == 0 and grad_out.data_ptr() % 16 == 0:
+        return "16-byte"
+    if grad_out.dtype == torch.bfloat16 and d % 4 == 0 and grad_out.data_ptr() % 8 == 0:
+        return "8-byte"
+    return "scalar"
+
+
+def backward_occupancy(plan: BackwardPlan | None = None, grad_dtype=torch.bfloat16,
+                       index_dtype=torch.int32, path: str = "16-byte", *,
+                       two_pass: bool = False) -> dict:
+    """What the card fits of an instance of the backward, launching nothing:
+    the one-pass kernel at ``plan`` on ``path`` (BACKWARD_PATHS), or, with
+    ``two_pass``, the two-pass kernel (vectorised unless ``path`` is
+    "scalar"): its blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and spilled bytes a thread, shared bytes and threads a block,
+    and warps an SM."""
+    plan = plan or BackwardPlan()
+    fn = _build.load("embedding_bag").embedding_bag_backward_occupancy
+    fn.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * 5)()
+    vec = BACKWARD_PATHS[path] if not two_pass else int(path != "scalar")
+    err = fn(int(two_pass), _DTYPES[grad_dtype], _INDEX_DTYPES[index_dtype], vec, plan.chunk,
+             plan.stage_rows, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"embedding_bag_backward_occupancy failed with error {err}")
+    return {"blocks_an_sm": out[0], "registers": out[1], "spill_bytes": out[2],
+            "smem_bytes": out[3], "threads": out[4], "warps_an_sm": out[0] * out[4] // 32}
+
+
+def _check_backward(indices: torch.Tensor, grad_out: torch.Tensor, combiner: str) -> None:
     if grad_out.dtype not in _DTYPES:
         raise TypeError(f"embedding_bag_backward_cuda takes float32 or bfloat16 gradients, "
                         f"not {grad_out.dtype}")
@@ -102,9 +143,113 @@ def embedding_bag_backward_pieces_cuda(indices: torch.Tensor, grad_out: torch.Te
         raise ValueError(f"combiner must be 'sum' or 'mean', not {combiner!r}")
     if indices.dim() != 2 or grad_out.dim() != 2 or grad_out.shape[0] != indices.shape[0]:
         raise ValueError("embedding_bag_backward_cuda takes (B, L) indices and (B, D) gradients")
-    dev = grad_out.device
-    if dev.type != "cuda" or indices.device != dev:
+    if grad_out.device.type != "cuda" or indices.device != grad_out.device:
         raise ValueError("embedding_bag_backward_cuda needs both tensors on one CUDA device")
+
+
+def _denom(indices: torch.Tensor, combiner: str) -> torch.Tensor | None:
+    return (indices >= 0).sum(dim=1).clamp(min=1).float() if combiner == "mean" else None
+
+
+def embedding_bag_backward_cuda(indices: torch.Tensor, grad_out: torch.Tensor,
+                                combiner: str = "sum", n_rows: int | None = None, *,
+                                plan: BackwardPlan | None = None,
+                                two_pass: bool = False) -> tuple:
+    """The gradient of :func:`embedding_bag_cuda` with respect to the table,
+    by distinct row: indices (B, L) int32 or int64 (negative = padding),
+    grad_out (B, D) float32 or bfloat16, on one CUDA device. Returns (rows,
+    grads, n_unique): rows (B * L,) int64 and grads (B * L, D) float32, whose
+    first n_unique slots hold the distinct valid ids in ascending order and
+    their summed gradients (slots past it are not written), and n_unique a
+    0-dim int64 tensor on the device. Sized from B * L, so nothing is read
+    back; an id >= n_rows stops the kernel with an error. The ids are sorted
+    (``torch.sort``, stable), then one launch of the one-pass kernel
+    (:func:`embedding_bag_backward_sorted_cuda`, at ``plan``). With
+    ``two_pass``, the first design instead, to be timed beside it:
+    :func:`embedding_bag_backward_pieces_cuda`, then
+    :func:`embedding_bag_backward_combine_cuda`."""
+    if two_pass and plan is not None:
+        raise ValueError("the two-pass backward takes no plan")
+    _check_backward(indices, grad_out, combiner)
+    if two_pass:
+        rows, grads, n_unique, pieces = embedding_bag_backward_pieces_cuda(indices, grad_out,
+                                                                           combiner, n_rows)
+        embedding_bag_backward_combine_cuda(*pieces, grads)
+        return rows, grads, n_unique
+    ids, perm = torch.sort(indices.reshape(-1), stable=True)
+    return embedding_bag_backward_sorted_cuda(ids, perm, grad_out, indices.shape[1],
+                                              _denom(indices, combiner), n_rows, plan)
+
+
+def embedding_bag_backward_sorted_cuda(ids: torch.Tensor, perm: torch.Tensor,
+                                       grad_out: torch.Tensor, bag_len: int,
+                                       denom: torch.Tensor | None = None,
+                                       n_rows: int | None = None,
+                                       plan: BackwardPlan | None = None) -> tuple:
+    """The one-pass kernel (``embedding_bag_backward``) on ids already
+    sorted: ids (n,) int32 or int64 ascending, perm (n,) int64 each sorted
+    id's position in the flattened (B, L) indices (``torch.sort(...,
+    stable=True)``'s pair), both contiguous and 16-byte aligned; grad_out (B,
+    D) with B * bag_len == n; denom (B,) float32 for the mean, None for the
+    sum. Returns :func:`embedding_bag_backward_cuda`'s (rows, grads,
+    n_unique). The kernel finds the runs' heads and slots itself; its
+    scratch (the scan, the cut runs' counts and pieces) is allocated here,
+    and the part it reads before writing is zeroed: one fill."""
+    plan = plan or BackwardPlan()
+    if ids.dim() != 1 or ids.dtype not in _INDEX_DTYPES or perm.dtype != torch.int64 \
+            or perm.shape != ids.shape:
+        raise ValueError("embedding_bag_backward_sorted_cuda takes ids (n,) int32 or int64 and "
+                         "perm (n,) int64")
+    if grad_out.dtype not in _DTYPES or grad_out.dim() != 2 \
+            or grad_out.shape[0] * bag_len != ids.numel():
+        raise ValueError("embedding_bag_backward_sorted_cuda takes grad_out (B, D) float32 or "
+                         "bfloat16 with B * bag_len == n")
+    dev = grad_out.device
+    if dev.type != "cuda" or ids.device != dev or perm.device != dev or (
+            denom is not None and denom.device != dev):
+        raise ValueError("embedding_bag_backward_sorted_cuda needs its tensors on one CUDA "
+                         "device")
+    if denom is not None and (denom.dtype != torch.float32 or denom.shape != grad_out.shape[:1]
+                              or not denom.is_contiguous()):
+        raise ValueError("embedding_bag_backward_sorted_cuda takes denom (B,) float32")
+    if not (ids.is_contiguous() and perm.is_contiguous()) or ids.data_ptr() % 16 \
+            or perm.data_ptr() % 16:
+        raise ValueError("embedding_bag_backward_sorted_cuda takes contiguous, 16-byte aligned "
+                         "ids and perm")
+    n, d = ids.numel(), grad_out.shape[1]
+    if n >= 2**32:
+        raise ValueError(f"embedding_bag_backward_sorted_cuda takes fewer than 2^32 ids, not {n}")
+    grad_out = grad_out.contiguous()
+    n_chunks = -(-n // plan.chunk)
+    rows = torch.empty((n,), dtype=torch.int64, device=dev)
+    grads = torch.empty((n, d), dtype=torch.float32, device=dev)
+    part = torch.empty((2, n_chunks, d), dtype=torch.float32, device=dev)
+    work = torch.empty((2 + 3 * n_chunks,), dtype=torch.int64, device=dev)
+    work[:2 + 2 * n_chunks].zero_()
+    if n == 0:
+        return rows, grads, work[1]
+    limit = n_rows if n_rows is not None else 2**62
+    _build.launch("embedding_bag", "embedding_bag_backward", dev, ids.data_ptr(),
+                  perm.data_ptr(), grad_out.data_ptr(),
+                  denom.data_ptr() if denom is not None else None, rows.data_ptr(),
+                  grads.data_ptr(), part.data_ptr(), work.data_ptr(), n, limit, bag_len, d,
+                  _DTYPES[grad_out.dtype], _INDEX_DTYPES[ids.dtype], plan.chunk,
+                  plan.stage_rows)
+    return rows, grads, work[1]
+
+
+def embedding_bag_backward_pieces_cuda(indices: torch.Tensor, grad_out: torch.Tensor,
+                                       combiner: str = "sum",
+                                       n_rows: int | None = None) -> tuple:
+    """The two-pass backward's first launch (``embedding_bag_backward_two_pass``):
+    (rows, grads, n_unique, pieces), every run that lies inside one chunk
+    of ``BACKWARD_CHUNK`` sorted positions already summed into its slot, and
+    ``pieces`` = (part_first, part_last, last_slot, first_kind), the sums of
+    the runs cut by chunk boundaries, for the combine (``csrc`` explains
+    the layout; :func:`repro_torch.kernels.ref.embedding_bag_backward_combine_ref`
+    is their plain reading). The slots come from :func:`ref.bag_runs`."""
+    _check_backward(indices, grad_out, combiner)
+    dev = grad_out.device
     grad_out = grad_out.contiguous()
     (n_bags, bag_len), d = indices.shape, grad_out.shape[1]
     n = n_bags * bag_len
@@ -118,23 +263,21 @@ def embedding_bag_backward_pieces_cuda(indices: torch.Tensor, grad_out: torch.Te
               torch.zeros((n_chunks,), dtype=torch.int32, device=dev))
     if n == 0 or d == 0:
         return rows, grads, n_unique, pieces
-    denom = ((indices >= 0).sum(dim=1).clamp(min=1).float() if combiner == "mean"
-             else None)
     limit = n_rows if n_rows is not None else 2**62
-    _build.launch("embedding_bag", "embedding_bag_backward", dev, ids.data_ptr(),
+    denom = _denom(indices, combiner)
+    _build.launch("embedding_bag", "embedding_bag_backward_two_pass", dev, ids.data_ptr(),
                   perm.data_ptr(), slot.data_ptr(), grad_out.data_ptr(),
-                  denom.data_ptr() if denom is not None else None, rows.data_ptr(),
-                  grads.data_ptr(), *(p.data_ptr() for p in pieces), n, limit, bag_len, d,
-                  _DTYPES[grad_out.dtype], _INDEX_DTYPES[ids.dtype])
+                  denom.data_ptr() if denom is not None else None, rows.data_ptr(), grads.data_ptr(), *(p.data_ptr() for p in pieces), n, limit,
+                  bag_len, d, _DTYPES[grad_out.dtype], _INDEX_DTYPES[ids.dtype])
     return rows, grads, n_unique, pieces
 
 
 def embedding_bag_backward_combine_cuda(part_first: torch.Tensor, part_last: torch.Tensor,
                                         last_slot: torch.Tensor, first_kind: torch.Tensor,
                                         grads: torch.Tensor) -> None:
-    """The backward's second launch (``embedding_bag_backward_combine``): in
-    place on ``grads``, each run cut by chunk boundaries gets the sum of its
-    pieces, in chunk order."""
+    """The two-pass backward's second launch (``embedding_bag_backward_combine``):
+    in place on ``grads``, each run cut by chunk boundaries gets the sum of
+    its pieces, in chunk order."""
     n_chunks, d = part_first.shape
     if grads.dim() != 2 or grads.shape[1] != d or part_last.shape != part_first.shape:
         raise ValueError("embedding_bag_backward_combine_cuda: pieces and grads disagree")
@@ -144,8 +287,6 @@ def embedding_bag_backward_combine_cuda(part_first: torch.Tensor, part_last: tor
                   part_first.data_ptr(), part_last.data_ptr(), last_slot.data_ptr(),
                   first_kind.data_ptr(), grads.data_ptr(), n_chunks, d)
 
-
-BACKWARD_CHUNK = 256  # sorted positions a warp of the backward (CHUNK in the source)
 
 HUGE_PAGE = 2 << 20  # bytes of a transparent huge page on x86-64
 BACKINGS = ("huge", "plain")

@@ -301,9 +301,45 @@ def embedding_bag_backward_ref(indices: torch.Tensor, grad_out: torch.Tensor,
     return rows, grads, n_unique
 
 
+def bag_chunk_scan_ref(ids: torch.Tensor, chunk: int) -> tuple:
+    """The one-pass ``embedding_bag`` backward's scan of run heads over
+    chunks of ``chunk`` sorted positions, as the kernel computes it from the
+    sorted ids alone: (heads, first_slot, run_chunk, n_unique), each (n_chunks,)
+    int64 but the last, a 0-dim int64. heads: the run heads in each chunk (a
+    valid id unlike the one before it); first_slot: the heads before the
+    chunk, the slot of its first head (less one: the slot of a run that
+    continues into it); run_chunk: the last chunk before it that holds a
+    head (where a run that continues into it began), -1 for none; n_unique:
+    the heads in all."""
+    n = ids.numel()
+    n_chunks = -(-n // chunk)
+    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]]) if n else ids
+    head = (ids >= 0) & (ids != prev)
+    heads = torch.zeros(n_chunks, dtype=torch.int64, device=ids.device)
+    heads.index_add_(0, torch.arange(n, device=ids.device) // chunk, head.long())
+    inc = torch.cumsum(heads, 0)
+    has = torch.where(heads > 0, torch.arange(n_chunks, device=ids.device), -1)
+    last = has.cummax(0).values if n_chunks else has
+    run_chunk = torch.cat([last.new_full((1,), -1), last[:-1]]) if n_chunks else last
+    return heads, inc - heads, run_chunk, inc[-1] if n_chunks else inc.new_zeros(())
+
+
+def bag_chunk_slots_ref(ids: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Each sorted position's slot from :func:`bag_chunk_scan_ref`, the way
+    the one-pass kernel gives it: its chunk's first slot plus the heads of
+    the chunk up to it, less one (``bag_runs``' slot)."""
+    n = ids.numel()
+    _, first_slot, _, _ = bag_chunk_scan_ref(ids, chunk)
+    prev = torch.cat([ids.new_full((1,), -1), ids[:-1]]) if n else ids
+    head = ((ids >= 0) & (ids != prev)).long()
+    k = torch.arange(n, device=ids.device) // chunk
+    within = torch.cumsum(head, 0) - (torch.cumsum(head, 0) - head)[k * chunk]
+    return first_slot[k] + within - 1
+
+
 def embedding_bag_backward_pieces_ref(indices: torch.Tensor, grad_out: torch.Tensor,
                                       combiner: str = "sum", chunk: int = 256) -> tuple:
-    """The first launch of the ``embedding_bag`` backward in its order of
+    """The ``embedding_bag`` backward's sums in its kernels' order of
     additions, bit for bit: (rows, grads, n_unique, (part_first, part_last,
     last_slot, first_kind)). The sorted positions are cut into chunks of
     ``chunk``; each run's piece in a chunk is summed from zero in sorted
@@ -311,8 +347,8 @@ def embedding_bag_backward_pieces_ref(indices: torch.Tensor, grad_out: torch.Ten
     boundaries leaves its first piece in ``part_last`` of the chunk where it
     begins (``last_slot`` its slot) and each later piece in ``part_first``
     of its chunk (``first_kind`` 1 where the run ends in that chunk, 2 where
-    it goes on). Slots of cut runs are left zero. A loop over positions:
-    small inputs only."""
+    it goes on). Slots of cut runs are left zero. All chunks at once, one
+    step a position of a chunk."""
     n, d = indices.numel(), grad_out.shape[1]
     ids, perm, slot, n_unique = bag_runs(indices)
     bag = perm // max(indices.shape[1], 1)
@@ -320,56 +356,62 @@ def embedding_bag_backward_pieces_ref(indices: torch.Tensor, grad_out: torch.Ten
     if combiner == "mean":
         g = g / (indices >= 0).sum(dim=1).clamp(min=1).float()[bag, None]
     dev = grad_out.device
+    valid = ids >= 0
     rows = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    rows[slot[valid]] = ids[valid].to(torch.int64)
     grads = torch.zeros((n, d), dtype=torch.float32, device=dev)
     n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    idp = torch.cat([ids.long(), ids.new_full((pad,), -1).long()]).view(n_chunks, chunk)
+    gp = torch.cat([g, g.new_zeros((pad, d))]).view(n_chunks, chunk, d)
+    sp = torch.cat([slot, slot.new_full((pad,), -1)]).view(n_chunks, chunk)
+    c0 = torch.arange(n_chunks, device=dev) * chunk
+    c1 = (c0 + chunk).clamp(max=n)
+    first, last = ids[c0].long() if n else c0, ids[c1 - 1].long() if n else c0
+    before = torch.where(c0 > 0, ids[(c0 - 1).clamp(min=0)].long() if n else c0, -1)
+    after = torch.where(c1 < n, ids[c1.clamp(max=max(n - 1, 0))].long() if n else c0, -1)
+    cont_in = (first >= 0) & (before == first)
+    cont_out = (last >= 0) & (after == last)
+    first_kind = torch.where(cont_in, torch.where(cont_out & (first == last), 2, 1), 0)
     part_first = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
     part_last = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
     last_slot = torch.full((n_chunks,), -1, dtype=torch.int64, device=dev)
-    first_kind = torch.zeros((n_chunks,), dtype=torch.int32, device=dev)
-    id_l, slot_l = ids.tolist(), slot.tolist()
-    for k, c0 in enumerate(range(0, n, chunk)):
-        c1 = min(c0 + chunk, n)
-        cont_in = c0 > 0 and id_l[c0] >= 0 and id_l[c0 - 1] == id_l[c0]
-        cont_out = c1 < n and id_l[c1 - 1] >= 0 and id_l[c1] == id_l[c1 - 1]
-        first_kind[k] = (2 if cont_out and id_l[c0] == id_l[c1 - 1] else 1) if cont_in else 0
-        seg, acc = None, None
-        for q in range(c0, c1):
-            if id_l[q] < 0:
-                continue
-            if seg is None:
-                seg, acc = q, torch.zeros(d, dtype=torch.float32, device=dev)
-            acc = acc + g[q]
-            if q + 1 < c1 and id_l[q + 1] == id_l[q]:
-                continue
-            if seg == c0 and cont_in:
-                part_first[k] = acc
-            else:
-                rows[slot_l[seg]] = id_l[q]
-                if q + 1 == c1 and cont_out:
-                    part_last[k], last_slot[k] = acc, slot_l[seg]
-                else:
-                    grads[slot_l[seg]] = acc
-            seg = None
+    acc = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
+    in_first = torch.zeros(n_chunks, dtype=torch.bool, device=dev)  # the piece continues a run
+    for t in range(chunk):
+        v = idp[:, t] >= 0
+        start = v & ((idp[:, t - 1] != idp[:, t]) if t else torch.ones_like(v))
+        in_first = torch.where(start, cont_in & (t == 0), in_first)
+        acc = torch.where(v[:, None], torch.where(start[:, None], 0.0, acc) + gp[:, t], acc)
+        end = v & ((idp[:, t + 1] != idp[:, t]) if t + 1 < chunk else torch.ones_like(v))
+        to_first = end & in_first
+        to_last = end & ~in_first & (c0 + t == c1 - 1) & cont_out
+        to_slot = end & ~in_first & ~to_last
+        part_first[to_first] = acc[to_first]
+        part_last[to_last] = acc[to_last]
+        last_slot[to_last] = sp[to_last, t]
+        grads[sp[to_slot, t]] = acc[to_slot]
     return rows, grads, n_unique, (part_first, part_last, last_slot, first_kind)
 
 
 def embedding_bag_backward_combine_ref(part_first: torch.Tensor, part_last: torch.Tensor,
                                        last_slot: torch.Tensor, first_kind: torch.Tensor,
                                        grads: torch.Tensor) -> None:
-    """The second launch of the ``embedding_bag`` backward, in place on
+    """The cut runs' sums of the ``embedding_bag`` backward, in place on
     ``grads``: a run cut by chunk boundaries, begun in chunk k, gets
     ``part_last[k]`` plus ``part_first[j]`` of each later chunk j it reaches,
-    added in chunk order (on the CPU; on the card ``index_add_`` adds them
-    in any order)."""
-    idx = torch.arange(last_slot.shape[0], device=last_slot.device)
-    begun = torch.where(last_slot >= 0, idx, -1).cummax(dim=0).values
-    owner = torch.cat([begun.new_full((1,), -1), begun[:-1]])  # the run chunk j continues
-    cont = (first_kind > 0) & (owner >= 0)
-    sums = part_last.clone()
-    sums.index_add_(0, owner[cont], part_first[cont])
-    live = last_slot >= 0
-    grads[last_slot[live]] = sums[live]
+    added in chunk order, one step a chunk for all runs at once (the same
+    sums on any device). The two-pass route's combine kernel and the
+    one-pass kernel add them in this order."""
+    begun = torch.nonzero(last_slot >= 0).flatten()
+    sums = part_last[begun].clone()
+    j, going = begun + 1, torch.ones_like(begun, dtype=torch.bool)
+    while bool(going.any()):
+        at = torch.nonzero(going).flatten()
+        sums[at] += part_first[j[at]]
+        going[at] = first_kind[j[at]] == 2
+        j += 1
+    grads[last_slot[begun]] = sums
 
 
 def embedding_bag_backward_split_ref(indices: torch.Tensor, grad_out: torch.Tensor,

@@ -149,6 +149,7 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
                                       "digram_pair_counts", "digram_pair_accum",
                                       "digram_select", "embedding_bag",
                                       "embedding_bag_backward",
+                                      "embedding_bag_backward_two_pass",
                                       "embedding_bag_backward_combine", "sgd_rows",
                                       "dot_interaction", "dot_interaction_simt",
                                       "dot_interaction_backward",
