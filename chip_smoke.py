@@ -57,8 +57,27 @@ nothing of the JAX package. Phases:
    Update Count each), ``digram_select`` at least once a replacement, the
    dense ``digram_pair_counts`` 0 times; each of the six batches with S or
    O bound seeds through one count and one write launch of ``k2_lines``,
-   and the standalone ``bitvec_rank`` is launched 0 times. The inputs of
-   the first 21 accumulations and the last selection's table are kept;
+   and the standalone ``bitvec_rank`` is launched 0 times; the engine's
+   crossover calibration (3 worklist queries and 3 one-query frontiers at
+   construction) is counted apart: exactly 6 of each ``k2_lines`` launch.
+   The inputs of the first 21 accumulations and the last selection's table
+   are kept. Then the scalar worklist, the crossover and the paper's
+   neighbourhood queries on the same engine: the crossover measured on the
+   card and the two best times it came from; ``K2Tree.row`` held against
+   its twin on 256 subjects and timed; 256 single queries of each selective
+   pattern (s??, ??o, sp?, s?o, ?po, spo) through ``engine.query``, at the
+   calibrated crossover (8 if it chose 0) and at 0 (the frontier alone),
+   each reading held against the oracle scan, p50/p99 µs per pattern, with
+   exactly one ``k2_lines_count`` and one ``k2_lines_write`` a query, one of
+   each for the NT-row fill (at most once an engine) and no ``bitvec_rank``;
+   ``neighbors_out_batch`` and ``neighbors_in_batch`` over 4,096 nodes drawn
+   from the triples (duplicates, a -1 and an id past n_nodes), every list
+   equal to the oracle's distinct objects / subjects, duplicates sharing
+   one tensor, µs per node, then 256 single ``neighbors_out`` and 256
+   ``neighbors_in`` calls, each checked, p50/p99 µs, one of each launch a
+   batch or call; controls that must fail: a neighbour list with one node
+   dropped, and the worklist with its NT prune inverted on the ?po
+   queries;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -179,6 +198,7 @@ PCIE_BYTES_PER_S = 64e9       # PCIe Gen5 x16, the H100 SXM's host link, each wa
 CORE_OPS_PER_S = 67e12        # H100 SXM rate outside the tensor cores (fp32 table entry)
 DEV = "cuda"
 PATTERNS = ("s??", "?p?", "??o", "sp?", "s?o", "?po", "spo")
+K2_NAMES = ("bitvec_rank", "k2_lines_count", "k2_lines_write")
 
 
 def _card() -> str:
@@ -603,8 +623,13 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     torch.cuda.synchronize()
     stages["encode"] = time.perf_counter() - t1
     t1 = time.perf_counter()
+    # the engine measures its crossover at construction (3 worklist queries
+    # and 3 one-query frontiers on the card): its k2_lines launches are
+    # counted apart from the main path's
+    before = {k: ops.launch_counts[k] for k in K2_NAMES}
     engine = TripleQueryEngine(grammar, encoded)
     torch.cuda.synchronize()
+    calibration = {k: ops.launch_counts[k] - before[k] for k in K2_NAMES}
     stages["engine"] = time.perf_counter() - t1
     build_s = time.perf_counter() - t0
 
@@ -619,9 +644,8 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
         torch.cuda.synchronize()
         query_s[pat] = time.perf_counter() - t1
         batches[pat] = cols
-    counts = {k: ops.launch_counts[k] for k in ("bitvec_rank", "k2_lines_count",
-                                                 "k2_lines_write", "digram_pair_counts",
-                                                 "digram_pair_accum", "digram_select")}
+    counts = {k: ops.launch_counts[k] - calibration.get(k, 0)
+              for k in (*K2_NAMES, "digram_pair_counts", "digram_pair_accum", "digram_select")}
 
     print(f"build_s {build_s:.6f} " + " ".join(f"{k}_s={v:.6f}" for k, v in stages.items()))
     print(f"grammar rules={len(grammar.rules)} start_edges={grammar.start.n_edges} "
@@ -630,6 +654,12 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     print(f"encoded_bytes {encoded.size_in_bytes()}")
     for name, c in counts.items():
         print(f"launches {name} {c}")
+    print(f"crossover calibration (engine construction): launches "
+          + " ".join(f"{k}={v}" for k, v in calibration.items()))
+    # three worklist queries and three one-query frontiers, each one S seed
+    if calibration != {"bitvec_rank": 0, "k2_lines_count": 6, "k2_lines_write": 6}:
+        _fail(f"the crossover calibration launched {calibration}, not 6 k2_lines_count, "
+              f"6 k2_lines_write and no bitvec_rank")
     # the Count and each replacement's Update Count: one accumulation each;
     # every replacement follows a selection; the dense pair kernel is off the path
     if counts["digram_pair_accum"] != 1 + stats.iterations:
@@ -671,7 +701,237 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
               f"us_per_query={query_s[pat] / n_q * 1e6:.3f} oracle_equal=True")
     return {"engine": engine, "graph": graph, "table": table, "counts": counts,
             "batches": batches, "build_s": build_s, "dataset": ds, "grammar": grammar,
-            "stats": stats, "accum_calls": accum_calls, "select_table": select_table[0]}
+            "stats": stats, "accum_calls": accum_calls, "select_table": select_table[0],
+            "pick": pick, "triples": triples}
+
+
+SELECTIVE = ("s??", "??o", "sp?", "s?o", "?po", "spo")
+SINGLES = 256           # single queries a selective pattern; single neighbourhoods a side
+NEIGHBOUR_NODES = 4096  # nodes of the neighbourhood batch
+
+
+def _answer_rows(torch, answers):
+    """(qid, s, p, o) rows of per-query (label, (s, o)) answers, in the
+    oracle's canonical order."""
+    from repro_torch.core._arrays import lexsort
+
+    flat = [(q, nd[0], lbl, nd[1]) for q, ans in enumerate(answers) for lbl, nd in ans]
+    rows = torch.tensor(flat, dtype=torch.int64).reshape(-1, 4).to(DEV)
+    return rows[lexsort((rows[:, 3], rows[:, 2], rows[:, 1], rows[:, 0]))]
+
+
+def _pcts(np, us) -> str:
+    p50, p99 = np.percentile(us, [50, 99])
+    return f"p50_us={p50:.3f} p99_us={p99:.3f}"
+
+
+def _single_queries(torch, np, engine, main: dict, width: int) -> dict:
+    """SINGLES queries of each selective pattern through ``engine.query`` at
+    crossover `width`, each timed on the host clock (the answer is host
+    tuples: finished work), all held against the oracle scan; the k2_lines
+    launches counted around the whole reading."""
+    from repro_torch.core import query_oracle
+    from repro_torch.kernels import ops
+
+    engine.crossover = width
+    filled = engine._nt_rows is not None
+    ops.reset_launch_counts()
+    n_seeds, p50 = 0, {}
+    for pat in SELECTIVE:
+        qs = [tuple(int(main["pick"][i, j]) if pat[j] != "?" else None for j in range(3))
+              for i in range(SINGLES)]
+        us, answers = [], []
+        for q in qs:
+            t0 = time.perf_counter()
+            answers.append(engine.query(*q))
+            torch.cuda.synchronize()
+            us.append((time.perf_counter() - t0) * 1e6)
+        cols = [torch.tensor([-1 if v is None else v for v in c], device=DEV) for c in zip(*qs)]
+        if not torch.equal(_answer_rows(torch, answers), query_oracle(main["triples"], *cols)):
+            _fail(f"single {pat} queries at crossover {width} differ from the oracle")
+        n_seeds += len(qs)
+        p50[pat] = float(np.percentile(us, 50))
+        print(f"single {pat} crossover={width} queries={len(qs)} {_pcts(np, us)} "
+              f"results={sum(map(len, answers))} oracle_equal=True")
+    counts = {k: ops.launch_counts[k] for k in K2_NAMES}
+    fills = int(not filled and engine._nt_rows is not None)
+    print(f"single queries crossover={width}: launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f" over {n_seeds} S/O seeds and {fills} NT-row fill")
+    # every query seeds through one row of the incidence tree (the worklist's
+    # K2Tree.row, or the one-query frontier's rows_many): one count and one
+    # write launch each; the worklist's NT prune fills its rows once
+    want = {"bitvec_rank": 0, "k2_lines_count": n_seeds + fills,
+            "k2_lines_write": n_seeds + fills}
+    if counts != want:
+        _fail(f"single queries at crossover {width} launched {counts}, not {want}")
+    return {"p50_us": p50, "counts": counts}
+
+
+def _neighbour_rows(torch, lists):
+    """(qid, node) rows of per-query neighbour tensors."""
+    lens = torch.tensor([t.numel() for t in lists], device=DEV)
+    qid = torch.repeat_interleave(torch.arange(len(lists), device=DEV), lens)
+    return torch.stack([qid, torch.cat(lists)], 1)
+
+
+def _neighbourhoods(torch, np, engine, main: dict, seed: int) -> dict:
+    """The paper's neighbourhood queries: the batched forms over
+    NEIGHBOUR_NODES nodes drawn from the triples (duplicates, a -1 and an id
+    past n_nodes included), then SINGLES single calls a side, every list
+    held exactly against the oracle's distinct objects / subjects."""
+    from repro_torch.core import query_oracle
+    from repro_torch.kernels import ops
+
+    ds, triples = main["dataset"], main["triples"]
+    rng = np.random.default_rng(seed + 24)
+    ends = ds.triples[:, [0, 2]].reshape(-1)
+    vs = ends[rng.integers(0, ends.size, NEIGHBOUR_NODES)].copy()
+    vs[-1], vs[-2] = -1, ds.n_nodes + 5
+    v_dev = torch.from_numpy(vs).to(DEV)
+    probe = torch.where(v_dev < 0, ds.n_nodes + 1, v_dev)  # no node: matches nothing
+    unbound = torch.full_like(probe, -1)
+    sides = {"out": (engine.neighbors_out_batch, engine.neighbors_out, (probe, unbound, unbound), 3),
+             "in": (engine.neighbors_in_batch, engine.neighbors_in, (unbound, unbound, probe), 1)}
+    ops.reset_launch_counts()
+    out, calls = {}, 0
+    for side, (batch, single, cols, col) in sides.items():
+        rows = query_oracle(triples, *cols)
+        want = torch.unique(torch.stack([rows[:, 0], rows[:, col]], 1), dim=0)
+        per_node = torch.split(want[:, 1], torch.bincount(
+            want[:, 0], minlength=NEIGHBOUR_NODES).tolist())
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = batch(v_dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            calls += 1
+            if len(got) != NEIGHBOUR_NODES or not torch.equal(_neighbour_rows(torch, got), want):
+                _fail(f"neighbors_{side}_batch differs from the oracle")
+        if any(got[i].numel() for i in (-1, -2)):
+            _fail(f"neighbors_{side}_batch answered a -1 or an id past n_nodes")
+        first = {}
+        shared = 0
+        for i, v in enumerate(vs.tolist()):
+            if v in first:
+                if got[i] is not got[first[v]]:
+                    _fail(f"neighbors_{side}_batch: duplicate nodes do not share one tensor")
+                shared += 1
+            first.setdefault(v, i)
+        # control: one node dropped from the first non-empty list must fail
+        i = next(i for i, t in enumerate(got) if t.numel())
+        bad = list(got)
+        bad[i] = bad[i][:-1]
+        if torch.equal(_neighbour_rows(torch, bad), want):
+            _fail(f"neighbors_{side}_batch control (a node dropped) passed the oracle check")
+        us = []
+        for i in range(SINGLES):
+            t0 = time.perf_counter()
+            one = single(int(vs[i]))
+            torch.cuda.synchronize()
+            us.append((time.perf_counter() - t0) * 1e6)
+            if not torch.equal(one, per_node[i]):
+                _fail(f"neighbors_{side}({int(vs[i])}) differs from the oracle")
+        out[side] = {"batch_us_per_node": min(times) / NEIGHBOUR_NODES * 1e6,
+                     "single_p50_us": float(np.percentile(us, 50))}
+        print(f"neighbors_{side}_batch nodes={NEIGHBOUR_NODES} lists={want.shape[0]} "
+              f"us_per_node={min(times) / NEIGHBOUR_NODES * 1e6:.3f} (best of 3; first "
+              f"{times[0] / NEIGHBOUR_NODES * 1e6:.3f}) duplicates_sharing={shared} "
+              f"oracle_equal=True control_failed=True")
+        print(f"neighbors_{side} single calls={SINGLES} {_pcts(np, us)} oracle_equal=True")
+    counts = {k: ops.launch_counts[k] for k in K2_NAMES}
+    print("neighbourhoods: launches " + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f" over {calls} batches and {2 * SINGLES} single calls")
+    # each batch seeds through one rows_many, each single call through one row
+    want = {"bitvec_rank": 0, "k2_lines_count": calls + 2 * SINGLES,
+            "k2_lines_write": calls + 2 * SINGLES}
+    if counts != want:
+        _fail(f"the neighbourhood queries launched {counts}, not {want}")
+    out["counts"] = counts
+    return out
+
+
+def _inverted_prune_control(torch, engine, main: dict) -> int:
+    """The worklist with its NT prune inverted on the ?po singles must
+    differ from the oracle: the results inside rules that generate P are
+    lost. Returns how many queries lost results."""
+    from repro_torch.core import query_oracle
+
+    qs = [(None, int(main["pick"][i, 1]), int(main["pick"][i, 2])) for i in range(SINGLES)]
+    real = engine._nt_generates
+    engine._nt_generates = lambda label, p: not real(label, p)
+    try:
+        answers = [engine.query_scalar(*q) for q in qs]
+    finally:
+        del engine._nt_generates
+    cols = [torch.tensor([-1 if v is None else v for v in c], device=DEV) for c in zip(*qs)]
+    want = query_oracle(main["triples"], *cols)
+    lost = int((torch.bincount(want[:, 0], minlength=SINGLES)
+                != torch.tensor([len(a) for a in answers], device=DEV)).sum())
+    if lost == 0:
+        _fail("the worklist with its NT prune inverted still equals the oracle on ?po")
+    return lost
+
+
+def drive_scalar_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3, the scalar worklist, the crossover and the neighbourhood
+    queries on the main path's engine, at its calibrated crossover."""
+    from repro_torch.kernels import ref
+
+    engine = main["engine"]
+    calibrated = engine.crossover
+    cal = engine.calibration
+    print(f"crossover measured on the card: {calibrated} (best of 3: worklist "
+          f"{cal['scalar_s'] * 1e6:.3f} us, one-query frontier {cal['frontier_s'] * 1e6:.3f} us)")
+    # the worklist's seed is one row of the incidence tree: held against the
+    # level loop's twin on the s?? singles' subjects, uncounted
+    lay = engine.incidence.layout()
+    for v in main["pick"][:SINGLES, 0].tolist():
+        if not torch.equal(engine.incidence.row(v),
+                           ref.k2_lines_ref(lay, torch.tensor([v], device=DEV), 0)[1]):
+            _fail(f"K2Tree.row({v}) differs from the twin")
+    v0 = int(main["pick"][0, 0])
+    row_ms = _time_ms(torch, lambda: engine.incidence.row(v0), 200)
+    twin_ms = _time_ms(torch, lambda: ref.k2_lines_ref(
+        lay, torch.tensor([v0], device=DEV), 0), 50)
+    print(f"K2Tree.row (one k2_lines count + write and the host read) ms={row_ms:.6f} "
+          f"twin_ms={twin_ms:.6f}")
+    # the calibrated width and the frontier alone; if the calibration chose
+    # the frontier, the worklist is still driven, at the largest width
+    widths = (calibrated, 0) if calibrated else (8, 0)
+    if not calibrated:
+        print("the calibration chose 0: the worklist reading runs at crossover 8")
+    try:
+        readings = {w: _single_queries(torch, np, engine, main, w) for w in widths}
+        engine.crossover = calibrated
+        nb = _neighbourhoods(torch, np, engine, main, seed)
+        # what holds a single query back: host syncs (a lower bound) and the
+        # device's busy share over 64 s?? singles at each width
+        subjects = main["pick"][:64, 0].tolist()
+        for w in widths:
+            engine.crossover = w
+            syncs = _count_syncs(torch, lambda: engine.query(subjects[0], None, None))
+            wall, dev, _ = _profile(torch, lambda: [engine.query(v, None, None)
+                                                    for v in subjects])
+            share = f"{dev / wall:.4f}" if dev > 0 else "not measured"
+            print(f"single s?? crossover={w}: host_syncs={syncs} busy_share={share} "
+                  f"(64 queries, wall_s={wall:.6f} kernel_s={dev:.6f})")
+        engine.crossover = calibrated
+        print(f"neighbors_out single: host_syncs="
+              f"{_count_syncs(torch, lambda: engine.neighbors_out(subjects[0]))}")
+    finally:
+        engine.crossover = calibrated
+    lost = _inverted_prune_control(torch, engine, main)
+    print(f"control: the worklist with its NT prune inverted lost results on {lost} of "
+          f"{SINGLES} ?po queries (must be > 0)")
+    worklist, frontier = readings[widths[0]]["p50_us"], readings[0]["p50_us"]
+    print("crossover check (p50 us, worklist width / frontier): "
+          + " ".join(f"{pat}={worklist[pat]:.1f}/{frontier[pat]:.1f}" for pat in SELECTIVE))
+    main["scalar_part"] = {"row_ms": row_ms, "row_twin_ms": twin_ms,
+                           "launches": {k: sum(r["counts"][k] for r in readings.values())
+                                        + nb["counts"][k] for k in K2_NAMES}}
 
 
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
@@ -902,7 +1162,9 @@ def _k2_lines_rows(torch, main: dict, errs: dict, lay, s, per_level, rank_calls)
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": None, "wrapper_ms": wrapper_ms, "per_level_ms": level_ms,
-                     "device_measured": name in device, "heaviest_row": heaviest})
+                     "device_measured": name in device, "heaviest_row": heaviest,
+                     "launches_scalar_part": main["scalar_part"]["launches"][name],
+                     "single_row_ms": main["scalar_part"]["row_ms"]})
     return rows
 
 
@@ -4340,6 +4602,7 @@ def main(argv=None) -> int:
     errs["flash_attention"] = check_attention_kernel(torch, np, args.seed)
     errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
+    drive_scalar_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res

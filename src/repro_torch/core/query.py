@@ -1,26 +1,46 @@
-"""Triple queries on the compressed grammar, batched, on the device.
+"""Triple queries on the compressed grammar, on the device.
 
 The port's engine behaves as the reference's ``TripleQueryEngine`` with
-``cache=None, crossover=0, delta_budget=None``: every batch runs through
-the level-synchronous frontier.
+``cache=None, delta_budget=None``. A batch of unique patterns takes one of
+two executors (:meth:`TripleQueryEngine._execute_unique`):
 
-* S or O bound  -> the start graph's incidence k²-tree expands one row per
-  query (``rows_many``: on the card one fused descent of the whole tree,
-  the ``k2_lines_count`` and ``k2_lines_write`` launches with one host
-  sync between them) to seed the frontier.
-* only P bound  -> start edges labeled P plus the edges of every
-  nonterminal whose NT row says it can generate P.
-* nothing bound -> all start edges.
+* the **scalar worklist** (:meth:`TripleQueryEngine.query_scalar`) when the
+  batch holds at most ``crossover`` patterns, each with S or O bound. It
+  reads one row of the start graph's incidence k²-tree a query
+  (:meth:`~repro_torch.core.succinct.K2Tree.row`: on the card one
+  ``k2_lines_count`` and one ``k2_lines_write`` launch) and walks the rule
+  bodies in Python, over host copies of the start graph and the rules made
+  at build with one device-to-host copy: a worklist over card tensors
+  would launch a kernel per edge. Its NT prune reads the NT k²-tree
+  (``nt_k2``); one ``rows_many`` over every rule row fills a host cache of
+  them at first use. ``crossover`` is measured at build on this grammar
+  and device (:meth:`TripleQueryEngine._calibrate_crossover`) unless the
+  caller gives it.
+* the level-synchronous **frontier** otherwise:
 
-Each frontier level then matches terminals into a result arena, prunes
-nonterminals by S/O containment and NT[label, P], and expands the rest
-through the flattened grammar's CSR gathers.
+  - S or O bound  -> the incidence k²-tree expands one row per query
+    (``rows_many``: on the card one fused descent of the whole tree, the
+    ``k2_lines_count`` and ``k2_lines_write`` launches with one host sync
+    between them) to seed the frontier.
+  - only P bound  -> start edges labeled P plus the edges of every
+    nonterminal whose NT row says it can generate P.
+  - nothing bound -> all start edges.
+
+  Each frontier level then matches terminals into a result arena, prunes
+  nonterminals by S/O containment and NT[label, P], and expands the rest
+  through the flattened grammar's CSR gathers.
 
 Results come back as a :class:`QueryResultView`: one entry per unique
 (S, P, O) pattern of the batch, all entries in one flat buffer, plus the
-query -> entry map.
+query -> entry map. :meth:`TripleQueryEngine.query_batch` and
+:meth:`TripleQueryEngine.query` give (label, node tuple) pairs; the
+paper's neighbourhood queries (``neighbors_out`` / ``neighbors_in`` and
+their batched forms) give a node's distinct objects or subjects.
 """
 from __future__ import annotations
+
+import bisect
+import time
 
 import torch
 
@@ -33,6 +53,9 @@ from repro_torch.core.succinct import K2Tree
 from repro_torch.device import as_i64, resolve_device
 
 _ORACLE_CHUNK = 256  # queries per oracle scan step: 256 x 50k triples = 12.8 MB mask
+
+# calibration cap: scalar routing never extends past this batch width
+_MAX_CROSSOVER = 8
 
 
 class QueryResultView:
@@ -88,18 +111,25 @@ class QueryResultView:
 
 class TripleQueryEngine:
     """Query engine over a grammar and its succinct encoding, on the
-    grammar's device."""
+    grammar's device.
 
-    def __init__(self, grammar: Grammar, encoded: EncodedGrammar | None = None):
+    `crossover` is the batch width at or below which unique patterns with
+    S or O bound take the scalar worklist instead of the frontier: ``None``
+    measures it on this grammar at build (``calibration`` then keeps the
+    two best times it came from, in seconds), ``0`` always takes the
+    frontier, a negative value counts as 0."""
+
+    def __init__(self, grammar: Grammar, encoded: EncodedGrammar | None = None,
+                 crossover: int | None = None):
         self.grammar = grammar
         self.encoded = encoded if encoded is not None else encode(grammar)
         start = grammar.start
         start = start.gather_edges(torch.sort(start.labels, stable=True).indices)
         self._init_state(grammar.table.n_terminals, FlatGrammar.from_grammar(grammar),
-                         start, self.encoded.incidence)
+                         start, self.encoded.incidence, grammar.nt_generates(), crossover)
 
     def _init_state(self, T: int, flat: FlatGrammar, start_sorted: Hypergraph,
-                    incidence: K2Tree) -> None:
+                    incidence: K2Tree, nt_gen: torch.Tensor, crossover: int | None) -> None:
         self.T = int(T)
         self.flat = flat
         self.incidence = incidence
@@ -110,14 +140,29 @@ class TripleQueryEngine:
         self._sorted_offsets = start_sorted.offsets
         self._sorted_nodes = start_sorted.nodes_flat
         self._arena = FrontierArena(self.device)
+        # NT reachability matrix, k²-compressed (paper: matrix NT); rows are
+        # label - T. Only the scalar worklist reads it.
+        if nt_gen.numel():
+            r, c = torch.nonzero(nt_gen).unbind(1)
+            self.nt_k2 = K2Tree(r, c, nt_gen.shape[0], nt_gen.shape[1])
+        else:
+            self.nt_k2 = None
+        self._nt_rows: dict[int, set] | None = None  # label -> terminals, filled at first use
+        self._host_labels, self._edge_cache, self._rules = _host_structures(flat, start_sorted)
+        self.calibration = None  # the calibration's best times, when it ran
+        self.crossover = self._calibrate_crossover() if crossover is None \
+            else max(0, int(crossover))
 
     @classmethod
-    def from_numpy_state(cls, arrays: dict, meta: dict, device=None) -> "TripleQueryEngine":
+    def from_numpy_state(cls, arrays: dict, meta: dict, device=None,
+                         crossover: int | None = None) -> "TripleQueryEngine":
         """Build the query side from plain numpy arrays named as the
         reference's engine snapshot names them: ``table_ranks``,
         ``start_labels`` / ``start_nodes`` / ``start_offsets`` (label-sorted
         start graph), ``flat_<field>`` and ``k2_level_<i>``; `meta` carries
-        the manifest's ``n_terminals``, ``start_n_nodes`` and ``k2`` fields."""
+        the manifest's ``n_terminals``, ``start_n_nodes``, ``k2`` and
+        ``crossover`` fields. `crossover` overrides the manifest's; with
+        neither, it is measured."""
         dev = resolve_device(device)
         T = int(meta["n_terminals"])
         start = Hypergraph(int(meta.get("start_n_nodes", 0)),
@@ -139,8 +184,72 @@ class TripleQueryEngine:
         self = cls.__new__(cls)
         self.grammar = None
         self.encoded = None
-        self._init_state(T, flat, start, incidence)
+        # the NT tree from the flat bitsets, as the reference's from_state
+        # does (rule labels are contiguous, so flat rows are label - T)
+        self._init_state(T, flat, start, incidence, flat.nt_gen,
+                         meta.get("crossover") if crossover is None else crossover)
         return self
+
+    # -- crossover calibration -------------------------------------------
+    def _calibrate_crossover(self) -> int:
+        """Measured batch width at or below which the scalar worklist beats
+        a frontier of the same width on a selective probe: the ratio of the
+        best of three times of a one-query frontier to that of one
+        worklist query, clipped to [0, ``_MAX_CROSSOVER``]. The frontier's
+        time counts only finished work: the device is synchronised before
+        the clock is read."""
+        probe = next((nodes[0] for _, nodes in self._edge_cache if nodes), None)
+        if probe is None:
+            return 1
+        s1 = torch.tensor([probe], dtype=I64, device=self.device)
+        u1 = torch.full((1,), -1, dtype=I64, device=self.device)
+        t_scalar = t_batch = float("inf")
+        for _ in range(3):
+            _synchronize(self.device)
+            t0 = time.perf_counter()
+            self.query_scalar(probe, None, None)
+            t_scalar = min(t_scalar, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            self._run_batch_unique(s1, u1, u1)
+            _synchronize(self.device)
+            t_batch = min(t_batch, time.perf_counter() - t0)
+        self.calibration = {"scalar_s": t_scalar, "frontier_s": t_batch}
+        if t_scalar <= 0:
+            return 1
+        return int(min(t_batch / t_scalar, _MAX_CROSSOVER))
+
+    # -- scalar-path helpers -----------------------------------------------
+    def _nt_generates(self, label: int, p: int) -> bool:
+        """NT[label, p] from the host cache of NT k²-tree rows."""
+        if self.nt_k2 is None:
+            return False
+        if self._nt_rows is None:
+            self._nt_rows = self._fill_nt_rows()
+        return p in self._nt_rows.get(label, ())
+
+    def _fill_nt_rows(self) -> dict[int, set]:
+        """Every rule's NT row as a host set, from one ``rows_many`` over
+        all rule rows (one device-to-host copy)."""
+        labels = self.flat.rule_labels
+        idx, cols = self.nt_k2.rows_many(labels - self.T)
+        host = torch.cat([labels, idx, cols]).tolist()
+        n, m = labels.numel(), idx.numel()
+        lbls = host[:n]
+        rows = {lbl: set() for lbl in lbls}
+        for i, c in zip(host[n:n + m], host[n + m:]):
+            rows[lbls[i]].add(c)
+        return rows
+
+    def _edges_with_label(self, label: int) -> range:
+        """Sorted-start edge ids labeled `label`."""
+        return range(bisect.bisect_left(self._host_labels, label),
+                     bisect.bisect_right(self._host_labels, label))
+
+    def _row_edges(self, node: int) -> list[int]:
+        """Edges incident to `node` via one incidence k²-tree row."""
+        if node < 0 or node >= self.incidence.n_rows:
+            return []
+        return self.incidence.row(node).tolist()
 
     # -- batched seeding -------------------------------------------------
     def _seed_batch(self, s, p, o):
@@ -245,6 +354,32 @@ class TripleQueryEngine:
 
         return arena.finish()
 
+    # -- dispatch ----------------------------------------------------------
+    def _execute_unique(self, s, p, o):
+        """Crossover dispatch over unique patterns: a batch of at most
+        ``crossover`` patterns, all with S or O bound, takes the scalar
+        worklist; everything else takes the frontier. Both return
+        (qids, labels, nodes_flat, offsets) on the engine's device."""
+        w = s.numel()
+        if 0 < w <= self.crossover and bool(((s >= 0) | (o >= 0)).all()):
+            return self._run_scalar_batch(s, p, o)
+        return self._run_batch_unique(s, p, o)
+
+    def _run_scalar_batch(self, s, p, o):
+        """Per-query worklist over a tiny batch, frontier-shaped results
+        (one host read of the batch, one copy of the results back)."""
+        qids, labels, nodes, offsets = [], [], [], [0]
+        for i, (si, pi, oi) in enumerate(zip(*torch.stack([s, p, o]).tolist())):
+            for lbl, nd in self.query_scalar(si if si >= 0 else None, pi if pi >= 0 else None,
+                                             oi if oi >= 0 else None):
+                qids.append(i)
+                labels.append(lbl)
+                nodes.extend(nd)
+                offsets.append(len(nodes))
+        flat = torch.tensor(qids + labels + nodes + offsets, dtype=I64).to(self.device)
+        n, m = len(labels), len(nodes)
+        return flat[:n], flat[n:2 * n], flat[2 * n:2 * n + m], flat[2 * n + m:]
+
     # -- main entries ----------------------------------------------------
     def query_batch_arrays(self, s_arr, p_arr, o_arr):
         """Array-native batch query; -1 (or None) marks an unbound slot.
@@ -253,17 +388,19 @@ class TripleQueryEngine:
         i belongs to query qids[i], has label labels[i] and node tuple
         nodes_flat[offsets[i]:offsets[i+1]].
         """
-        s, p, o = _normalize_batch(s_arr, p_arr, o_arr, self.device)
+        return self._run_batch(*_normalize_batch(s_arr, p_arr, o_arr, self.device))
+
+    def _run_batch(self, s, p, o):
         n = s.numel()
         if n > 1:  # dedup never helps a batch of one
             uniq, inv = torch.unique(torch.stack([s, p, o], dim=1), dim=0,
                                      return_inverse=True)
             if uniq.shape[0] < n:
                 view = _split_per_query(
-                    self._run_batch_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2]),
+                    self._execute_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2]),
                     uniq.shape[0], inv.reshape(-1))
                 return view.materialize()
-        return self._run_batch_unique(s, p, o)
+        return self._execute_unique(s, p, o)
 
     def query_batch_view(self, s_arr, p_arr, o_arr) -> QueryResultView:
         """Batch query returning a :class:`QueryResultView`: one entry per
@@ -273,11 +410,108 @@ class TripleQueryEngine:
 
     def _run_batch_view(self, s, p, o) -> QueryResultView:
         if s.numel() == 1:
-            return _split_per_query(self._run_batch_unique(s, p, o), 1,
+            return _split_per_query(self._execute_unique(s, p, o), 1,
                                     torch.zeros(1, dtype=I64, device=self.device))
         uniq, inv = torch.unique(torch.stack([s, p, o], dim=1), dim=0, return_inverse=True)
-        res = self._run_batch_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2])
+        res = self._execute_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2])
         return _split_per_query(res, uniq.shape[0], inv.reshape(-1))
+
+    def query_batch(self, s_arr, p_arr, o_arr) -> list[list[tuple]]:
+        """Batch query returning, per query, (label, (v0..vk)) pairs: the
+        contents of ``query_scalar`` / the oracle per query."""
+        s, p, o = _normalize_batch(s_arr, p_arr, o_arr, self.device)
+        r_q, r_l, r_n, r_o = self._run_batch(s, p, o)
+        order = torch.sort(r_q, stable=True).indices
+        n, m = order.numel(), r_n.numel()
+        host = torch.cat([r_q[order], r_l[order], r_o[:-1][order], r_o[1:][order],
+                          r_n]).tolist()
+        nodes = host[4 * n:4 * n + m]
+        results: list[list[tuple]] = [[] for _ in range(s.numel())]
+        for q, lbl, a, b in zip(host[:n], host[n:2 * n], host[2 * n:3 * n], host[3 * n:4 * n]):
+            results[q].append((lbl, tuple(nodes[a:b])))
+        return results
+
+    def query(self, s: int | None, p: int | None, o: int | None) -> list[tuple]:
+        """Matching terminal edges as (label, (v0..vk)) pairs. With S or O
+        bound and a crossover of at least 1 the scalar worklist answers
+        directly, without the array round trip."""
+        if self.crossover >= 1 and (s is not None or o is not None):
+            return self.query_scalar(s, p, o)
+        return self.query_batch([s], [p], [o])[0]
+
+    def query_scalar(self, s: int | None, p: int | None, o: int | None) -> list[tuple]:
+        """Per-query Python worklist over the host copies of the start graph
+        and the rules; None marks an unbound slot. The executor the
+        crossover dispatch routes tiny selective batches to."""
+        if s is not None or o is not None:
+            r = s if s is not None else o
+            seeds = [self._edge_cache[j] for j in self._row_edges(int(r))]
+        elif p is not None:
+            seeds = [self._edge_cache[j] for j in self._edges_with_label(int(p))]
+            for lbl in self._rules:
+                if self._nt_generates(lbl, int(p)):
+                    seeds.extend(self._edge_cache[j] for j in self._edges_with_label(lbl))
+        else:
+            seeds = list(self._edge_cache)
+
+        out: list[tuple] = []
+        z = seeds
+        while z:
+            label, nodes = z.pop()
+            if label >= self.T:  # nonterminal
+                if s is not None and s not in nodes:
+                    continue
+                if o is not None and o not in nodes:
+                    continue
+                if p is not None and not self._nt_generates(label, p):
+                    continue
+                for child_label, params in self._rules[label]:
+                    z.append((child_label, tuple(nodes[j] for j in params)))
+            elif self._matches(label, nodes, s, p, o):
+                out.append((label, nodes))
+        return out
+
+    @staticmethod
+    def _matches(label, nodes, s, p, o) -> bool:
+        if p is not None and label != p:
+            return False
+        if s is not None and (len(nodes) < 1 or nodes[0] != s):
+            return False
+        if o is not None and (len(nodes) < 2 or nodes[1] != o):
+            return False
+        return True
+
+    # -- neighbourhood queries ---------------------------------------------
+    def neighbors_out_batch(self, vs) -> list[torch.Tensor]:
+        """Per v: its distinct objects (outgoing neighbourhood), sorted, one
+        batch. Duplicate vs share one tensor."""
+        vs = self._sanitize_nodes(vs)
+        unbound = torch.full_like(vs, -1)
+        view = self._run_batch_view(vs, unbound, unbound)
+        per_entry = _entry_distinct_slot(view, 1)
+        return [per_entry[i] for i in view.qid_entry.tolist()]
+
+    def neighbors_in_batch(self, vs) -> list[torch.Tensor]:
+        """Per v: its distinct subjects (incoming neighbourhood), one batch."""
+        vs = self._sanitize_nodes(vs)
+        unbound = torch.full_like(vs, -1)
+        view = self._run_batch_view(unbound, unbound, vs)
+        per_entry = _entry_distinct_slot(view, 0)
+        return [per_entry[i] for i in view.qid_entry.tolist()]
+
+    def _sanitize_nodes(self, vs) -> torch.Tensor:
+        """Negative node ids would read as unbound: map them to an
+        out-of-range row, so they yield empty results."""
+        vs = as_i64(vs, self.device).reshape(-1)
+        return torch.where(vs < 0, self.incidence.n_rows, vs)
+
+    def neighbors_out(self, v: int) -> torch.Tensor:
+        """v ? ? -> distinct objects (outgoing neighbourhood)."""
+        return self.neighbors_out_batch([v])[0]
+
+    def neighbors_in(self, v: int) -> torch.Tensor:
+        """? ? v -> distinct subjects (incoming neighbourhood)."""
+        return self.neighbors_in_batch([v])[0]
 
 
 # ----------------------------------------------------------------------
@@ -339,6 +573,50 @@ def _split_per_query(res, nq: int, qid_entry: torch.Tensor) -> QueryResultView:
     nodes = r_n[_ragged_take(r_o, order, ranks)]
     bounds = offsets_from_counts(torch.bincount(r_q, minlength=nq))
     return QueryResultView(r_l[order], nodes, offsets_from_counts(ranks), bounds, qid_entry)
+
+
+def _entry_distinct_slot(view: QueryResultView, slot: int) -> list[torch.Tensor]:
+    """Per entry of `view`: the distinct nodes at tuple position `slot`,
+    sorted; one ``torch.unique`` over (entry, value) keys for the whole
+    view, split by entry (views of one buffer)."""
+    n_entries = view.n_entries
+    if n_entries == 0:
+        return []
+    ranks = view.offsets[1:] - view.offsets[:-1]
+    entry = torch.repeat_interleave(torch.arange(n_entries, device=ranks.device),
+                                    view.entry_counts(), output_size=ranks.numel())
+    keep = ranks > slot
+    keys = torch.stack([entry[keep], _slot(view.nodes, view.offsets, ranks, slot)[keep]], 1)
+    uniq = torch.unique(keys, dim=0)
+    counts = torch.bincount(uniq[:, 0], minlength=n_entries)
+    return list(torch.split(uniq[:, 1].contiguous(), counts.tolist()))
+
+
+def _host_structures(flat: FlatGrammar, start_sorted: Hypergraph):
+    """The scalar worklist's host structures, from one device-to-host copy
+    of the label-sorted start graph and the rule bodies: the sorted start
+    labels, each start edge as (label, node tuple), and each rule label's
+    body as (child label, parameter tuple) pairs."""
+    g = start_sorted
+    parts = (g.labels, g.offsets, g.nodes_flat, flat.rule_labels, flat.edge_offsets,
+             flat.edge_labels, flat.param_offsets, flat.params)
+    host = torch.cat(parts).tolist()
+    cols, pos = [], 0
+    for t in parts:
+        cols.append(host[pos:pos + t.numel()])
+        pos += t.numel()
+    labels, offsets, nodes, rule_labels, edge_offsets, edge_labels, param_offsets, params = cols
+    edges = [(labels[j], tuple(nodes[offsets[j]:offsets[j + 1]])) for j in range(len(labels))]
+    rules = {lbl: [(edge_labels[e], tuple(params[param_offsets[e]:param_offsets[e + 1]]))
+                   for e in range(edge_offsets[r], edge_offsets[r + 1])]
+             for r, lbl in enumerate(rule_labels)}
+    return labels, edges, rules
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _replicate_sorted(u_l, u_n, u_ranks, u_o, counts, inv):

@@ -8,7 +8,8 @@ batched row / column expansion (:meth:`K2Tree.rows_many`,
 :func:`repro_torch.kernels.ops.k2_lines`. On the card that is one fused
 descent of the whole tree, two launches (a count pass and a write pass)
 and one host sync to size the output; on the CPU it is the reference's
-level loop, one batched ``rank1`` per level.
+level loop, one batched ``rank1`` per level. :meth:`K2Tree.row` and
+:meth:`K2Tree.col` (the scalar query path's seed) are a batch of one.
 """
 from __future__ import annotations
 
@@ -112,6 +113,15 @@ class K2Tree:
                 return 0
             block = int(self.levels[t].rank1(bitpos))
         return 1
+
+    def row(self, r: int) -> torch.Tensor:
+        """All columns c with M[r, c] = 1, sorted; empty for a row out of
+        range. One batched expansion of a single row."""
+        return self._lines([int(r)], axis=0)[1]
+
+    def col(self, c: int) -> torch.Tensor:
+        """All rows r with M[r, c] = 1, sorted; see :meth:`row`."""
+        return self._lines([int(c)], axis=1)[1]
 
     def rows_many(self, rs) -> tuple[torch.Tensor, torch.Tensor]:
         """Batched row expansion. Returns (idx, cols): query rs[idx[i]] has a
