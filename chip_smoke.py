@@ -77,7 +77,34 @@ nothing of the JAX package. Phases:
    ``neighbors_in`` calls, each checked, p50/p99 µs, one of each launch a
    batch or call; controls that must fail: a neighbour list with one node
    dropped, and the worklist with its NT prune inverted on the ?po
-   queries;
+   queries. Phase 3's engine has no result cache and no overlay budget;
+   3c. the mutable engine at full size on phase 3's grammar, with a
+   ``QueryResultCache()``, a delta budget of 4,096 and phase 3's crossover,
+   every row drawn from ``--seed``, the launch counts set to 0 before it
+   and read after (``k2_lines_count``, ``k2_lines_write``,
+   ``digram_pair_accum`` and ``digram_select`` at least once, ``bitvec_rank``
+   and ``digram_pair_counts`` never): ``delete_triples`` of 1,536 distinct
+   base triples and 256 absent rows, ``insert_triples`` of 1,536 new rows
+   (384 with S or O past the base graph's nodes, two at row ``n_rows``) and
+   256 visible rows, each ``applied`` equal to the count reckoned in plain
+   Python over the logical set, timed with ``_exists_rows``' share; the
+   eight patterns over 4,096 rows (1,024 deleted, 1,024 inserted, 2,048
+   untouched; 4 for ???) through ``query_batch_view``, cold then warm, each
+   against the oracle scan of the logical triple set on the card, the warm
+   run hitting every unique pattern within ``max_entry_edges`` and
+   launching no ``k2_lines`` kernel; 4,096 neighbourhoods a side against the
+   oracle, and ``neighbors_out(-1)`` / ``neighbors_in(-1)`` empty with
+   inserts at row ``n_rows``; 256 single s?? queries cold and warm (every
+   warm one a hit), p50/p99 and the cache's stats; where a cached batch's
+   host time goes; 512 inserts on the warm s?? subjects, after which every
+   answer equals the oracle, with a control (``bump_generation`` stubbed
+   out) that must serve stale entries; the host syncs (those in the
+   overlay merge apart) and busy share of an overlay s?? batch; 1,024
+   inserts that pass the budget, so ``insert_triples`` rebuilds on the card
+   (timed: compress, encode, the rest): ``rebuild_count`` 1, an empty
+   overlay, ``digram_pair_accum`` 1 + the rebuild's iterations and no
+   ``digram_pair_counts``, ``base_triples()`` equal to the logical set and
+   every pattern equal to the oracle again;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -577,8 +604,7 @@ def _check_dot_interaction(torch, np, rng) -> float:
 
 def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     """Phase 3: build and query at full size, checked against the oracle."""
-    from repro_torch.core import (Hypergraph, LabelTable, TripleQueryEngine, compress,
-                                  encode, query_oracle, result_rows)
+    from repro_torch.core import Hypergraph, LabelTable, TripleQueryEngine, compress, encode
     from repro_torch.data.synthetic import PAPER_DATASETS
     from repro_torch.kernels import ops
 
@@ -625,9 +651,10 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     t1 = time.perf_counter()
     # the engine measures its crossover at construction (3 worklist queries
     # and 3 one-query frontiers on the card): its k2_lines launches are
-    # counted apart from the main path's
+    # counted apart from the main path's. Phase 3's engine has no result
+    # cache and no overlay budget (phase 3c drives those)
     before = {k: ops.launch_counts[k] for k in K2_NAMES}
-    engine = TripleQueryEngine(grammar, encoded)
+    engine = TripleQueryEngine(grammar, encoded, cache=None, delta_budget=None)
     torch.cuda.synchronize()
     calibration = {k: ops.launch_counts[k] - before[k] for k in K2_NAMES}
     stages["engine"] = time.perf_counter() - t1
@@ -682,18 +709,8 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     triples = torch.from_numpy(ds.triples).to(DEV)
     results = {}
     for pat, view in views.items():
-        s, p, o = batches[pat]
-        q = torch.stack([s, p, o], dim=1)
-        uniq = torch.unique(q, dim=0)
-        if view.n_entries != uniq.shape[0] or not torch.equal(
-                uniq[view.qid_entry], q):
-            _fail(f"{pat}: query -> entry map is wrong")
-        owner = torch.repeat_interleave(torch.arange(view.n_entries, device=DEV),
-                                        view.entry_counts())
-        got = result_rows(owner, view.labels, view.nodes, view.offsets)
-        want = query_oracle(triples, uniq[:, 0], uniq[:, 1], uniq[:, 2])
-        if not torch.equal(got, want):
-            _fail(f"{pat}: results differ from the oracle")
+        s = batches[pat][0]
+        _check_view(torch, view, batches[pat], triples, pat)
         n_q = s.numel()
         total = view.total_results()
         results[pat] = total
@@ -702,7 +719,32 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     return {"engine": engine, "graph": graph, "table": table, "counts": counts,
             "batches": batches, "build_s": build_s, "dataset": ds, "grammar": grammar,
             "stats": stats, "accum_calls": accum_calls, "select_table": select_table[0],
-            "pick": pick, "triples": triples}
+            "pick": pick, "triples": triples, "query_s": query_s}
+
+
+def _view_rows(torch, view, cols, triples):
+    """(got, want): a view's (entry, s, p, o) rows and the oracle scan's
+    over `triples` for the batch's unique patterns, in canonical order; None
+    for got when the query -> entry map is wrong."""
+    from repro_torch.core import query_oracle, result_rows
+
+    q = torch.stack(list(cols), dim=1)
+    uniq = torch.unique(q, dim=0)
+    want = query_oracle(triples, uniq[:, 0], uniq[:, 1], uniq[:, 2])
+    if view.n_entries != uniq.shape[0] or not torch.equal(uniq[view.qid_entry], q):
+        return None, want
+    owner = torch.repeat_interleave(torch.arange(view.n_entries, device=DEV),
+                                    view.entry_counts())
+    return result_rows(owner, view.labels, view.nodes, view.offsets), want
+
+
+def _check_view(torch, view, cols, triples, what: str) -> None:
+    """Every query of a batch view against the oracle scan of `triples`."""
+    got, want = _view_rows(torch, view, cols, triples)
+    if got is None:
+        _fail(f"{what}: query -> entry map is wrong")
+    if not torch.equal(got, want):
+        _fail(f"{what}: results differ from the oracle")
 
 
 SELECTIVE = ("s??", "??o", "sp?", "s?o", "?po", "spo")
@@ -934,6 +976,442 @@ def drive_scalar_path(torch, np, main: dict, seed: int) -> None:
                                         + nb["counts"][k] for k in K2_NAMES}}
 
 
+MUTATION_BATCH = 1536   # distinct base triples deleted; distinct new triples inserted
+MUTATION_PAST = 384     # of those inserts, with S or O past the base graph's nodes
+PAST_IDS = 256          # ... drawn from n_nodes .. n_nodes + 255
+MUTATION_NOOPS = 256    # re-inserts of visible rows; deletes of absent rows
+MUTATION_PICKS = (1024, 1024, 2048)  # query rows: deleted, inserted, untouched
+INVALIDATING = 512      # inserts on the subjects of the warm s?? queries
+REBUILD_INSERTS = 1024  # the inserts that pass the budget and trigger the rebuild
+DELTA_BUDGET = 4096
+DIGRAM_NAMES = ("digram_pair_counts", "digram_pair_accum", "digram_select")
+
+
+def _new_rows(np, rng, n: int, taken: set, n_nodes: int, n_preds: int, subjects=None,
+              past: int = 0):
+    """n distinct rows absent from `taken` (which gains them): subjects from
+    `subjects` when given; the first `past` rows have S (even rows) or O
+    (odd rows) in n_nodes .. n_nodes + PAST_IDS - 1, the rest inside the
+    base graph's nodes."""
+    out = []
+    while len(out) < n:
+        i = len(out)
+        s = int(subjects[rng.integers(0, len(subjects))]) if subjects is not None \
+            else int(rng.integers(0, n_nodes))
+        o = int(rng.integers(0, n_nodes))
+        if i < past:
+            far = n_nodes + int(rng.integers(0, PAST_IDS))
+            s, o = (far, o) if i % 2 == 0 else (s, far)
+        row = (s, int(rng.integers(0, n_preds)), o)
+        if row not in taken:
+            taken.add(row)
+            out.append(row)
+    return out
+
+
+def _oracle_triples(torch, logical: set):
+    return torch.tensor(sorted(logical), dtype=torch.int64).reshape(-1, 3).to(DEV)
+
+
+def _mutate(torch, engine, name: str, rows: list, logical: set, timing: dict) -> int:
+    """One mutation batch, timed (the device synchronised around it), its
+    `applied` count held against the count reckoned in plain Python over the
+    logical set, which it then updates."""
+    want = set(rows)
+    expected = len(want - logical) if name == "insert_triples" else len(want & logical)
+    batch = torch.tensor(rows, dtype=torch.int64).to(DEV)
+    before = timing["exists_s"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    applied = getattr(engine, name)(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if applied != expected:
+        _fail(f"{name} of {len(rows)} rows applied {applied}, not {expected}")
+    if name == "insert_triples":
+        logical |= want
+    else:
+        logical -= want
+    exists = timing["exists_s"] - before
+    print(f"mutation {name} rows={len(rows)} applied={applied} (reckoned {expected}) "
+          f"ms={dt * 1e3:.3f} exists_rows_ms={exists * 1e3:.3f} "
+          f"exists_share={exists / dt:.4f} overlay={engine.delta.size}")
+    timing["batches"].append(dt)
+    return applied
+
+
+def _mutation_batches(torch, np, picks) -> dict:
+    """The eight patterns over 4,096 picked rows (4 for ???), as phase 3
+    binds them."""
+    out = {}
+    for pat in PATTERNS + ("???",):
+        n = 4 if pat == "???" else len(picks)
+        out[pat] = [torch.from_numpy(picks[:n, i].copy() if pat[i] != "?"
+                                     else np.full(n, -1, dtype=np.int64)).to(DEV)
+                    for i in range(3)]
+    return out
+
+
+def _timed_view(torch, engine, cols):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view = engine.query_batch_view(*cols)
+    torch.cuda.synchronize()
+    return view, time.perf_counter() - t0
+
+
+def _merge_syncs(torch, fn) -> tuple:
+    """(host syncs of one call of fn, those made inside the overlay merge),
+    by torch's sync debug mode."""
+    import warnings
+
+    from repro_torch.core.delta import DeltaOverlay
+
+    real = DeltaOverlay.merge_batch
+    inside = [0]
+    log = []
+
+    def merge(self, *a):
+        before = len(log[0])
+        try:
+            return real(self, *a)
+        finally:
+            inside[0] += sum("synchroniz" in str(w.message) for w in log[0][before:])
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            log.append(caught)
+            DeltaOverlay.merge_batch = merge
+            fn()
+    finally:
+        DeltaOverlay.merge_batch = real
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in log[0]), inside[0]
+
+
+def _neighbour_check(torch, engine, rng, logical_t, ends, n_rows: int) -> None:
+    """NEIGHBOUR_NODES nodes drawn from the logical triples' ends (new ids
+    included) and a -1, both sides, against the oracle's distinct lists;
+    then a negative id with inserts at row n_rows answers empty."""
+    from repro_torch.core import query_oracle
+
+    vs = ends[rng.integers(0, ends.size, NEIGHBOUR_NODES)].copy()
+    vs[-1] = -1
+    v_dev = torch.from_numpy(vs).to(DEV)
+    probe = torch.where(v_dev < 0, 1 << 62, v_dev)  # no node: matches nothing
+    unbound = torch.full_like(probe, -1)
+    for side, batch, cols, col in (("out", engine.neighbors_out_batch, (probe, unbound, unbound), 3),
+                                   ("in", engine.neighbors_in_batch, (unbound, unbound, probe), 1)):
+        rows = query_oracle(logical_t, *cols)
+        want = torch.unique(torch.stack([rows[:, 0], rows[:, col]], 1), dim=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = batch(v_dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.equal(_neighbour_rows(torch, got), want):
+            _fail(f"neighbors_{side}_batch with the overlay differs from the oracle")
+        past = int((v_dev >= engine.incidence.n_rows).sum())
+        print(f"mutation neighbors_{side}_batch nodes={NEIGHBOUR_NODES} (past the base: {past}) "
+              f"lists={want.shape[0]} us_per_node={dt / NEIGHBOUR_NODES * 1e6:.3f} "
+              f"oracle_equal=True")
+    out_n, in_n = engine.neighbors_out(n_rows).tolist(), engine.neighbors_in(n_rows).tolist()
+    if not out_n or not in_n:
+        _fail(f"node {n_rows} (= n_rows) has no inserted neighbours to leak")
+    if engine.neighbors_out(-1).numel() or engine.neighbors_in(-1).numel():
+        _fail("a negative node id answered the neighbours of the inserts at row n_rows")
+    print(f"mutation negative id: neighbors_out(-1) = [] and neighbors_in(-1) = [] with "
+          f"inserts at row n_rows={n_rows} (its out {out_n[:3]}, in {in_n[:3]})")
+
+
+def _stale_entries(torch, view, cols, triples) -> int:
+    """Entries of a batch view whose result count differs from the oracle's."""
+    got, want = _view_rows(torch, view, cols, triples)
+    counts = torch.bincount(want[:, 0], minlength=view.n_entries)
+    return int((view.entry_counts() != counts).sum())
+
+
+def _cache_breakdown(torch, engine, cols) -> None:
+    """Where a cached batch's host time goes: the steps of the engine's
+    cached view path run one by one on a fresh cache (each timed with the
+    device synchronised around it), cold and then warm, beside what the
+    earlier designs paid: one clone an entry's buffer (the first design of
+    the copies), and the three views an entry (the second kept every
+    entry as three tensors)."""
+    import repro_torch.core.query as engine_module
+    from repro_torch.core import QueryResultCache
+
+    cache = QueryResultCache()
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    uniq, inv = timed("unique", lambda: torch.unique(torch.stack(list(cols), 1), dim=0,
+                                                     return_inverse=True))
+    keys = timed("key_read", uniq.tolist)
+    timed("lookups", lambda: [cache.lookup(*k) for k in keys])
+    res = timed("execute", lambda: engine._execute_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2]))
+    fresh = timed("group", lambda: engine_module._split_per_query(res, len(keys), inv))
+    entries = timed("entry_copies", lambda: engine_module._owned_entries(fresh))
+    timed("inserts", lambda: [cache.insert(*k, e) for k, e in zip(keys, entries)])
+    timed("warm_lookups", lambda: [cache.lookup(*k) for k in keys])
+    timed("warm_assembly", lambda: engine_module._view_of_entries(entries, inv))
+    timed("clone_each_entry", lambda: [e.buf.clone() for e in entries])
+    timed("three_views_each", lambda: [e.parts() for e in entries])
+    n = len(keys)
+    cold = sum(ms[k] for k in ("unique", "key_read", "lookups", "execute", "group",
+                               "entry_copies", "inserts"))
+    print(f"cached s?? batch breakdown (unique={n}): cold_ms={cold:.3f} "
+          + " ".join(f"{k}_ms={v:.3f}" for k, v in ms.items())
+          + f" host_us_per_entry: copies={ms['entry_copies'] / n * 1e3:.3f} "
+          f"inserts={ms['inserts'] / n * 1e3:.3f} lookups={ms['lookups'] / n * 1e3:.3f} "
+          f"assembly={ms['warm_assembly'] / n * 1e3:.3f} "
+          f"one_clone={ms['clone_each_entry'] / n * 1e3:.3f} "
+          f"three_views={ms['three_views_each'] / n * 1e3:.3f}")
+
+
+def drive_mutation_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3c: the mutable engine at full size on phase 3's grammar: the
+    overlay, the result cache, invalidation and the rebuild on the card,
+    every answer held against the oracle scan of the logical triple set."""
+    import repro_torch.core.query as engine_module
+    from repro_torch.core import QueryResultCache, TripleQueryEngine, query_oracle
+    from repro_torch.kernels import ops
+
+    ds, phase3 = main["dataset"], main["engine"]
+    rng = np.random.default_rng(seed + 25)
+    base = ds.triples
+    logical = set(map(tuple, base.tolist()))
+    if len(logical) != base.shape[0]:
+        _fail("the dataset's triples are not distinct")
+    names = (*K2_NAMES, *DIGRAM_NAMES)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = TripleQueryEngine(main["grammar"], phase3.encoded, cache=QueryResultCache(),
+                               crossover=phase3.crossover, delta_budget=DELTA_BUDGET)
+    cache = engine.cache
+    torch.cuda.synchronize()
+    n_rows = engine.incidence.n_rows
+    print(f"mutation engine: crossover={engine.crossover} (phase 3's) budget={engine.delta_budget} "
+          f"n_rows={n_rows} n_nodes={ds.n_nodes} engine_s={time.perf_counter() - t0:.6f}")
+    if not ds.n_nodes <= n_rows < ds.n_nodes + PAST_IDS:
+        _fail(f"n_rows {n_rows} is outside the inserts' new ids")
+    timing = {"exists_s": 0.0, "batches": []}
+    real_exists = engine._exists_rows
+
+    def timed_exists(rows):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_exists(rows)
+        torch.cuda.synchronize()
+        timing["exists_s"] += time.perf_counter() - t
+        return out
+
+    engine._exists_rows = timed_exists
+
+    # 1. the first mutation batches
+    taken = set(logical)
+    deleted = [tuple(r) for r in base[rng.choice(base.shape[0], MUTATION_BATCH, replace=False)]
+               .tolist()]
+    inserted = _new_rows(np, rng, MUTATION_BATCH, taken, ds.n_nodes, ds.n_preds,
+                         past=MUTATION_PAST)
+    inserted[0] = (n_rows, inserted[0][1], inserted[0][2])  # a subject at row n_rows
+    inserted[1] = (inserted[1][0], inserted[1][1], n_rows)  # an object at row n_rows
+    if len(set(inserted)) != MUTATION_BATCH or set(inserted) & logical:
+        _fail("the inserts at row n_rows collide")
+    taken.update(inserted[:2])
+    absent = _new_rows(np, rng, MUTATION_NOOPS, taken, ds.n_nodes, ds.n_preds)
+    untouched = sorted(logical - set(deleted))
+    visible = [untouched[i] for i in rng.choice(len(untouched), MUTATION_NOOPS, replace=False)]
+    _mutate(torch, engine, "delete_triples", deleted + absent, logical, timing)
+    _mutate(torch, engine, "insert_triples", inserted + visible, logical, timing)
+    if engine.delta.size != 2 * MUTATION_BATCH or engine.rebuild_count:
+        _fail(f"the overlay holds {engine.delta.size} rows after the first batches, "
+              f"not {2 * MUTATION_BATCH}, or a rebuild ran")
+    logical_t = _oracle_triples(torch, logical)
+
+    # 2. the eight patterns with the overlay, cold, each then warm
+    n_del, n_ins, n_keep = MUTATION_PICKS
+    picks = np.array([deleted[i] for i in rng.choice(len(deleted), n_del, replace=False)]
+                     + [inserted[i] for i in rng.choice(len(inserted), n_ins, replace=False)]
+                     + [untouched[i] for i in rng.choice(len(untouched), n_keep)])
+    picks = picks[rng.permutation(len(picks))]
+    batches = _mutation_batches(torch, np, picks)
+    cold, warm = {}, {}
+    for pat, cols in batches.items():
+        before = cache.stats.snapshot()
+        view, cold[pat] = _timed_view(torch, engine, cols)
+        _check_view(torch, view, cols, logical_t, f"{pat} with the overlay")
+        within = int((view.entry_counts() <= cache.max_entry_edges).sum())
+        mid = cache.stats.snapshot()
+        k2 = {k: ops.launch_counts[k] for k in K2_NAMES}
+        again, warm[pat] = _timed_view(torch, engine, cols)
+        _check_view(torch, again, cols, logical_t, f"{pat} warm")
+        hits, misses = cache.stats.hits - mid.hits, cache.stats.misses - mid.misses
+        if hits != within or misses != view.n_entries - within:
+            _fail(f"{pat} warm: {hits} hits and {misses} misses over {view.n_entries} unique "
+                  f"patterns, {within} of them within max_entry_edges")
+        if any(ops.launch_counts[k] != k2[k] for k in K2_NAMES):
+            _fail(f"{pat} warm: an all-hit batch launched a k2_lines kernel")
+        engine.cache = None  # the overlay alone: the batch executed, no cache
+        try:
+            bare, bare_s = _timed_view(torch, engine, cols)
+        finally:
+            engine.cache = cache
+        _check_view(torch, bare, cols, logical_t, f"{pat} with the overlay, no cache")
+        n = cols[0].numel()
+        base_us = main["query_s"][pat] / n * 1e6
+        print(f"mutation query {pat} queries={n} unique={view.n_entries} "
+              f"results={view.total_results()} overlay_us_per_query={bare_s / n * 1e6:.3f} "
+              f"(phase 3, no overlay: {base_us:.3f}) cold_us_per_query={cold[pat] / n * 1e6:.3f} "
+              f"warm_us_per_query={warm[pat] / n * 1e6:.3f} cold_misses={mid.misses - before.misses} "
+              f"warm_hits={hits} oracle_equal=True")
+    ends = np.array(sorted(logical))[:, [0, 2]].reshape(-1)
+    _neighbour_check(torch, engine, rng, logical_t, ends, n_rows)
+
+    # 3. single queries, cold and warm
+    subjects = [int(v) for v in picks[:SINGLES, 0]]
+    single_us = {}
+    for label in ("cold", "warm"):
+        before = cache.stats.snapshot()
+        us, answers = [], []
+        for v in subjects:
+            t0 = time.perf_counter()
+            answers.append(engine.query(v, None, None))
+            torch.cuda.synchronize()
+            us.append((time.perf_counter() - t0) * 1e6)
+        col = torch.tensor(subjects, device=DEV)
+        unbound = torch.full_like(col, -1)
+        if not torch.equal(_answer_rows(torch, answers), query_oracle(logical_t, col, unbound,
+                                                                      unbound)):
+            _fail(f"{label} single s?? queries with the overlay differ from the oracle")
+        hits = cache.stats.hits - before.hits
+        if label == "warm" and hits != SINGLES:
+            _fail(f"{hits} of {SINGLES} warm single queries hit the cache")
+        single_us[label] = us
+        print(f"mutation single s?? {label} queries={SINGLES} {_pcts(np, us)} hits={hits} "
+              f"oracle_equal=True")
+    st = cache.stats
+    print(f"cache stats: hits={st.hits} misses={st.misses} hit_rate={st.hit_rate:.4f} "
+          f"inserts={st.inserts} evictions={st.evictions} oversize_skips={st.oversize_skips} "
+          f"predicate_hits={st.predicate_hits} entries={len(cache)} edges={cache.cached_edges}")
+
+    s_cols = batches["s??"]
+    _cache_breakdown(torch, engine, s_cols)
+
+    # 4. invalidation: inserts on the warm s?? queries' subjects
+    engine.query_batch_view(*s_cols)  # warm again after the other patterns
+    fresh = _new_rows(np, rng, INVALIDATING, taken, ds.n_nodes, ds.n_preds,
+                      subjects=picks[:, 0])
+    _mutate(torch, engine, "insert_triples", fresh, logical, timing)
+    logical_t = _oracle_triples(torch, logical)
+    view = engine.query_batch_view(*s_cols)
+    _check_view(torch, view, s_cols, logical_t, "s?? after the invalidating inserts")
+    # control: the same without the generation bump must serve stale entries
+    cache.bump_generation = lambda shard=-1: cache.generation(shard)
+    try:
+        _mutate(torch, engine, "delete_triples", fresh, logical, timing)
+        without = _oracle_triples(torch, logical)
+        stale = _stale_entries(torch, engine.query_batch_view(*s_cols), s_cols, without)
+    finally:
+        del cache.bump_generation
+    if stale == 0:
+        _fail("control: with bump_generation stubbed out the cache served no stale answer")
+    cache.bump_generation()  # drop what the stubbed deletes left behind
+    _mutate(torch, engine, "insert_triples", fresh, logical, timing)
+    view = engine.query_batch_view(*s_cols)
+    _check_view(torch, view, s_cols, logical_t, "s?? after the inserts again")
+    if engine.delta.size != 2 * MUTATION_BATCH + INVALIDATING:
+        _fail(f"the overlay holds {engine.delta.size} rows, not "
+              f"{2 * MUTATION_BATCH + INVALIDATING}")
+    print(f"invalidation: {INVALIDATING} inserts on the warm s?? subjects, every answer equal "
+          f"to the oracle; control (bump_generation stubbed) served {stale} stale entries "
+          f"(must be > 0); overlay={engine.delta.size}")
+    # what an overlay s?? batch costs, executed (the cache detached)
+    engine.cache = None
+    try:
+        syncs, merge = _merge_syncs(torch, lambda: engine.query_batch_view(*s_cols))
+        wall, dev, _ = _profile(torch, lambda: engine.query_batch_view(*s_cols))
+        view, dt = _timed_view(torch, engine, s_cols)
+    finally:
+        engine.cache = cache
+    share = f"{dev / wall:.4f}" if dev > 0 else "not measured"
+    print(f"overlay s?? batch (cache detached): ms={dt * 1e3:.3f} host_syncs={syncs} "
+          f"of them in the merge={merge} busy_share={share} (wall_s={wall:.6f} "
+          f"kernel_s={dev:.6f})")
+
+    # 5. the automatic rebuild
+    real_compress, real_encode, real_rebuild = (engine_module.compress, engine_module.encode,
+                                                engine.rebuild)
+    rebuild = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rebuild[name] = time.perf_counter() - t
+            if name == "compress":
+                rebuild["stats"] = out[1]
+            return out
+        return run
+
+    more = _new_rows(np, rng, REBUILD_INSERTS, taken, ds.n_nodes, ds.n_preds)
+    before = {k: ops.launch_counts[k] for k in DIGRAM_NAMES}
+    engine_module.compress, engine_module.encode = timed("compress", real_compress), \
+        timed("encode", real_encode)
+    engine.rebuild = timed("rebuild", real_rebuild)
+    try:
+        _mutate(torch, engine, "insert_triples", more, logical, timing)
+    finally:
+        engine_module.compress, engine_module.encode = real_compress, real_encode
+        del engine.rebuild, engine._exists_rows
+    digram = {k: ops.launch_counts[k] - before[k] for k in DIGRAM_NAMES}
+    stats = rebuild.get("stats")
+    if engine.rebuild_count != 1 or not engine.delta.is_empty or stats is None:
+        _fail(f"the insert past the budget left rebuild_count={engine.rebuild_count} and "
+              f"{engine.delta.size} overlay rows")
+    if digram["digram_pair_accum"] != 1 + stats.iterations or digram["digram_pair_counts"] \
+            or digram["digram_select"] < stats.iterations:
+        _fail(f"the rebuild launched {digram} over {stats.iterations} replacements")
+    logical_t = _oracle_triples(torch, logical)
+    rebuilt = engine.base_triples()
+    if rebuilt.shape[0] != len(logical) or not torch.equal(torch.unique(rebuilt, dim=0),
+                                                          logical_t):
+        _fail("the rebuilt base differs from the logical triple set")
+    engine_s = rebuild["rebuild"] - rebuild["compress"] - rebuild["encode"]
+    print(f"rebuild (inside insert_triples): rebuild_s={rebuild['rebuild']:.6f} "
+          f"compress_s={rebuild['compress']:.6f} encode_s={rebuild['encode']:.6f} "
+          f"rest_s={engine_s:.6f} (decompress, overlay apply, from_triples, the engine's "
+          f"other structures) "
+          f"write_ms={timing['batches'][-1] * 1e3:.3f} triples={rebuilt.shape[0]} "
+          f"iterations={stats.iterations} rules={len(engine.grammar.rules)} launches "
+          + " ".join(f"{k}={v}" for k, v in digram.items()))
+    for pat, cols in batches.items():
+        view, dt = _timed_view(torch, engine, cols)
+        _check_view(torch, view, cols, logical_t, f"{pat} after the rebuild")
+        print(f"mutation query {pat} after the rebuild us_per_query={dt / cols[0].numel() * 1e6:.3f} "
+              f"oracle_equal=True")
+    counts = {k: ops.launch_counts[k] for k in names}
+    print("mutation part: launches " + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f"; mutation batches ms=" + ",".join(f"{t * 1e3:.3f}" for t in timing["batches"]))
+    for k in ("k2_lines_count", "k2_lines_write", "digram_pair_accum", "digram_select"):
+        if counts[k] == 0:
+            _fail(f"the mutation path launched {k} no time")
+    if counts["bitvec_rank"] or counts["digram_pair_counts"]:
+        _fail(f"the mutation path launched {counts}")
+    main["mutation_part"] = {"launches": counts}
+
+
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
     """Phase 4: each kernel on the inputs the main path gives it."""
     from repro_torch.kernels import ref
@@ -1097,6 +1575,9 @@ def _digram_rows(torch, main: dict, errs: dict) -> list:
                         lambda: [digram_pair_counts_cuda(*a) for a in groups],
                         lambda: [ref.digram_pair_counts_ref(*a) for a in groups],
                         pair_bytes, pair_ops)
+    for entry, name in ((dense, "digram_pair_counts"), (row, "digram_pair_accum"),
+                        (sel, "digram_select")):
+        entry["launches_mutation_part"] = main["mutation_part"]["launches"][name]
     return [dense, row, sel]
 
 
@@ -1164,6 +1645,7 @@ def _k2_lines_rows(torch, main: dict, errs: dict, lay, s, per_level, rank_calls)
                      "library_ms": None, "wrapper_ms": wrapper_ms, "per_level_ms": level_ms,
                      "device_measured": name in device, "heaviest_row": heaviest,
                      "launches_scalar_part": main["scalar_part"]["launches"][name],
+                     "launches_mutation_part": main["mutation_part"]["launches"][name],
                      "single_row_ms": main["scalar_part"]["row_ms"]})
     return rows
 
@@ -1311,7 +1793,7 @@ def breakdown(torch, main: dict) -> None:
     t0 = time.perf_counter()
     grammar, stats = compress(Hypergraph.from_triples(ds.triples, ds.n_nodes, device="cpu"),
                               LabelTable.terminals([2] * ds.n_preds, device="cpu"))
-    cpu_engine = TripleQueryEngine(grammar, encode(grammar))
+    cpu_engine = TripleQueryEngine(grammar, encode(grammar), cache=None, delta_budget=None)
     build_s = time.perf_counter() - t0
     if vars(stats) != vars(main["stats"]) or not _same_grammar(torch, grammar, main["grammar"]):
         _fail("the card's grammar differs from the CPU path's")
@@ -4603,6 +5085,7 @@ def main(argv=None) -> int:
     errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
     drive_scalar_path(torch, np, main_res, args.seed)
+    drive_mutation_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res

@@ -1,8 +1,8 @@
-"""Triple queries on the compressed grammar, on the device.
+"""Triple queries on the compressed grammar, on the device, with a result
+cache and a mutation overlay.
 
-The port's engine behaves as the reference's ``TripleQueryEngine`` with
-``cache=None, delta_budget=None``. A batch of unique patterns takes one of
-two executors (:meth:`TripleQueryEngine._execute_unique`):
+A batch of unique patterns takes one of two executors
+(:meth:`TripleQueryEngine._execute_unique`):
 
 * the **scalar worklist** (:meth:`TripleQueryEngine.query_scalar`) when the
   batch holds at most ``crossover`` patterns, each with S or O bound. It
@@ -30,12 +30,27 @@ two executors (:meth:`TripleQueryEngine._execute_unique`):
   nonterminals by S/O containment and NT[label, P], and expands the rest
   through the flattened grammar's CSR gathers.
 
+Both executors answer over the compressed base; ``_execute_unique`` then
+merges the mutation overlay (:class:`~repro_torch.core.delta.DeltaOverlay`)
+into their result on the device, so every path above it sees the logical
+triple set. Above that sits the cross-request
+:class:`~repro_torch.core.result_cache.QueryResultCache`: a batch's unique
+patterns are looked up first (their keys read to the host once a batch),
+only the misses execute, and each miss is stored as an entry owning its
+storage.
+
 Results come back as a :class:`QueryResultView`: one entry per unique
 (S, P, O) pattern of the batch, all entries in one flat buffer, plus the
 query -> entry map. :meth:`TripleQueryEngine.query_batch` and
 :meth:`TripleQueryEngine.query` give (label, node tuple) pairs; the
 paper's neighbourhood queries (``neighbors_out`` / ``neighbors_in`` and
 their batched forms) give a node's distinct objects or subjects.
+
+The engine is also the write surface: ``insert_triples`` /
+``delete_triples`` record mutations in the overlay and bump the cache's
+generation; past ``delta_budget`` overlay rows, :meth:`TripleQueryEngine.rebuild`
+recompresses base and delta on the device (``compress`` -> ``encode`` -> a
+fresh engine) and swaps the engine's state in one step.
 """
 from __future__ import annotations
 
@@ -45,10 +60,13 @@ import time
 import torch
 
 from repro_torch.core._arrays import I64, empty, lexsort, offsets_from_counts
+from repro_torch.core.delta import DeltaOverlay, as_triple_rows, resolve_delta_budget
 from repro_torch.core.encode import EncodedGrammar, encode
 from repro_torch.core.flatten import FlatGrammar, FrontierArena, _ragged_arange
 from repro_torch.core.grammar import Grammar
-from repro_torch.core.hypergraph import Hypergraph, _ragged_take
+from repro_torch.core.hypergraph import Hypergraph, LabelTable, _ragged_take
+from repro_torch.core.repair import compress
+from repro_torch.core.result_cache import PackedEntry, QueryResultCache
 from repro_torch.core.succinct import K2Tree
 from repro_torch.device import as_i64, resolve_device
 
@@ -57,13 +75,22 @@ _ORACLE_CHUNK = 256  # queries per oracle scan step: 256 x 50k triples = 12.8 MB
 # calibration cap: scalar routing never extends past this batch width
 _MAX_CROSSOVER = 8
 
+# sentinel: "a QueryResultCache of the default sizes"
+_DEFAULT_CACHE = object()
+
+# sentinel: "the default rebuild budget" (resolve_delta_budget())
+_DEFAULT_BUDGET = object()
+
 
 class QueryResultView:
     """Batch results as query id -> entry, one entry per unique pattern.
 
     Entry i is ``labels[b_i:b_{i+1}]`` with its node tuples, where ``b`` is
-    ``entry_bounds``; duplicate queries share an entry. :meth:`materialize`
-    gives the flat per-query layout of ``query_batch_arrays``.
+    ``entry_bounds``; duplicate queries share an entry. With a result cache
+    the buffer is assembled once from the cached entries and the executed
+    misses; a one-query view aliases its cached entry, so its tensors must
+    not be written. :meth:`materialize` gives the flat per-query layout of
+    ``query_batch_arrays``.
     """
 
     __slots__ = ("labels", "nodes", "offsets", "entry_bounds", "qid_entry")
@@ -113,24 +140,39 @@ class TripleQueryEngine:
     """Query engine over a grammar and its succinct encoding, on the
     grammar's device.
 
-    `crossover` is the batch width at or below which unique patterns with
-    S or O bound take the scalar worklist instead of the frontier: ``None``
-    measures it on this grammar at build (``calibration`` then keeps the
-    two best times it came from, in seconds), ``0`` always takes the
-    frontier, a negative value counts as 0."""
+    `cache` is the cross-request result cache: by default a
+    :class:`~repro_torch.core.result_cache.QueryResultCache` of its default
+    sizes, ``None`` for none, or a cache (or a
+    :class:`~repro_torch.core.result_cache.ShardCacheView` of a shared one)
+    to share or size it. `crossover` is the batch width at or below which
+    unique patterns with S or O bound take the scalar worklist instead of
+    the frontier: ``None`` measures it on this grammar at build
+    (``calibration`` then keeps the two best times it came from, in
+    seconds), ``0`` always takes the frontier, a negative value counts as
+    0. `delta_budget` bounds the mutation overlay before :meth:`rebuild`
+    runs by itself (default 4,096 rows; ``None`` never, ``0`` after every
+    applied mutation batch; see
+    :func:`~repro_torch.core.delta.resolve_delta_budget`). `config` is the
+    :class:`~repro_torch.core.repair.RepairConfig` rebuilds compress with:
+    pass the one the grammar was built with."""
 
     def __init__(self, grammar: Grammar, encoded: EncodedGrammar | None = None,
-                 crossover: int | None = None):
+                 cache=_DEFAULT_CACHE, crossover: int | None = None,
+                 delta_budget=_DEFAULT_BUDGET, config=None):
         self.grammar = grammar
         self.encoded = encoded if encoded is not None else encode(grammar)
         start = grammar.start
         start = start.gather_edges(torch.sort(start.labels, stable=True).indices)
         self._init_state(grammar.table.n_terminals, FlatGrammar.from_grammar(grammar),
-                         start, self.encoded.incidence, grammar.nt_generates(), crossover)
+                         start, self.encoded.incidence, grammar.nt_generates(), crossover,
+                         grammar.table.ranks.tolist(), cache, _budget(delta_budget), config)
 
     def _init_state(self, T: int, flat: FlatGrammar, start_sorted: Hypergraph,
-                    incidence: K2Tree, nt_gen: torch.Tensor, crossover: int | None) -> None:
+                    incidence: K2Tree, nt_gen: torch.Tensor, crossover: int | None,
+                    label_ranks: list[int], cache, delta_budget: int | None,
+                    config) -> None:
         self.T = int(T)
+        self._label_ranks = label_ranks  # host copy: insert_triples checks predicates
         self.flat = flat
         self.incidence = incidence
         self.device = start_sorted.device
@@ -149,20 +191,38 @@ class TripleQueryEngine:
             self.nt_k2 = None
         self._nt_rows: dict[int, set] | None = None  # label -> terminals, filled at first use
         self._host_labels, self._edge_cache, self._rules = _host_structures(flat, start_sorted)
+        self.cache = QueryResultCache() if cache is _DEFAULT_CACHE else cache
+        # the mutation overlay, merged into every executed batch and bounded
+        # by the rebuild budget
+        self.delta = DeltaOverlay(self.device)
+        self.delta_budget = delta_budget
+        self.config = config  # the RepairConfig rebuilds compress with
+        self.rebuild_count = 0
+        self._base_edges: int | None = None  # |base triples|, counted at first use
         self.calibration = None  # the calibration's best times, when it ran
         self.crossover = self._calibrate_crossover() if crossover is None \
             else max(0, int(crossover))
 
     @classmethod
     def from_numpy_state(cls, arrays: dict, meta: dict, device=None,
-                         crossover: int | None = None) -> "TripleQueryEngine":
+                         crossover: int | None = None, cache=_DEFAULT_CACHE,
+                         delta_budget: int | None = None,
+                         config=None) -> "TripleQueryEngine":
         """Build the query side from plain numpy arrays named as the
         reference's engine snapshot names them: ``table_ranks``,
         ``start_labels`` / ``start_nodes`` / ``start_offsets`` (label-sorted
         start graph), ``flat_<field>`` and ``k2_level_<i>``; `meta` carries
         the manifest's ``n_terminals``, ``start_n_nodes``, ``k2`` and
         ``crossover`` fields. `crossover` overrides the manifest's; with
-        neither, it is measured."""
+        neither, it is measured.
+
+        The engine has no grammar: its cache, overlay and mutations work
+        (the predicates are checked against ``table_ranks``), but
+        ``base_triples``, ``current_triples`` and ``rebuild`` raise, so
+        `delta_budget` must stay ``None`` (no automatic rebuild)."""
+        if delta_budget is not None and resolve_delta_budget(delta_budget) is not None:
+            raise ValueError("an engine made by from_numpy_state has no grammar to rebuild "
+                             "from: give delta_budget=None")
         dev = resolve_device(device)
         T = int(meta["n_terminals"])
         start = Hypergraph(int(meta.get("start_n_nodes", 0)),
@@ -179,7 +239,8 @@ class TripleQueryEngine:
             k2m["n_rows"], k2m["n_cols"], k2m["k"], k2m["h"], k2m["n_points"],
             [as_i64(arrays[f"k2_level_{i}"], dev) for i in range(n_levels)],
             k2m["level_bits"], device=dev)
-        if int(as_i64(arrays["table_ranks"], "cpu").numel()) != flat.rule_index.numel():
+        label_ranks = as_i64(arrays["table_ranks"], "cpu").tolist()
+        if len(label_ranks) != flat.rule_index.numel():
             raise ValueError("table_ranks and flat_rule_index disagree on #labels")
         self = cls.__new__(cls)
         self.grammar = None
@@ -187,7 +248,8 @@ class TripleQueryEngine:
         # the NT tree from the flat bitsets, as the reference's from_state
         # does (rule labels are contiguous, so flat rows are label - T)
         self._init_state(T, flat, start, incidence, flat.nt_gen,
-                         meta.get("crossover") if crossover is None else crossover)
+                         meta.get("crossover") if crossover is None else crossover,
+                         label_ranks, cache, None, config)
         return self
 
     # -- crossover calibration -------------------------------------------
@@ -358,12 +420,18 @@ class TripleQueryEngine:
     def _execute_unique(self, s, p, o):
         """Crossover dispatch over unique patterns: a batch of at most
         ``crossover`` patterns, all with S or O bound, takes the scalar
-        worklist; everything else takes the frontier. Both return
+        worklist; everything else takes the frontier. Both answer over the
+        compressed base; the mutation overlay is merged in here, on the
+        device, so every path above sees the logical triple set. Returns
         (qids, labels, nodes_flat, offsets) on the engine's device."""
         w = s.numel()
         if 0 < w <= self.crossover and bool(((s >= 0) | (o >= 0)).all()):
-            return self._run_scalar_batch(s, p, o)
-        return self._run_batch_unique(s, p, o)
+            res = self._run_scalar_batch(s, p, o)
+        else:
+            res = self._run_batch_unique(s, p, o)
+        if not self.delta.is_empty:
+            res = self.delta.merge_batch(res, s, p, o)
+        return res
 
     def _run_scalar_batch(self, s, p, o):
         """Per-query worklist over a tiny batch, frontier-shaped results
@@ -391,6 +459,15 @@ class TripleQueryEngine:
         return self._run_batch(*_normalize_batch(s_arr, p_arr, o_arr, self.device))
 
     def _run_batch(self, s, p, o):
+        """The flat batch layout. Without a cache, duplicate patterns run
+        once and their results are replicated; with one, the cached view
+        path runs, and a one-query batch aliases its cached entry."""
+        if self.cache is not None:
+            view = self._run_batch_view(s, p, o)
+            if view.n_queries == 1:  # the hot serving path: no gather
+                return (torch.zeros(view.labels.numel(), dtype=I64, device=self.device),
+                        view.labels, view.nodes, view.offsets)
+            return view.materialize()
         n = s.numel()
         if n > 1:  # dedup never helps a batch of one
             uniq, inv = torch.unique(torch.stack([s, p, o], dim=1), dim=0,
@@ -409,12 +486,51 @@ class TripleQueryEngine:
         return self._run_batch_view(s, p, o)
 
     def _run_batch_view(self, s, p, o) -> QueryResultView:
-        if s.numel() == 1:
-            return _split_per_query(self._execute_unique(s, p, o), 1,
-                                    torch.zeros(1, dtype=I64, device=self.device))
+        """One entry per unique pattern. With a cache, the unique patterns
+        are looked up first (their keys read to the host once), only the
+        misses execute, and each miss is stored as an entry owning its
+        storage; the view is one buffer assembled from hits and misses."""
+        cache = self.cache
+        one = torch.zeros(1, dtype=I64, device=self.device)
+        if cache is None:
+            if s.numel() == 1:
+                return _split_per_query(self._execute_unique(s, p, o), 1, one)
+            uniq, inv = torch.unique(torch.stack([s, p, o], dim=1), dim=0,
+                                     return_inverse=True)
+            res = self._execute_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2])
+            return _split_per_query(res, uniq.shape[0], inv.reshape(-1))
+        if s.numel() == 1:  # the hot serving path: no unique / split machinery
+            cols = torch.stack([s, p, o])
+            return _view_of_entries([self._cached_one(cols.reshape(-1).tolist(), cols)], one)
         uniq, inv = torch.unique(torch.stack([s, p, o], dim=1), dim=0, return_inverse=True)
-        res = self._execute_unique(uniq[:, 0], uniq[:, 1], uniq[:, 2])
-        return _split_per_query(res, uniq.shape[0], inv.reshape(-1))
+        inv = inv.reshape(-1)
+        keys = uniq.tolist()
+        entries = [_packed(cache.lookup(*k)) for k in keys]
+        miss = [i for i, e in enumerate(entries) if e is None]
+        if not miss:
+            return _view_of_entries(entries, inv)
+        part = uniq if len(miss) == len(keys) else \
+            uniq[torch.tensor(miss, dtype=I64).to(self.device)]
+        fresh = _split_per_query(self._execute_unique(part[:, 0], part[:, 1], part[:, 2]),
+                                 len(miss), inv)
+        for i, entry in zip(miss, _owned_entries(fresh)):
+            entries[i] = entry
+            cache.insert(*keys[i], entry)
+        if len(miss) == len(keys):
+            return fresh  # every pattern missed: the executed batch is the view
+        return _view_of_entries(entries, inv)
+
+    def _cached_one(self, key: list, cols=None):
+        """One pattern's cached entry: a hit, or the pattern executed (its
+        (3, 1) columns `cols`, made from `key` when None) and stored."""
+        hit = _packed(self.cache.lookup(*key))
+        if hit is None:
+            if cols is None:
+                cols = torch.tensor(key, dtype=I64).reshape(3, 1).to(self.device)
+            _, labels, nodes, offsets = self._execute_unique(*cols)
+            hit = _own_entry(labels, nodes, offsets)
+            self.cache.insert(*key, hit)
+        return hit
 
     def query_batch(self, s_arr, p_arr, o_arr) -> list[list[tuple]]:
         """Batch query returning, per query, (label, (v0..vk)) pairs: the
@@ -433,16 +549,28 @@ class TripleQueryEngine:
 
     def query(self, s: int | None, p: int | None, o: int | None) -> list[tuple]:
         """Matching terminal edges as (label, (v0..vk)) pairs. With S or O
-        bound and a crossover of at least 1 the scalar worklist answers
-        directly, without the array round trip."""
-        if self.crossover >= 1 and (s is not None or o is not None):
-            return self.query_scalar(s, p, o)
-        return self.query_batch([s], [p], [o])[0]
+        bound, a crossover of at least 1, no cache and an empty overlay the
+        scalar worklist (which answers over the base) answers directly,
+        without the array round trip."""
+        if self.cache is None:
+            if self.crossover >= 1 and self.delta.is_empty and (s is not None or o is not None):
+                return self.query_scalar(s, p, o)
+            return self.query_batch([s], [p], [o])[0]
+        # the key is on the host already: look it up without a device round
+        # trip, and read a hit back in one copy
+        key = [-1 if v is None else int(v) for v in (s, p, o)]
+        entry = self._cached_one(key)
+        n, m = entry.n_edges, entry.n_nodes
+        host = entry.buf.tolist()  # [labels | nodes | offsets]
+        nodes = host[n:n + m]
+        return [(lbl, tuple(nodes[a:b]))
+                for lbl, a, b in zip(host[:n], host[n + m:n + m + n], host[n + m + 1:])]
 
     def query_scalar(self, s: int | None, p: int | None, o: int | None) -> list[tuple]:
         """Per-query Python worklist over the host copies of the start graph
-        and the rules; None marks an unbound slot. The executor the
-        crossover dispatch routes tiny selective batches to."""
+        and the rules, over the compressed base only (the overlay is merged
+        above it, in ``_execute_unique``); None marks an unbound slot. The
+        executor the crossover dispatch routes tiny selective batches to."""
         if s is not None or o is not None:
             r = s if s is not None else o
             seeds = [self._edge_cache[j] for j in self._row_edges(int(r))]
@@ -481,29 +609,162 @@ class TripleQueryEngine:
             return False
         return True
 
+    # -- mutation --------------------------------------------------------
+    def insert_triples(self, triples) -> int:
+        """Insert (s, p, o) rows; returns how many were new.
+
+        Rows already visible (in the base and not tombstoned, or buffered)
+        are no-ops; tombstoned rows are resurrected. Predicates must be
+        rank-2 terminal labels of this grammar; node ids may pass the base
+        graph's (the node universe grows at the next rebuild). An applied
+        mutation bumps the cache's generation and, once the overlay exceeds
+        `delta_budget`, runs :meth:`rebuild`. The rows stay on the engine's
+        device."""
+        rows = as_triple_rows(triples, self.device)
+        if rows.shape[0]:
+            preds = torch.unique(rows[:, 1]).tolist()
+            if preds[-1] >= self.T:
+                raise ValueError(f"predicate ids must be < {self.T} (terminal labels); "
+                                 f"got {preds[-1]}")
+            if any(self._label_ranks[q] != 2 for q in preds):
+                raise ValueError("predicates must be rank-2 terminal labels (the node-label "
+                                 "terminals of ITR+ are not triple predicates)")
+            rows = rows[~self._exists_rows(rows)]
+        applied = self.delta.insert_rows(rows)
+        self._after_mutation(applied)
+        return applied
+
+    def delete_triples(self, triples) -> int:
+        """Delete (s, p, o) rows; returns how many were present. Deleting an
+        overlay insert drops it from the buffer, deleting a base triple
+        tombstones it, deleting an absent triple does nothing; the cache and
+        the budget as in :meth:`insert_triples`."""
+        rows = as_triple_rows(triples, self.device)
+        if rows.shape[0]:
+            rows = rows[self._exists_rows(rows)]
+        applied = self.delta.delete_rows(rows)
+        self._after_mutation(applied)
+        return applied
+
+    def contains_triples(self, triples) -> torch.Tensor:
+        """bool per (s, p, o) row: is it visible on this engine (base minus
+        tombstones plus inserts)? Aligned with the input (no dedup, no sort)
+        and run with the cache detached."""
+        rows = as_i64(triples, self.device)
+        if rows.numel() == 0:
+            return torch.zeros(0, dtype=torch.bool, device=self.device)
+        if rows.dim() != 2 or rows.shape[1] != 3:
+            raise ValueError(f"expected (n, 3) triple rows, got shape {tuple(rows.shape)}")
+        return self._exists_rows(rows)
+
+    @property
+    def base_edges(self) -> int:
+        """Triple count of the compressed base, counted by decompressing it
+        once a grammar (a rebuild sets it from its rows)."""
+        if self._base_edges is None:
+            self._base_edges = int(self.base_triples().shape[0])
+        return self._base_edges
+
+    def _exists_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """bool per row: is this triple visible? One batch query with the
+        cache detached: a membership probe must not fill the cache with
+        entries the mutation is about to invalidate."""
+        cache, self.cache = self.cache, None
+        try:
+            view = self._run_batch_view(rows[:, 0], rows[:, 1], rows[:, 2])
+        finally:
+            self.cache = cache
+        return view.result_counts() > 0
+
+    def _after_mutation(self, applied: int) -> None:
+        if not applied:
+            return
+        if self.cache is not None:
+            self.cache.bump_generation()
+        if self.delta_budget is not None and self.delta.size > self.delta_budget:
+            self.rebuild()
+
+    def _require_grammar(self, what: str) -> Grammar:
+        if self.grammar is None:
+            raise NotImplementedError(
+                f"{what} needs the grammar, and an engine made by from_numpy_state has none: "
+                f"decoding it from the encoding is ROADMAP A10 (and reading snapshots, A9)")
+        return self.grammar
+
+    def base_triples(self) -> torch.Tensor:
+        """The compressed base as (n, 3) rows, in the decompression's order;
+        the grammar must be a pure triple grammar (every decompressed edge
+        of rank 2)."""
+        g = self._require_grammar("base_triples").decompress()
+        if g.n_edges == 0:
+            return torch.zeros((0, 3), dtype=I64, device=self.device)
+        if not bool((g.ranks() == 2).all()):
+            raise ValueError("base graph has non-triple (rank != 2) edges; "
+                             "triple mutation and rebuild need a pure triple set")
+        starts = g.offsets[:-1]
+        return torch.stack([g.nodes_flat[starts], g.labels, g.nodes_flat[starts + 1]], 1)
+
+    def current_triples(self) -> torch.Tensor:
+        """The logical triple set: the decompressed base with the overlay
+        applied (tombstones removed, inserts appended)."""
+        return self.delta.apply(self.base_triples())
+
+    def rebuild(self, config=None) -> bool:
+        """Recompress base and delta into a fresh grammar and swap it in.
+
+        ``compress`` runs on the device over the overlay-applied triples
+        with `config` (default: the engine's), then ``encode`` and a fresh
+        engine at this engine's crossover (no recalibration); the engine's
+        attributes are replaced in one ``__dict__`` update, so it is never
+        seen half rebuilt between method calls (queries running
+        concurrently with the swap must be serialised against it). The
+        cache survives and gets a generation bump. Returns False when the
+        overlay is empty (nothing to do)."""
+        if self.delta.is_empty:
+            return False
+        grammar = self._require_grammar("rebuild")
+        config = config if config is not None else self.config
+        triples = self.current_triples()
+        n_nodes = grammar.start.n_nodes
+        if triples.shape[0]:
+            n_nodes = max(n_nodes, int(triples[:, [0, 2]].max()) + 1)
+        table = LabelTable.terminals(grammar.table.ranks[:self.T].clone(),
+                                     names=grammar.table.names)
+        fresh_grammar, _ = compress(Hypergraph.from_triples(triples, n_nodes), table, config)
+        fresh = TripleQueryEngine(fresh_grammar, cache=self.cache, crossover=self.crossover,
+                                  delta_budget=self.delta_budget, config=config)
+        fresh._base_edges = int(triples.shape[0])  # the new base is these rows
+        rebuilds = self.rebuild_count + 1
+        self.__dict__.update(fresh.__dict__)
+        self.rebuild_count = rebuilds
+        if self.cache is not None:
+            self.cache.bump_generation()
+        return True
+
     # -- neighbourhood queries ---------------------------------------------
     def neighbors_out_batch(self, vs) -> list[torch.Tensor]:
         """Per v: its distinct objects (outgoing neighbourhood), sorted, one
-        batch. Duplicate vs share one tensor."""
-        vs = self._sanitize_nodes(vs)
-        unbound = torch.full_like(vs, -1)
-        view = self._run_batch_view(vs, unbound, unbound)
-        per_entry = _entry_distinct_slot(view, 1)
-        return [per_entry[i] for i in view.qid_entry.tolist()]
+        batch. Duplicate vs share one tensor; a negative v has none."""
+        return self._neighbors(vs, 1)
 
     def neighbors_in_batch(self, vs) -> list[torch.Tensor]:
         """Per v: its distinct subjects (incoming neighbourhood), one batch."""
-        vs = self._sanitize_nodes(vs)
-        unbound = torch.full_like(vs, -1)
-        view = self._run_batch_view(unbound, unbound, vs)
-        per_entry = _entry_distinct_slot(view, 0)
-        return [per_entry[i] for i in view.qid_entry.tolist()]
+        return self._neighbors(vs, 0)
 
-    def _sanitize_nodes(self, vs) -> torch.Tensor:
-        """Negative node ids would read as unbound: map them to an
-        out-of-range row, so they yield empty results."""
+    def _neighbors(self, vs, slot: int) -> list[torch.Tensor]:
         vs = as_i64(vs, self.device).reshape(-1)
-        return torch.where(vs < 0, self.incidence.n_rows, vs)
+        neg = vs < 0
+        # a negative id would read as unbound: it queries an out-of-range
+        # row and answers empty below, whatever the overlay holds there
+        vs = torch.where(neg, self.incidence.n_rows, vs)
+        unbound = torch.full_like(vs, -1)
+        cols = (vs, unbound, unbound) if slot == 1 else (unbound, unbound, vs)
+        view = self._run_batch_view(*cols)
+        per_entry = _entry_distinct_slot(view, slot)
+        n = vs.numel()
+        host = torch.cat([view.qid_entry, neg.to(I64)]).tolist()
+        none = empty(self.device)
+        return [none if host[n + i] else per_entry[host[i]] for i in range(n)]
 
     def neighbors_out(self, v: int) -> torch.Tensor:
         """v ? ? -> distinct objects (outgoing neighbourhood)."""
@@ -573,6 +834,103 @@ def _split_per_query(res, nq: int, qid_entry: torch.Tensor) -> QueryResultView:
     nodes = r_n[_ragged_take(r_o, order, ranks)]
     bounds = offsets_from_counts(torch.bincount(r_q, minlength=nq))
     return QueryResultView(r_l[order], nodes, offsets_from_counts(ranks), bounds, qid_entry)
+
+
+def _own_entry(labels, nodes, offsets) -> PackedEntry:
+    """One query's (labels, nodes_flat, offsets) copied into one buffer of
+    its own, so a cache entry pins nothing else."""
+    return PackedEntry(torch.cat([labels, nodes, offsets]), labels.numel(), nodes.numel())
+
+
+def _owned_entries(g: QueryResultView) -> list[PackedEntry]:
+    """Each entry of grouped view `g` in one buffer of its own size (a slice
+    of the batch's buffer would keep the whole batch alive and defeat the
+    cache's edge budgets): one host read of the entries' sizes, one scatter
+    that lays every entry out as [labels | nodes | offsets from 0], then
+    the entries copied out in batched launches (``_foreach_add`` of 0, out
+    of place; a ``clone`` an entry costs a launch and an allocation of host
+    time each, the batched copy an allocation)."""
+    ne = g.n_entries
+    if ne == 0:
+        return []
+    bounds = g.entry_bounds
+    node_bounds = g.offsets[bounds]
+    host = torch.cat([bounds, node_bounds]).tolist()
+    eb, nb = host[:ne + 1], host[ne + 1:]
+    n_e = [eb[i + 1] - eb[i] for i in range(ne)]
+    n_n = [nb[i + 1] - nb[i] for i in range(ne)]
+    dev = bounds.device
+    e_t = bounds[1:] - bounds[:-1]
+    n_t = node_bounds[1:] - node_bounds[:-1]
+    at = offsets_from_counts(2 * e_t + n_t + 1)  # where each entry starts
+    ids = torch.arange(ne, dtype=I64, device=dev)
+    packed = torch.empty(2 * eb[-1] + nb[-1] + ne, dtype=I64, device=dev)
+    ent = torch.repeat_interleave(ids, e_t, output_size=eb[-1])
+    packed[(at[:-1] - bounds[:-1])[ent] + torch.arange(eb[-1], dtype=I64, device=dev)] = g.labels
+    ent = torch.repeat_interleave(ids, n_t, output_size=nb[-1])
+    packed[(at[:-1] + e_t - node_bounds[:-1])[ent]
+           + torch.arange(nb[-1], dtype=I64, device=dev)] = g.nodes
+    n_o = eb[-1] + ne  # each entry's offsets, one longer than its edges
+    ent = torch.repeat_interleave(ids, e_t + 1, output_size=n_o)
+    j = _ragged_arange(e_t + 1, n_o)
+    packed[(at[:-1] + e_t + n_t)[ent] + j] = \
+        g.offsets[bounds[:-1][ent] + j] - node_bounds[:-1][ent]
+    sizes = [2 * e + n + 1 for e, n in zip(n_e, n_n)]
+    owned = torch._foreach_add(list(torch.split(packed, sizes)), 0)
+    return [PackedEntry(buf, e, n) for buf, e, n in zip(owned, n_e, n_n)]
+
+
+def _view_of_entries(entries: list, qid_entry: torch.Tensor) -> QueryResultView:
+    """A view over packed entries in entry order: one concatenation of
+    their buffers, then labels, nodes and offsets gathered out of it on the
+    device (sizes from the entries, no host sync); a single entry is
+    aliased."""
+    dev = qid_entry.device
+    if len(entries) == 1:
+        e = entries[0]
+        labels, nodes, offsets = e.parts()
+        return QueryResultView(labels, nodes, offsets,
+                               torch.tensor([0, e.n_edges], dtype=I64).to(dev), qid_entry)
+    if not entries:
+        return QueryResultView(empty(dev), empty(dev), torch.zeros(1, dtype=I64, device=dev),
+                               torch.zeros(1, dtype=I64, device=dev), qid_entry)
+    n_e = [e.n_edges for e in entries]
+    n_n = [e.n_nodes for e in entries]
+    eb, nb, at = [0], [0], [0]  # each entry's first edge, node and buffer position
+    for e, n in zip(n_e, n_n):
+        eb.append(eb[-1] + e)
+        nb.append(nb[-1] + n)
+        at.append(at[-1] + 2 * e + n + 1)
+    buf = torch.cat([e.buf for e in entries])
+    e_t, n_t, eb_t, nb_t, at_t = torch.tensor(
+        [n_e, n_n, eb[:-1], nb[:-1], at[:-1]], dtype=I64).to(dev).unbind(0)
+    ids = torch.arange(len(entries), dtype=I64, device=dev)
+    ent = torch.repeat_interleave(ids, e_t, output_size=eb[-1])
+    k = torch.arange(eb[-1], dtype=I64, device=dev) - eb_t[ent]  # the edge within its entry
+    labels = buf[at_t[ent] + k]
+    # an edge's end offset sits after its entry's labels, nodes and leading 0
+    ends = buf[(at_t + e_t + n_t + 1)[ent] + k] + nb_t[ent]
+    ent = torch.repeat_interleave(ids, n_t, output_size=nb[-1])
+    nodes = buf[(at_t + e_t - nb_t)[ent] + torch.arange(nb[-1], dtype=I64, device=dev)]
+    offsets = torch.cat([torch.zeros(1, dtype=I64, device=dev), ends])
+    return QueryResultView(labels, nodes, offsets, offsets_from_counts(e_t), qid_entry)
+
+
+def _packed(entry):
+    """A cache hit as a :class:`PackedEntry` (None stays None): the engine
+    stores only those, but a shared cache may hold a caller's tuples."""
+    if entry is None or isinstance(entry, PackedEntry):
+        return entry
+    return _own_entry(*entry)
+
+
+def _budget(delta_budget) -> int | None:
+    """The constructor's `delta_budget`: the sentinel gives the default,
+    ``None`` turns automatic rebuilds off, an int resolves as
+    :func:`~repro_torch.core.delta.resolve_delta_budget` says."""
+    if delta_budget is _DEFAULT_BUDGET:
+        return resolve_delta_budget()
+    return None if delta_budget is None else resolve_delta_budget(delta_budget)
 
 
 def _entry_distinct_slot(view: QueryResultView, slot: int) -> list[torch.Tensor]:

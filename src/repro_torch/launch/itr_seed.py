@@ -19,6 +19,7 @@ only the public API is used, so any checkout of the port runs it.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import time
 import warnings
@@ -62,7 +63,11 @@ def main(argv=None) -> None:
     pick = ds.triples[np.random.default_rng(args.seed).integers(0, ds.n_triples, args.queries)]
     grammar, _ = compress(Hypergraph.from_triples(ds.triples, ds.n_nodes),
                           LabelTable.terminals(np.full(ds.n_preds, 2)))
-    engine = TripleQueryEngine(grammar, encode(grammar))
+    # the cache-less engine, as phase 3 of chip_smoke.py runs it (a tree from
+    # before the result cache takes no such arguments)
+    bare = {"cache": None, "delta_budget": None} \
+        if "cache" in inspect.signature(TripleQueryEngine).parameters else {}
+    engine = TripleQueryEngine(grammar, encode(grammar), **bare)
     batches = {pat: [torch.from_numpy(pick[:, i].copy() if pat[i] != "?"
                                       else np.full(args.queries, -1, dtype=np.int64)).cuda()
                      for i in range(3)] for pat in PATTERNS}

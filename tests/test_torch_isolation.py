@@ -39,7 +39,10 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_port_sources_name_no_reference_import():
     offenders = []
-    for path in [*sorted((SRC / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
+    paths = [*sorted((SRC / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    core = SRC / "repro_torch" / "core"
+    assert {core / "delta.py", core / "result_cache.py", core / "query.py"} <= set(paths)
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1 and (

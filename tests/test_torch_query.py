@@ -27,7 +27,7 @@ def _engines(name):
     ref_g, _ = R.compress(rg, rt)
     port_g, _ = P.compress(pg, pt)
     ref = R.TripleQueryEngine(ref_g, cache=None, crossover=0, delta_budget=None)
-    return ds, ref, P.TripleQueryEngine(port_g)
+    return ds, ref, P.TripleQueryEngine(port_g, cache=None, delta_budget=None)
 
 
 @pytest.fixture(scope="module", params=sorted(DATASETS))
@@ -123,7 +123,7 @@ def _load_reference_state(engine, tmp_path):
 def test_from_numpy_state_answers_like_reference(name, tmp_path):
     ds, ref, _ = _engines(name)
     arrays, meta = _load_reference_state(ref, tmp_path)
-    port = P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu")
+    port = P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu", cache=None)
     assert port.grammar is None and port.T == ref.T
     for pattern in PATTERNS:
         cols = _batch(ds, pattern, n=4 if pattern == "???" else 30, seed=5)
@@ -137,4 +137,4 @@ def test_from_numpy_state_rejects_unsorted_start(tmp_path):
     arrays, meta = _load_reference_state(ref, tmp_path)
     arrays["start_labels"] = arrays["start_labels"][::-1].copy()
     with pytest.raises(ValueError):
-        P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu")
+        P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu", cache=None)

@@ -64,7 +64,7 @@ def _engines(name, crossover=8):
     ref_g, _ = R.compress(rg, rt)
     port_g, _ = P.compress(pg, pt)
     ref = R.TripleQueryEngine(ref_g, cache=None, crossover=0, delta_budget=None)
-    return ds, rg, ref, P.TripleQueryEngine(port_g, crossover=crossover)
+    return ds, rg, ref, P.TripleQueryEngine(port_g, cache=None, crossover=crossover, delta_budget=None)
 
 
 @pytest.fixture(scope="module", params=sorted(DATASETS))
@@ -145,7 +145,7 @@ def _random_pair(seed, n_nodes, n_edges):
 def test_crossover_dispatch_parity_random_grammars(seed):
     rng, g, ref_g, port_g = _random_pair(seed, 12, 40)
     ref = R.TripleQueryEngine(ref_g, cache=None, crossover=0, delta_budget=None)
-    port = P.TripleQueryEngine(port_g, crossover=8)
+    port = P.TripleQueryEngine(port_g, cache=None, crossover=8, delta_budget=None)
     s = int(rng.integers(0, 12))
     p = int(rng.integers(0, 3))
     queries = [(s, None, None), (None, None, s), (s, p, None), (None, p, s),
@@ -172,7 +172,7 @@ def _ref_scalar_neighbors(ref, v: int, slot: int) -> np.ndarray:
 def test_neighbors_batch_parity_random_grammars(crossover, seed):
     rng, _, ref_g, port_g = _random_pair(seed, 13, 45)
     ref = R.TripleQueryEngine(ref_g, cache=None, crossover=0, delta_budget=None)
-    port = P.TripleQueryEngine(port_g, crossover=crossover)
+    port = P.TripleQueryEngine(port_g, cache=None, crossover=crossover, delta_budget=None)
     vs = rng.integers(0, 13, 6).tolist() + [0, 0]  # duplicates exercise dedup
     outs, ins = port.neighbors_out_batch(vs), port.neighbors_in_batch(vs)
     assert len(outs) == len(vs) and len(ins) == len(vs)
@@ -192,7 +192,7 @@ def _tiny_engines(crossover):
     ref_g, _ = R.compress(R.Hypergraph.from_triples(triples, 4), R.LabelTable.terminals([2, 2]))
     port_g, _ = P.compress(P.Hypergraph.from_triples(triples, 4, device="cpu"),
                            P.LabelTable.terminals([2, 2], device="cpu"))
-    return R.TripleQueryEngine(ref_g), P.TripleQueryEngine(port_g, crossover=crossover)
+    return R.TripleQueryEngine(ref_g), P.TripleQueryEngine(port_g, cache=None, crossover=crossover, delta_budget=None)
 
 
 @pytest.mark.parametrize("crossover", [None, 0, 8])
@@ -293,10 +293,10 @@ def test_from_numpy_state_takes_the_manifest_crossover(name, tmp_path):
     ref = R.TripleQueryEngine(ref_g, cache=None, crossover=5, delta_budget=None)
     arrays, meta = _load_reference_state(ref, tmp_path)
     assert meta["crossover"] == 5
-    port = P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu")
+    port = P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu", cache=None)
     assert port.crossover == 5 and port.encoded is None
     assert P.TripleQueryEngine.from_numpy_state(arrays, meta, device="cpu",
-                                                crossover=0).crossover == 0
+                                                crossover=0, cache=None).crossover == 0
     for pattern in PATTERNS:
         for q in _queries(ds, pattern, n=4 if pattern == "???" else 8, seed=2):
             want = _canon(ref.query_scalar(*q))
