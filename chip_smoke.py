@@ -105,6 +105,39 @@ nothing of the JAX package. Phases:
    overlay, ``digram_pair_accum`` 1 + the rebuild's iterations and no
    ``digram_pair_counts``, ``base_triples()`` equal to the logical set and
    every pattern equal to the oracle again;
+   3d. engine snapshots, ``decode`` and ITR+, the launch counts set to 0
+   before it and read after (``k2_lines_count``, ``k2_lines_write``,
+   ``digram_pair_accum`` and ``digram_select`` at least once,
+   ``bitvec_rank`` and ``digram_pair_counts`` never): a mutable engine on
+   phase 3's grammar (a ``QueryResultCache()``, budget 4,096) with 1,536
+   deletes and 1,536 inserts (384 past the base's nodes) is saved with
+   ``save_snapshot`` into a temporary directory (ms, bytes on disk) and
+   opened on the card with ``load_snapshot(mmap=True, verify=True)`` (ms,
+   beside phase 3's compress + encode): every state tensor (start graph,
+   flat CSR, k²-tree levels, Elias–Fano parts, δ streams, overlay rows) and
+   scalar (crossover, delta budget, base edges, rebuild count) equal to the
+   saved engine's, no ``k2_lines`` launch; the eight patterns over 4,096
+   rows (deleted, inserted, untouched) against the oracle scan of the
+   logical set, one ``k2_lines_count`` and one ``k2_lines_write`` a S/O
+   batch and no ``bitvec_rank``; the opened engine saved again equal to
+   the first directory byte for byte; ``encoded.decode()`` equal to the
+   opened grammar and passing ``validate()``, with one ``k2_lines`` pair,
+   its seconds split into the host δ decode and the rest; a flipped byte,
+   a removed array file and a removed manifest must each make the open
+   raise ``SnapshotError``; a crash injected at ``engine.rebuild`` must
+   leave the answers (cache detached) and ``rebuild_count`` unchanged; the
+   opened engine's ``rebuild()`` (``digram_pair_accum`` 1 + its
+   iterations, ``rebuild_count`` + 1, every pattern equal to the oracle);
+   a crash injected at ``snapshot.pre_commit`` while overwriting must
+   leave the first save's files and a ``.tmp`` orphan that the next save
+   clears; then ``chess-legal`` at scale 1.0 (76,269 triples, 68,643 of
+   76,270 nodes labelled with 13 labels) built on the card without and
+   with ``attach_node_labels`` (seconds, encoded bytes, ``digram_pair_accum``
+   1 + iterations each), the ITR+ grammar equal to the port's CPU build,
+   ``strip_node_labels`` of its decompression giving back the labels and
+   the triples, both dictionary costs, and the eight patterns over 4,096
+   edges of the ITR+ hypergraph equal to a plain scan of it, rank-1 label
+   edges included;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -719,7 +752,7 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
     return {"engine": engine, "graph": graph, "table": table, "counts": counts,
             "batches": batches, "build_s": build_s, "dataset": ds, "grammar": grammar,
             "stats": stats, "accum_calls": accum_calls, "select_table": select_table[0],
-            "pick": pick, "triples": triples, "query_s": query_s}
+            "pick": pick, "triples": triples, "query_s": query_s, "stages": stages}
 
 
 def _view_rows(torch, view, cols, triples):
@@ -1412,6 +1445,496 @@ def drive_mutation_path(torch, np, main: dict, seed: int) -> None:
     main["mutation_part"] = {"launches": counts}
 
 
+SNAPSHOT_PICKS = (1024, 1024, 2048)  # phase 3d's query rows: deleted, inserted, untouched
+PLUS_DATASET = "chess-legal"         # the paper's Table 1b size at scale 1.0
+
+
+def _state_tensors(engine) -> dict:
+    """Every state tensor of an engine by name: the label-sorted start graph,
+    the flat CSR, the k²-tree levels, the Elias–Fano parts, the δ streams
+    and the overlay rows."""
+    from repro_torch.core import FlatGrammar
+
+    enc, ef, g = engine.encoded, engine.encoded.label_ef, engine._start_sorted
+    out = {"table_ranks": engine.grammar.table.ranks, "start_labels": g.labels,
+           "start_nodes": g.nodes_flat, "start_offsets": g.offsets, "ef_lows": ef._lows,
+           "ef_low_words": ef._low_words, "ef_upper_words": ef._upper.words,
+           "fn_words": enc.fn_stream[0], "edge_fn_words": enc.edge_fn_stream[0],
+           "rule_words": enc.rule_stream[0], "fn_lengths": enc.fn_lengths,
+           "terminal_ranks": enc.terminal_ranks, "delta_inserts": engine.delta.inserts,
+           "delta_tombstones": engine.delta.tombstones}
+    out.update({f"flat_{n}": getattr(engine.flat, n) for n in FlatGrammar._ARRAY_FIELDS})
+    out.update({f"k2_level_{i}": lv.words for i, lv in enumerate(enc.incidence.levels)})
+    return out
+
+
+def _engine_scalars(engine) -> dict:
+    enc = engine.encoded
+    return {"crossover": engine.crossover, "delta_budget": engine.delta_budget,
+            "base_edges": engine._base_edges, "rebuild_count": engine.rebuild_count,
+            "stream_bits": (enc.fn_stream[1], enc.edge_fn_stream[1], enc.rule_stream[1]),
+            "counts": (enc.n_nodes, enc.n_edges, enc.n_fns, enc.n_rules, enc.rule_symbol_count)}
+
+
+def _dir_diff(a: str, b: str) -> list:
+    """Files that differ between two directories, or are in one only."""
+    import filecmp
+    import os
+
+    na, nb = sorted(os.listdir(a)), sorted(os.listdir(b))
+    if na != nb:
+        return sorted(set(na) ^ set(nb))
+    return [n for n in na if not filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                                             shallow=False)]
+
+
+def _broken_open(path: str, scratch: str, how: str) -> str:
+    """Open a broken copy of a snapshot (`how`: one byte flipped in an array
+    file, an array file removed, the manifest removed); the SnapshotError's
+    message, or "" when the open did not raise one."""
+    import os
+    import shutil
+
+    from repro_torch.persist.snapshot import MANIFEST, SnapshotError, load_snapshot
+
+    copy = os.path.join(scratch, f"broken_{how}")
+    shutil.copytree(path, copy)
+    if how == "flipped_byte":
+        target = os.path.join(copy, "flat_params.npy")
+        data = bytearray(open(target, "rb").read())
+        data[len(data) // 2] ^= 0x10
+        open(target, "wb").write(bytes(data))
+    else:
+        os.remove(os.path.join(copy, "start_labels.npy" if how == "removed_array" else MANIFEST))
+    try:
+        load_snapshot(copy)
+    except SnapshotError as exc:
+        return str(exc)
+    finally:
+        shutil.rmtree(copy)
+    return ""
+
+
+def _gc_pause(fn) -> tuple:
+    """(fn's result, seconds Python's cyclic garbage collector ran during it)."""
+    import gc
+
+    marks = []
+
+    def mark(phase, info):
+        marks.append(time.perf_counter())
+
+    gc.callbacks.append(mark)
+    try:
+        out = fn()
+    finally:
+        gc.callbacks.remove(mark)
+    return out, sum(b - a for a, b in zip(marks[::2], marks[1::2]))
+
+
+def _hyper_rows(torch, labels, nodes, offsets):
+    """(s, p, o) per edge of a ragged batch, o = -2 for a rank-1 edge (which
+    matches only an unbound O)."""
+    if labels.numel() == 0:
+        return torch.zeros((0, 3), dtype=torch.int64, device=labels.device)
+    ranks = offsets[1:] - offsets[:-1]
+    starts = offsets[:-1]
+    second = torch.where(ranks > 1, nodes[(starts + 1).clamp(max=nodes.numel() - 1)], -2)
+    return torch.stack([nodes[starts], labels, second], 1)
+
+
+def _check_hyper_view(torch, view, cols, rows_t, what: str) -> None:
+    """A batch view over a hypergraph with rank-1 edges against the plain
+    scan of its (s, p, o / -2) rows, every unique pattern."""
+    from repro_torch.core import query_oracle
+    from repro_torch.core._arrays import lexsort
+
+    q = torch.stack(list(cols), dim=1)
+    uniq = torch.unique(q, dim=0)
+    want = query_oracle(rows_t, uniq[:, 0], uniq[:, 1], uniq[:, 2])
+    if view.n_entries != uniq.shape[0] or not torch.equal(uniq[view.qid_entry], q):
+        _fail(f"{what}: query -> entry map is wrong")
+    owner = torch.repeat_interleave(torch.arange(view.n_entries, device=DEV),
+                                    view.entry_counts())
+    got = torch.cat([owner[:, None], _hyper_rows(torch, view.labels, view.nodes,
+                                                 view.offsets)], 1)
+    got = got[lexsort((got[:, 3], got[:, 2], got[:, 1], got[:, 0]))]
+    if not torch.equal(got, want):
+        _fail(f"{what}: results differ from the plain scan")
+
+
+def _itr_plus_part(torch, np, seed: int) -> dict:
+    """(g) of phase 3d: ITR and ITR+ builds of chess-legal on the card."""
+    from repro_torch.core import (
+        Hypergraph,
+        LabelTable,
+        TripleQueryEngine,
+        attach_node_labels,
+        compress,
+        dictionary_cost_itr,
+        dictionary_cost_itr_plus,
+        encode,
+        strip_node_labels,
+    )
+    from repro_torch.data.synthetic import PAPER_DATASETS
+    from repro_torch.kernels import ops
+
+    ds = PAPER_DATASETS[PLUS_DATASET](scale=1.0, seed=seed)
+    labelled = int((ds.node_labels >= 0).sum())
+    n_kinds = int(ds.node_labels.max()) + 1
+    print(f"itr+ dataset {PLUS_DATASET} scale=1.0 triples={ds.n_triples} nodes={ds.n_nodes} "
+          f"labelled_nodes={labelled} node_labels={n_kinds} preds={ds.n_preds}")
+    builds = {}
+    for name in ("ITR", "ITR+"):
+        before = {k: ops.launch_counts[k] for k in DIGRAM_NAMES}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = Hypergraph.from_triples(ds.triples, ds.n_nodes)
+        table = LabelTable.terminals(np.full(ds.n_preds, 2))
+        base = None
+        if name == "ITR+":
+            graph, table, base = attach_node_labels(graph, table, ds.node_labels)
+        t1 = time.perf_counter()
+        grammar, stats = compress(graph, table)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enc = encode(grammar)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        digram = {k: ops.launch_counts[k] - before[k] for k in DIGRAM_NAMES}
+        if digram["digram_pair_accum"] != 1 + stats.iterations or digram["digram_pair_counts"] \
+                or digram["digram_select"] < stats.iterations:
+            _fail(f"the {name} build of {PLUS_DATASET} launched {digram} over "
+                  f"{stats.iterations} replacements")
+        rank1 = sum(bool((r.rhs.ranks() == 1).any()) for r in grammar.rules.values())
+        builds[name] = {"graph": graph, "table": table, "grammar": grammar, "encoded": enc,
+                        "base": base, "build_s": t3 - t0, "compress_s": t2 - t1,
+                        "encode_s": t3 - t2, "bytes": enc.size_in_bytes()}
+        print(f"itr+ build {name}: edges={graph.n_edges} build_s={t3 - t0:.6f} "
+              f"compress_s={t2 - t1:.6f} encode_s={t3 - t2:.6f} iterations={stats.iterations} "
+              f"replaced_occurrences={stats.replaced_occurrences} "
+              f"rules={len(grammar.rules)} rules_with_rank1_edges={rank1} "
+              f"start_edges={grammar.start.n_edges} encoded_bytes={enc.size_in_bytes()} launches "
+              + " ".join(f"{k}={v}" for k, v in digram.items()))
+    plus = builds["ITR+"]
+    # the card's ITR+ grammar against the port's CPU build of the same graph
+    t0 = time.perf_counter()
+    cpu_graph, cpu_table, _ = attach_node_labels(
+        Hypergraph.from_triples(ds.triples, ds.n_nodes, device="cpu"),
+        LabelTable.terminals(np.full(ds.n_preds, 2), device="cpu"), ds.node_labels)
+    cpu_grammar, _ = compress(cpu_graph, cpu_table)
+    cpu_s = time.perf_counter() - t0
+    if not _same_grammar(torch, plus["grammar"], cpu_grammar):
+        _fail("the card's ITR+ grammar of chess-legal differs from the CPU path's")
+    # stripping the decompressed grammar gives back the labels and the triples
+    stripped, labels_back = strip_node_labels(plus["grammar"].decompress(), plus["base"], n_kinds)
+    starts = stripped.offsets[:-1]
+    triples = torch.stack([stripped.nodes_flat[starts], stripped.labels,
+                           stripped.nodes_flat[starts + 1]], 1)
+    want = torch.unique(torch.from_numpy(ds.triples).to(DEV), dim=0)
+    if not torch.equal(labels_back.cpu(), torch.from_numpy(ds.node_labels)) \
+            or triples.shape[0] != ds.n_triples or not torch.equal(torch.unique(triples, dim=0),
+                                                                   want):
+        _fail("strip_node_labels of the decompressed ITR+ grammar differs from the dataset")
+    costs = (dictionary_cost_itr(ds.node_label_names, labelled),
+             dictionary_cost_itr_plus(ds.node_label_names))
+    print(f"itr+ chess-legal: card grammar equal to the CPU build (cpu_s={cpu_s:.6f}); strip "
+          f"gives back {labelled} node labels and {ds.n_triples} triples; encoded_bytes "
+          f"ITR={builds['ITR']['bytes']} ITR+={plus['bytes']}; dictionary_cost ITR={costs[0]} "
+          f"ITR+={costs[1]}")
+    # the eight patterns on the ITR+ engine against the plain scan of its
+    # hypergraph, rank-1 edges included
+    engine = TripleQueryEngine(plus["grammar"], plus["encoded"], cache=None, delta_budget=None)
+    g = plus["graph"]
+    rows_t = _hyper_rows(torch, g.labels, g.nodes_flat, g.offsets)
+    rng = np.random.default_rng(seed + 27)
+    picks = rows_t[torch.from_numpy(rng.integers(0, g.n_edges, 4096)).to(DEV)].cpu().numpy()
+    far = rng.integers(0, ds.n_nodes, picks.shape[0])
+    picks[:, 2] = np.where(picks[:, 2] < 0, far, picks[:, 2])
+    label_edges = 0
+    for pat, cols in _mutation_batches(torch, np, picks).items():
+        view, dt = _timed_view(torch, engine, cols)
+        _check_hyper_view(torch, view, cols, rows_t, f"ITR+ {pat}")
+        ranks = view.offsets[1:] - view.offsets[:-1]
+        rank1 = int((ranks == 1).sum())
+        label_edges += rank1
+        print(f"itr+ query {pat} queries={cols[0].numel()} unique={view.n_entries} "
+              f"results={view.total_results()} rank1_results={rank1} "
+              f"us_per_query={dt / cols[0].numel() * 1e6:.3f} scan_equal=True")
+    if label_edges == 0:
+        _fail("no ITR+ query answered a rank-1 label edge")
+    return {"bytes": (builds["ITR"]["bytes"], plus["bytes"]), "costs": costs,
+            "build_s": (builds["ITR"]["build_s"], plus["build_s"]), "cpu_s": cpu_s}
+
+
+def drive_snapshot_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3d: save the mutable engine, open it on the card, query, save
+    again, decode, rebuild the opened engine, the broken-snapshot and crash
+    controls, then ITR and ITR+ builds of chess-legal."""
+    import importlib
+    import os
+    import shutil
+    import tempfile
+
+    import repro_torch.core.query as engine_module
+    from repro_torch.core import QueryResultCache, TripleQueryEngine
+    from repro_torch.kernels import ops
+    from repro_torch.persist.crash import CrashPoint, inject_crashes
+    from repro_torch.persist.snapshot import load_snapshot, save_snapshot
+
+    # the package's ``encode`` attribute is the function: the module by name
+    encode_module = importlib.import_module("repro_torch.core.encode")
+    ds, phase3 = main["dataset"], main["engine"]
+    rng = np.random.default_rng(seed + 26)
+    base = ds.triples
+    logical = set(map(tuple, base.tolist()))
+    names = (*K2_NAMES, *DIGRAM_NAMES)
+    ops.reset_launch_counts()
+
+    def k2():
+        return {k: ops.launch_counts[k] for k in K2_NAMES}
+
+    def since(before):
+        return {k: ops.launch_counts[k] - v for k, v in before.items()}
+
+    # (a) the mutable engine with an overlay, saved
+    engine = TripleQueryEngine(main["grammar"], phase3.encoded, cache=QueryResultCache(),
+                               crossover=phase3.crossover, delta_budget=DELTA_BUDGET)
+    if engine.base_edges != ds.n_triples:
+        _fail(f"base_edges {engine.base_edges} != {ds.n_triples}")
+    taken = set(logical)
+    deleted = [tuple(r) for r in base[rng.choice(base.shape[0], MUTATION_BATCH, replace=False)]
+               .tolist()]
+    inserted = _new_rows(np, rng, MUTATION_BATCH, taken, ds.n_nodes, ds.n_preds,
+                         past=MUTATION_PAST)
+    for name, rows in (("delete_triples", deleted), ("insert_triples", inserted)):
+        applied = getattr(engine, name)(torch.tensor(rows, dtype=torch.int64).to(DEV))
+        if applied != MUTATION_BATCH:
+            _fail(f"{name} applied {applied} of {MUTATION_BATCH} rows")
+    logical = (logical - set(deleted)) | set(inserted)
+    logical_t = _oracle_triples(torch, logical)
+    if engine.delta.size != 2 * MUTATION_BATCH or engine.rebuild_count:
+        _fail(f"the overlay holds {engine.delta.size} rows, not {2 * MUTATION_BATCH}")
+    scratch = tempfile.mkdtemp(prefix="itr_snapshot_")
+    try:
+        path, again = os.path.join(scratch, "snap"), os.path.join(scratch, "again")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_snapshot(engine, path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        files = sorted(os.listdir(path))
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in files)
+        print(f"snapshot save: ms={save_ms:.3f} files={len(files)} bytes_on_disk={nbytes} "
+              f"overlay={engine.delta.size} encoded_bytes={engine.encoded.size_in_bytes()}")
+
+        # (b) open on the card: no calibration, so no k2_lines launch
+        before = k2()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opened = load_snapshot(path, mmap=True, verify=True)
+        torch.cuda.synchronize()
+        open_ms = (time.perf_counter() - t0) * 1e3
+        opening = since(before)
+        t0 = time.perf_counter()
+        load_snapshot(path, mmap=False, verify=True, cache=None)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        stages = main["stages"]
+        build_s = stages["compress"] + stages["encode"]
+        print(f"snapshot open (mmap, crc verified): ms={open_ms:.3f} (read without mmap: "
+              f"{copy_ms:.3f}) against phase 3's compress + encode s={build_s:.6f} "
+              f"({stages['compress']:.6f} + {stages['encode']:.6f}): "
+              f"{build_s * 1e3 / open_ms:.1f}x; launches "
+              + " ".join(f"{k}={v}" for k, v in opening.items()))
+        if any(opening.values()):
+            _fail(f"opening the snapshot launched {opening}")
+        if opened.device.type != torch.device(DEV).type:
+            _fail(f"the snapshot opened on {opened.device}")
+        want, got = _state_tensors(engine), _state_tensors(opened)
+        differ = sorted(k for k in want if k not in got or got[k].device != opened.device
+                        or not torch.equal(got[k], want[k]))
+        if differ or len(got) != len(want):
+            _fail(f"the opened engine's state differs from the saved engine's: {differ}")
+        if _engine_scalars(opened) != _engine_scalars(engine):
+            _fail(f"the opened engine's scalars {_engine_scalars(opened)} differ from "
+                  f"{_engine_scalars(engine)}")
+        if sorted(opened.grammar.rules) != sorted(engine.grammar.rules) or not all(
+                _same_graph(torch, opened.grammar.rules[lbl].rhs, engine.grammar.rules[lbl].rhs)
+                for lbl in engine.grammar.rules):
+            _fail("the opened grammar's rules differ from the saved engine's")
+        print(f"snapshot open: {len(want)} state tensors equal to the saved engine's on the "
+              f"card; scalars equal: {_engine_scalars(opened)}; {len(opened.grammar.rules)} "
+              f"rules equal")
+
+        # (c) the eight patterns on the opened engine against the oracle scan
+        n_del, n_ins, n_keep = SNAPSHOT_PICKS
+        untouched = sorted(logical - set(inserted))
+        picks = np.array([deleted[i] for i in rng.choice(len(deleted), n_del, replace=False)]
+                         + [inserted[i] for i in rng.choice(len(inserted), n_ins, replace=False)]
+                         + [untouched[i] for i in rng.choice(len(untouched), n_keep)])
+        batches = _mutation_batches(torch, np, picks[rng.permutation(len(picks))])
+
+        def eight(what: str, eng) -> dict:
+            out, gc_s = {}, {}
+            for pat, cols in batches.items():
+                before = k2()
+                (view, dt), gc_s[pat] = _gc_pause(lambda: _timed_view(torch, eng, cols))
+                seeds = since(before)
+                _check_view(torch, view, cols, logical_t, f"{pat} {what}")
+                so = pat[0] != "?" or pat[2] != "?"
+                if seeds != {"bitvec_rank": 0, "k2_lines_count": int(so),
+                             "k2_lines_write": int(so)}:
+                    _fail(f"{pat} {what} launched {seeds}")
+                out[pat] = dt / cols[0].numel() * 1e6
+            print(f"snapshot query {what}: us_per_query "
+                  + " ".join(f"{p}={v:.3f}" for p, v in out.items())
+                  + " oracle_equal=True, one k2_lines_count and k2_lines_write a S/O batch; "
+                  + "garbage collector s " + " ".join(f"{p}={v:.6f}" for p, v in gc_s.items()))
+            return out
+
+        eight("on the opened engine (cold cache)", opened)
+
+        # (d) saving the opened engine again gives the same files
+        save_snapshot(opened, again)
+        diff = _dir_diff(path, again)
+        if diff:
+            _fail(f"the opened engine's snapshot differs from the first in {diff}")
+        print(f"snapshot round trip: {len(files)} files equal byte for byte")
+
+        # (e) decode the opened encoding
+        dd_s = [0.0]
+        real_dd = encode_module.delta_decode
+
+        def timed_dd(*a):
+            t = time.perf_counter()
+            out = real_dd(*a)
+            dd_s[0] += time.perf_counter() - t
+            return out
+
+        before = k2()
+        encode_module.delta_decode = timed_dd
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decoded = opened.encoded.decode()
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        finally:
+            encode_module.delta_decode = real_dd
+        decoding = since(before)
+        if not _same_grammar(torch, decoded, opened.grammar):
+            _fail("decode of the opened encoding differs from the opened grammar")
+        t0 = time.perf_counter()
+        decoded.validate()
+        validate_s = time.perf_counter() - t0
+        if decoding != {"bitvec_rank": 0, "k2_lines_count": 1, "k2_lines_write": 1}:
+            _fail(f"decode launched {decoding}")
+        print(f"decode: s={decode_s:.6f} host_delta_decode_s={dd_s[0]:.6f} "
+              f"rest_s={decode_s - dd_s[0]:.6f} (symbols: fn "
+              f"{int(opened.encoded.fn_lengths.sum()) + opened.encoded.n_fns}, edge fn "
+              f"{opened.encoded.n_edges}, rules {opened.encoded.rule_symbol_count}) equal to the "
+              f"opened grammar, validate() passed in {validate_s:.6f} s; launches "
+              + " ".join(f"{k}={v}" for k, v in decoding.items()))
+
+        # the broken copies must not open
+        for how in ("flipped_byte", "removed_array", "removed_manifest"):
+            msg = _broken_open(path, scratch, how)
+            if not msg:
+                _fail(f"control: a snapshot with a {how.replace('_', ' ')} opened")
+            print(f"control {how}: SnapshotError({msg[:90]!r}...)")
+
+        # (f) rebuild the opened engine; first a crash at the swap
+        real_compress = engine_module.compress
+        built = {}
+
+        def capture(*a, **kw):
+            out = real_compress(*a, **kw)
+            built["stats"] = out[1]
+            return out
+
+        engine_module.compress = capture
+        try:
+            count, size = opened.rebuild_count, opened.delta.size
+            crashed = False
+            try:
+                with inject_crashes({"engine.rebuild": 1}) as injector:
+                    opened.rebuild()
+            except CrashPoint:
+                crashed = True
+            if not crashed or injector.hits.get("engine.rebuild") != 1:
+                _fail("control: a crash injected at engine.rebuild did not crash the rebuild")
+            if opened.rebuild_count != count or opened.delta.size != size:
+                _fail("a crashed rebuild changed the engine")
+            cache, opened.cache = opened.cache, None  # answers of the engine, not the cache
+            try:
+                eight("after a crash at engine.rebuild (no cache)", opened)
+            finally:
+                opened.cache = cache
+            before = {k: ops.launch_counts[k] for k in DIGRAM_NAMES}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = opened.rebuild()
+            torch.cuda.synchronize()
+            rebuild_s = time.perf_counter() - t0
+        finally:
+            engine_module.compress = real_compress
+        digram = {k: ops.launch_counts[k] - v for k, v in before.items()}
+        stats = built["stats"]
+        if not done or opened.rebuild_count != count + 1 or not opened.delta.is_empty:
+            _fail(f"the opened engine's rebuild left rebuild_count={opened.rebuild_count}, "
+                  f"overlay {opened.delta.size}")
+        if digram["digram_pair_accum"] != 1 + stats.iterations or digram["digram_pair_counts"] \
+                or digram["digram_select"] < stats.iterations:
+            _fail(f"the opened engine's rebuild launched {digram} over {stats.iterations} "
+                  f"replacements")
+        print(f"rebuild of the opened engine: s={rebuild_s:.6f} iterations={stats.iterations} "
+              f"rules={len(opened.grammar.rules)} rebuild_count={opened.rebuild_count}; control "
+              f"(crash at engine.rebuild) left rebuild_count={count} and overlay={size}; "
+              f"launches " + " ".join(f"{k}={v}" for k, v in digram.items()))
+        eight("after the rebuild", opened)
+        cache, opened.cache = opened.cache, None
+        try:
+            eight("after the rebuild, again (no cache)", opened)
+        finally:
+            opened.cache = cache
+
+        # a crash before the commit keeps the first save; the next save clears it
+        crashed = False
+        try:
+            with inject_crashes({"snapshot.pre_commit": 1}):
+                save_snapshot(opened, path)
+        except CrashPoint:
+            crashed = True
+        orphan = os.path.isdir(path + ".tmp")
+        diff = _dir_diff(path, again)
+        first = load_snapshot(path, cache=None)
+        if not crashed or not orphan or diff or first.rebuild_count != 0 \
+                or first.delta.size != 2 * MUTATION_BATCH:
+            _fail(f"control: a crash at snapshot.pre_commit (crashed={crashed}) left orphan="
+                  f"{orphan}, changed files {diff}, rebuild_count={first.rebuild_count}")
+        save_snapshot(opened, path)
+        last = load_snapshot(path, cache=None)
+        if os.path.exists(path + ".tmp") or last.rebuild_count != 1 or not last.delta.is_empty:
+            _fail("the save after a crashed one did not clear the orphan or commit")
+        print("control snapshot.pre_commit: the directory still opens to the first save "
+              "(rebuild_count 0, overlay 3072, files unchanged), a .tmp orphan was left; the next "
+              "save cleared it and committed (rebuild_count 1, empty overlay)")
+        del first, last, opened, engine, decoded
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    # (g) ITR and ITR+ of chess-legal on the card
+    plus = _itr_plus_part(torch, np, seed)
+    counts = {k: ops.launch_counts[k] for k in names}
+    print("snapshot part: launches " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    for k in ("k2_lines_count", "k2_lines_write", "digram_pair_accum", "digram_select"):
+        if counts[k] == 0:
+            _fail(f"the snapshot path launched {k} no time")
+    if counts["bitvec_rank"] or counts["digram_pair_counts"]:
+        _fail(f"the snapshot path launched {counts}")
+    main["snapshot_part"] = {"launches": counts, "itr_plus": plus}
+
+
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
     """Phase 4: each kernel on the inputs the main path gives it."""
     from repro_torch.kernels import ref
@@ -1578,6 +2101,7 @@ def _digram_rows(torch, main: dict, errs: dict) -> list:
     for entry, name in ((dense, "digram_pair_counts"), (row, "digram_pair_accum"),
                         (sel, "digram_select")):
         entry["launches_mutation_part"] = main["mutation_part"]["launches"][name]
+        entry["launches_snapshot_part"] = main["snapshot_part"]["launches"][name]
     return [dense, row, sel]
 
 
@@ -1646,6 +2170,7 @@ def _k2_lines_rows(torch, main: dict, errs: dict, lay, s, per_level, rank_calls)
                      "device_measured": name in device, "heaviest_row": heaviest,
                      "launches_scalar_part": main["scalar_part"]["launches"][name],
                      "launches_mutation_part": main["mutation_part"]["launches"][name],
+                     "launches_snapshot_part": main["snapshot_part"]["launches"][name],
                      "single_row_ms": main["scalar_part"]["row_ms"]})
     return rows
 
@@ -5086,6 +5611,7 @@ def main(argv=None) -> int:
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
     drive_scalar_path(torch, np, main_res, args.seed)
     drive_mutation_path(torch, np, main_res, args.seed)
+    drive_snapshot_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res

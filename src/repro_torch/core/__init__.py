@@ -1,5 +1,6 @@
 """ITR core on torch: RePair graph compression, succinct encoding, and the
-batched triple-query engine with its result cache and mutation overlay.
+batched triple-query engine with its result cache and mutation overlay, and
+ITR+'s node labels as rank-1 edges.
 Module for module the twin of ``repro.core``."""
 from repro_torch.core.delta import DeltaOverlay, resolve_delta_budget
 from repro_torch.core.digram import DigramCounter, digram_counts, digram_key, incidences
@@ -7,6 +8,12 @@ from repro_torch.core.encode import EncodedGrammar, encode
 from repro_torch.core.flatten import FlatGrammar, FrontierArena, concat_ragged
 from repro_torch.core.grammar import Grammar, Rule
 from repro_torch.core.hypergraph import Hypergraph, LabelTable
+from repro_torch.core.itr_plus import (
+    attach_node_labels,
+    dictionary_cost_itr,
+    dictionary_cost_itr_plus,
+    strip_node_labels,
+)
 from repro_torch.core.query import (
     QueryResultView,
     TripleQueryEngine,
@@ -32,6 +39,10 @@ __all__ = [
     "compress",
     "EncodedGrammar",
     "encode",
+    "attach_node_labels",
+    "strip_node_labels",
+    "dictionary_cost_itr",
+    "dictionary_cost_itr_plus",
     "FlatGrammar",
     "FrontierArena",
     "concat_ragged",

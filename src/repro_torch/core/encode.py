@@ -11,6 +11,12 @@ each as δ(#edges) then per edge δ(label+1) δ(node+1)*rank.
 The reference computes the index functions in a Python loop over edges;
 here one segmented computation does all edges at once and keeps the
 reference's first-seen id order, so the δ streams match.
+
+:meth:`EncodedGrammar.decode` inverts it: the start graph's node tuples
+come from one batched column expansion of the incidence tree over all
+edges (on the card one ``k2_lines`` count and one write launch) and ragged
+gathers through the index functions; the δ streams are read on the host
+by :func:`~repro_torch.core.succinct.delta_code.delta_decode`.
 """
 from __future__ import annotations
 
@@ -19,8 +25,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core._arrays import I64, lexsort, offsets_from_counts
-from repro_torch.core.grammar import Grammar
-from repro_torch.core.succinct import EliasFano, K2Tree, delta_encode
+from repro_torch.core.grammar import Grammar, Rule
+from repro_torch.core.hypergraph import Hypergraph, LabelTable
+from repro_torch.core.succinct import EliasFano, K2Tree, delta_decode, delta_encode
 
 
 @dataclass
@@ -49,6 +56,32 @@ class EncodedGrammar:
         total += (self.edge_fn_stream[1] + 7) // 8
         total += (self.rule_stream[1] + 7) // 8
         return total
+
+    def decode(self) -> Grammar:
+        """The grammar back from its encoding: the label-sorted start graph
+        and every rule, on the incidence tree's device."""
+        dev = self.incidence.device
+        labels = self.label_ef.to_tensor()
+        fn_lens = self.fn_lengths
+        # unique index functions: each is its rank, then pi + 1 for each slot
+        fn_vals = delta_decode(*self.fn_stream, int(fn_lens.sum()) + self.n_fns)
+        is_head = torch.zeros(fn_vals.numel(), dtype=torch.bool, device=dev)
+        is_head[offsets_from_counts(fn_lens + 1)[:-1]] = True
+        fn_flat = fn_vals[~is_head] - 1
+        fn_starts = offsets_from_counts(fn_lens)[:-1]
+        fn_ids = delta_decode(*self.edge_fn_stream, self.n_edges) - 1
+        # each edge's sorted distinct nodes from ONE batched column expansion
+        # of the incidence tree, then nodes = zeta[pi] as one ragged gather
+        eidx, zeta_flat = self.incidence.cols_many(
+            torch.arange(self.n_edges, dtype=I64, device=dev))
+        zeta_starts = offsets_from_counts(torch.bincount(eidx, minlength=self.n_edges))[:-1]
+        ranks = fn_lens[fn_ids]
+        edge, slot = _ragged_slots(ranks)
+        pi_vals = fn_flat[fn_starts[fn_ids][edge] + slot]
+        start = Hypergraph(self.n_nodes, labels, zeta_flat[zeta_starts[edge] + pi_vals],
+                           offsets_from_counts(ranks))
+        table, rules = _decode_rules(self, dev)
+        return Grammar(table, start, rules)
 
 
 def index_functions(nodes_flat: torch.Tensor, offsets: torch.Tensor):
@@ -113,6 +146,41 @@ def _ragged_slots(lengths: torch.Tensor):
     slot = torch.arange(total, dtype=I64, device=dev) \
         - offsets_from_counts(lengths)[:-1][owner]
     return owner, slot
+
+
+def _decode_rules(enc: EncodedGrammar, dev) -> tuple[LabelTable, dict[int, Rule]]:
+    """The rule stream read on the host, rule by rule as the reference reads
+    it (a rule's rank is its largest parameter + 1), then every body copied
+    to the device in one go and sliced per rule."""
+    vals = delta_decode(enc.rule_stream[0].cpu(), enc.rule_stream[1],
+                        enc.rule_symbol_count).tolist()
+    ranks = enc.terminal_ranks.tolist()
+    labels, nodes, offsets, spans = [], [], [], []
+    pos = 0
+    for _ in range(enc.n_rules):
+        n_e = vals[pos]
+        pos += 1
+        e0, n0, o0 = len(labels), len(nodes), len(offsets)
+        offsets.append(0)
+        for _ in range(n_e):
+            el = vals[pos] - 1
+            r = ranks[el]
+            labels.append(el)
+            nodes.extend(v - 1 for v in vals[pos + 1:pos + 1 + r])
+            offsets.append(offsets[-1] + r)
+            pos += 1 + r
+        ranks.append(max(nodes[n0:]) + 1)
+        spans.append((e0, len(labels), n0, len(nodes), o0, len(offsets)))
+    lab_t, node_t, off_t = torch.split(torch.tensor(labels + nodes + offsets, dtype=I64).to(dev),
+                                       [len(labels), len(nodes), len(offsets)])
+    rules = {}
+    for i, (e0, e1, n0, n1, o0, o1) in enumerate(spans):
+        lbl = enc.n_terminals + i
+        rank = ranks[lbl]
+        rules[lbl] = Rule(lbl, rank, Hypergraph(rank, lab_t[e0:e1], node_t[n0:n1],
+                                                off_t[o0:o1]))
+    table = LabelTable(torch.tensor(ranks, dtype=I64).to(dev), enc.n_terminals, enc.names)
+    return table, rules
 
 
 def _fn_symbols(pi_flat, offsets, fn_first, fn_lengths) -> torch.Tensor:

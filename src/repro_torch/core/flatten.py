@@ -136,6 +136,12 @@ class FlatGrammar:
         return cls(T, rule_index, rule_labels, edge_offsets, edge_labels, edge_ranks,
                    offsets_from_counts(edge_ranks), params, nt_gen)
 
+    def to_arrays(self) -> dict[str, np.ndarray]:
+        """The CSR as host numpy arrays named as :attr:`_ARRAY_FIELDS`: the
+        snapshot wire form (int64, ``nt_gen`` a 2-D bool array), as the
+        reference's ``to_arrays`` gives them."""
+        return {name: getattr(self, name).cpu().numpy() for name in self._ARRAY_FIELDS}
+
     @classmethod
     def from_arrays(cls, n_terminals: int, arrays: dict, device=None) -> "FlatGrammar":
         """Build from plain arrays named as :attr:`_ARRAY_FIELDS` (the

@@ -12,7 +12,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core._arrays import I64, offsets_from_counts
-from repro_torch.core.hypergraph import Hypergraph, LabelTable
+from repro_torch.core.hypergraph import Hypergraph, LabelTable, _check
 
 
 @dataclass
@@ -20,6 +20,18 @@ class Rule:
     label: int
     rank: int
     rhs: Hypergraph  # n_nodes == rank; all nodes are parameters
+
+    def validate(self, table: LabelTable) -> None:
+        """Raise ``AssertionError`` unless the rule agrees with `table` and
+        every parameter occurs in its body (``decode`` relies on it)."""
+        _check(0 <= self.label < table.n_labels and int(table.ranks[self.label]) == self.rank,
+               "rule rank != label rank")
+        _check(self.rhs.n_nodes == self.rank, "a rule body has rank many nodes")
+        self.rhs.validate(table)
+        if self.rhs.n_edges:
+            _check(torch.equal(torch.unique(self.rhs.nodes_flat),
+                               torch.arange(self.rank, device=self.rhs.device)),
+                   "every parameter must occur in the rule body")
 
 
 @dataclass
@@ -31,6 +43,16 @@ class Grammar:
     @property
     def device(self) -> torch.device:
         return self.start.device
+
+    def validate(self) -> None:
+        """Raise ``AssertionError`` unless the start graph and every rule
+        are consistent with the table and the rules are non-recursive."""
+        self.start.validate(self.table)
+        for lbl, rule in self.rules.items():
+            _check(lbl == rule.label and lbl >= self.table.n_terminals,
+                   "rules are keyed by their nonterminal label")
+            rule.validate(self.table)
+        _check(self._topological_order() is not None, "grammar must be non-recursive")
 
     def _rule_label_sets(self) -> dict[int, list[int]]:
         """label -> distinct labels of its RHS (one host transfer)."""

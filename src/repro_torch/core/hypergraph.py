@@ -100,6 +100,23 @@ class Hypergraph:
         off = self.offsets.tolist()
         return [(labels[e], tuple(nodes[off[e]:off[e + 1]])) for e in range(len(labels))]
 
+    def validate(self, table: LabelTable | None = None) -> None:
+        """Raise ``AssertionError`` unless the layout is consistent: offsets
+        span the node list, every node lies in ``[0, n_nodes)`` (any node
+        when ``n_nodes`` is 0), and with `table` every edge's arity equals
+        its label's rank."""
+        _check(self.offsets.numel() == self.n_edges + 1, "offsets must have n_edges + 1 entries")
+        _check(int(self.offsets[0]) == 0 and int(self.offsets[-1]) == self.nodes_flat.numel(),
+               "offsets must span the node list")
+        if self.n_edges and self.nodes_flat.numel():
+            _check(int(self.nodes_flat.min()) >= 0 and (
+                self.n_nodes == 0 or int(self.nodes_flat.max()) < self.n_nodes),
+                "node ids must lie in [0, n_nodes)")
+        if table is not None and self.n_edges:
+            _check(0 <= int(self.labels.min()) and int(self.labels.max()) < table.n_labels,
+                   "edge label outside the label table")
+            _check(torch.equal(self.ranks(), table.ranks[self.labels]), "edge arity != label rank")
+
     def size_units(self) -> int:
         """Integer-unit size model: 1 (label) + rank per edge."""
         return int(self.n_edges + self.nodes_flat.numel())
@@ -123,6 +140,13 @@ class Hypergraph:
     def copy(self) -> "Hypergraph":
         return Hypergraph(self.n_nodes, self.labels.clone(), self.nodes_flat.clone(),
                           self.offsets.clone())
+
+
+def _check(ok: bool, msg: str) -> None:
+    """``validate``'s assertion, raised explicitly so that ``python -O``
+    keeps it."""
+    if not ok:
+        raise AssertionError(msg)
 
 
 def _ragged_take(offsets: torch.Tensor, idx: torch.Tensor,

@@ -69,6 +69,7 @@ from repro_torch.core.repair import compress
 from repro_torch.core.result_cache import PackedEntry, QueryResultCache
 from repro_torch.core.succinct import K2Tree
 from repro_torch.device import as_i64, resolve_device
+from repro_torch.persist.crash import crash_point
 
 _ORACLE_CHUNK = 256  # queries per oracle scan step: 256 x 50k triples = 12.8 MB mask
 
@@ -250,6 +251,32 @@ class TripleQueryEngine:
         self._init_state(T, flat, start, incidence, flat.nt_gen,
                          meta.get("crossover") if crossover is None else crossover,
                          label_ranks, cache, None, config)
+        return self
+
+    @classmethod
+    def from_state(cls, grammar: Grammar, encoded: EncodedGrammar, flat: FlatGrammar, *,
+                   crossover: int, cache=_DEFAULT_CACHE, delta_budget: int | None = None,
+                   config=None, base_edges: int | None = None,
+                   rebuild_count: int = 0) -> "TripleQueryEngine":
+        """An engine from prebuilt parts: the snapshot load path. No RePair,
+        no ``encode``, no ``FlatGrammar.from_grammar`` and no calibration:
+        the stored `crossover` is kept. `grammar.start` must be label-sorted
+        (the order ``encoded.incidence`` indexes); the NT tree comes from
+        ``flat.nt_gen``. The overlay starts empty: callers restore it with
+        :meth:`~repro_torch.core.delta.DeltaOverlay.load_rows`."""
+        start = grammar.start
+        if start.n_edges > 1 and bool((start.labels[1:] < start.labels[:-1]).any()):
+            raise ValueError("from_state needs a label-sorted start graph")
+        self = cls.__new__(cls)
+        self.grammar = grammar
+        self.encoded = encoded
+        self._init_state(grammar.table.n_terminals, flat, start, encoded.incidence,
+                         flat.nt_gen, int(crossover), grammar.table.ranks.tolist(), cache,
+                         None if delta_budget is None else resolve_delta_budget(delta_budget),
+                         config)
+        # _init_state starts both afresh
+        self._base_edges = None if base_edges is None else int(base_edges)
+        self.rebuild_count = int(rebuild_count)
         return self
 
     # -- crossover calibration -------------------------------------------
@@ -687,8 +714,9 @@ class TripleQueryEngine:
     def _require_grammar(self, what: str) -> Grammar:
         if self.grammar is None:
             raise NotImplementedError(
-                f"{what} needs the grammar, and an engine made by from_numpy_state has none: "
-                f"decoding it from the encoding is ROADMAP A10 (and reading snapshots, A9)")
+                f"{what} needs the grammar, and an engine made by from_numpy_state from bare "
+                f"arrays has none; open a snapshot with repro_torch.persist.load_snapshot "
+                f"for an engine that has one")
         return self.grammar
 
     def base_triples(self) -> torch.Tensor:
@@ -735,6 +763,8 @@ class TripleQueryEngine:
                                   delta_budget=self.delta_budget, config=config)
         fresh._base_edges = int(triples.shape[0])  # the new base is these rows
         rebuilds = self.rebuild_count + 1
+        # a kill here loses only memory: the swap below never touches disk
+        crash_point("engine.rebuild")
         self.__dict__.update(fresh.__dict__)
         self.rebuild_count = rebuilds
         if self.cache is not None:

@@ -1,4 +1,4 @@
-"""Elias delta universal codes over 32-bit word streams.
+"""Elias gamma and delta universal codes over 32-bit word streams.
 
 The encoder builds every code in one int64 lane and scatters it into the
 word stream with at most three word touches, as the reference does. Codes
@@ -38,6 +38,19 @@ def _gamma_parts(x: torch.Tensor):
     n = _bit_length(x) - 1
     payload = x - _pow2(n)
     return _pow2(n) | (payload << (n + 1)), 2 * n + 1
+
+
+def gamma_encode(values: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Elias gamma: bitlen(x) - 1 zeros, a one, then the low bits of x."""
+    values = values.to(I64)
+    if values.numel() == 0:
+        return torch.zeros(0, dtype=I64, device=values.device), 0
+    if bool((values < 1).any()):
+        raise ValueError("gamma code requires values >= 1")
+    code, length = _gamma_parts(values)
+    if bool((length > 63).any()):
+        raise ValueError("gamma codes over 63 bits unsupported (value too large)")
+    return _pack_codes(code, length)
 
 
 def delta_encode(values: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -96,6 +109,15 @@ class _BitReader:
         v = (self.big >> self.pos) & ((1 << k) - 1)
         self.pos += k
         return v
+
+
+def gamma_decode(words: torch.Tensor, n_bits: int, count: int) -> torch.Tensor:
+    r = _BitReader(words, n_bits)
+    out = []
+    for _ in range(count):
+        n = r.read_unary_zeros()
+        out.append((1 << n) | r.read_bits(n))
+    return torch.tensor(out, dtype=I64, device=words.device)
 
 
 def delta_decode(words: torch.Tensor, n_bits: int, count: int) -> torch.Tensor:

@@ -47,6 +47,24 @@ class EliasFano:
             self._low_words, self._low_bits = _pack_codes(
                 self._lows, torch.full((n,), self.l, dtype=I64, device=dev))
 
+    @classmethod
+    def from_parts(cls, n: int, universe: int, l: int, lows, upper_words, upper_n: int,
+                   low_words, low_bits: int) -> "EliasFano":
+        """Adopt stored internals (the snapshot load path) word for word: no
+        re-derivation of the split and no re-packing of the low bits; only
+        the upper bitvector's rank index is recomputed. The parts are
+        tensors, and the device is theirs."""
+        dev = upper_words.device
+        self = cls.__new__(cls)
+        self.n = int(n)
+        self.universe = int(universe)
+        self.l = int(l)
+        self._lows = as_i64(lows, dev)
+        self._upper = BitVector.from_words(upper_words, upper_n, device=dev)
+        self._low_words = as_i64(low_words, dev)
+        self._low_bits = int(low_bits)
+        return self
+
     @property
     def device(self) -> torch.device:
         return self._upper.device
@@ -72,6 +90,24 @@ class EliasFano:
         i = as_i64(i, self.device)
         high = self._upper.select1(i) - i
         return (high << self.l) | self._low(i)
+
+    def to_tensor(self) -> torch.Tensor:
+        """Every stored value, in order (the counterpart of the reference's
+        ``to_numpy``)."""
+        if self.n == 0:
+            return torch.zeros(0, dtype=I64, device=self.device)
+        return self.access(torch.arange(self.n, dtype=I64, device=self.device))
+
+    def rank_leq(self, x: int) -> int:
+        """Number of stored values <= x (binary search on access)."""
+        lo, hi = 0, self.n
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if int(self.access(mid)) <= x:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
 
     def size_in_bytes(self) -> int:
         return self._upper.size_in_bytes() + 4 * self._low_words.numel() + 16

@@ -40,8 +40,9 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_port_sources_name_no_reference_import():
     offenders = []
     paths = [*sorted((SRC / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
-    core = SRC / "repro_torch" / "core"
-    assert {core / "delta.py", core / "result_cache.py", core / "query.py"} <= set(paths)
+    core, persist = SRC / "repro_torch" / "core", SRC / "repro_torch" / "persist"
+    assert {core / "delta.py", core / "result_cache.py", core / "query.py",
+            core / "itr_plus.py", persist / "crash.py", persist / "snapshot.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -81,7 +82,7 @@ def _zero_lm_params(cfg):
                                    "transformer_from_config", "transformer_from_numpy_params",
                                    "lm_build_cell", "gcn_from_config",
                                    "gcn_from_numpy_params", "gnn_build_cell",
-                                   "dlrm_train_build_cell"])
+                                   "dlrm_train_build_cell", "load_snapshot"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
@@ -94,6 +95,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     from repro_torch.models.dlrm import DLRM
     from repro_torch.models.gnn import GCN
     from repro_torch.models.transformer import Transformer
+    from repro_torch.persist import load_snapshot
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
     calls = {
@@ -122,10 +124,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
                                                  device=dev),
         "dlrm_train_build_cell": lambda dev: build_cell("dlrm-mlperf", "train_batch",
                                                         reduced=True, device=dev),
+        "load_snapshot": lambda dev: load_snapshot(ROOT / "no-such-snapshot", device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)
-    if entry != "from_numpy_state":
+    if entry not in ("from_numpy_state", "load_snapshot"):  # these need real input
         calls[entry]("cpu")  # asking for the CPU works
 
 
