@@ -138,6 +138,40 @@ nothing of the JAX package. Phases:
    the triples, both dictionary costs, and the eight patterns over 4,096
    edges of the ITR+ hypergraph equal to a plain scan of it, rank-1 label
    edges included;
+   3e. BGP joins, N-Triples ingestion, the term dictionary and
+   ``GraphStore``, the launch counts set to 0 before it and read after
+   (``k2_lines_count``, ``k2_lines_write``, ``digram_pair_accum``,
+   ``digram_select`` and ``csr_spmm`` at least once, ``bitvec_rank`` and
+   ``digram_pair_counts`` never): on an engine over phase 3's grammar (a
+   ``QueryResultCache()``, phase 3's crossover) the reference benchmark's
+   and the slice's BGP shapes (chains, stars, a 2-cycle, a predicate
+   variable, and one with a constant subject whose sub-batches go to the
+   worklist), each cold, warm, with every step forced to bind, forced to
+   scan, and in reversed order, every result equal to a host oracle written
+   here (plain hash joins over dicts of the triples), with a control (one
+   binding row dropped) that must fail; the join layer's host syncs a step
+   by kind, ``batch_fn``'s apart (at most ``JOIN_STEP_SYNCS`` each), the
+   busy share; single steps with ``batch_fn`` replaying a view computed
+   beforehand, their syncs by the debug mode and by the profiler's CUDA
+   runtime calls, which must not depend on the step's combos and entries;
+   three shapes again after 1,536 deletes and 1,536 inserts,
+   against the oracle of the logical set. Then geo-coordinates-en written
+   as N-Triples with ``write_ntriples`` (IRIs with long shared prefixes,
+   seven junk lines), ``scan_predicates``, and ``ingest_file`` into an
+   empty engine on the card at batch 4,096 and budget 4,096, so it
+   rebuilds on its own (rows/s, rebuilds and their seconds): the logical
+   set through the dictionary equal to the file, ``IngestStats`` equal to
+   a plain count (junk lines counted), 256 S-bound and 256 O-bound
+   ``query_strings`` and every shape through ``query_bgp_strings`` equal to
+   a string oracle, unknown terms answering ``[]`` with no launch, µs a
+   ``term_to_id`` / ``id_to_term`` and bytes a term of the live and the
+   compacted dictionary, ``save_term_dict`` -> ``load_term_dict`` and
+   ``compacted()`` keeping every id. Then ``GraphStore.from_triples`` on the
+   card: ``csr``, ``csc`` and ``edge_index`` equal to a plain sort of the
+   triples, again after 256 inserts and 256 deletes (views dropped and
+   rebuilt), 1,024 neighbourhoods a side equal to the oracle, and one
+   ``csr_spmm`` over its CSC (D 16, float32) against the kernel's plain and
+   split twins;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -1933,6 +1967,681 @@ def drive_snapshot_path(torch, np, main: dict, seed: int) -> None:
     if counts["bitvec_rank"] or counts["digram_pair_counts"]:
         _fail(f"the snapshot path launched {counts}")
     main["snapshot_part"] = {"launches": counts, "itr_plus": plus}
+
+
+BGP_SHAPES = {  # the reference benchmark's shapes and the slice's, over predicates 0..3
+    "chain2": "?a 0 ?b . ?b 1 ?c",
+    "chain3": "?a 0 ?b . ?b 1 ?c . ?c 2 ?d",
+    "star2": "?h 0 ?a . ?h 1 ?b",
+    "star3": "?h 0 ?a . ?h 1 ?b . ?h 2 ?c",
+    "cycle2": "?a 0 ?b . ?b 0 ?a",
+    "pred_var": "?a ?p ?b . ?b 3 ?c",
+    "bench_chain3": "?a 0 ?b . ?b 0 ?c . ?c 0 ?d",
+    "bench_star2": "?h 0 ?a . ?h 0 ?b",
+}
+BGP_OVERLAY_SHAPES = ("chain2", "star2", "pred_var")
+JOIN_STEP_SYNCS = 4     # the most host syncs a join step may make outside batch_fn
+STRING_QUERIES = 256    # single string queries a side (S bound, O bound)
+MALFORMED_LINES = 7     # junk lines planted in the N-Triples file
+DICT_PROBES = 10_000    # timed term_to_id and id_to_term calls
+STORE_MUTATIONS = 256   # GraphStore inserts and deletes
+STORE_NODES = 1024      # nodes of the GraphStore's neighbourhood batches
+SPMM_WIDTH = 16         # x's columns for the csr_spmm over the store's CSC
+
+
+def _bgp_terms(bgp: str) -> list:
+    """A BGP string as (s, p, o) tuples of ints and ``?name`` strings."""
+    return [tuple(t if t.startswith("?") else int(t) for t in part.split())
+            for part in bgp.split(".") if part.strip()]
+
+
+def _host_index(rows: list) -> tuple:
+    """Plain dicts of a triple list by subject and by predicate."""
+    by_s, by_p = {}, {}
+    for r in rows:
+        by_s.setdefault(r[0], []).append(r)
+        by_p.setdefault(r[1], []).append(r)
+    return by_s, by_p, rows
+
+
+def _host_bgp(index: tuple, patterns: list) -> list:
+    """The bindings of `patterns` over an indexed triple set, by plain
+    hash joins in written order (no port code): each binding extended
+    through the triples of its bound subject, else of the pattern's
+    predicate, else all. Rows in first-appearance variable order, sorted."""
+    by_s, by_p, rows = index
+    out_vars = list(dict.fromkeys(t for pat in patterns for t in pat if isinstance(t, str)))
+    bindings = [{}]
+    for pat in patterns:
+        nxt = []
+        for b in bindings:
+            s, p, _ = (b.get(t, t) if isinstance(t, str) else t for t in pat)
+            cands = by_s.get(s, ()) if not isinstance(s, str) else \
+                by_p.get(p, ()) if not isinstance(p, str) else rows
+            for triple in cands:
+                ext = dict(b)
+                for t, v in zip(pat, triple):
+                    if not isinstance(t, str):
+                        if t != v:
+                            break
+                    elif ext.setdefault(t, v) != v:
+                        break
+                else:
+                    nxt.append(ext)
+        bindings = nxt
+        if not bindings:
+            break
+    return sorted(tuple(b[v] for v in out_vars) for b in bindings)
+
+
+def _join_syncs(torch, run) -> tuple:
+    """(run's result, one (kind, syncs outside batch_fn, syncs inside it) a
+    join step, syncs outside every step) by torch's sync debug mode; kind
+    is "unbound" (no bound variable: one scan and a cross product), "bind"
+    or "scan" (the step reached the equi-join)."""
+    import warnings
+
+    import repro_torch.core.bgp as bgp
+
+    real_step, real_join = bgp._join_step, bgp._join_indices
+    log, steps, joins = [], [], [0]
+
+    def syncs(since: int) -> int:
+        return sum("synchroniz" in str(w.message) for w in log[0][since:])
+
+    def join(*a, **kw):
+        joins[0] += 1
+        return real_join(*a, **kw)
+
+    def step(rows, solved, pattern, batch_fn, stats):
+        inside = [0]
+
+        def counted(*cols):
+            mark = len(log[0])
+            try:
+                return batch_fn(*cols)
+            finally:
+                inside[0] += syncs(mark)
+
+        mark, joined = len(log[0]), joins[0]
+        unbound = not any(v in solved for v in pattern.variables())
+        out = real_step(rows, solved, pattern, counted, stats)
+        kind = "unbound" if unbound else "scan" if joins[0] > joined else "bind"
+        steps.append((kind, syncs(mark) - inside[0], inside[0]))
+        return out
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            log.append(caught)
+            bgp._join_step, bgp._join_indices = step, join
+            out = run()
+    finally:
+        bgp._join_step, bgp._join_indices = real_step, real_join
+        torch.cuda.set_sync_debug_mode("default")
+    return out, steps, syncs(0) - sum(a + b for _, a, b in steps)
+
+
+def _const_subject(np, rng, by_s) -> int:
+    """A subject with at least two objects, one of them a subject too: its
+    BGP's first step is one S-bound pattern and its second a few, both
+    within the crossover, so both go to the worklist."""
+    subjects = sorted(by_s)
+    for i in rng.permutation(len(subjects)):
+        s = subjects[i]
+        objs = {o for _, _, o in by_s[s]}
+        if len(objs) >= 2 and any(o in by_s for o in objs):
+            return int(s)
+    _fail("no subject with two objects, one of them a subject")
+
+
+def _bgp_part(torch, np, engine, shapes: dict, index: tuple) -> dict:
+    """(a): each shape cold (a fresh cache), warm, every step forced to bind,
+    every step forced to scan, and in reversed order, each result against
+    the host oracle; the join layer's host syncs a step; busy share."""
+    import repro_torch.core.bgp as bgp
+    from repro_torch.kernels import ops
+
+    stats = engine.selectivity()
+    print(f"bgp selectivity: total={stats.total} pred_card={stats.pred_card.tolist()} "
+          f"n_subjects={stats.n_subjects} n_objects={stats.n_objects}")
+    want = {name: _host_bgp(index, _bgp_terms(q)) for name, q in shapes.items()}
+    ms, all_steps, outside = {}, [], 0
+    fanout = bgp._BIND_FANOUT
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def held(name, how, res):
+        if res.tuples() != want[name]:
+            _fail(f"bgp {name} ({how}): {len(res)} rows differ from the host oracle's "
+                  f"{len(want[name])}")
+
+    for name, q in shapes.items():
+        order = bgp.plan_bgp(bgp.parse_bgp(q), stats)
+        runs = {"cold": lambda q=q: engine.query_bgp(q), "warm": lambda q=q: engine.query_bgp(q),
+                "bind": lambda q=q, o=order: bgp.execute_bgp(q, engine.query_batch_view, stats,
+                                                              order=o),
+                "scan": lambda q=q, o=order: bgp.execute_bgp(q, engine.query_batch_view, None,
+                                                              order=o),
+                "reversed": lambda q=q, o=order: bgp.execute_bgp(q, engine.query_batch_view, stats,
+                                                                  order=o[::-1])}
+        ms[name], kinds = {}, {}
+        for how, run in runs.items():
+            if how == "cold":
+                engine.cache.clear()
+            bgp._BIND_FANOUT = 2**62 if how == "bind" else 0 if how == "scan" else fanout
+            try:
+                (res, steps, out_steps), dt = timed(lambda run=run: _join_syncs(torch, run))
+            finally:
+                bgp._BIND_FANOUT = fanout
+            held(name, how, res)
+            ms[name][how] = dt
+            kinds[how] = "+".join(k for k, _, _ in steps)
+            all_steps += steps
+            outside += out_steps
+            if how in ("bind", "scan") and any(k not in ("unbound", how) for k, _, _ in steps):
+                _fail(f"bgp {name}: forcing {how} ran steps {kinds[how]}")
+        print(f"bgp {name} rows={len(want[name])} order={order} steps cold {kinds['cold']}, "
+              f"reversed {kinds['reversed']}; ms " + " ".join(
+                  f"{k}={v:.3f}" for k, v in ms[name].items()) + " oracle_equal=True")
+
+    # the comparison must see a dropped binding row
+    name = max(want, key=lambda n: len(want[n]))
+    res = engine.query_bgp(shapes[name])
+    dropped = bgp.BGPResult(res.vars, torch.cat([res.rows[:1], res.rows[2:]]))
+    if dropped.tuples() == want[name]:
+        _fail("control: a result with one binding row dropped passed the comparison")
+    print(f"control dropped_row: {name} with {len(res) - 1} of {len(res)} rows differs from "
+          f"the oracle")
+
+    by_kind = {}
+    for kind, n, inside in all_steps:
+        by_kind.setdefault(kind, []).append((n, inside))
+    for kind, vals in sorted(by_kind.items()):
+        out_n = [n for n, _ in vals]
+        print(f"bgp join-layer host syncs a {kind} step (batch_fn apart; a lower bound): "
+              f"min={min(out_n)} max={max(out_n)} steps={len(vals)}; inside batch_fn "
+              f"min={min(i for _, i in vals)} max={max(i for _, i in vals)}")
+        if max(out_n) > JOIN_STEP_SYNCS:
+            _fail(f"a {kind} join step made {max(out_n)} host syncs outside batch_fn")
+    print(f"bgp host syncs outside the steps (plan, final sort): {outside}")
+    for kind in ("bind", "scan"):
+        if kind not in by_kind:
+            _fail(f"no {kind} step ran")
+
+    def cold_all():
+        engine.cache.clear()
+        for q in shapes.values():
+            engine.query_bgp(q)
+
+    before = {k: ops.launch_counts[k] for k in K2_NAMES}
+    wall, dev_s, _ = _profile(torch, cold_all)
+    k2 = {k: ops.launch_counts[k] - v for k, v in before.items()}
+    print(f"bgp all {len(shapes)} shapes cold: wall_ms={wall * 1e3:.3f} "
+          f"device_ms={dev_s * 1e3:.3f} busy={dev_s / wall:.4f}; launches "
+          + " ".join(f"{k}={v}" for k, v in k2.items()))
+    return {"ms": ms, "want": want, "busy": dev_s / wall, "k2": k2}
+
+
+def _runtime_syncs(torch, fn):
+    """Synchronising CUDA runtime calls (stream, event and device
+    synchronisations, synchronous copies) during one call of fn, from the
+    profiler's record of the runtime API: these include the waits that
+    torch's sync debug mode does not see (thrust's inside
+    ``torch.unique``). None when the profiler recorded no runtime call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    waits = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+             "cudaMemcpy")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    names = [e.name for e in prof.events()]
+    if not any(n.startswith("cuda") for n in names):
+        return None
+    return sum(n in waits for n in names)
+
+
+def _step_sync_probe(torch, engine, stats, shapes: dict) -> None:
+    """The host syncs of single join steps with ``batch_fn`` replaying a
+    view computed beforehand, so only the step's own work runs: the first
+    step (no bound variable) and the second forced to bind and to scan, on
+    shapes whose second step meets few and many combos and entries; by the
+    sync debug mode and by the profiler's runtime calls (beside two
+    calibrations: nothing, and one ``.item()``)."""
+    import repro_torch.core.bgp as bgp
+
+    x = torch.ones(4, device=DEV)
+    base = _runtime_syncs(torch, lambda: None)
+    item = _runtime_syncs(torch, lambda: float(x.sum()))
+    print(f"bgp step sync probe: runtime-call calibration: nothing {base}, one .item() {item}")
+    fanout = bgp._BIND_FANOUT
+    by_kind = {}
+    try:
+        for name in ("chain2", "bench_star2", "const_subject"):
+            pats = bgp.parse_bgp(shapes[name])
+            order = bgp.plan_bgp(pats, stats)
+            first, second = pats[order[0]], pats[order[1]]
+            saved = {}
+
+            def record(*cols):
+                saved["view"] = engine.query_batch_view(*cols)
+                return saved["view"]
+
+            def replay(*cols):
+                return saved["view"]
+
+            empty = torch.zeros((1, 0), dtype=torch.int64)
+            rows, solved = bgp._join_step(empty, [], first, record, stats)
+            cases = (("unbound", empty, [], first, stats, fanout),
+                     ("bind", rows, solved, second, stats, 2**62),
+                     ("scan", rows, solved, second, None, 0))
+            for kind, r, sv, pat, st, fan in cases:
+                bgp._BIND_FANOUT = fan
+                out, _ = bgp._join_step(r, sv, pat, record, st)  # computes the view
+
+                def step(r=r, sv=sv, pat=pat, st=st):
+                    bgp._join_step(r, sv, pat, replay, st)
+
+                debug = _count_syncs(torch, step)
+                runtime = _runtime_syncs(torch, step)
+                view = saved["view"]
+                by_kind.setdefault(kind, []).append(debug)
+                print(f"bgp step sync probe {name} {kind}: table_rows={r.shape[0]} "
+                      f"patterns={view.n_queries} entries={view.n_entries} "
+                      f"edges={view.labels.numel()} out_rows={out.shape[0]}; host syncs "
+                      f"debug_mode={debug} runtime_calls={runtime}")
+    finally:
+        bgp._BIND_FANOUT = fanout
+    for kind, counts in by_kind.items():
+        if len(set(counts)) != 1:
+            _fail(f"a {kind} join step's host syncs depend on its input: {counts}")
+
+
+def _overlay_bgps(torch, np, engine, rng, ds, shapes: dict, base_want: dict) -> None:
+    """(a) under the overlay: phase 3c-style deletes and inserts, then the
+    overlay shapes cold against the oracle of the logical set."""
+    base = ds.triples
+    logical = set(map(tuple, base.tolist()))
+    deleted = [tuple(r) for r in base[rng.choice(base.shape[0], MUTATION_BATCH, replace=False)]
+               .tolist()]
+    inserted = _new_rows(np, rng, MUTATION_BATCH, set(logical), ds.n_nodes, ds.n_preds,
+                         past=MUTATION_PAST)
+    for name, rows in (("delete_triples", deleted), ("insert_triples", inserted)):
+        applied = getattr(engine, name)(torch.tensor(rows, dtype=torch.int64).to(DEV))
+        if applied != MUTATION_BATCH:
+            _fail(f"{name} applied {applied} of {MUTATION_BATCH} rows")
+    logical = (logical - set(deleted)) | set(inserted)
+    index = _host_index(sorted(logical))
+    engine.cache.clear()
+    moved = 0
+    for name in BGP_OVERLAY_SHAPES:
+        want = _host_bgp(index, _bgp_terms(shapes[name]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.query_bgp(shapes[name])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if res.tuples() != want:
+            _fail(f"bgp {name} under the overlay differs from the oracle of the logical set")
+        changed = len(set(want) ^ set(base_want[name]))
+        moved += changed
+        print(f"bgp {name} under the overlay ({engine.delta.size} rows): rows={len(want)} "
+              f"(base {len(base_want[name])}, {changed} rows gained or lost) ms={dt:.3f} "
+              f"oracle_equal=True")
+    if not moved:
+        _fail("the overlay's rows changed no BGP result")
+
+
+def _geo_names(ds) -> tuple:
+    """IRIs for geo-coordinates-en's nodes (long shared prefixes) and its
+    four predicates."""
+    nodes = [f"<http://linkedgeodata.example.org/triplify/node/{i:07d}>"
+             for i in range(ds.n_nodes)]
+    preds = ["<http://www.w3.org/2003/01/geo/wgs84_pos#lat>",
+             "<http://www.w3.org/2003/01/geo/wgs84_pos#long>",
+             "<http://www.georss.org/georss/point>",
+             "<http://www.w3.org/2000/01/rdf-schema#label>"][:ds.n_preds]
+    return nodes, preds
+
+
+def _string_bgp(q: str, nodes: list, preds: list) -> list:
+    return [tuple(t if isinstance(t, str) else (preds[t] if k == 1 else nodes[t])
+                  for k, t in enumerate(pat)) for pat in _bgp_terms(q)]
+
+
+def _strings_part(torch, np, main: dict, rng, shapes: dict, want_ids: dict, scratch: str) -> dict:
+    """(b): geo-coordinates-en written as N-Triples (with planted junk
+    lines), scanned, ingested into an empty engine on the card at the
+    default batch and budget (so it rebuilds on its own), then held against
+    the file: the logical set through the dictionary, the stats, string
+    queries and BGPs, an unknown IRI, the dictionary's files and compaction."""
+    import os
+
+    from repro_torch.core import Hypergraph, LabelTable, QueryResultCache, TripleQueryEngine
+    from repro_torch.core import compress as compress_fn
+    from repro_torch.data import ingest_file, scan_predicates, write_ntriples
+    from repro_torch.kernels import ops
+    from repro_torch.persist.snapshot import load_term_dict, save_term_dict
+
+    ds = main["dataset"]
+    nodes, preds = _geo_names(ds)
+    path = os.path.join(scratch, "geo.nt")
+    t0 = time.perf_counter()
+    write_ntriples(path, ds.triples, nodes, preds)
+    with open(path) as f:
+        lines = f.readlines()
+    for k, at in enumerate(sorted(rng.choice(len(lines), MALFORMED_LINES, replace=False))[::-1]):
+        lines.insert(int(at), f"this line {k} is not a statement\n")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    write_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    pred_terms, statements = scan_predicates(path)
+    scan_s = time.perf_counter() - t0
+    print(f"ntriples: {ds.n_triples} statements and {MALFORMED_LINES} junk lines, "
+          f"{file_bytes} bytes, written in {write_s:.3f} s; scan_predicates {len(pred_terms)} "
+          f"predicates, {statements} statements in {scan_s:.3f} s")
+    if sorted(pred_terms) != sorted(preds) or statements != ds.n_triples:
+        _fail(f"scan_predicates found {pred_terms} and {statements} statements")
+
+    empty = torch.zeros((0, 3), dtype=torch.int64, device=DEV)
+    grammar, _ = compress_fn(Hypergraph.from_triples(empty, 1),
+                             LabelTable.terminals([2] * len(pred_terms), device=DEV))
+    engine = TripleQueryEngine(grammar, cache=QueryResultCache(),
+                               crossover=main["engine"].crossover, delta_budget=DELTA_BUDGET)
+    rebuild_s = []
+    real_rebuild = engine.rebuild
+
+    def timed_rebuild(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_rebuild(*a, **kw)
+        torch.cuda.synchronize()
+        rebuild_s.append(time.perf_counter() - t)
+        return out
+
+    engine.rebuild = timed_rebuild  # insert_triples calls it past the budget
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = ingest_file(engine, path)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    td = engine.term_dict
+    distinct_nodes = len(set(ds.triples[:, 0].tolist()) | set(ds.triples[:, 2].tolist()))
+    expect = {"rows": ds.n_triples, "inserted": ds.n_triples, "statements": ds.n_triples,
+              "malformed": MALFORMED_LINES, "new_nodes": distinct_nodes,
+              "new_preds": len(preds), "batches": -(-ds.n_triples // 4096)}
+    got = {k: getattr(stats, k) for k in expect}
+    print(f"ingest_file: s={ingest_s:.3f} rows_per_s={ds.n_triples / ingest_s:.1f} "
+          f"rebuilds={engine.rebuild_count} rebuild_s={sum(rebuild_s):.3f} "
+          f"({', '.join(f'{s:.3f}' for s in rebuild_s)}) overlay={engine.delta.size}; stats {got}")
+    if got != expect:
+        _fail(f"IngestStats {got} differ from the plain count {expect}")
+    if len(stats.malformed_samples) != min(MALFORMED_LINES, 5) or not all(
+            "is not a statement" in s for s in stats.malformed_samples):
+        _fail(f"the malformed samples are {stats.malformed_samples}")
+    if not engine.rebuild_count or engine.rebuild_count != len(rebuild_s):
+        _fail(f"ingestion rebuilt {engine.rebuild_count} times ({len(rebuild_s)} timed)")
+
+    # the logical set, read through the dictionary, is the file's statements
+    node_terms, pred_names = td.nodes.terms_in_id_order(), td.preds.terms_in_id_order()
+    cur = engine.current_triples().tolist()
+    got_set = {(node_terms[s], pred_names[p], node_terms[o]) for s, p, o in cur}
+    file_set = {(nodes[s], preds[p], nodes[o]) for s, p, o in ds.triples.tolist()}
+    if len(cur) != ds.n_triples or got_set != file_set:
+        _fail(f"the ingested engine holds {len(cur)} triples, not the file's statements")
+    print(f"ingested logical set: {len(cur)} triples equal to the file's statements through "
+          f"the dictionary ({td.n_nodes} node terms, {td.n_preds} predicate terms)")
+
+    # single string queries, S bound and O bound, against a string oracle
+    by_s, by_o = {}, {}
+    for t in file_set:
+        by_s.setdefault(t[0], set()).add(t)
+        by_o.setdefault(t[2], set()).add(t)
+    subs, objs = sorted(by_s), sorted(by_o)
+    us = {"s": [], "o": []}
+    before = {k: ops.launch_counts[k] for k in K2_NAMES}
+    for side, pool, oracle in (("s", subs, by_s), ("o", objs, by_o)):
+        for i in rng.choice(len(pool), STRING_QUERIES, replace=False):
+            term = pool[int(i)]
+            q = (term, None, None) if side == "s" else (None, None, term)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ans = engine.query_strings(*q)
+            us[side].append((time.perf_counter() - t0) * 1e6)
+            if len(ans) != len(oracle[term]) or set(ans) != oracle[term]:
+                _fail(f"query_strings{q} differs from the string oracle")
+    k2 = {k: ops.launch_counts[k] - v for k, v in before.items()}
+    print(f"query_strings: {STRING_QUERIES} S-bound {_pcts(np, us['s'])}, {STRING_QUERIES} "
+          f"O-bound {_pcts(np, us['o'])}, all equal to the string oracle; launches "
+          + " ".join(f"{k}={v}" for k, v in k2.items()))
+
+    # an unknown IRI answers [] and launches nothing
+    before = {k: ops.launch_counts[k] for k in ops.launch_counts}
+    unknown = "<http://linkedgeodata.example.org/triplify/node/unknown>"
+    if engine.query_strings(unknown, None, None) != [] or engine.query_strings(
+            None, preds[0], unknown) != [] or engine.query_bgp_strings(
+            [("?x", "<http://example.org/no-such-predicate>", "?y")]) != []:
+        _fail("an unknown term answered something")
+    launched = {k: v - before[k] for k, v in ops.launch_counts.items() if v != before[k]}
+    if launched:
+        _fail(f"queries with an unknown term launched {launched}")
+    print("unknown terms: query_strings and query_bgp_strings answered [] with no launch")
+
+    # the BGP shapes in strings, against the oracle's rows mapped to terms
+    for name, q in shapes.items():
+        res = engine.query_bgp_strings(_string_bgp(q, nodes, preds))
+        terms = _bgp_terms(q)
+        pred_vars = {pat[1] for pat in terms if isinstance(pat[1], str)}
+        names_of = [preds if v in pred_vars else nodes for v in dict.fromkeys(
+            t for pat in terms for t in pat if isinstance(t, str))]
+        want = sorted(tuple(names_of[j][v] for j, v in enumerate(row)) for row in want_ids[name])
+        got_rows = sorted(tuple(r.values()) for r in res)
+        if got_rows != want:
+            _fail(f"query_bgp_strings {name}: {len(res)} rows differ from the oracle's")
+    print(f"query_bgp_strings: {len(shapes)} shapes equal to the oracle in terms")
+
+    # the dictionary: lookups, size, files, compaction
+    probe = [node_terms[int(i)] for i in rng.integers(0, len(node_terms), DICT_PROBES)]
+    ids = [int(i) for i in rng.integers(0, len(node_terms), DICT_PROBES)]
+    compact = td.compacted()
+    timings = {}
+    for label, d in (("live", td), ("compacted", compact)):
+        t0 = time.perf_counter()
+        for t in probe:
+            d.node_id(t)
+        t1 = time.perf_counter()
+        for i in ids:
+            d.node_term(i)
+        t2 = time.perf_counter()
+        timings[label] = ((t1 - t0) / DICT_PROBES * 1e6, (t2 - t1) / DICT_PROBES * 1e6,
+                          d.bytes_per_term(), d.size_in_bytes())
+    raw = sum(len(t.encode()) for t in node_terms) + sum(len(t.encode()) for t in pred_names)
+    print("term dictionary (host): " + "; ".join(
+        f"{k} term_to_id_us={a:.3f} id_to_term_us={b:.3f} bytes_per_term={c:.3f} "
+        f"bytes={e}" for k, (a, b, c, e) in timings.items())
+        + f"; raw UTF-8 {raw} bytes")
+    if compact.nodes.n_extra or compact.nodes.terms_in_id_order() != node_terms \
+            or compact.preds.terms_in_id_order() != pred_names:
+        _fail("compacted() moved an id")
+    t0 = time.perf_counter()
+    save_term_dict(td, os.path.join(scratch, "td"))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = load_term_dict(os.path.join(scratch, "td"))
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if back.nodes.terms_in_id_order() != node_terms or \
+            back.preds.terms_in_id_order() != pred_names or any(
+            back.node_id(t) != td.node_id(t) for t in probe):
+        _fail("save_term_dict -> load_term_dict changed an id or a term")
+    print(f"term dictionary files: save_ms={save_ms:.3f} load_ms={load_ms:.3f}, every id and "
+          f"term kept; compacted() kept every id")
+    return {"ingest_s": ingest_s, "rebuilds": engine.rebuild_count, "rebuild_s": sum(rebuild_s),
+            "us": us, "dict": timings}
+
+
+def _plain_views(np, rows: np.ndarray, n: int) -> dict:
+    """(row, column) pairs of the CSR and CSC of `rows`, sorted, and their
+    row pointers, by numpy on the host."""
+    out = {}
+    for name, (a, b) in (("csr", (0, 2)), ("csc", (2, 0))):
+        pairs = rows[:, [a, b]]
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+        out[name] = (np.concatenate([[0], np.cumsum(np.bincount(rows[:, a], minlength=n))]),
+                     pairs)
+    return out
+
+
+def _check_store_views(torch, np, store, rows: np.ndarray, what: str) -> None:
+    """csr, csc and edge_index of `store` against a plain sort of `rows`."""
+    want = _plain_views(np, rows, store.n_nodes)
+    for name in ("csr", "csc"):
+        indptr, indices = getattr(store, name)()
+        if indptr.device.type != torch.device(DEV).type or indices.dtype != torch.int64:
+            _fail(f"{what}: the {name} view is not int64 on the card")
+        ptr, pairs = indptr.cpu().numpy(), indices.cpu().numpy()
+        owner = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+        got = np.stack([owner, pairs], 1)
+        got = got[np.lexsort((got[:, 1], got[:, 0]))]
+        if not (np.array_equal(ptr, want[name][0]) and np.array_equal(got, want[name][1])):
+            _fail(f"{what}: the {name} view differs from a plain sort of the triples")
+    senders, receivers = store.edge_index()
+    indptr, indices = store.csr()
+    if not (torch.equal(receivers, indices) and torch.equal(
+            senders, torch.repeat_interleave(torch.arange(store.n_nodes, device=DEV),
+                                             indptr[1:] - indptr[:-1]))):
+        _fail(f"{what}: edge_index differs from the CSR")
+
+
+def _store_part(torch, np, main: dict, rng) -> dict:
+    """(c): GraphStore.from_triples on the card, its views against a plain
+    sort, after an insert and a delete too, its neighbourhoods against the
+    oracle, and one csr_spmm over its CSC against the kernel's twins."""
+    from repro_torch.data import GraphStore
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_matmul import CSR
+
+    ds = main["dataset"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = GraphStore.from_triples(torch.from_numpy(ds.triples), ds.n_nodes, ds.n_preds)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _ = store.csr(), store.csc()
+    torch.cuda.synchronize()
+    views_ms = (time.perf_counter() - t0) * 1e3
+    _check_store_views(torch, np, store, ds.triples, "GraphStore")
+    print(f"GraphStore.from_triples on the card: s={build_s:.3f} (crossover "
+          f"{store.engine.crossover}) compressed_bytes={store.compressed_size_bytes()}; csr + "
+          f"csc materialized in {views_ms:.3f} ms, equal to a plain sort; edge_index equal")
+
+    logical = set(map(tuple, ds.triples.tolist()))
+    dead = [tuple(r) for r in ds.triples[rng.choice(ds.n_triples, STORE_MUTATIONS,
+                                                      replace=False)].tolist()]
+    new = _new_rows(np, rng, STORE_MUTATIONS, set(logical), ds.n_nodes, ds.n_preds)
+    if store.insert_triples(torch.tensor(new, dtype=torch.int64).to(DEV)) != STORE_MUTATIONS \
+            or store._csr is not None:
+        _fail("GraphStore insert_triples applied the wrong count or kept its views")
+    _ = store.csr()
+    if store.delete_triples(torch.tensor(dead, dtype=torch.int64).to(DEV)) != STORE_MUTATIONS \
+            or store._csr is not None:
+        _fail("GraphStore delete_triples applied the wrong count or kept its views")
+    logical = (logical - set(dead)) | set(new)
+    rows = np.array(sorted(logical), dtype=np.int64)
+    _check_store_views(torch, np, store, rows, "GraphStore after an insert and a delete")
+    try:
+        store.insert_triples([[0, 0, ds.n_nodes]])
+        _fail("GraphStore took a node id past n_nodes")
+    except ValueError:
+        pass
+    outs, ins = {}, {}
+    for s, _, o in rows.tolist():
+        outs.setdefault(s, set()).add(o)
+        ins.setdefault(o, set()).add(s)
+    vs = rng.integers(0, ds.n_nodes, STORE_NODES).tolist()
+    for side, lists, oracle in (("out", store.neighbors_out_batch(vs), outs),
+                                ("in", store.neighbors_in_batch(vs), ins)):
+        if any(lst.tolist() != sorted(oracle.get(v, ())) for v, lst in zip(vs, lists)):
+            _fail(f"GraphStore neighbors_{side}_batch differs from the oracle")
+    print(f"GraphStore after {STORE_MUTATIONS} inserts and {STORE_MUTATIONS} deletes: views "
+          f"dropped and rebuilt overlay-applied, equal to a plain sort; {STORE_NODES} "
+          f"neighbourhoods a side equal to the oracle")
+
+    # the store feeding the GNN path: one csr_spmm over its CSC
+    indptr, indices = store.csc()
+    a = CSR(indptr, indices.to(torch.int32), store.n_nodes)
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(0, 2**31)))
+    x = torch.randn(store.n_nodes, SPMM_WIDTH, generator=gen, device=DEV)
+    before = {k: ops.launch_counts[k] for k in ("csr_spmm", "csr_spmm_combine")}
+    got = ops.csr_spmm(x, a)
+    torch.cuda.synchronize()
+    spmm = {k: ops.launch_counts[k] - v for k, v in before.items()}
+    want = ref.csr_spmm_ref(x, a.row_ptr, a.col, a.n_rows)
+    err, same = _split_close(torch, got, a, x)
+    if not _spmm_close(torch, got, want, torch.float32) or err is None:
+        _fail("csr_spmm over the GraphStore's CSC differs from its twins")
+    if spmm != {"csr_spmm": 1, "csr_spmm_combine": int(a.plan.n_long > 0)}:
+        _fail(f"csr_spmm over the CSC launched {spmm}")
+    print(f"csr_spmm over the GraphStore's CSC ({a.n_rows} rows, {a.col.numel()} edges, "
+          f"{a.plan.n_long} cut rows, D {SPMM_WIDTH}): max_abs_err against the split twin "
+          f"{err:.3e}, bit-identical={same}; within {SPMM_F32_SCALED} x max|want| of the plain "
+          f"twin; launches " + " ".join(f"{k}={v}" for k, v in spmm.items()))
+    return {"build_s": build_s, "spmm_err": err}
+
+
+def drive_bgp_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3e: BGP joins on phase 3's engine (cold, warm, forced bind and
+    scan, reversed, under the overlay), N-Triples ingestion into an empty
+    engine on the card with string queries and the term dictionary, and
+    GraphStore with one csr_spmm over its CSC."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import QueryResultCache, TripleQueryEngine
+    from repro_torch.kernels import ops
+
+    ds, phase3 = main["dataset"], main["engine"]
+    rng = np.random.default_rng(seed + 27)
+    names = (*K2_NAMES, *DIGRAM_NAMES, "csr_spmm", "csr_spmm_combine")
+    ops.reset_launch_counts()
+
+    engine = TripleQueryEngine(main["grammar"], phase3.encoded, cache=QueryResultCache(),
+                               crossover=phase3.crossover, delta_budget=DELTA_BUDGET)
+    index = _host_index(ds.triples.tolist())
+    shapes = dict(BGP_SHAPES)
+    s0 = _const_subject(np, rng, index[0])
+    shapes["const_subject"] = f"{s0} ?p ?o . ?o ?q ?r"
+    print(f"bgp engine: geo-coordinates-en, {ds.n_triples} triples, crossover "
+          f"{engine.crossover}, a QueryResultCache(); const_subject binds node {s0}")
+    part = _bgp_part(torch, np, engine, shapes, index)
+    _step_sync_probe(torch, engine, engine.selectivity(), shapes)
+    _overlay_bgps(torch, np, engine, rng, ds, shapes, part["want"])
+    del engine
+
+    scratch = tempfile.mkdtemp(prefix="itr_ntriples_")
+    try:
+        strings = _strings_part(torch, np, main, rng, shapes, part["want"], scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    store = _store_part(torch, np, main, rng)
+
+    counts = {k: ops.launch_counts[k] for k in names}
+    print("bgp part: launches " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    for k in ("k2_lines_count", "k2_lines_write", "digram_pair_accum", "digram_select",
+              "csr_spmm"):
+        if counts[k] == 0:
+            _fail(f"the BGP path launched {k} no time")
+    if counts["bitvec_rank"] or counts["digram_pair_counts"]:
+        _fail(f"the BGP path launched {counts}")
+    main["bgp_part"] = {"launches": counts, "bgp": part, "strings": strings, "store": store}
 
 
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
@@ -5612,6 +6321,7 @@ def main(argv=None) -> int:
     drive_scalar_path(torch, np, main_res, args.seed)
     drive_mutation_path(torch, np, main_res, args.seed)
     drive_snapshot_path(torch, np, main_res, args.seed)
+    drive_bgp_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res

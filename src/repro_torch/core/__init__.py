@@ -1,7 +1,15 @@
 """ITR core on torch: RePair graph compression, succinct encoding, and the
-batched triple-query engine with its result cache and mutation overlay, and
-ITR+'s node labels as rank-1 edges.
+batched triple-query engine with its result cache and mutation overlay,
+ITR+'s node labels as rank-1 edges, BGP joins and the term dictionary.
 Module for module the twin of ``repro.core``."""
+from repro_torch.core.bgp import (
+    BGPResult,
+    SelectivityStats,
+    TriplePattern,
+    execute_bgp,
+    parse_bgp,
+    plan_bgp,
+)
 from repro_torch.core.delta import DeltaOverlay, resolve_delta_budget
 from repro_torch.core.digram import DigramCounter, digram_counts, digram_key, incidences
 from repro_torch.core.encode import EncodedGrammar, encode
@@ -22,6 +30,7 @@ from repro_torch.core.query import (
 )
 from repro_torch.core.repair import RepairConfig, RepairStats, compress
 from repro_torch.core.result_cache import CacheStats, QueryResultCache, ShardCacheView
+from repro_torch.core.term_dict import StringSpace, TermDict, resolve_dict_block
 
 __all__ = [
     "Hypergraph",
@@ -53,4 +62,13 @@ __all__ = [
     "ShardCacheView",
     "query_oracle",
     "result_rows",
+    "BGPResult",
+    "SelectivityStats",
+    "TriplePattern",
+    "execute_bgp",
+    "parse_bgp",
+    "plan_bgp",
+    "StringSpace",
+    "TermDict",
+    "resolve_dict_block",
 ]

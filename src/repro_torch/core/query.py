@@ -46,6 +46,12 @@ query -> entry map. :meth:`TripleQueryEngine.query_batch` and
 paper's neighbourhood queries (``neighbors_out`` / ``neighbors_in`` and
 their batched forms) give a node's distinct objects or subjects.
 
+Above the single patterns sit the join and string surfaces: ``query_bgp``
+evaluates a basic graph pattern through ``query_batch_view``
+(:mod:`repro_torch.core.bgp`, planned by ``selectivity()``), and with an
+attached :class:`~repro_torch.core.term_dict.TermDict` ``query_strings`` /
+``query_bgp_strings`` take term strings, resolved on the host.
+
 The engine is also the write surface: ``insert_triples`` /
 ``delete_triples`` record mutations in the overlay and bump the cache's
 generation; past ``delta_budget`` overlay rows, :meth:`TripleQueryEngine.rebuild`
@@ -60,6 +66,7 @@ import time
 import torch
 
 from repro_torch.core._arrays import I64, empty, lexsort, offsets_from_counts
+from repro_torch.core.bgp import SelectivityStats, execute_bgp
 from repro_torch.core.delta import DeltaOverlay, as_triple_rows, resolve_delta_budget
 from repro_torch.core.encode import EncodedGrammar, encode
 from repro_torch.core.flatten import FlatGrammar, FrontierArena, _ragged_arange
@@ -68,6 +75,11 @@ from repro_torch.core.hypergraph import Hypergraph, LabelTable, _ragged_take
 from repro_torch.core.repair import compress
 from repro_torch.core.result_cache import PackedEntry, QueryResultCache
 from repro_torch.core.succinct import K2Tree
+from repro_torch.core.term_dict import (
+    bgp_result_to_terms,
+    resolve_string_bgp,
+    resolve_string_triple,
+)
 from repro_torch.device import as_i64, resolve_device
 from repro_torch.persist.crash import crash_point
 
@@ -201,6 +213,8 @@ class TripleQueryEngine:
         self.rebuild_count = 0
         self._base_edges: int | None = None  # |base triples|, counted at first use
         self.calibration = None  # the calibration's best times, when it ran
+        self._select_stats = None  # SelectivityStats, computed at first use
+        self.term_dict = None  # an attached TermDict (attach_term_dict)
         self.crossover = self._calibrate_crossover() if crossover is None \
             else max(0, int(crossover))
 
@@ -763,13 +777,80 @@ class TripleQueryEngine:
                                   delta_budget=self.delta_budget, config=config)
         fresh._base_edges = int(triples.shape[0])  # the new base is these rows
         rebuilds = self.rebuild_count + 1
+        term_dict = self.term_dict  # survives the swap, as the cache does
         # a kill here loses only memory: the swap below never touches disk
         crash_point("engine.rebuild")
         self.__dict__.update(fresh.__dict__)
         self.rebuild_count = rebuilds
+        self.term_dict = term_dict
         if self.cache is not None:
             self.cache.bump_generation()
         return True
+
+    # -- BGP joins -------------------------------------------------------
+    def selectivity(self) -> SelectivityStats:
+        """Join-ordering stats (per-predicate cardinalities, distinct
+        subject and object counts) of the compressed base, from the flat
+        grammar and the label-sorted start graph without decompressing:
+        the per-rule counts on the host, from the rule bodies copied there
+        at build. Computed at first use; a rebuild swaps in a fresh engine's
+        state, so the next call recomputes them. The overlay is ignored:
+        stats only order joins."""
+        if self._select_stats is None:
+            self._select_stats = SelectivityStats.from_csr(
+                self._sorted_labels, self._sorted_ranks, self._sorted_nodes,
+                self._sorted_offsets, self.flat, self.T, rules=self._rules)
+        return self._select_stats
+
+    def query_bgp(self, patterns):
+        """Evaluate a basic graph pattern, a conjunction of triple patterns
+        with shared ``?var`` terms such as ``"?x 0 ?y . ?y 1 17"``, as a
+        :class:`~repro_torch.core.bgp.BGPResult`. :meth:`selectivity` plans
+        the joins and each step runs through :meth:`query_batch_view`, so
+        sub-patterns take the frontier or the worklist, the cache and the
+        overlay merge."""
+        return execute_bgp(patterns, self.query_batch_view, self.selectivity())
+
+    # -- string terms (an attached TermDict) ---------------------------------
+    def attach_term_dict(self, term_dict) -> None:
+        """Attach a :class:`~repro_torch.core.term_dict.TermDict` for the
+        string surfaces (:meth:`query_strings`, :meth:`query_bgp_strings`).
+        It survives :meth:`rebuild`."""
+        self.term_dict = term_dict
+
+    def _require_term_dict(self):
+        if self.term_dict is None:
+            raise ValueError(
+                "no term dictionary attached: call attach_term_dict() "
+                "(or ingest through repro_torch.data.ingest, which attaches one)")
+        return self.term_dict
+
+    def query_strings(self, s: str | None, p: str | None, o: str | None) -> list[tuple]:
+        """One (S, P, O) pattern in term strings, ``None`` unbound. Terms
+        resolve to ids here, on the host; a bound term the dictionary has
+        never seen answers ``[]`` without executing. Returns ``(s, p, o)``
+        term triples."""
+        td = self._require_term_dict()
+        s_id, p_id, o_id, known = resolve_string_triple(td, s, p, o)
+        if not known:
+            return []
+        out = []
+        for label, nodes in self.query(s_id, p_id, o_id):
+            if len(nodes) != 2:
+                raise ValueError(f"string queries need rank-2 edges, got rank {len(nodes)}")
+            out.append((td.node_term(nodes[0]), td.pred_term(label), td.node_term(nodes[1])))
+        return out
+
+    def query_bgp_strings(self, patterns) -> list[dict]:
+        """:meth:`query_bgp` in string terms: (s, p, o) tuples of ``?var``
+        names and constant term strings. An unknown constant answers ``[]``
+        without executing. Returns ``[{var: term}, ...]`` in the result's
+        row order."""
+        td = self._require_term_dict()
+        id_patterns, pred_vars, known = resolve_string_bgp(td, patterns)
+        if not known:
+            return []
+        return bgp_result_to_terms(td, self.query_bgp(id_patterns), pred_vars)
 
     # -- neighbourhood queries ---------------------------------------------
     def neighbors_out_batch(self, vs) -> list[torch.Tensor]:

@@ -3,7 +3,8 @@
 * :mod:`repro_torch.persist.crash`: :func:`crash_point` hooks and the
   :class:`CrashInjector` test harness (imports nothing else of the package).
 * :mod:`repro_torch.persist.snapshot`: versioned, checksummed, mmap-able
-  engine snapshots (``save_snapshot`` / ``load_snapshot``) in the
+  engine snapshots (``save_snapshot`` / ``load_snapshot``) and term
+  dictionary directories (``save_term_dict`` / ``load_term_dict``) in the
   reference's format, so either package opens what the other wrote.
 
 Snapshot names load lazily (PEP 562): ``repro_torch.core.query`` imports
@@ -23,6 +24,8 @@ _LAZY = {
     "save_snapshot": "repro_torch.persist.snapshot",
     "load_snapshot": "repro_torch.persist.snapshot",
     "SnapshotError": "repro_torch.persist.snapshot",
+    "save_term_dict": "repro_torch.persist.snapshot",
+    "load_term_dict": "repro_torch.persist.snapshot",
 }
 
 __all__ = ["CrashInjector", "CrashPoint", "crash_point", "inject_crashes", *_LAZY]

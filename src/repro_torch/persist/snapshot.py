@@ -285,3 +285,46 @@ def _rules_from_flat(flat: FlatGrammar, table: LabelTable) -> dict[int, Rule]:
                          flat.param_offsets[e0:e1 + 1] - po[e0])
         rules[lbl] = Rule(lbl, ranks[lbl], rhs)
     return rules
+
+
+# -- term dictionary persistence --------------------------------------------
+
+def save_term_dict(term_dict, path) -> str:
+    """Write a :class:`~repro_torch.core.term_dict.TermDict` into directory
+    `path`: one ``.npy`` an array and a crc32-checksummed manifest
+    (``"kind": "term_dict"``), written last, the reference's files byte for
+    byte. The directory is written in place: a caller that needs the write
+    to be atomic places it inside a tree it renames."""
+    d = os.fspath(path)
+    os.makedirs(d, exist_ok=True)
+    meta, arrays = term_dict.to_arrays()
+    checksums: dict[str, int] = {}
+    for name, arr in arrays.items():
+        fname = f"{name}.npy"
+        fpath = os.path.join(d, fname)
+        np.save(fpath, np.ascontiguousarray(arr))
+        with open(fpath, "rb") as f:
+            checksums[fname] = zlib.crc32(f.read())
+    manifest = {"format": FORMAT_VERSION, "kind": "term_dict",
+                "spaces": meta, "checksums": checksums}
+    with open(os.path.join(d, MANIFEST), "w") as f:
+        json.dump(manifest, f)
+    return d
+
+
+def load_term_dict(path, *, verify: bool = True):
+    """Inverse of :func:`save_term_dict`; raises :class:`SnapshotError` on a
+    missing, corrupt or wrong-kind directory (and, as :func:`load_snapshot`
+    does, on a manifest naming a file that is not a bare ``<name>.npy``).
+    The arrays load eagerly into host memory: the dictionary lives there."""
+    from repro_torch.core.term_dict import TermDict
+
+    d = os.fspath(path)
+    manifest = read_manifest(d)
+    if manifest.get("kind") != "term_dict":
+        raise SnapshotError(f"{d}: not a term-dictionary snapshot")
+    arrays = _load_arrays(d, manifest, mmap=False, verify=verify)
+    try:
+        return TermDict.from_arrays(manifest["spaces"], arrays)
+    except (KeyError, ValueError, IndexError, TypeError) as exc:
+        raise SnapshotError(f"inconsistent term-dict snapshot {d}: {exc}") from exc

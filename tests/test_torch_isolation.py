@@ -41,8 +41,11 @@ def test_port_sources_name_no_reference_import():
     offenders = []
     paths = [*sorted((SRC / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     core, persist = SRC / "repro_torch" / "core", SRC / "repro_torch" / "persist"
+    data = SRC / "repro_torch" / "data"
     assert {core / "delta.py", core / "result_cache.py", core / "query.py",
-            core / "itr_plus.py", persist / "crash.py", persist / "snapshot.py"} <= set(paths)
+            core / "itr_plus.py", persist / "crash.py", persist / "snapshot.py",
+            core / "bgp.py", core / "term_dict.py", data / "rdf.py", data / "ingest.py",
+            data / "graph_store.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -82,7 +85,8 @@ def _zero_lm_params(cfg):
                                    "transformer_from_config", "transformer_from_numpy_params",
                                    "lm_build_cell", "gcn_from_config",
                                    "gcn_from_numpy_params", "gnn_build_cell",
-                                   "dlrm_train_build_cell", "load_snapshot"])
+                                   "dlrm_train_build_cell", "load_snapshot",
+                                   "graph_store_from_triples", "parse_ntriples"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
@@ -95,6 +99,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     from repro_torch.models.dlrm import DLRM
     from repro_torch.models.gnn import GCN
     from repro_torch.models.transformer import Transformer
+    from repro_torch.data import GraphStore, parse_ntriples
     from repro_torch.persist import load_snapshot
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
@@ -125,6 +130,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
         "dlrm_train_build_cell": lambda dev: build_cell("dlrm-mlperf", "train_batch",
                                                         reduced=True, device=dev),
         "load_snapshot": lambda dev: load_snapshot(ROOT / "no-such-snapshot", device=dev),
+        "graph_store_from_triples": lambda dev: GraphStore.from_triples(
+            torch.from_numpy(triples), 3, 1, device=dev),
+        "parse_ntriples": lambda dev: parse_ntriples(ROOT / "tests" / "fixtures" / "small.nt",
+                                                     device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)
