@@ -172,6 +172,48 @@ nothing of the JAX package. Phases:
    rebuilt), 1,024 neighbourhoods a side equal to the oracle, and one
    ``csr_spmm`` over its CSC (D 16, float32) against the kernel's plain and
    split twins;
+   3f. the sharded serving tier (``ShardedTripleService``) on phase 3's
+   triples, the launch counts set to 0 before it and read after
+   (``k2_lines_count``, ``k2_lines_write``, ``digram_pair_accum`` and
+   ``digram_select`` at least once, ``bitvec_rank`` and
+   ``digram_pair_counts`` never): ``build`` for ``predicate_hash`` and
+   ``node_range`` at P = 1, 2, 4 (seconds, shard sizes, the shards' union
+   equal to the triples, ``digram_pair_accum`` exactly the sum over shards
+   of 1 + iterations), each with a shared ``QueryResultCache`` of 16,384
+   general entries, budget 4,096 and phase 3's crossover, then the
+   reference benchmark's mixed cycle (s??, sp?, ?p?, ??o) over 4,096 rows,
+   cold and warm, against the oracle scan (the warm pass launches
+   nothing); ?p? under node_range and ??o under predicate_hash at P = 4,
+   4,096 patterns, caches detached, beside phase 3's engine, with the pool
+   at 1 and 4 threads (views equal tensor for tensor), the flush's own host
+   syncs (debug mode, the engines' batches apart) at 256 and 4,096
+   patterns (they must be equal), the busy share, and a control (merged
+   entries without their last shard's chunk) that must fail; phase 3e's
+   nine BGP shapes through both P = 4 tiers against its host oracle, a warm
+   repeat from the merged BGP cache with no launch; 1,536 deletes and
+   1,536 inserts on the predicate_hash tier over three of its four
+   predicates (only those shards' generations move; the fourth shard's
+   warm patterns all hit with no launch), the answers against the oracle
+   of the logical set, ``rebuild(shard=k)`` timed against a full build of
+   the mutated set; 12,288 rows with subjects past every id inserted in
+   batches of 1,024 with the trigger at 1.5: on node_range the trigger
+   fires, each write drains at most 4,096 migration rows (ms a migration
+   batch), the eight patterns over 512 rows (half of them in motion)
+   equal the oracle after every batch, 64 rows deleted in motion stay
+   deleted, routing by the outgoing plan alone mid-migration must answer
+   wrongly (a control), an explicit ``rebalance()`` drains the rest and
+   every shard then holds exactly what the plan gives it; on
+   predicate_hash (one predicate grows) the re-cut moves nothing and the
+   backoff holds; shard 1 of the node_range tier failed (answers equal the
+   oracle without its rows, the degraded patterns counted, writes and
+   rebalance refused) and reingested; the N-Triples file into an empty
+   P = 4 tier (``n_nodes`` 1) through ``ingest_file`` (``IngestStats``
+   equal to a plain count), 256 S-bound and 256 O-bound ``query_strings``
+   against the string oracle, an unknown term launching nothing; then 4
+   reader threads, a churn writer and a rebalancer for 10 s on each P = 4
+   tier, every answer checked as the reference's stress machine checks
+   it (queries/s, p50/p99 ms), the launch counts equal to what the
+   threads counted themselves;
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -2310,6 +2352,23 @@ def _geo_names(ds) -> tuple:
     return nodes, preds
 
 
+def _write_geo_ntriples(ds, rng, path: str) -> tuple:
+    """geo-coordinates-en as an N-Triples file at `path` with
+    ``MALFORMED_LINES`` junk lines planted at places drawn from `rng`;
+    returns (node IRIs, predicate IRIs)."""
+    from repro_torch.data import write_ntriples
+
+    nodes, preds = _geo_names(ds)
+    write_ntriples(path, ds.triples, nodes, preds)
+    with open(path) as f:
+        lines = f.readlines()
+    for k, at in enumerate(sorted(rng.choice(len(lines), MALFORMED_LINES, replace=False))[::-1]):
+        lines.insert(int(at), f"this line {k} is not a statement\n")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return nodes, preds
+
+
 def _string_bgp(q: str, nodes: list, preds: list) -> list:
     return [tuple(t if isinstance(t, str) else (preds[t] if k == 1 else nodes[t])
                   for k, t in enumerate(pat)) for pat in _bgp_terms(q)]
@@ -2325,21 +2384,14 @@ def _strings_part(torch, np, main: dict, rng, shapes: dict, want_ids: dict, scra
 
     from repro_torch.core import Hypergraph, LabelTable, QueryResultCache, TripleQueryEngine
     from repro_torch.core import compress as compress_fn
-    from repro_torch.data import ingest_file, scan_predicates, write_ntriples
+    from repro_torch.data import ingest_file, scan_predicates
     from repro_torch.kernels import ops
     from repro_torch.persist.snapshot import load_term_dict, save_term_dict
 
     ds = main["dataset"]
-    nodes, preds = _geo_names(ds)
     path = os.path.join(scratch, "geo.nt")
     t0 = time.perf_counter()
-    write_ntriples(path, ds.triples, nodes, preds)
-    with open(path) as f:
-        lines = f.readlines()
-    for k, at in enumerate(sorted(rng.choice(len(lines), MALFORMED_LINES, replace=False))[::-1]):
-        lines.insert(int(at), f"this line {k} is not a statement\n")
-    with open(path, "w") as f:
-        f.writelines(lines)
+    nodes, preds = _write_geo_ntriples(ds, rng, path)
     write_s = time.perf_counter() - t0
     file_bytes = os.path.getsize(path)
     t0 = time.perf_counter()
@@ -2641,7 +2693,844 @@ def drive_bgp_path(torch, np, main: dict, seed: int) -> None:
             _fail(f"the BGP path launched {k} no time")
     if counts["bitvec_rank"] or counts["digram_pair_counts"]:
         _fail(f"the BGP path launched {counts}")
-    main["bgp_part"] = {"launches": counts, "bgp": part, "strings": strings, "store": store}
+    main["bgp_part"] = {"launches": counts, "bgp": part, "strings": strings, "store": store,
+                        "shapes": shapes}
+
+
+SHARD_COUNTS = (1, 2, 4)               # the reference benchmark's (benchmarks/query_latency.py:67)
+SHARDED_MIXED = ("s??", "sp?", "?p?", "??o")  # its mixed cycle (:68)
+TIER_ROWS = 4096          # rows of the mixed traffic; patterns of a scatter batch
+TIER_CACHE_ENTRIES = 4 * TIER_ROWS  # a tier cache's general entries: the traffic's all fit
+SCATTER_SYNC_WIDTHS = (256, 4096)   # patterns of the flushes whose host syncs are counted
+TIER_MUTATIONS = 1536     # deletes and inserts on the predicate_hash tier
+GROWTH_ROWS = 12288       # inserts past n_nodes that grow the graph ...
+GROWTH_BATCH = 1024       # ... in batches of this many
+GROWTH_SKEW = 1.5         # the growing tiers' auto-rebalance trigger
+MOTION_ROWS = 512         # query rows between growth batches
+MOTION_VICTIMS = 64       # rows deleted while in motion
+TIER_STRINGS = 256        # string queries a side on the ingested tier
+STRESS_SECONDS = 10.0     # the concurrency run, a strategy
+STRESS_READERS = 4
+STRESS_CHURN = 2048       # the churn pool's rows
+STRESS_PAUSE_S = 0.5      # the rebalancer's pause between calls (a re-cut decompresses
+                          # every shard at full size)
+
+
+def _pattern_cols(np, rows, pat: str) -> list:
+    """Host int64 columns binding `pat` from `rows` (-1 unbound)."""
+    return [rows[:, i].astype(np.int64) if pat[i] != "?" else np.full(len(rows), -1, np.int64)
+            for i in range(3)]
+
+
+def _mixed_cols(np, rows) -> list:
+    """The reference's mixed cycle over `rows`: row i takes pattern i mod 4."""
+    cols = [np.full(len(rows), -1, np.int64) for _ in range(3)]
+    for j, pat in enumerate(SHARDED_MIXED):
+        for i in range(3):
+            if pat[i] != "?":
+                cols[i][j::len(SHARDED_MIXED)] = rows[j::len(SHARDED_MIXED), i]
+    return cols
+
+
+def _eight_cols(np, rows) -> list:
+    """All eight patterns over `rows` (four rows for ???), one batch."""
+    parts = [_pattern_cols(np, rows[:4] if pat == "???" else rows, pat)
+             for pat in PATTERNS + ("???",)]
+    return [np.concatenate([p[i] for p in parts]) for i in range(3)]
+
+
+def _submit_view(svc, cols):
+    """Submit every pattern of the host columns, then one flush_view."""
+    for s, p, o in zip(*(c.tolist() for c in cols)):
+        svc.submit(s, p, o)
+    return svc.flush_view()
+
+
+def _tier_check(torch, view, cols, triples_t, what: str) -> None:
+    _check_view(torch, view, [torch.from_numpy(c).to(DEV) for c in cols], triples_t, what)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _launches(ops, before: dict) -> dict:
+    return {k: v - before[k] for k, v in ops.launch_counts.items() if v != before[k]}
+
+
+def _sorted_rows(torch, t):
+    from repro_torch.core._arrays import lexsort
+
+    return t[lexsort((t[:, 2], t[:, 1], t[:, 0]))]
+
+
+def _logical_rows(svc) -> set:
+    """The tier's logical triple set, read from its engines (one host copy a
+    shard)."""
+    return {tuple(r) for e in svc.engines for r in e.current_triples().tolist()}
+
+
+def _detached(svc):
+    """Take the tier's caches off (shared tier and every engine's view);
+    returns what puts them back."""
+    saved = (svc.cache, [e.cache for e in svc.engines])
+    svc.cache = None
+    for e in svc.engines:
+        e.cache = None
+
+    def restore():
+        svc.cache = saved[0]
+        for e, c in zip(svc.engines, saved[1]):
+            e.cache = c
+    return restore
+
+
+def _tier_builds(torch, np, main: dict, rng) -> dict:
+    """(a) and (b): a tier of each strategy at P = 1, 2, 4 (build seconds,
+    shard sizes, the shards' union equal to the triples, one accumulation
+    a Count and a replacement), the mixed cycle over 4,096 rows cold and
+    warm against the oracle (the warm pass launches nothing). Returns the
+    P = 4 tiers."""
+    import repro_torch.serve.sharded as sharded
+    from repro_torch.core import QueryResultCache
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ShardedTripleService
+
+    ds, phase3 = main["dataset"], main["engine"]
+    triples_t = main["triples"]
+    want_rows = _sorted_rows(torch, triples_t)
+    rows = ds.triples[rng.integers(0, ds.n_triples, TIER_ROWS)]
+    cols = _mixed_cols(np, rows)
+    real_compress, iterations = sharded.compress, []
+
+    def counted(*a, **kw):
+        out = real_compress(*a, **kw)
+        iterations.append(out[1].iterations)
+        return out
+
+    tiers, results = {}, {}
+    for strategy in ("predicate_hash", "node_range"):
+        for n_shards in SHARD_COUNTS:
+            what = f"tier {strategy} P={n_shards}"
+            before = dict(ops.launch_counts)
+            iterations.clear()
+            sharded.compress = counted
+            try:
+                svc, build_s = _timed(torch, lambda: ShardedTripleService.build(
+                    ds.triples, ds.n_nodes, ds.n_preds, n_shards=n_shards, strategy=strategy,
+                    cache=QueryResultCache(max_entries=TIER_CACHE_ENTRIES),
+                    crossover=phase3.crossover, delta_budget=DELTA_BUDGET,
+                    rebalance_skew=None, device=DEV))
+            finally:
+                sharded.compress = real_compress
+            accum = ops.launch_counts["digram_pair_accum"] - before["digram_pair_accum"]
+            if accum != sum(1 + it for it in iterations) or len(iterations) != n_shards:
+                _fail(f"{what}: digram_pair_accum launched {accum} times, not the "
+                      f"sum of 1 + iterations {iterations}")
+            union = _sorted_rows(torch, torch.cat([e.current_triples() for e in svc.engines]))
+            if not torch.equal(union, want_rows):
+                _fail(f"{what}: the shards' triples are not the dataset's")
+            view, cold_s = _timed(torch, lambda: _submit_view(svc, cols))
+            _tier_check(torch, view, cols, triples_t, f"{what} mixed cold")
+            st = svc.stats
+            routing = (st.owned, st.scattered, st.shard_batches)
+            before = dict(ops.launch_counts)
+            hits0 = svc.cache.stats.hits
+            view, warm_s = _timed(torch, lambda: _submit_view(svc, cols))
+            launched = _launches(ops, before)
+            _tier_check(torch, view, cols, triples_t, f"{what} mixed warm")
+            if launched:
+                _fail(f"{what}: the warm mixed pass launched {launched}")
+            print(f"{what}: build_s={build_s:.3f} shard_sizes={svc.shard_sizes()} "
+                  f"iterations={iterations}; mixed {TIER_ROWS} rows cold_us_per_query="
+                  f"{cold_s / TIER_ROWS * 1e6:.3f} warm_us_per_query="
+                  f"{warm_s / TIER_ROWS * 1e6:.3f} owned={routing[0]} scattered={routing[1]} "
+                  f"shard_batches={routing[2]} merged_hits={st.merged_hits} warm cache hits "
+                  f"{svc.cache.stats.hits - hits0}, no launch; oracle_equal=True")
+            results[what] = {"build_s": build_s, "cold_us": cold_s / TIER_ROWS * 1e6,
+                             "warm_us": warm_s / TIER_ROWS * 1e6, "routing": routing}
+            if n_shards == max(SHARD_COUNTS):
+                tiers[strategy] = svc
+            else:
+                svc.close()
+    return {"tiers": tiers, "results": results}
+
+
+def _flush_syncs(torch, svc, cols) -> tuple:
+    """(the flush's own host syncs, those inside the engines' batches) of
+    one sequential submit + flush_view, by torch's sync debug mode."""
+    import warnings
+
+    log, inside = [], [0]
+
+    def syncs(since: int) -> int:
+        return sum("synchroniz" in str(w.message) for w in log[0][since:])
+
+    for e in svc.engines:
+        def counted(*a, _real=e.query_batch_view):
+            mark = len(log[0])
+            try:
+                return _real(*a)
+            finally:
+                inside[0] += syncs(mark)
+        e.query_batch_view = counted
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            log.append(caught)
+            _submit_view(svc, cols)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for e in svc.engines:
+            del e.query_batch_view
+    return syncs(0) - inside[0], inside[0]
+
+
+def _same_tier_view(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("labels", "nodes", "offsets", "entry_bounds", "qid_entry"))
+
+
+def _tier_scatter(torch, np, main: dict, tiers: dict) -> dict:
+    """(c): ?p? under node_range and ??o under predicate_hash at P = 4,
+    4,096 patterns, the caches detached, against phase 3's engine; the
+    pool at 1 and 4 threads (views equal tensor for tensor); the flush's
+    own host syncs at 256 and 4,096 patterns; busy share; the control (a
+    merged entry without its last shard's chunk) must fail."""
+    engine, triples_t = main["engine"], main["triples"]
+    rows = main["pick"][:TIER_ROWS]
+    out = {}
+    for pat, strategy in (("?p?", "node_range"), ("??o", "predicate_hash")):
+        svc = tiers[strategy]
+        cols = _pattern_cols(np, rows, pat)
+        cols_t = [torch.from_numpy(c).to(DEV) for c in cols]
+        restore = _detached(svc)
+        try:
+            single = min(_timed(torch, lambda: engine.query_batch_view(*cols_t))[1]
+                         for _ in range(2))
+            views, secs = {}, {}
+            for threads in (1, 4, 1, 4):  # in turns
+                svc.set_serve_threads(threads)
+                view, dt = _timed(torch, lambda: _submit_view(svc, cols))
+                views[threads] = view
+                secs[threads] = min(secs.get(threads, dt), dt)
+            _tier_check(torch, views[1], cols, triples_t, f"scatter {pat} [{strategy}]")
+            if not _same_tier_view(torch, views[1], views[4]):
+                _fail(f"scatter {pat} [{strategy}]: the threaded view differs from the "
+                      f"sequential one")
+            svc.set_serve_threads(1)
+            syncs = {w: _flush_syncs(torch, svc, [c[:w] for c in cols])
+                     for w in SCATTER_SYNC_WIDTHS}
+            wall, dev_s, _ = _profile(torch, lambda: _submit_view(svc, cols))
+            if pat == "??o":
+                real_merge = svc._merge
+
+                def dropped(work, views_, *a):
+                    return real_merge(work[:-1], views_[:-1], *a)
+                svc._merge = dropped
+                try:
+                    broken = _submit_view(svc, cols)
+                finally:
+                    del svc._merge
+                got, want = _view_rows(torch, broken, cols_t, triples_t)
+                if got is not None and torch.equal(got, want):
+                    _fail("control: merged entries without their last shard's chunks passed "
+                          "the oracle check")
+                print(f"control last_chunk_dropped: scatter {pat} [{strategy}] without shard "
+                      f"{svc.n_shards - 1}'s chunks differs from the oracle")
+        finally:
+            restore()
+            svc.set_serve_threads(None)
+        own = {w: s for w, (s, _) in syncs.items()}
+        if len(set(own.values())) != 1:
+            _fail(f"scatter {pat}: the flush's own host syncs grow with its patterns: {own}")
+        print(f"scatter {pat} [{strategy}] P={svc.n_shards} {TIER_ROWS} patterns, caches "
+              f"detached: single_engine_us={single / TIER_ROWS * 1e6:.3f} "
+              f"sharded_us threads=1 {secs[1] / TIER_ROWS * 1e6:.3f}, threads=4 "
+              f"{secs[4] / TIER_ROWS * 1e6:.3f} (views equal); host syncs of a sequential "
+              f"flush (own, in the engines): " + ", ".join(
+                  f"{w} patterns {s}, {i}" for w, (s, i) in syncs.items())
+              + f"; wall_ms={wall * 1e3:.3f} device_ms={dev_s * 1e3:.3f} "
+              f"busy={dev_s / wall:.4f}; oracle_equal=True")
+        out[pat] = {"single_us": single / TIER_ROWS * 1e6,
+                    "threads_1_us": secs[1] / TIER_ROWS * 1e6,
+                    "threads_4_us": secs[4] / TIER_ROWS * 1e6, "syncs": syncs,
+                    "busy": dev_s / wall}
+    return out
+
+
+def _tier_bgps(torch, main: dict, tiers: dict) -> dict:
+    """(g), joins: phase 3e's nine shapes through each P = 4 tier's
+    query_bgp, cold (the cache cleared) against phase 3e's host oracle; a
+    warm repeat served from the merged BGP cache with no launch; then cold
+    again with the pool off (one thread)."""
+    from repro_torch.kernels import ops
+
+    shapes, want = main["bgp_part"]["shapes"], main["bgp_part"]["bgp"]["want"]
+    out = {}
+    for strategy, svc in tiers.items():
+        ms, seq = {}, {}
+        for name, q in shapes.items():
+            svc.cache.clear()
+            res, cold = _timed(torch, lambda q=q: svc.query_bgp(q))
+            if res.tuples() != want[name]:
+                _fail(f"tier {strategy} bgp {name}: {len(res)} rows differ from the host "
+                      f"oracle's {len(want[name])}")
+            before, hits = dict(ops.launch_counts), svc.stats.bgp_cache_hits
+            again, warm = _timed(torch, lambda q=q: svc.query_bgp(q))
+            if _launches(ops, before) or svc.stats.bgp_cache_hits != hits + 1 or \
+                    again.tuples() != want[name]:
+                _fail(f"tier {strategy} bgp {name}: the warm repeat was not a cache hit")
+            ms[name] = (cold * 1e3, warm * 1e3)
+        svc.set_serve_threads(1)
+        try:
+            for name, q in shapes.items():
+                svc.cache.clear()
+                res, cold = _timed(torch, lambda q=q: svc.query_bgp(q))
+                if res.tuples() != want[name]:
+                    _fail(f"tier {strategy} bgp {name}, one thread: rows differ")
+                seq[name] = cold * 1e3
+        finally:
+            svc.set_serve_threads(None)
+        print(f"tier {strategy} bgp (pool of {min(svc.serve_threads, svc.n_shards)} threads): "
+              + " ".join(f"{n}={c:.3f}/{w:.3f}" for n, (c, w) in ms.items())
+              + " ms cold/warm; one thread, cold: " + " ".join(
+                  f"{n}={c:.3f}" for n, c in seq.items())
+              + " ms; every shape equal to the host oracle, warm from the merged cache with "
+                "no launch")
+        out[strategy] = {"ms": ms, "one_thread_cold_ms": seq}
+    return out
+
+
+def _tier_writes(torch, np, main: dict, svc, rng) -> tuple:
+    """(d): 1,536 deletes and 1,536 inserts on the P = 4 predicate_hash tier,
+    every predicate but the last (so its shard is untouched): only the
+    mutated shards' generations move and a warm pattern of the untouched
+    shard still hits; the answers against the oracle of the logical set;
+    rebuild(shard=k) of one mutated shard against a fresh build of the
+    mutated set. Returns (the logical set, readings)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ShardedTripleService
+    from repro_torch.serve.sharded import _MERGED_SHARD
+
+    ds, cache = main["dataset"], svc.cache
+    last = ds.n_preds - 1
+    k_last = int(svc.plan.route(-1, last, -1))
+    logical = {tuple(r) for r in ds.triples.tolist()}
+    base = ds.triples[ds.triples[:, 1] != last]
+    dels = base[rng.choice(len(base), TIER_MUTATIONS, replace=False)]
+    ins = np.array(_new_rows(np, rng, TIER_MUTATIONS, set(logical), ds.n_nodes, last),
+                   dtype=np.int64)
+    k_rows = ds.triples[ds.triples[:, 1] == last]
+    warm_cols = _pattern_cols(np, k_rows[rng.choice(len(k_rows), min(256, len(k_rows)),
+                                                     replace=False)], "sp?")
+    warm_cols = [np.concatenate([c, [v]]) for c, v in zip(warm_cols, (-1, last, -1))]
+    _submit_view(svc, warm_cols)  # now warm
+    gens = [cache.generation(k) for k in range(svc.n_shards)]
+    merged = cache.generation(_MERGED_SHARD)
+    n_del, del_s = _timed(torch, lambda: svc.delete_triples(dels))
+    n_ins, ins_s = _timed(torch, lambda: svc.insert_triples(ins))
+    logical -= {tuple(r) for r in dels.tolist()}
+    logical |= {tuple(r) for r in ins.tolist()}
+    if (n_del, n_ins) != (TIER_MUTATIONS, TIER_MUTATIONS):
+        _fail(f"tier writes applied {n_del} deletes and {n_ins} inserts")
+    moved = [k for k in range(svc.n_shards) if cache.generation(k) != gens[k]]
+    if k_last in moved or len(moved) != svc.n_shards - 1 or \
+            cache.generation(_MERGED_SHARD) == merged:
+        _fail(f"tier writes bumped shards {moved} (untouched {k_last}) and the merged "
+              f"namespace {cache.generation(_MERGED_SHARD) != merged}")
+    before, hits = dict(ops.launch_counts), cache.stats.hits
+    view = _submit_view(svc, warm_cols)
+    n_warm = view.n_entries
+    if _launches(ops, before) or cache.stats.hits - hits != n_warm:
+        _fail(f"tier writes: the untouched shard's warm patterns did not all hit "
+              f"({cache.stats.hits - hits} of {n_warm}, launches {_launches(ops, before)})")
+    logical_t = _oracle_triples(torch, logical)
+    picks = np.concatenate([dels[:1024], ins[:1024], ds.triples[rng.integers(
+        0, ds.n_triples, 2048)]])
+    cols = _eight_cols(np, picks)
+    _tier_check(torch, _submit_view(svc, cols), cols, logical_t, "tier after writes")
+    k = moved[0]
+    rebuilt, rebuild_s = _timed(torch, lambda: svc.rebuild(shard=k))
+    if rebuilt != [k] or svc.delta_sizes()[k]:
+        _fail(f"rebuild(shard={k}) gave {rebuilt}, overlay {svc.delta_sizes()}")
+    mutated = np.array(sorted(logical), dtype=np.int64)
+    full, full_s = _timed(torch, lambda: ShardedTripleService.build(
+        mutated, ds.n_nodes, ds.n_preds, n_shards=svc.n_shards, strategy="predicate_hash",
+        cache=None, crossover=main["engine"].crossover, delta_budget=None,
+        rebalance_skew=None, device=DEV))
+    full.close()
+    del full
+    _tier_check(torch, _submit_view(svc, cols), cols, logical_t, "tier after rebuild")
+    print(f"tier writes [predicate_hash P={svc.n_shards}]: delete {TIER_MUTATIONS} "
+          f"{del_s * 1e3:.3f} ms, insert {TIER_MUTATIONS} {ins_s * 1e3:.3f} ms; generations "
+          f"moved on shards {moved} and the merged namespace, shard {k_last} untouched: "
+          f"{n_warm} warm patterns all hit with no launch; rebuild(shard={k}) "
+          f"{rebuild_s:.3f} s against a full build of the mutated set {full_s:.3f} s "
+          f"({full_s / rebuild_s:.2f}x); oracle_equal=True")
+    return logical, {"delete_ms": del_s * 1e3, "insert_ms": ins_s * 1e3,
+                     "rebuild_s": rebuild_s, "full_s": full_s}
+
+
+def _growth_rows(np, rng, logical: set, lo: int, n: int, n_nodes: int, n_preds: int,
+                 preds=None):
+    """n new rows with subjects in lo .. lo + n // 3 (past every id the tier
+    holds), objects in the base graph's nodes."""
+    out = set()
+    while len(out) < n:
+        p = int(rng.integers(0, n_preds)) if preds is None else preds
+        row = (int(rng.integers(lo, lo + n // 3)), p, int(rng.integers(0, n_nodes)))
+        if row not in logical:
+            out.add(row)
+    rows = np.array(sorted(out), dtype=np.int64)
+    return rows[rng.permutation(len(rows))]
+
+
+def _motion_cols(np, rng, svc, logical: set):
+    """Query rows for the eight patterns: half of them rows still waiting to
+    move when a migration is in flight, the rest drawn from the logical
+    set."""
+    live = np.array(sorted(logical), dtype=np.int64)
+    rows = live[rng.integers(0, len(live), MOTION_ROWS)]
+    if svc.migration_active:
+        pend = np.concatenate([r.cpu().numpy() for _, _, r in svc._migration.pending_moves()])
+        rows[:MOTION_ROWS // 2] = pend[rng.integers(0, len(pend), MOTION_ROWS // 2)]
+    return _eight_cols(np, rows)
+
+
+def _tier_growth(torch, np, main: dict, svc, logical: set, rng) -> tuple:
+    """(e): 12,288 rows with subjects past every id, in batches of 1,024,
+    with the trigger at 1.5. On node_range they clip onto the last shard
+    until the trigger fires, then each write drains a bounded migration
+    chunk; the eight patterns over 512 rows (half in motion) against the
+    oracle between batches, rows deleted in motion stay deleted, the control
+    (the outgoing plan alone mid-migration) must answer wrongly, an
+    explicit rebalance() drains the rest and every shard then holds exactly
+    what the plan gives it. On predicate_hash the re-cut can move nothing:
+    the backoff holds. Returns (the logical set, readings)."""
+    import repro_torch.serve.sharded as sharded
+
+    ds = main["dataset"]
+    strategy = svc.plan.strategy
+    svc.rebalance_skew = GROWTH_SKEW
+    hi = max(max(r[0] for r in logical), max(r[2] for r in logical)) + 1
+    rows = _growth_rows(np, rng, logical, hi, GROWTH_ROWS, ds.n_nodes, ds.n_preds,
+                        preds=0 if strategy == "predicate_hash" else None)
+    batches_ms, plans = [], []  # the live total at each plan computation
+    real_batch, real_plan = svc._apply_migration_batch, sharded.plan_rebalance
+
+    def timed_batch(src, dst, batch):
+        moved, dt = _timed(torch, lambda: real_batch(src, dst, batch))
+        batches_ms.append((dt * 1e3, moved))
+        return moved
+
+    def counted_plan(*a):
+        plans.append(sum(svc.live_edges()))
+        return real_plan(*a)
+
+    svc._apply_migration_batch = timed_batch
+    sharded.plan_rebalance = counted_plan
+    trigger, victims, control, per_write, write_ms = None, None, None, [], []
+    try:
+        for b in range(0, GROWTH_ROWS, GROWTH_BATCH):
+            batch = rows[b:b + GROWTH_BATCH]
+            migrated = svc.stats.migrated_rows
+            n, dt = _timed(torch, lambda: svc.insert_triples(batch))
+            write_ms.append(dt * 1e3)
+            per_write.append(svc.stats.migrated_rows - migrated)
+            if n != len(batch):
+                _fail(f"growth [{strategy}]: insert applied {n} of {len(batch)}")
+            logical |= {tuple(r) for r in batch.tolist()}
+            if trigger is None and (svc.stats.rebalances or svc._futile_total is not None):
+                trigger = b // GROWTH_BATCH + 1
+            if svc.migration_active and victims is None:
+                control = _outgoing_plan_control(torch, np, svc, logical)
+                pend = np.concatenate([r.cpu().numpy() for _, _, r in
+                                       svc._migration.pending_moves()])
+                victims = pend[rng.choice(len(pend), MOTION_VICTIMS, replace=False)]
+                if svc.delete_triples(victims) != MOTION_VICTIMS:
+                    _fail(f"growth [{strategy}]: deleting rows in motion applied wrongly")
+                logical -= {tuple(r) for r in victims.tolist()}
+            cols = _motion_cols(np, rng, svc, logical)
+            _tier_check(torch, _submit_view(svc, cols), cols, _oracle_triples(torch, logical),
+                        f"growth [{strategy}] batch {b // GROWTH_BATCH + 1}")
+        drained, drain_s = _timed(torch, lambda: svc.rebalance()) if svc.migration_active \
+            else ({"moved": 0}, 0.0)
+    finally:
+        del svc._apply_migration_batch
+        sharded.plan_rebalance = real_plan
+        svc.rebalance_skew = None
+    if svc.migration_active:
+        _fail(f"growth [{strategy}]: rebalance() left the migration in flight")
+    for k, e in enumerate(svc.engines):
+        held = e.current_triples().cpu().numpy()
+        if len(held) and not (svc.plan.triple_shards(held) == k).all():
+            _fail(f"growth [{strategy}]: shard {k} holds rows its plan routes elsewhere")
+    if _logical_rows(svc) != logical:
+        _fail(f"growth [{strategy}]: the tier's rows are not the logical set")
+    if max(per_write) > sharded._AUTO_MOVES_PER_CALL:
+        _fail(f"growth [{strategy}]: one write migrated {max(per_write)} rows")
+    cols = _motion_cols(np, rng, svc, logical)
+    _tier_check(torch, _submit_view(svc, cols), cols, _oracle_triples(torch, logical),
+                f"growth [{strategy}] drained")
+    ms = [m for m, _ in batches_ms]
+    if strategy == "node_range":
+        if trigger is None or victims is None or not svc.stats.rebalances:
+            _fail(f"growth [node_range]: the trigger never fired (skew {svc.skew():.3f})")
+        if svc.contains_triples(victims).any():
+            _fail("growth [node_range]: a row deleted in motion came back")
+        detail = (f"trigger in insert batch {trigger}, rows migrated by the writes "
+                  f"{per_write}, {svc.stats.migrated_rows} in all ({drained['moved']} by the "
+                  f"explicit rebalance(), {drain_s:.3f} s), {len(ms)} migration batches "
+                  f"ms p50={np.percentile(ms, 50):.3f} max={max(ms):.3f}; {MOTION_VICTIMS} rows "
+                  f"deleted in motion stayed deleted; control: {control}")
+    else:
+        # each re-cut after the first waits for the live size to drift past
+        # 25% of the last futile one's
+        held = all(abs(b - a) * 4 > a for a, b in zip(plans, plans[1:]))
+        if svc.stats.rebalances or svc._futile_total is None or not plans or not held \
+                or len(plans) == GROWTH_ROWS // GROWTH_BATCH:
+            _fail(f"growth [predicate_hash]: rebalances={svc.stats.rebalances} "
+                  f"backoff={svc._futile_total} plan computations at live totals {plans}")
+        detail = (f"the re-cut in insert batch {trigger} moved nothing: "
+                  f"{len(plans)} plan computations in {GROWTH_ROWS // GROWTH_BATCH} writes "
+                  f"(at live totals {plans}), backoff anchor {svc._futile_total}, live now "
+                  f"{sum(svc.live_edges())}")
+    print(f"growth [{strategy} P={svc.n_shards}]: {GROWTH_ROWS} rows in batches of "
+          f"{GROWTH_BATCH}, trigger {GROWTH_SKEW}; write ms p50={np.percentile(write_ms, 50):.3f} "
+          f"max={max(write_ms):.3f}; {detail}; skew {svc.skew():.3f}, live {svc.live_edges()}, "
+          f"rebuilds {svc.stats.rebuilds}; every answer equal to the oracle")
+    return logical, {"trigger": trigger, "migrated": svc.stats.migrated_rows,
+                     "batch_ms": ms, "write_ms": write_ms, "plans": plans}
+
+
+def _outgoing_plan_control(torch, np, svc, logical: set) -> str:
+    """Mid-migration, route by the outgoing plan alone (caches detached):
+    s?? over subjects whose rows already moved must answer wrongly."""
+    old, new = svc.plan, svc._migration.new_plan
+    live = np.array(sorted(logical), dtype=np.int64)
+    pend = {tuple(r) for _, _, rows in svc._migration.pending_moves()
+            for r in rows.cpu().numpy().tolist()}
+    moved = [r for r, a, b in zip(live.tolist(), old.triple_shards(live),
+                                  new.triple_shards(live)) if a != b and tuple(r) not in pend]
+    if not moved:
+        _fail("control: no row had moved yet")
+    subjects = np.array(sorted({r[0] for r in moved})[:256], dtype=np.int64)
+    cols = [subjects, np.full(len(subjects), -1), np.full(len(subjects), -1)]
+    restore = _detached(svc)
+    svc._route_patterns = lambda s, p, o: old.route_batch(s, p, o)
+    try:
+        view = _submit_view(svc, cols)
+    finally:
+        del svc._route_patterns
+        restore()
+    cols_t = [torch.from_numpy(c).to(DEV) for c in cols]
+    got, want = _view_rows(torch, view, cols_t, _oracle_triples(torch, logical))
+    if got is not None and torch.equal(got, want):
+        _fail("control: routing by the outgoing plan alone mid-migration answered right")
+    return (f"the outgoing plan alone answered s?? over {len(subjects)} moved subjects with "
+            f"{0 if got is None else got.shape[0]} of {want.shape[0]} rows")
+
+
+def _tier_degraded(torch, np, svc, logical: set, rng) -> None:
+    """(f): shard 1 failed: answers equal the oracle without its rows, the
+    degraded patterns counted, writes to it and rebalance raise; after
+    reingest_shard every answer equals the full oracle."""
+    k = 1
+    live = np.array(sorted(logical), dtype=np.int64)
+    on_k = live[svc.plan.triple_shards(live) == k]
+    rows = live[rng.integers(0, len(live), MOTION_ROWS)]
+    cols = _eight_cols(np, rows)
+    uniq = np.unique(np.stack(cols, 1), axis=0)
+    routes = svc.plan.route_batch(uniq[:, 0], uniq[:, 1], uniq[:, 2])
+    svc.mark_shard_failed(k)
+    d0 = svc.stats.degraded_patterns
+    rest = logical - {tuple(r) for r in on_k.tolist()}
+    _tier_check(torch, _submit_view(svc, cols), cols, _oracle_triples(torch, rest),
+                f"degraded shard {k}")
+    expect = int((routes == k).sum() + (routes < 0).sum())
+    if svc.stats.degraded_patterns - d0 != expect:
+        _fail(f"degraded: counted {svc.stats.degraded_patterns - d0} patterns, not {expect}")
+    for what, fn in (("write", lambda: svc.insert_triples(on_k[:1] + np.array([0, 0, 1]))),
+                     ("rebalance", lambda: svc.rebalance(force=True))):
+        try:
+            fn()
+        except RuntimeError:
+            continue
+        _fail(f"degraded: a {what} on the failed shard did not raise")
+    n, dt = _timed(torch, lambda: svc.reingest_shard(k, on_k))
+    if n != len(on_k) or svc.failed_shards:
+        _fail(f"reingest_shard gave {n} rows of {len(on_k)}")
+    _tier_check(torch, _submit_view(svc, cols), cols, _oracle_triples(torch, logical),
+                f"reingested shard {k}")
+    print(f"degraded [{svc.plan.strategy}]: shard {k} ({len(on_k)} rows) failed, "
+          f"{expect} of {len(uniq)} unique patterns degraded, answers equal to the oracle "
+          f"without its rows, writes and rebalance refused; reingest_shard {dt:.3f} s, "
+          f"answers equal to the full oracle")
+
+
+def _tier_strings(torch, np, main: dict, rng, scratch: str) -> dict:
+    """(g), strings: the N-Triples file into an empty P = 4 tier (n_nodes 1,
+    n_preds from scan_predicates), as the README does; IngestStats against
+    the plain count; 256 S-bound and 256 O-bound query_strings against the
+    string oracle; an unknown term launches nothing."""
+    import os
+
+    from repro_torch.core import QueryResultCache
+    from repro_torch.data import ingest_file, scan_predicates
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ShardedTripleService
+
+    ds = main["dataset"]
+    path = os.path.join(scratch, "geo.nt")
+    nodes, preds = _write_geo_ntriples(ds, rng, path)
+    pred_terms, _ = scan_predicates(path)
+    svc = ShardedTripleService.build(np.zeros((0, 3), dtype=np.int64), 1, len(pred_terms),
+                                     n_shards=4, cache=QueryResultCache(),
+                                     crossover=main["engine"].crossover,
+                                     delta_budget=DELTA_BUDGET, device=DEV)
+    stats, ingest_s = _timed(torch, lambda: ingest_file(svc, path))
+    distinct_nodes = len(set(ds.triples[:, 0].tolist()) | set(ds.triples[:, 2].tolist()))
+    expect = {"rows": ds.n_triples, "inserted": ds.n_triples, "statements": ds.n_triples,
+              "malformed": MALFORMED_LINES, "new_nodes": distinct_nodes,
+              "new_preds": len(preds), "batches": -(-ds.n_triples // 4096)}
+    got = {k: getattr(stats, k) for k in expect}
+    if got != expect:
+        _fail(f"tier IngestStats {got} differ from the plain count {expect}")
+    td = svc.term_dict
+    node_terms, pred_names = td.nodes.terms_in_id_order(), td.preds.terms_in_id_order()
+    file_set = {(nodes[s], preds[p], nodes[o]) for s, p, o in ds.triples.tolist()}
+    if {(node_terms[s], pred_names[p], node_terms[o]) for s, p, o in _logical_rows(svc)} \
+            != file_set:
+        _fail("the ingested tier does not hold the file's statements")
+    by_s, by_o = {}, {}
+    for t in file_set:
+        by_s.setdefault(t[0], set()).add(t)
+        by_o.setdefault(t[2], set()).add(t)
+    us = {"s": [], "o": [], "s_one_thread": []}
+    for side, oracle in (("s", by_s), ("o", by_o), ("s_one_thread", by_s)):
+        pool = sorted(oracle)
+        svc.set_serve_threads(1 if side == "s_one_thread" else None)
+        for i in rng.choice(len(pool), TIER_STRINGS, replace=False):
+            term = pool[int(i)]
+            q = (None, None, term) if side == "o" else (term, None, None)
+            ans, dt = _timed(torch, lambda q=q: svc.query_strings(*q))
+            us[side].append(dt * 1e6)
+            if len(ans) != len(oracle[term]) or set(ans) != oracle[term]:
+                _fail(f"tier query_strings{q} differs from the string oracle")
+    before = dict(ops.launch_counts)
+    unknown = "<http://linkedgeodata.example.org/triplify/node/unknown>"
+    if svc.query_strings(unknown, None, None) != [] or svc.query_bgp_strings(
+            [("?x", "<http://example.org/no-such-predicate>", "?y")]) != [] or \
+            _launches(ops, before):
+        _fail("tier: an unknown term answered or launched")
+    print(f"tier ingest_file [{svc.plan.strategy} P={svc.n_shards}, n_nodes 1]: "
+          f"s={ingest_s:.3f} rows_per_s={ds.n_triples / ingest_s:.1f} rebuilds="
+          f"{svc.stats.rebuilds} rebalances={svc.stats.rebalances} migrated="
+          f"{svc.stats.migrated_rows} live={svc.live_edges()}; stats {got}; query_strings "
+          f"(the default pool) {TIER_STRINGS} S-bound {_pcts(np, us['s'])}, {TIER_STRINGS} "
+          f"O-bound {_pcts(np, us['o'])}, one thread {TIER_STRINGS} S-bound "
+          f"{_pcts(np, us['s_one_thread'])}, all equal to the string oracle; unknown terms [] "
+          f"with no launch")
+    svc.close()
+    return {"ingest_s": ingest_s, "us": us}
+
+
+def _tier_stress(torch, np, svc, seed: int) -> dict:
+    """(h): 4 readers, a churn writer and a rebalancer for 10 s on a P = 4
+    tier, checked as the reference's stress machine checks them: the stable
+    rows are the tier's rows, churn subjects lie past every id; afterwards
+    the launch counts equal the launches the threads counted themselves."""
+    import threading
+
+    from repro_torch.kernels import _build
+
+    stable = _logical_rows(svc)
+    stable_nodes = max(max(r[0] for r in stable), max(r[2] for r in stable)) + 1
+    n_preds = svc.plan.n_preds
+    rng = np.random.default_rng(seed)
+    churn_pool = np.unique(np.stack([rng.integers(stable_nodes, stable_nodes + 512, STRESS_CHURN),
+                                     rng.integers(0, n_preds, STRESS_CHURN),
+                                     rng.integers(0, stable_nodes, STRESS_CHURN)], 1), axis=0)
+    churn_universe = {tuple(r) for r in churn_pool.tolist()}
+    by_s, by_p, by_o = {}, {}, {}
+    for r in stable:
+        for d, key in ((by_s, r[0]), (by_p, r[1]), (by_o, r[2])):
+            d.setdefault(key, []).append(r)
+    subjects, objects = sorted(by_s), sorted(by_o)
+    stop, errors, lat = threading.Event(), [], []
+    live = set()
+    tally, real_count = threading.local(), _build.count_launch
+    counted = []
+
+    def count(kernel):
+        real_count(kernel)
+        if not hasattr(tally, "n"):
+            tally.n = [0]
+            counted.append(tally.n)
+        tally.n[0] += 1
+
+    wide = {}  # the unselective answers, made once
+
+    def want(s, p, o):
+        if s is None and o is None and (p, None) in wide:
+            return wide[p, None]
+        pool = by_s.get(s, []) if s is not None else by_o.get(o, []) if o is not None \
+            else by_p.get(p, []) if p is not None else stable
+        out = sorted((tp, (ts, to)) for ts, tp, to in pool
+                     if (s is None or ts == s) and (p is None or tp == p)
+                     and (o is None or to == o))
+        if s is None and o is None:
+            wide[p, None] = out
+        return out
+
+    def reader(rseed):
+        rr = np.random.default_rng(rseed)
+        try:
+            while not stop.is_set():
+                s = subjects[int(rr.integers(0, len(subjects)))]
+                p = int(rr.integers(0, n_preds))
+                o = objects[int(rr.integers(0, len(objects)))]
+                for pat in PATTERNS + ("???",):
+                    qs, qp, qo = (s if pat[0] != "?" else None, p if pat[1] != "?" else None,
+                                  o if pat[2] != "?" else None)
+                    t0 = time.perf_counter()
+                    got = svc.query(qs, qp, qo)
+                    lat.append(time.perf_counter() - t0)
+                    got = sorted(got)
+                    w = want(qs, qp, qo)
+                    if qs is not None:
+                        if got != w:
+                            raise AssertionError(f"stress {pat} {(qs, qp, qo)}")
+                        continue
+                    wset = set(w)
+                    if [r for r in got if r in wset] != w:
+                        raise AssertionError(f"stress {pat} lost stable rows")
+                    for tp, (ts, to) in (r for r in got if r not in wset):
+                        if (ts, tp, to) not in churn_universe or ts < stable_nodes or \
+                                (qp is not None and tp != qp) or (qo is not None and to != qo):
+                            raise AssertionError(f"stress {pat}: a row from nowhere")
+        except Exception as exc:  # reported below, after the threads join
+            errors.append(exc)
+
+    def churn():
+        cr = np.random.default_rng(seed + 1)
+        try:
+            while not stop.is_set():
+                picks = churn_pool[cr.integers(0, len(churn_pool), int(cr.integers(1, 6)))]
+                rows = {tuple(r) for r in picks.tolist()}
+                if cr.integers(0, 2):
+                    if svc.insert_triples(picks) != len(rows - live):
+                        raise AssertionError("stress churn: insert applied wrongly")
+                    live.update(rows)
+                else:
+                    if svc.delete_triples(picks) != len(rows & live):
+                        raise AssertionError("stress churn: delete applied wrongly")
+                    live.difference_update(rows)
+        except Exception as exc:
+            errors.append(exc)
+
+    def rebalancer():
+        rb = np.random.default_rng(seed + 2)
+        try:
+            while not stop.is_set():
+                svc.rebalance(force=True, max_moves=int(rb.integers(1, 64)))
+                stop.wait(STRESS_PAUSE_S)
+        except Exception as exc:
+            errors.append(exc)
+
+    from repro_torch.kernels import ops
+
+    before = dict(ops.launch_counts)
+    _build.count_launch = count
+    threads = [threading.Thread(target=reader, args=(seed + 10 + i,))
+               for i in range(STRESS_READERS)]
+    threads += [threading.Thread(target=churn), threading.Thread(target=rebalancer)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(STRESS_SECONDS)
+        stop.set()
+        for t in threads:
+            t.join(120)
+    finally:
+        stop.set()
+        _build.count_launch = real_count
+    if any(t.is_alive() for t in threads):
+        _fail("stress: a thread did not finish")
+    if errors:
+        _fail(f"stress [{svc.plan.strategy}]: {errors[0]!r}")
+    total = sum(v - before[k] for k, v in ops.launch_counts.items())
+    if total != sum(n[0] for n in counted):
+        _fail(f"stress: launch counts {total} differ from the threads' own "
+              f"{sum(n[0] for n in counted)}")
+    svc.rebalance(force=True)
+    final = stable | live
+    final_t = _oracle_triples(torch, final)
+    cols = _eight_cols(np, np.array(sorted(final), dtype=np.int64)[
+        rng.integers(0, len(final), MOTION_ROWS)])
+    _tier_check(torch, _submit_view(svc, cols), cols, final_t, "stress drained")
+    ms = np.array(lat) * 1e3
+    print(f"stress [{svc.plan.strategy} P={svc.n_shards}]: {STRESS_READERS} readers, a churn "
+          f"writer and a rebalancer for {STRESS_SECONDS} s: queries={len(lat)} "
+          f"qps={len(lat) / STRESS_SECONDS:.1f} p50_ms={np.percentile(ms, 50):.3f} "
+          f"p99_ms={np.percentile(ms, 99):.3f}; churn rows live {len(live)}, rebalances "
+          f"{svc.stats.rebalances}, migrated {svc.stats.migrated_rows}; launches {total} "
+          f"counted by the threads {sum(n[0] for n in counted)} from {len(counted)} threads; "
+          f"every answer checked, the drained tier equal to the oracle")
+    return {"queries": len(lat), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "launches": total}
+
+
+def drive_sharded_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3f: the sharded serving tier on the card, on phase 3's triples:
+    builds at P = 1, 2, 4, the mixed cycle, scatter against one engine,
+    joins, writes, a growing graph with online rebalancing, degraded
+    serving, ingestion with strings, and concurrent readers and writers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed + 28)
+    names = (*K2_NAMES, *DIGRAM_NAMES)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    built = _tier_builds(torch, np, main, rng)
+    tiers = built["tiers"]
+    scatter = _tier_scatter(torch, np, main, tiers)
+    bgps = _tier_bgps(torch, main, tiers)
+    logical_ph, writes = _tier_writes(torch, np, main, tiers["predicate_hash"], rng)
+    logical_nr = {tuple(r) for r in main["dataset"].triples.tolist()}
+    logical_nr, growth_nr = _tier_growth(torch, np, main, tiers["node_range"], logical_nr, rng)
+    logical_ph, growth_ph = _tier_growth(torch, np, main, tiers["predicate_hash"], logical_ph,
+                                         rng)
+    _tier_degraded(torch, np, tiers["node_range"], logical_nr, rng)
+    scratch = tempfile.mkdtemp(prefix="itr_tier_")
+    try:
+        strings = _tier_strings(torch, np, main, rng, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    stress = {s: _tier_stress(torch, np, svc, seed + 7) for s, svc in tiers.items()}
+    for svc in tiers.values():
+        svc.close()
+    counts = {k: ops.launch_counts[k] for k in names}
+    print(f"sharded part: {time.perf_counter() - t0:.1f} s; launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items()))
+    for k in ("k2_lines_count", "k2_lines_write", "digram_pair_accum", "digram_select"):
+        if counts[k] == 0:
+            _fail(f"the sharded path launched {k} no time")
+    if counts["bitvec_rank"] or counts["digram_pair_counts"]:
+        _fail(f"the sharded path launched {counts}")
+    main["sharded_part"] = {"launches": counts, "builds": built["results"], "scatter": scatter,
+                            "bgp": bgps, "writes": writes,
+                            "growth": {"node_range": growth_nr, "predicate_hash": growth_ph},
+                            "strings": strings, "stress": stress}
 
 
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
@@ -6322,6 +7211,7 @@ def main(argv=None) -> int:
     drive_mutation_path(torch, np, main_res, args.seed)
     drive_snapshot_path(torch, np, main_res, args.seed)
     drive_bgp_path(torch, np, main_res, args.seed)
+    drive_sharded_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res

@@ -148,6 +148,68 @@ class QueryResultView:
         return _replicate_sorted(self.labels, self.nodes, self.offsets[1:] - self.offsets[:-1],
                                  self.offsets, self.entry_counts(), self.qid_entry)
 
+    def entry_tuples(self, index: int) -> list[tuple]:
+        """Entry `index` as (label, (v0..vk)) pairs, read to the host in one
+        copy (a per-element read would sync once an element on the card)."""
+        labels, nodes, offsets = self.entry_at(index)
+        n, m = labels.numel(), nodes.numel()
+        host = torch.cat([labels, nodes, offsets]).tolist()
+        nd, off = host[n:n + m], host[n + m:]
+        return [(host[j], tuple(nd[off[j]:off[j + 1]])) for j in range(n)]
+
+    def tuples(self, qid: int) -> list[tuple]:
+        return self.entry_tuples(int(self.qid_entry[qid]))
+
+    def tuple_lists(self) -> list[tuple]:
+        """Per query id, its (label, nodes) pairs as a tuple, built once an
+        entry: duplicate queries share one immutable tuple. The whole view
+        comes to the host in one ``tolist``: the service's flush path."""
+        n, m, ne = self.labels.numel(), self.nodes.numel(), self.n_entries
+        host = torch.cat([self.labels, self.nodes, self.offsets, self.entry_bounds,
+                          self.qid_entry]).tolist()
+        labels, nodes = host[:n], host[n:n + m]
+        off = host[n + m:2 * n + m + 1]
+        bounds = host[2 * n + m + 1:2 * n + m + ne + 2]
+        shared: list = [None] * ne
+        out: list[tuple] = []
+        for e in host[2 * n + m + ne + 2:]:
+            t = shared[e]
+            if t is None:
+                t = shared[e] = tuple((labels[j], tuple(nodes[off[j]:off[j + 1]]))
+                                      for j in range(bounds[e], bounds[e + 1]))
+            out.append(t)
+        return out
+
+    @staticmethod
+    def empty(device="cpu") -> "QueryResultView":
+        """The zero-query view (what an empty flush returns)."""
+        z = torch.zeros(1, dtype=I64, device=device)
+        return QueryResultView(empty(device), empty(device), z, z.clone(), empty(device))
+
+    @staticmethod
+    def concat(views: list["QueryResultView"]) -> "QueryResultView":
+        """Views over consecutive query-id ranges (micro-batch chunks) as
+        one: the buffers concatenated, offsets, entry bounds and query ->
+        entry maps shifted on the device by sizes the host already knows."""
+        if not views:
+            return QueryResultView.empty()
+        if len(views) == 1:
+            return views[0]
+        dev = views[0].labels.device
+        offs, bounds, qids = [torch.zeros(1, dtype=I64, device=dev)], [], []
+        n_base = e_base = ent_base = 0
+        bounds.append(offs[0])
+        for v in views:
+            offs.append(v.offsets[1:] + n_base)
+            bounds.append(v.entry_bounds[1:] + e_base)
+            qids.append(v.qid_entry + ent_base)
+            n_base += v.nodes.numel()
+            e_base += v.labels.numel()
+            ent_base += v.n_entries
+        return QueryResultView(torch.cat([v.labels for v in views]),
+                               torch.cat([v.nodes for v in views]), torch.cat(offs),
+                               torch.cat(bounds), torch.cat(qids))
+
 
 class TripleQueryEngine:
     """Query engine over a grammar and its succinct encoding, on the
@@ -1025,6 +1087,22 @@ def _view_of_entries(entries: list, qid_entry: torch.Tensor) -> QueryResultView:
     nodes = buf[(at_t + e_t - nb_t)[ent] + torch.arange(nb[-1], dtype=I64, device=dev)]
     offsets = torch.cat([torch.zeros(1, dtype=I64, device=dev), ends])
     return QueryResultView(labels, nodes, offsets, offsets_from_counts(e_t), qid_entry)
+
+
+def _gather_entries(src: QueryResultView, piece_src: torch.Tensor, piece_dst: torch.Tensor,
+                    n_entries: int, qid_entry: torch.Tensor) -> QueryResultView:
+    """A view of `n_entries` entries, each the concatenation of the `src`
+    entries ``piece_src`` names for it: ``piece_dst[i]`` (non-decreasing)
+    is the entry piece i lands in; an entry no piece names is empty. One
+    replication pass on the device, two host syncs (its sizes), whatever
+    the number of pieces."""
+    counts = src.entry_counts()
+    _, labels, nodes, offsets = _replicate_sorted(
+        src.labels, src.nodes, src.offsets[1:] - src.offsets[:-1], src.offsets, counts,
+        piece_src)
+    per_entry = torch.zeros(n_entries, dtype=I64, device=src.labels.device).index_add_(
+        0, piece_dst, counts[piece_src])
+    return QueryResultView(labels, nodes, offsets, offsets_from_counts(per_entry), qid_entry)
 
 
 def _packed(entry):

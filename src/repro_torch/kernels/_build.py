@@ -7,7 +7,8 @@ library), and is loaded with ``ctypes``. The sources have a plain C
 interface and include no PyTorch header, so a build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source, all at once;
 :func:`launch` calls an entry point on the current stream and counts the
-launch in :data:`launch_counts`.
+launch in :data:`launch_counts` (under a lock: kernels launch from
+several threads at once, as the sharded tier's scatter pool does).
 
 A failed build raises; nothing falls back.
 """
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -101,16 +103,25 @@ SOURCES = {
     },
 }
 
-# kernel name -> launches so far; each wrapper adds one where it launches
+# kernel name -> launches so far; each wrapper adds one where it launches,
+# through count_launch
 launch_counts: dict[str, int] = {k: 0 for entries in SOURCES.values() for k in entries}
+_count_lock = threading.Lock()  # `+= 1` on a dict entry is not atomic across threads
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict = {}  # kernel name -> its ctypes entry point, typed
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one launch of `kernel` to :data:`launch_counts`."""
+    with _count_lock:
+        launch_counts[kernel] += 1
 
 
 def _nvcc() -> str:
@@ -195,4 +206,4 @@ def launch(source: str, kernel: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA launch of {kernel} failed with error {err}")
-    launch_counts[kernel] += 1
+    count_launch(kernel)

@@ -42,10 +42,13 @@ def test_port_sources_name_no_reference_import():
     paths = [*sorted((SRC / "repro_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     core, persist = SRC / "repro_torch" / "core", SRC / "repro_torch" / "persist"
     data = SRC / "repro_torch" / "data"
+    serve, dist = SRC / "repro_torch" / "serve", SRC / "repro_torch" / "distributed"
     assert {core / "delta.py", core / "result_cache.py", core / "query.py",
             core / "itr_plus.py", persist / "crash.py", persist / "snapshot.py",
             core / "bgp.py", core / "term_dict.py", data / "rdf.py", data / "ingest.py",
-            data / "graph_store.py"} <= set(paths)
+            data / "graph_store.py", serve / "concurrency.py", serve / "triple_service.py",
+            serve / "sharded.py", dist / "__init__.py", dist / "partition.py",
+            dist / "rebalance.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -86,7 +89,8 @@ def _zero_lm_params(cfg):
                                    "lm_build_cell", "gcn_from_config",
                                    "gcn_from_numpy_params", "gnn_build_cell",
                                    "dlrm_train_build_cell", "load_snapshot",
-                                   "graph_store_from_triples", "parse_ntriples"])
+                                   "graph_store_from_triples", "parse_ntriples",
+                                   "sharded_build"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     _without_cuda()
     from repro_torch import resolve_device
@@ -101,6 +105,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     from repro_torch.models.transformer import Transformer
     from repro_torch.data import GraphStore, parse_ntriples
     from repro_torch.persist import load_snapshot
+    from repro_torch.serve import ShardedTripleService
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
     calls = {
@@ -134,6 +139,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
             torch.from_numpy(triples), 3, 1, device=dev),
         "parse_ntriples": lambda dev: parse_ntriples(ROOT / "tests" / "fixtures" / "small.nt",
                                                      device=dev),
+        "sharded_build": lambda dev: ShardedTripleService.build(triples, 3, 1, n_shards=2,
+                                                                device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)
