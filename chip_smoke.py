@@ -210,10 +210,49 @@ nothing of the JAX package. Phases:
    P = 4 tier (``n_nodes`` 1) through ``ingest_file`` (``IngestStats``
    equal to a plain count), 256 S-bound and 256 O-bound ``query_strings``
    against the string oracle, an unknown term launching nothing; then 4
-   reader threads, a churn writer and a rebalancer for 10 s on each P = 4
-   tier, every answer checked as the reference's stress machine checks
+   reader threads, a churn writer and a rebalancer for 5 s on each P = 4
+   tier (10 s until phase 3g came), every answer checked as the reference's stress machine checks
    it (queries/s, p50/p99 ms), the launch counts equal to what the
    threads counted themselves;
+   3g. the durable tier (``DurableShardedService``) on phase 3's triples
+   at P = 4, each tier in a fresh temporary root on local disk with fsync
+   on, the launch counts set to 0 before it and read after
+   (``k2_lines_count``, ``k2_lines_write``, ``digram_pair_accum`` and
+   ``digram_select`` at least once, ``bitvec_rank`` and
+   ``digram_pair_counts`` never), every answer held against the oracle
+   scan of the logical set over phase 3f's 4,096 picked rows (or 512 and
+   the batch at hand between crash points) and all eight patterns: (a)
+   ``build`` for both strategies (s, the initial snapshot's s and bytes,
+   the WAL's bytes); (b) phase 3f's 1,536-row delete and insert batches on
+   the tier alone, durably with fsync off and on (ms), the appends' own
+   µs and 256 appends of the record a setting (p50/p99), the host syncs a
+   256-row insert makes on the tier and durably, given numpy rows and a
+   card tensor (the durable layer adds none beyond the tier's own copy);
+   (c) the node_range tier grown by phase 3f's growth rows with the
+   trigger at 1.5 and ``migrate.mid_apply`` armed, killed inside the first
+   migration batch, ``open`` (s split into loading and replay, records/s,
+   launches) resuming the migration, the killed write's rows all there,
+   the rest drained, every shard holding what its plan gives it; (d) the
+   nine injection points of ``tests/test_crash_oracle.py``, once each,
+   chained on that tier, each held to that test's contract; (e) snapshot
+   and compaction (s, bytes), ``open`` with no ``k2_lines`` launch and
+   every state tensor and scalar of every shard equal to the live tier's,
+   and the directory opened with ``device="cpu"`` answering 256 patterns
+   as the card does; (f) ``python -m repro_torch.launch.itr_durable``
+   opening the tier on the card and writing 512-row batches until it is
+   sent ``SIGKILL`` after an acknowledgement in ``KILL_AFTER``: every
+   acknowledged batch recovered, the batch in flight all or nothing; (g)
+   on the predicate_hash tier, one replica group's seed s and device
+   bytes, two groups tailing 16 logged writes (sync s; each group and the
+   primary against the oracle), the lag gate (``max_lag=0``: a pending
+   record's read served by the primary), a reseed after ``snapshot()``,
+   and 10 s of 4 readers (S-bound patterns, each answer checked) beside a
+   durable writer with 0 and 2 groups (queries/s, p50/p99 ms,
+   ``replica_flushes``). Controls that must fail: a copy of the root with
+   the WAL's last intact frame cut (it recovers without that batch, so
+   the oracle holding it disagrees), a group whose cursor skipped a
+   record (its answers differ), a flipped byte in one shard's snapshot
+   (that shard degrades, a write routed to it raises);
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -2709,7 +2748,7 @@ GROWTH_SKEW = 1.5         # the growing tiers' auto-rebalance trigger
 MOTION_ROWS = 512         # query rows between growth batches
 MOTION_VICTIMS = 64       # rows deleted while in motion
 TIER_STRINGS = 256        # string queries a side on the ingested tier
-STRESS_SECONDS = 10.0     # the concurrency run, a strategy
+STRESS_SECONDS = 5.0      # the concurrency run, a strategy (10 s until phase 3g came)
 STRESS_READERS = 4
 STRESS_CHURN = 2048       # the churn pool's rows
 STRESS_PAUSE_S = 0.5      # the rebalancer's pause between calls (a re-cut decompresses
@@ -3053,6 +3092,7 @@ def _tier_writes(torch, np, main: dict, svc, rng) -> tuple:
     logical_t = _oracle_triples(torch, logical)
     picks = np.concatenate([dels[:1024], ins[:1024], ds.triples[rng.integers(
         0, ds.n_triples, 2048)]])
+    main["tier_batches"] = {"dels": dels, "ins": ins, "picks": picks}  # phase 3g's too
     cols = _eight_cols(np, picks)
     _tier_check(torch, _submit_view(svc, cols), cols, logical_t, "tier after writes")
     k = moved[0]
@@ -3342,7 +3382,7 @@ def _tier_strings(torch, np, main: dict, rng, scratch: str) -> dict:
 
 
 def _tier_stress(torch, np, svc, seed: int) -> dict:
-    """(h): 4 readers, a churn writer and a rebalancer for 10 s on a P = 4
+    """(h): 4 readers, a churn writer and a rebalancer for 5 s on a P = 4
     tier, checked as the reference's stress machine checks them: the stable
     rows are the tier's rows, churn subjects lie past every id; afterwards
     the launch counts equal the launches the threads counted themselves."""
@@ -3531,6 +3571,824 @@ def drive_sharded_path(torch, np, main: dict, seed: int) -> None:
                             "bgp": bgps, "writes": writes,
                             "growth": {"node_range": growth_nr, "predicate_hash": growth_ph},
                             "strings": strings, "stress": stress}
+
+
+DURABLE_SHARDS = 4         # the durable tiers' P, as phase 3f's largest
+DURABLE_CHECK_ROWS = 512   # rows of the eight-pattern checks between crash points
+APPEND_REPS = 256          # appends of one 1,536-row record, a fsync setting
+SYNC_ROWS = 256            # rows of the writes whose host syncs are counted
+HOT_ROWS = 1024            # rows piled on one subject, so a node_range re-cut moves rows
+SPOT_EVERY = 4             # the spot checks of the replica readings take every 4th pick
+KILL_BATCHES, KILL_ROWS = 32, 512  # the killed writer's batches (insert, then delete them)
+KILL_AFTER = (4, 12)       # the parent kills once an acknowledgement in this range arrives
+REPLICA_WRITES, REPLICA_ROWS = 16, 256  # logged writes the replica groups tail
+REPLICA_STRESS_S = 10.0    # the replicated read run, a setting
+REPLICA_READERS = 4
+CRASH_POINTS = ("wal.append", "wal.torn", "wal.post_append", "snapshot.write_arrays",
+                "snapshot.pre_commit", "snapshot.post_commit", "migrate.pre_apply",
+                "migrate.mid_apply", "engine.rebuild")  # tests/test_crash_oracle.py:39
+
+
+def _du(path: str) -> int:
+    """Bytes of the files under `path`."""
+    import os
+
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _durable_open(torch, root: str, **kw):
+    """DurableShardedService.open on the card with a tier cache of phase
+    3f's size and no auto-rebalance; (service, seconds)."""
+    from repro_torch.core import QueryResultCache
+    from repro_torch.persist import DurableShardedService
+
+    return _timed(torch, lambda: DurableShardedService.open(
+        root, rebalance_skew=None, cache=QueryResultCache(max_entries=TIER_CACHE_ENTRIES),
+        device=DEV, **kw))
+
+
+def _durable_check(torch, np, svc, logical: set, rows, what: str) -> None:
+    """The eight patterns over `rows` through the tier's request plane (a
+    replica group may serve it) against the oracle scan of `logical`."""
+    cols = _eight_cols(np, rows)
+    _tier_check(torch, _submit_view(svc, cols), cols, _oracle_triples(torch, logical), what)
+
+
+def _primary_check(torch, np, svc, logical: set, rows, what: str) -> None:
+    """As _durable_check, with replica dispatch off (the primary serves)."""
+    saved, svc.service._replicas = svc.service._replicas, None
+    try:
+        _durable_check(torch, np, svc, logical, rows, what)
+    finally:
+        svc.service._replicas = saved
+
+
+def _check_rows(np, rng, logical: set, extra=None):
+    live = np.array(sorted(logical), dtype=np.int64)
+    rows = live[rng.integers(0, len(live), DURABLE_CHECK_ROWS)]
+    return rows if extra is None else np.concatenate([np.asarray(extra), rows])
+
+
+def _present(svc, rows) -> list:
+    return svc.contains_triples(rows).tolist()
+
+
+def _durable_builds(torch, np, main: dict, card: str, roots: dict) -> tuple:
+    """(a): DurableShardedService.build for both strategies at P = 4 (build
+    s, the initial snapshot's s and bytes, the WAL's bytes), every answer
+    over phase 3f's picks against the oracle."""
+    import os
+
+    from repro_torch.core import QueryResultCache
+    from repro_torch.persist import DurableShardedService
+
+    ds, phase3 = main["dataset"], main["engine"]
+    logical = {tuple(r) for r in ds.triples.tolist()}
+    tiers, out = {}, {}
+    real_snapshot = DurableShardedService.snapshot
+    for strategy, root in roots.items():
+        snap_s = []
+
+        def timed_snapshot(self, *a, **kw):
+            out_path, dt = _timed(torch, lambda: real_snapshot(self, *a, **kw))
+            snap_s.append(dt)
+            return out_path
+
+        DurableShardedService.snapshot = timed_snapshot
+        try:
+            svc, build_s = _timed(torch, lambda: DurableShardedService.build(
+                ds.triples, ds.n_nodes, ds.n_preds, root=root, n_shards=DURABLE_SHARDS,
+                strategy=strategy, cache=QueryResultCache(max_entries=TIER_CACHE_ENTRIES),
+                crossover=phase3.crossover, delta_budget=DELTA_BUDGET, rebalance_skew=None,
+                device=DEV))
+        finally:
+            DurableShardedService.snapshot = real_snapshot
+        snap_bytes = _du(os.path.join(root, "snap_000001"))
+        wal_bytes = _du(os.path.join(root, "wal.log"))
+        _durable_check(torch, np, svc, logical, main["tier_batches"]["picks"],
+                       f"durable build [{strategy}]")
+        print(f"durable build [{strategy} P={DURABLE_SHARDS}, fsync on]: build_s={build_s:.3f} "
+              f"(the initial snapshot {snap_s[0]:.3f} s, {snap_bytes} B on disk), wal_bytes="
+              f"{wal_bytes}, shard sizes {svc.shard_sizes()}; oracle_equal=True; card {card}")
+        tiers[strategy] = svc
+        out[strategy] = {"build_s": build_s, "snapshot_s": snap_s[0],
+                         "snapshot_bytes": snap_bytes, "wal_bytes": wal_bytes}
+    return tiers, out
+
+
+def _durable_writes(torch, np, main: dict, svc, rng, root: str, card: str) -> tuple:
+    """(b): phase 3f's 1,536-row delete and insert batches, on the tier alone
+    (not logged), durably with fsync off and with fsync on (each restored
+    but the last); the appends' own µs, an append run of APPEND_REPS records
+    a setting; the host syncs a write makes on the tier and durably, given
+    numpy rows and a card tensor. Returns (the logical set, readings)."""
+    import os
+
+    from repro_torch.persist import WriteAheadLog
+    from repro_torch.persist.service import _pack_rows
+    from repro_torch.persist.wal import OP_INSERT
+
+    ds = main["dataset"]
+    dels, ins = main["tier_batches"]["dels"], main["tier_batches"]["ins"]
+    logical = {tuple(r) for r in ds.triples.tolist()}
+    appends = {True: [], False: []}
+    real_append = svc.wal.append
+
+    def timed_append(payload):
+        t0 = time.perf_counter()
+        real_append(payload)
+        appends[svc.wal.fsync].append((time.perf_counter() - t0) * 1e6)
+
+    svc.wal.append = timed_append
+    ms = {}
+    try:
+        for mode in ("tier", "fsync_off", "fsync_on"):
+            target = svc.service if mode == "tier" else svc
+            svc.wal.fsync = mode != "fsync_off"
+            n_del, del_s = _timed(torch, lambda: target.delete_triples(dels))
+            n_ins, ins_s = _timed(torch, lambda: target.insert_triples(ins))
+            if (n_del, n_ins) != (TIER_MUTATIONS, TIER_MUTATIONS):
+                _fail(f"durable writes [{mode}] applied {n_del} deletes and {n_ins} inserts")
+            ms[mode] = (del_s * 1e3, ins_s * 1e3)
+            if mode != "fsync_on":  # back to the base set
+                if (target.insert_triples(dels), target.delete_triples(ins)) != \
+                        (TIER_MUTATIONS, TIER_MUTATIONS):
+                    _fail(f"durable writes [{mode}]: the restore applied wrongly")
+    finally:
+        del svc.wal.append
+        svc.wal.fsync = True
+    logical -= {tuple(r) for r in dels.tolist()}
+    logical |= {tuple(r) for r in ins.tolist()}
+    bench = {}
+    payload = _pack_rows(OP_INSERT, ins)
+    for fsync in (True, False):
+        path = os.path.join(root, f"append_bench_{int(fsync)}.log")
+        wal, us = WriteAheadLog(path, fsync=fsync), []
+        for _ in range(APPEND_REPS):
+            t0 = time.perf_counter()
+            wal.append(payload)
+            us.append((time.perf_counter() - t0) * 1e6)
+        wal.close()
+        os.remove(path)
+        bench[fsync] = us
+    last = ds.n_preds - 1
+    small = np.array(_new_rows(np, rng, SYNC_ROWS, set(logical), ds.n_nodes, last),
+                     dtype=np.int64)
+    small_t = torch.from_numpy(small).to(DEV)
+    syncs = {}
+    for name, target, rows in (("tier numpy", svc.service, small),
+                               ("durable numpy", svc, small),
+                               ("tier tensor", svc.service, small_t),
+                               ("durable tensor", svc, small_t)):
+        syncs[name] = _count_syncs(torch, lambda: target.insert_triples(rows))
+        if target.delete_triples(small) != SYNC_ROWS:  # the same state for the next
+            _fail(f"durable syncs [{name}]: the restore applied wrongly")
+    added = {"numpy": syncs["durable numpy"] - syncs["tier numpy"],
+             "tensor": syncs["durable tensor"] - syncs["tier numpy"]}
+    if added["numpy"] or syncs["durable tensor"] != syncs["tier tensor"]:
+        _fail(f"durable writes: host syncs {syncs}, added beyond the tier's {added}")
+    _durable_check(torch, np, svc, logical, main["tier_batches"]["picks"], "durable writes")
+    print(f"durable writes [predicate_hash P={svc.n_shards}]: delete {TIER_MUTATIONS} / insert "
+          f"{TIER_MUTATIONS} ms: the tier alone {ms['tier'][0]:.3f} / {ms['tier'][1]:.3f}, "
+          f"durable fsync off {ms['fsync_off'][0]:.3f} / {ms['fsync_off'][1]:.3f}, durable "
+          f"fsync on {ms['fsync_on'][0]:.3f} / {ms['fsync_on'][1]:.3f}; the writes' appends "
+          f"fsync on {_pcts(np, appends[True])}, off {_pcts(np, appends[False])}; "
+          f"{APPEND_REPS} appends of a {len(payload)} B record: fsync on "
+          f"{_pcts(np, bench[True])}, off {_pcts(np, bench[False])}; host syncs of a "
+          f"{SYNC_ROWS}-row insert {syncs}: a durable write adds {added['numpy']} (numpy) and "
+          f"{added['tensor']} (a card tensor) beyond the tier's write of numpy rows; "
+          f"oracle_equal=True; card {card}")
+    return logical, {"ms": ms, "append_us": {k: _pcts(np, v) for k, v in appends.items()},
+                     "bench_us": {k: _pcts(np, v) for k, v in bench.items()}, "syncs": syncs}
+
+
+def _recover(torch, svc, root: str) -> tuple:
+    """The kill: the live instance is abandoned (its WAL handle closed, no
+    pending card work of it read again) and the tier reopens from disk;
+    (the recovered tier, open seconds)."""
+    svc.wal.close()
+    recovered, open_s = _durable_open(torch, root)
+    if recovered.last_recovery.failed_shards:
+        _fail(f"recovery failed shards {recovered.last_recovery.failed_shards}")
+    return recovered, open_s
+
+
+def _durable_migration_kill(torch, np, main: dict, svc, root: str, rng, card: str) -> tuple:
+    """(c): grow the node_range tier (phase 3f's growth rows, trigger 1.5)
+    with ``migrate.mid_apply`` armed; the write that starts the migration
+    dies inside its first batch. open() resumes the migration (its s split
+    into loading and replay, the replay's records/s and launches), the
+    write's rows are all there, the rest drains, every answer equals the
+    oracle. Returns (the recovered tier, the logical set, readings)."""
+    from repro_torch.kernels import ops
+    from repro_torch.persist import CrashPoint, DurableShardedService, inject_crashes
+
+    ds = main["dataset"]
+    logical = {tuple(r) for r in ds.triples.tolist()}
+    svc.service.rebalance_skew = GROWTH_SKEW
+    hi = max(max(r[0] for r in logical), max(r[2] for r in logical)) + 1
+    rows = _growth_rows(np, rng, logical, hi, GROWTH_ROWS, ds.n_nodes, ds.n_preds)
+    crashed, batch, grow_t0 = None, None, time.perf_counter()
+    for b in range(0, GROWTH_ROWS, GROWTH_BATCH):
+        batch = rows[b:b + GROWTH_BATCH]
+        try:
+            with inject_crashes({"migrate.mid_apply": 1}):
+                svc.insert_triples(batch)
+        except CrashPoint:
+            crashed = b // GROWTH_BATCH + 1
+            break
+        logical |= {tuple(r) for r in batch.tolist()}
+    grow_s = time.perf_counter() - grow_t0
+    if crashed is None:
+        _fail("durable growth: the trigger never fired")
+    svc.wal.close()  # killed mid-migration
+    del svc
+    replay = []
+    real_replay = DurableShardedService._replay
+
+    def timed_replay(self, report):
+        _, dt = _timed(torch, lambda: real_replay(self, report))
+        replay.append(dt)
+
+    before = dict(ops.launch_counts)
+    DurableShardedService._replay = timed_replay
+    try:
+        svc, open_s = _durable_open(torch, root)
+    finally:
+        DurableShardedService._replay = real_replay
+    launched = _launches(ops, before)
+    rep = svc.last_recovery
+    if not (rep.migration_resumed and svc.migration_active) or rep.failed_shards:
+        _fail(f"durable migration kill: recovery {rep}")
+    landed = _present(svc, batch)
+    if not all(landed):  # its record was durable before the kill
+        _fail(f"durable migration kill: {landed.count(False)} rows of the logged write lost")
+    logical |= {tuple(r) for r in batch.tolist()}
+    cols = _motion_cols(np, rng, svc, logical)
+    _tier_check(torch, _submit_view(svc, cols), cols, _oracle_triples(torch, logical),
+                "durable migration kill, resumed")
+    pending = svc._migration.pending_rows
+    drained, drain_s = _timed(torch, lambda: svc.rebalance())
+    if svc.migration_active or drained["moved"] == 0:
+        _fail(f"durable migration kill: the drain left {drained}")
+    for k, e in enumerate(svc.engines):
+        held = e.current_triples().cpu().numpy()
+        if len(held) and not (svc.plan.triple_shards(held) == k).all():
+            _fail(f"durable migration kill: shard {k} holds rows its plan routes elsewhere")
+    if _logical_rows(svc.service) != logical:
+        _fail("durable migration kill: the tier's rows are not the logical set")
+    _durable_check(torch, np, svc, logical, main["tier_batches"]["picks"],
+                   "durable migration kill, drained")
+    _, snap_s = _timed(torch, svc.snapshot)  # compacts the growth's log
+    replay_s = replay[0]
+    print(f"durable migration kill [node_range P={svc.n_shards}]: trigger {GROWTH_SKEW} fired in "
+          f"insert batch {crashed} ({grow_s:.3f} s of durable growth writes), killed at "
+          f"migrate.mid_apply; open {open_s:.3f} s = loading "
+          f"{open_s - replay_s:.3f} s + replay {replay_s:.3f} s ({rep.replayed_records} records, "
+          f"{rep.replayed_records / replay_s:.1f} records/s; launches {launched}); "
+          f"migration_resumed={rep.migration_resumed}, {pending} rows pending, the killed "
+          f"write's {len(batch)} rows all present; drained {drained['moved']} rows in "
+          f"{drain_s:.3f} s; every answer equal to the oracle; snapshot and compaction "
+          f"{snap_s:.3f} s; card {card}")
+    return svc, logical, {"open_s": open_s, "replay_s": replay_s,
+                          "records": rep.replayed_records, "launches": launched,
+                          "drain_s": drain_s, "pending": pending}
+
+
+def _hot_rows(np, logical: set, s: int, n_preds: int, n: int):
+    rows = [(s, p, o) for o in range(n) for p in range(n_preds) if (s, p, o) not in logical]
+    return np.array(rows[:n], dtype=np.int64)
+
+
+def _durable_crash_points(torch, np, main: dict, svc, root: str, logical: set, rng,
+                          card: str) -> tuple:
+    """(d): the nine injection points of the reference's crash oracle, once
+    each, chained on the tier: kill, recover from disk, hold the point's
+    contract (an acknowledged operation recovered; an unacknowledged one
+    wholly present or wholly absent; the snapshot step; a migration
+    resumed), then every answer against the oracle."""
+    from repro_torch.persist import CrashPoint, inject_crashes
+    from repro_torch.persist.service import _snapshot_steps
+
+    ds = main["dataset"]
+    out = {}
+    hot_subjects = iter((1, 2))
+    for point in CRASH_POINTS:
+        fresh = np.array(_new_rows(np, rng, SYNC_ROWS, set(logical), ds.n_nodes, ds.n_preds),
+                         dtype=np.int64)
+        step0 = _snapshot_steps(root)[-1]
+        if point.startswith("wal."):
+            op = lambda: svc.insert_triples(fresh)  # noqa: E731
+        elif point.startswith("snapshot."):
+            svc.insert_triples(fresh)
+            logical |= {tuple(r) for r in fresh.tolist()}
+            op = svc.snapshot
+        elif point.startswith("migrate."):
+            fresh = _hot_rows(np, logical, next(hot_subjects), ds.n_preds, HOT_ROWS)
+            svc.insert_triples(fresh)
+            logical |= {tuple(r) for r in fresh.tolist()}
+            op = lambda: svc.rebalance(force=True)  # noqa: E731
+        else:
+            svc.insert_triples(fresh)
+            logical |= {tuple(r) for r in fresh.tolist()}
+            op = lambda: svc.rebuild(force=True)  # noqa: E731
+        try:
+            with inject_crashes({point: 1}):
+                op()
+        except CrashPoint:
+            pass
+        else:
+            _fail(f"crash point {point} never fired")
+        svc, open_s = _recover(torch, svc, root)
+        rep = svc.last_recovery
+        landed = _present(svc, fresh)
+        if len(set(landed)) != 1:
+            _fail(f"crash {point}: the batch is half there ({landed.count(True)} of "
+                  f"{len(landed)})")
+        if point.startswith("wal."):
+            if landed[0] != (point == "wal.post_append"):
+                _fail(f"crash {point}: landed={landed[0]}")
+            if landed[0]:
+                logical |= {tuple(r) for r in fresh.tolist()}
+            if rep.torn_tail != (point == "wal.torn"):
+                _fail(f"crash {point}: torn_tail={rep.torn_tail}")
+        elif not landed[0]:
+            _fail(f"crash {point}: an acknowledged write was lost")
+        if point.startswith("snapshot.") and rep.snapshot_step != \
+                step0 + (point == "snapshot.post_commit"):
+            _fail(f"crash {point}: recovered from step {rep.snapshot_step}, not the expected")
+        if point.startswith("migrate."):
+            if not svc.migration_active:
+                _fail(f"crash {point}: the migration was not resumed")
+            svc.rebalance()
+        _durable_check(torch, np, svc, logical, _check_rows(np, rng, logical, fresh[:64]),
+                       f"crash {point}")
+        out[point] = {"replayed": rep.replayed_records, "step": rep.snapshot_step,
+                      "landed": landed[0], "open_s": open_s}
+    if _logical_rows(svc.service) != logical:
+        _fail("crash points: the tier's rows are not the logical set")
+    print(f"crash points [node_range P={svc.n_shards}], chained on one tier at full size: "
+          + "; ".join(f"{p} open {v['open_s']:.3f} s replayed {v['replayed']} from step "
+                      f"{v['step']}, batch {'present' if v['landed'] else 'absent'}"
+                      for p, v in out.items())
+          + f"; every contract held, every answer equal to the oracle; card {card}")
+    return svc, logical, out
+
+
+def _durable_snapshot_part(torch, np, main: dict, svc, root: str, logical: set,
+                           card: str) -> dict:
+    """(e): snapshot and compaction of the mutated tier (s, bytes), open()
+    from it with no k2_lines launch: every state tensor and scalar of every
+    shard equal to the live tier's; the same directory opened on the CPU
+    answers 256 patterns as the card does."""
+    from repro_torch.kernels import ops
+    from repro_torch.persist import DurableShardedService
+
+    path, snap_s = _timed(torch, svc.snapshot)
+    snap_bytes, wal_bytes = _du(path), _du(svc.wal.path)
+    before = dict(ops.launch_counts)
+    opened, open_s = _durable_open(torch, root)
+    if _launches(ops, before).get("k2_lines_count") or opened.last_recovery.replayed_records:
+        _fail(f"durable open after compaction launched {_launches(ops, before)}")
+    for k, (a, b) in enumerate(zip(svc.engines, opened.engines)):
+        ta, tb = _state_tensors(a), _state_tensors(b)
+        bad = [n for n in ta if ta[n].shape != tb[n].shape or not torch.equal(ta[n], tb[n])]
+        if bad or _engine_scalars(a) != _engine_scalars(b):
+            _fail(f"durable snapshot: shard {k} opened unequal ({bad})")
+    _durable_check(torch, np, opened, logical, main["tier_batches"]["picks"],
+                   "durable snapshot, opened")
+    on_cpu, cpu_s = _timed(torch, lambda: DurableShardedService.open(
+        root, rebalance_skew=None, device="cpu"))
+    live = np.array(sorted(logical), dtype=np.int64)
+    rows = live[np.linspace(0, len(live) - 1, 32).astype(np.int64)]
+    pats = [tuple(int(v) if pat[i] != "?" else None for i, v in enumerate(r))
+            for pat in PATTERNS + ("???",) for r in rows.tolist()]
+    got = [sorted(a) for a in on_cpu.query_many(pats)]
+    if got != [sorted(a) for a in opened.query_many(pats)]:
+        _fail("durable snapshot: the CPU open answers differently from the card's")
+    opened.close()
+    on_cpu.close()
+    print(f"durable snapshot [node_range P={svc.n_shards}]: snapshot + compaction "
+          f"{snap_s:.3f} s, {snap_bytes} B on disk, the WAL {wal_bytes} B after; open "
+          f"{open_s:.3f} s, no k2_lines launch, every state tensor and scalar of the "
+          f"{svc.n_shards} shards equal to the live tier's, answers equal to the oracle; "
+          f"opened with device=\"cpu\" in {cpu_s:.3f} s: {len(pats)} patterns answered as on the "
+          f"card; card {card}")
+    return {"snapshot_s": snap_s, "snapshot_bytes": snap_bytes, "open_s": open_s,
+            "cpu_open_s": cpu_s}
+
+
+def _kill_batches(np, rng, logical: set, n_nodes: int, n_preds: int):
+    """(rows, kinds) of the killed writer: even batches insert new rows,
+    each odd batch deletes the batch before it."""
+    fresh = _new_rows(np, rng, KILL_BATCHES // 2 * KILL_ROWS, set(logical), n_nodes, n_preds)
+    ins = np.array(fresh, dtype=np.int64).reshape(KILL_BATCHES // 2, KILL_ROWS, 3)
+    rows = np.repeat(ins, 2, axis=0)
+    kinds = np.tile(np.array([0, 1], dtype=np.int64), KILL_BATCHES // 2)
+    return rows, kinds
+
+
+def _durable_sigkill(torch, np, main: dict, svc, root: str, logical: set, rng, scratch: str,
+                     card: str) -> tuple:
+    """(f): ``python -m repro_torch.launch.itr_durable`` opens the tier on the
+    card and writes; SIGKILL once it acknowledged a batch in KILL_AFTER.
+    Every acknowledged batch is recovered, the one in flight wholly or not
+    at all, none after it. Returns (the recovered tier, the logical set,
+    readings)."""
+    import os
+    import signal
+    import subprocess
+    import threading
+
+    ds = main["dataset"]
+    rows, kinds = _kill_batches(np, rng, logical, ds.n_nodes, ds.n_preds)
+    batches = os.path.join(scratch, "kill_batches.npz")
+    np.savez(batches, rows=rows, kinds=kinds)
+    kill_at = int(rng.integers(*KILL_AFTER))
+    svc.close()  # one writer a directory: the child owns it now
+    del svc
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.itr_durable", "--root", root, "--batches",
+         batches, "--device", DEV], stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    watchdog = threading.Timer(300, child.kill)
+    watchdog.start()
+    acked, opened_s, lines = -1, None, []
+    try:
+        for line in child.stdout:
+            lines.append(line.strip())
+            if line.startswith("opened"):
+                opened_s = float(line.split()[1])
+            elif line.startswith("acked"):
+                acked = int(line.split()[1])
+                if acked >= kill_at:
+                    child.send_signal(signal.SIGKILL)
+                    break
+    finally:
+        child.kill()
+        rest = child.stdout.read()
+        child.wait(60)
+        watchdog.cancel()
+    run_s = time.perf_counter() - t0
+    acked = max([acked] + [int(w.split()[1]) for w in rest.splitlines()
+                           if w.startswith("acked")])
+    if child.returncode != -signal.SIGKILL or acked < kill_at or acked >= KILL_BATCHES - 1:
+        _fail(f"kill -9: the child exited {child.returncode} after acknowledging {acked} "
+              f"({lines[-3:]})")
+    svc, open_s = _durable_open(torch, root)
+    for i in range(acked + 1):
+        batch = {tuple(r) for r in rows[i].tolist()}
+        logical = logical | batch if kinds[i] == 0 else logical - batch
+    flight = acked + 1
+    got = _present(svc, rows[flight])
+    if len(set(got)) != 1:
+        _fail(f"kill -9: the batch in flight is half there ({got.count(True)} of {len(got)})")
+    landed = got[0] == (kinds[flight] == 0)
+    if landed:
+        batch = {tuple(r) for r in rows[flight].tolist()}
+        logical = logical | batch if kinds[flight] == 0 else logical - batch
+    _durable_check(torch, np, svc, logical, _check_rows(np, rng, logical, rows[flight][:256]),
+                   "kill -9 recovered")
+    if _logical_rows(svc.service) != logical:  # acknowledged batches there, none after
+        _fail("kill -9: the recovered tier's rows are not the logical set")
+    rep = svc.last_recovery
+    print(f"kill -9 [node_range P={svc.n_shards}]: the child opened the tier on the card in "
+          f"{opened_s} s and was killed after acknowledging batch {acked} ({KILL_ROWS} rows a "
+          f"batch, inserts and deletes in turns; {run_s:.3f} s from spawn to kill); recovery "
+          f"open {open_s:.3f} s replayed {rep.replayed_records} records, torn_tail="
+          f"{rep.torn_tail}: every acknowledged batch there, the batch in flight "
+          f"{'wholly applied' if landed else 'wholly absent'}; every answer equal to the "
+          f"oracle; card {card}")
+    return svc, logical, {"acked": acked, "in_flight_landed": landed, "open_s": open_s,
+                          "child_open_s": opened_s, "replayed": rep.replayed_records}
+
+
+def _group_bytes(group) -> int:
+    return sum(t.numel() * t.element_size() for e in group.service.engines
+               for t in _state_tensors(e).values())
+
+
+def _replica_stress(torch, np, svc, logical: set, seed: int, n_groups: int) -> dict:
+    """REPLICA_STRESS_S s of REPLICA_READERS readers (S-bound patterns over
+    the stable subjects, each answer checked exactly) beside one durable
+    writer of churn rows with subjects past every id, with n_groups replica
+    groups."""
+    import threading
+
+    svc.enable_replication(n_groups)
+    by_s = {}
+    for r in logical:
+        by_s.setdefault(r[0], []).append(r)
+    subjects = sorted(by_s)
+    hi = max(max(r[0] for r in logical), max(r[2] for r in logical)) + 1
+    stop, errors, lat = threading.Event(), [], []
+    flushes0 = svc.stats.replica_flushes
+    writes = [0]
+
+    def reader(rseed):
+        rr = np.random.default_rng(rseed)
+        try:
+            while not stop.is_set():
+                s = subjects[int(rr.integers(0, len(subjects)))]
+                rows = by_s[s]
+                _, p, o = rows[int(rr.integers(0, len(rows)))]
+                for qp, qo in ((None, None), (p, None), (None, o), (p, o)):
+                    t0 = time.perf_counter()
+                    got = sorted(svc.query(s, qp, qo))
+                    lat.append(time.perf_counter() - t0)
+                    want = sorted((tp, (ts, to)) for ts, tp, to in rows
+                                  if (qp is None or tp == qp) and (qo is None or to == qo))
+                    if got != want:
+                        raise AssertionError(f"replicated read {(s, qp, qo)}")
+        except Exception as exc:  # reported after the threads join
+            errors.append(exc)
+
+    def writer():
+        wr = np.random.default_rng(seed + 5)
+        try:
+            while not stop.is_set():
+                k = int(wr.integers(1, 6))
+                rows = np.stack([wr.integers(hi, hi + 512, k), wr.integers(0, svc.plan.n_preds, k),
+                                 wr.integers(0, hi, k)], 1)
+                if wr.integers(0, 2):
+                    svc.insert_triples(rows)
+                else:
+                    svc.delete_triples(rows)
+                writes[0] += 1
+        except Exception as exc:
+            errors.append(exc)
+
+    threads = [threading.Thread(target=reader, args=(seed + 40 + i,))
+               for i in range(REPLICA_READERS)] + [threading.Thread(target=writer)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(REPLICA_STRESS_S)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+    if any(t.is_alive() for t in threads):
+        _fail("replicated reads: a thread did not finish")
+    if errors:
+        _fail(f"replicated reads with {n_groups} groups: {errors[0]!r}")
+    ms = np.array(lat) * 1e3
+    out = {"groups": n_groups, "queries": len(lat), "qps": len(lat) / REPLICA_STRESS_S,
+           "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+           "replica_flushes": svc.stats.replica_flushes - flushes0, "writes": writes[0]}
+    if n_groups and not out["replica_flushes"]:
+        _fail("replicated reads: no flush went to a replica group")
+    # churn rows off again, durably, so the logical set is the stable one
+    svc.enable_replication(0)
+    churn = {tuple(r) for e in svc.engines for r in e.current_triples().tolist()
+             if r[0] >= hi}
+    if churn:
+        svc.delete_triples(np.array(sorted(churn), dtype=np.int64))
+    return out
+
+
+def _durable_replication(torch, np, main: dict, svc, logical: set, rng, seed: int,
+                         card: str) -> tuple:
+    """(g): one group's seed s and device bytes; two groups tailing a run of
+    logged writes (sync s, each group and the primary against the oracle);
+    the lag gate (max_lag=0, a pending record serves from the primary); a
+    reseed after snapshot(); the control (a cursor that skipped a record
+    answers differently); then REPLICA_STRESS_S s of readers beside a
+    durable writer with 0 and 2 groups. Returns (the logical set,
+    readings)."""
+    ds = main["dataset"]
+    picks = main["tier_batches"]["picks"]
+    svc.set_serve_threads(1)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    mgr, seed_s = _timed(torch, lambda: svc.enable_replication(1))
+    torch.cuda.synchronize()
+    mem_bytes = torch.cuda.memory_allocated() - mem0
+    state_bytes = _group_bytes(mgr.groups[0])
+    spot = picks[::SPOT_EVERY]
+    _durable_check(torch, np, mgr.groups[0].service, logical, spot, "replica group seeded")
+
+    def new_batch(n):
+        rows = np.array(_new_rows(np, rng, n, set(logical), ds.n_nodes, ds.n_preds),
+                        dtype=np.int64)
+        logical.update(tuple(r) for r in rows.tolist())
+        return rows
+
+    mgr = svc.enable_replication(2, max_lag="off", auto_sync=False)
+    written = [new_batch(REPLICA_ROWS) for _ in range(REPLICA_WRITES)]
+    _, write_s = _timed(torch, lambda: [svc.insert_triples(b) for b in written])
+    applied, sync_s = _timed(torch, svc.sync_replicas)
+    if applied != [REPLICA_WRITES] * 2:
+        _fail(f"replica sync applied {applied} records")
+    extra = np.concatenate(written)[:256]
+    rows = np.concatenate([extra, picks])
+    for g in mgr.groups:
+        _durable_check(torch, np, g.service, logical, rows, f"replica group {g.index}")
+    _primary_check(torch, np, svc, logical, np.concatenate([extra, spot]),
+                   "primary beside 2 groups")
+    flushes = svc.stats.replica_flushes
+    _durable_check(torch, np, svc, logical, np.concatenate([extra, spot]), "dispatched")
+    if svc.stats.replica_flushes != flushes + 1:
+        _fail("replica dispatch: the caught-up groups served no flush")
+    # the lag gate
+    mgr = svc.enable_replication(1, max_lag=0, auto_sync=False)
+    f0 = svc.stats.replica_flushes
+    svc.query(int(extra[0, 0]), None, None)
+    gated = new_batch(1)
+    svc.insert_triples(gated)
+    got = svc.query(int(gated[0, 0]), int(gated[0, 1]), int(gated[0, 2]))
+    f1 = svc.stats.replica_flushes
+    svc.sync_replicas()
+    again = svc.query(int(gated[0, 0]), int(gated[0, 1]), int(gated[0, 2]))
+    if (f1 - f0, svc.stats.replica_flushes - f1) != (1, 1) or len(got) != 1 or len(again) != 1:
+        _fail(f"replica lag gate: flushes {f0} -> {f1} -> {svc.stats.replica_flushes}, "
+              f"answers {got} / {again}")
+    # a reseed after snapshot()
+    mgr = svc.enable_replication(2, max_lag="off", auto_sync=False)
+    svc.insert_triples(new_batch(REPLICA_ROWS))
+    _, snap_s = _timed(torch, svc.snapshot)
+    last = new_batch(REPLICA_ROWS)
+    svc.insert_triples(last)
+    _, reseed_s = _timed(torch, svc.sync_replicas)
+    if [(g.reseeds, g.records) for g in mgr.groups] != [(1, 1)] * 2:
+        _fail(f"replica reseed: {[(g.reseeds, g.records) for g in mgr.groups]}")
+    for g in mgr.groups:
+        _durable_check(torch, np, g.service, logical, np.concatenate([last[:256], spot]),
+                       f"replica group {g.index} reseeded")
+    # the control: a cursor that skips one record
+    skipped = new_batch(REPLICA_ROWS)
+    svc.insert_triples(skipped)
+    recs, _ = mgr.groups[1].cursor.tail()  # consumed, never applied
+    svc.sync_replicas()
+    cols = _eight_cols(np, skipped)
+    oracle_t = _oracle_triples(torch, logical)
+    cols_t = [torch.from_numpy(c).to(DEV) for c in cols]
+    good = _view_rows(torch, _submit_view(mgr.groups[0].service, cols), cols_t, oracle_t)
+    bad = _view_rows(torch, _submit_view(mgr.groups[1].service, cols), cols_t, oracle_t)
+    if len(recs) != 1 or good[0] is None or not torch.equal(*good) or \
+            (bad[0] is not None and torch.equal(*bad)):
+        _fail("replica control: a group whose cursor skipped a record answered right")
+    stress = [_replica_stress(torch, np, svc, logical, seed, n) for n in (0, 2)]
+    _primary_check(torch, np, svc, logical, spot, "after the replicated reads")
+    svc.set_serve_threads(None)
+    print(f"replication [predicate_hash P={svc.n_shards}]: one group seeded in {seed_s:.3f} s, "
+          f"{mem_bytes} B of device memory ({state_bytes} B of state tensors); "
+          f"{REPLICA_WRITES} logged writes of {REPLICA_ROWS} rows in {write_s:.3f} s, 2 groups "
+          f"synced in {sync_s:.3f} s, each group and the primary equal to the oracle; the lag "
+          f"gate (max_lag=0) served a pending record's read from the primary; after snapshot() "
+          f"both groups reseeded in {reseed_s:.3f} s (snapshot {snap_s:.3f} s) and equal the "
+          f"oracle; control: a cursor that skipped a record answered wrongly; "
+          + "; ".join(f"{s['groups']} groups: {s['qps']:.1f} queries/s, p50 {s['p50_ms']:.3f} "
+                      f"ms, p99 {s['p99_ms']:.3f} ms, replica_flushes {s['replica_flushes']}, "
+                      f"{s['writes']} durable writes" for s in stress)
+          + f" ({REPLICA_READERS} readers, serve_threads=1, {REPLICA_STRESS_S} s each); "
+          f"card {card}")
+    return logical, {"seed_s": seed_s, "group_bytes": mem_bytes, "state_bytes": state_bytes,
+                     "sync_s": sync_s, "reseed_s": reseed_s, "stress": stress}
+
+
+def _wal_cut_control(torch, np, main: dict, svc, root: str, logical: set, rng,
+                     scratch: str) -> None:
+    """A copy of the root with the WAL's last intact frame cut: it recovers
+    without that batch, so the oracle that includes the batch must
+    disagree."""
+    import os
+    import shutil
+
+    from repro_torch.persist import read_wal_records
+
+    ds = main["dataset"]
+    last = np.array(_new_rows(np, rng, SYNC_ROWS, set(logical), ds.n_nodes, ds.n_preds),
+                    dtype=np.int64)
+    svc.insert_triples(last)
+    logical |= {tuple(r) for r in last.tolist()}
+    copy = os.path.join(scratch, "wal_cut")
+    shutil.copytree(root, copy)
+    wal = os.path.join(copy, "wal.log")
+    records, rep = read_wal_records(wal)
+    with open(wal, "r+b") as f:
+        f.truncate(rep.valid_bytes - 8 - len(records[-1]))
+    cut, _ = _durable_open(torch, copy)
+    try:
+        cols = _eight_cols(np, np.concatenate([last, _check_rows(np, rng, logical)]))
+        cols_t = [torch.from_numpy(c).to(DEV) for c in cols]
+        got, want = _view_rows(torch, _submit_view(cut, cols), cols_t,
+                               _oracle_triples(torch, logical))
+        if any(_present(cut, last)) or (got is not None and torch.equal(got, want)):
+            _fail("control: the WAL cut before its last frame recovered the batch")
+        _durable_check(torch, np, cut, logical - {tuple(r) for r in last.tolist()},
+                       _check_rows(np, rng, logical, last), "the cut WAL's recovery")
+    finally:
+        cut.close()
+        shutil.rmtree(copy, ignore_errors=True)
+    print(f"control: the WAL cut before its last intact frame ({len(records)} -> "
+          f"{len(records) - 1} records) recovered without that {len(last)}-row batch and "
+          f"disagreed with the oracle that holds it")
+
+
+def _flipped_shard_control(torch, np, root: str, logical: set, scratch: str) -> None:
+    """A flipped byte in one shard's snapshot: that shard degrades
+    (failed_shards == [1]) and writes routed to it raise."""
+    import os
+    import shutil
+
+    from repro_torch.persist.service import _newest_snapshot
+
+    copy = os.path.join(scratch, "flipped")
+    shutil.copytree(root, copy)
+    _, snap = _newest_snapshot(copy)
+    target = os.path.join(snap, "shard_1", "flat_params.npy")
+    data = bytearray(open(target, "rb").read())
+    data[len(data) // 2] ^= 0x10
+    open(target, "wb").write(bytes(data))
+    svc, _ = _durable_open(torch, copy)
+    try:
+        if svc.last_recovery.failed_shards != [1] or svc.failed_shards != {1}:
+            _fail(f"control: a flipped byte in shard 1 gave {svc.last_recovery.failed_shards}")
+        live = np.array(sorted(logical), dtype=np.int64)
+        on_1 = live[svc.plan.triple_shards(live) == 1][:1].copy()
+        on_1[0, 2] = int(live[:, [0, 2]].max()) + 7  # a new row shard 1 owns
+        try:
+            svc.insert_triples(on_1)
+        except RuntimeError:
+            pass
+        else:
+            _fail("control: a write routed to the degraded shard did not raise")
+    finally:
+        svc.close()
+        shutil.rmtree(copy, ignore_errors=True)
+    print("control: a flipped byte in shard 1's snapshot degraded exactly that shard "
+          "(failed_shards == [1]) and a write routed to it raised")
+
+
+def drive_durable_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3g: the durable tier on the card at full size, on phase 3's
+    triples, each tier in a fresh temporary root with fsync on: builds,
+    durable writes, a kill mid-migration, the nine crash points, snapshot
+    and compaction, a real kill -9, read replicas, and three controls that
+    must fail."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    card = _card()
+    rng = np.random.default_rng(seed + 29)
+    names = (*K2_NAMES, *DIGRAM_NAMES)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="itr_durable_")
+    roots = {s: f"{scratch}/{s}" for s in ("predicate_hash", "node_range")}
+    part_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - mark[0], 3)
+        mark[0] = now
+
+    try:
+        tiers, builds = _durable_builds(torch, np, main, card, roots)
+        ph, nr = tiers["predicate_hash"], tiers["node_range"]
+        lap("a")
+        logical_ph, writes = _durable_writes(torch, np, main, ph, rng, roots["predicate_hash"],
+                                             card)
+        lap("b")
+        nr, logical_nr, kill = _durable_migration_kill(torch, np, main, nr, roots["node_range"],
+                                                       rng, card)
+        lap("c")
+        nr, logical_nr, points = _durable_crash_points(torch, np, main, nr, roots["node_range"],
+                                                       logical_nr, rng, card)
+        lap("d")
+        snap = _durable_snapshot_part(torch, np, main, nr, roots["node_range"], logical_nr,
+                                      card)
+        lap("e")
+        nr, logical_nr, sigkill = _durable_sigkill(torch, np, main, nr, roots["node_range"],
+                                                   logical_nr, rng, scratch, card)
+        lap("f")
+        _flipped_shard_control(torch, np, roots["node_range"], logical_nr, scratch)
+        nr.close()
+        lap("control: flipped shard")
+        logical_ph, repl = _durable_replication(torch, np, main, ph, logical_ph, rng, seed, card)
+        lap("g")
+        _wal_cut_control(torch, np, main, ph, roots["predicate_hash"], logical_ph, rng, scratch)
+        ph.close()
+        lap("control: cut WAL")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    counts = {k: ops.launch_counts[k] for k in names}
+    print(f"durable part: {time.perf_counter() - t0:.1f} s (by reading {part_s}); launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items()) + f"; card {card}")
+    for k in ("k2_lines_count", "k2_lines_write", "digram_pair_accum", "digram_select"):
+        if counts[k] == 0:
+            _fail(f"the durable path launched {k} no time")
+    if counts["bitvec_rank"] or counts["digram_pair_counts"]:
+        _fail(f"the durable path launched {counts}")
+    main["durable_part"] = {"launches": counts, "builds": builds, "writes": writes,
+                            "migration_kill": kill, "crash_points": points, "snapshot": snap,
+                            "sigkill": sigkill, "replication": repl, "part_s": part_s}
 
 
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
@@ -7212,6 +8070,7 @@ def main(argv=None) -> int:
     drive_snapshot_path(torch, np, main_res, args.seed)
     drive_bgp_path(torch, np, main_res, args.seed)
     drive_sharded_path(torch, np, main_res, args.seed)
+    drive_durable_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res

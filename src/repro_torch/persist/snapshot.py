@@ -65,12 +65,15 @@ class SnapshotError(RuntimeError):
 
 # -- saving ----------------------------------------------------------------
 
-def save_snapshot(engine: TripleQueryEngine, path) -> str:
+def save_snapshot(engine: TripleQueryEngine, path, *, atomic: bool = True) -> str:
     """Persist `engine` to the directory `path`; returns `path`.
 
-    The write goes through ``<path>.tmp`` and ``os.rename``, replacing any
-    existing snapshot only at the final instant. The delta overlay is saved
-    as it is: a snapshot is the full logical state. An engine made by
+    With ``atomic=True`` (the default) the write goes through
+    ``<path>.tmp`` and ``os.rename``, replacing any existing snapshot only
+    at the final instant; a caller that stages engine snapshots inside a
+    directory it renames itself (the durable sharded service) passes
+    ``atomic=False`` to write in place. The delta overlay is saved as it
+    is: a snapshot is the full logical state. An engine made by
     ``from_numpy_state`` has no grammar or encoding to save and raises
     :class:`SnapshotError`.
     """
@@ -78,6 +81,9 @@ def save_snapshot(engine: TripleQueryEngine, path) -> str:
         raise SnapshotError("the engine has no grammar and encoding to save (it was made by "
                             "from_numpy_state from bare arrays)")
     path = os.fspath(path)
+    if not atomic:
+        _write_engine_dir(engine, path)
+        return path
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)

@@ -51,6 +51,12 @@ flush, per-shard work fans out over a thread pool of ``serve_threads``;
 per-engine locks serialise each engine's scratch state, every thread
 launches on the caller's current CUDA stream (one stream), and the merge
 runs in shard order, so threaded and sequential flushes give equal views.
+
+Reads may go to replicas. Once a durable service attaches a
+:class:`~repro_torch.serve.replication.ReplicationManager`, a flush runs
+whole on one dispatchable replica group (its own engines on the card, its
+own cache namespaces) or, when none is, or when the flushing thread holds
+the write lock, on the primary.
 """
 from __future__ import annotations
 
@@ -143,7 +149,7 @@ class ShardedServiceStats:
     rebalances: int = 0   # migrations started (automatic and explicit)
     migrated_rows: int = 0  # rows moved between shards by rebalancing
     degraded_patterns: int = 0  # patterns answered around a failed shard
-    replica_flushes: int = 0  # flushes served by a read replica (none yet)
+    replica_flushes: int = 0  # flushes served by a read replica group
     bgp_queries: int = 0      # whole-BGP joins answered (hits and executions)
     bgp_cache_hits: int = 0   # BGPs served from the merged cache
     string_queries: int = 0   # query_strings / query_bgp_strings calls
@@ -183,13 +189,16 @@ class ShardedTripleService(MicroBatchService):
     def __init__(self, engines: list[TripleQueryEngine], plan: PartitionPlan,
                  cache: QueryResultCache | None = None, max_batch: int = 1024,
                  config=None, rebalance_skew=_DEFAULT_SKEW,
-                 serve_threads: int | None = None, bgp_cache: bool = True):
+                 serve_threads: int | None = None, bgp_cache: bool = True, device=None):
         super().__init__()
         if len(engines) != plan.n_shards:
             raise ValueError(f"{len(engines)} engines for {plan.n_shards} shards")
         self.engines = engines
         self.plan = plan
-        self.device = engines[0].device
+        # the engines' device; `device` names it when a recovering caller
+        # passes placeholders (None) for shards it will mark failed
+        self.device = torch.device(device) if device is not None \
+            else next(e.device for e in engines if e is not None)
         self.cache = cache  # the shared tier (engines hold shard views of it)
         self.bgp_cache = bool(bgp_cache)
         self.max_batch = int(max_batch)
@@ -221,10 +230,15 @@ class ShardedTripleService(MicroBatchService):
         self._journal = None
         # cache-namespace indirection: shard k's entries live under
         # namespace _cache_ns[k] of the shared tier, merged scattered results
-        # under _merged_ns (the identity mapping here; replica services would
-        # take namespaces of their own)
+        # under _merged_ns. The primary uses the identity mapping; replica
+        # group services (repro_torch.serve.replication) take disjoint
+        # negative namespaces, so a lagging replica serves its own
+        # generation's entries and never mixes them with the primary's
         self._cache_ns: list[int] = list(range(plan.n_shards))
         self._merged_ns: int = _MERGED_SHARD
+        # read-replica dispatch: a ReplicationManager once the durable
+        # service enables replication (flushes then prefer a replica group)
+        self._replicas = None
         # optional TermDict for the string surfaces (attach_term_dict)
         self.term_dict = None
 
@@ -284,7 +298,23 @@ class ShardedTripleService(MicroBatchService):
         n = len(s)
         t0 = time.perf_counter()
         with self._rw.read():
-            view = self._run(s, p, o)
+            group = None
+            if self._replicas is not None and not self._rw.write_held:
+                # write_held while we hold read means WE are the writer (a
+                # probe inside a write section): it must see the primary's
+                # half-applied state, not a replica's
+                group = self._replicas.acquire()
+            if group is not None:
+                try:
+                    # the whole flush runs on ONE replica group, so merged
+                    # results never mix generations; the group's read lock
+                    # excludes its WAL-tail applies
+                    with group.service._rw.read():
+                        view = group.service._run(s, p, o)
+                finally:
+                    self._replicas.release(group)
+            else:
+                view = self._run(s, p, o)
         dt = time.perf_counter() - t0
         with self._stats_lock:
             st = self.stats
@@ -293,6 +323,8 @@ class ShardedTripleService(MicroBatchService):
             st.results += view.total_results()
             st.total_s += dt
             st.last_flush_qps = n / dt if dt > 0 else 0.0
+            if group is not None:
+                st.replica_flushes += 1
         return view
 
     def query_bgp(self, patterns):
@@ -413,8 +445,13 @@ class ShardedTripleService(MicroBatchService):
         return self.serve_threads
 
     def close(self) -> None:
-        """Drain the fan-out pool (idempotent; a later threaded flush makes
-        a new one)."""
+        """Shut down the replica tier, if one is attached, then drain the
+        fan-out pool. Idempotent across the hierarchy: each close here and
+        in the groups' own services is a no-op the second time; the tier
+        stays usable (a later threaded flush makes a new pool)."""
+        replicas, self._replicas = self._replicas, None
+        if replicas is not None:
+            replicas.close()  # closes each group service's pool too
         with self._pool_lock:
             pool, self._pool = self._pool, None
         if pool is not None:

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import (SPLIT_MAX_ROWS, flash_attention
                                                  flash_attention_cuda, pack_partials,
                                                  partials_size, plan_splits, planned_splits)
 from repro_torch.kernels.ref import SPLIT_KEYS, split_bounds, visible_range
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 

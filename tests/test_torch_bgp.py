@@ -29,6 +29,7 @@ from tests.test_bgp import _rows as fixed_rows
 from tests.test_itr_core import random_hypergraph
 from tests.test_torch_build import DATASETS, port_hypergraph
 from tests.test_torch_query import _load_reference_state
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_NODES, N_PREDS = 16, 4
 

@@ -15,6 +15,7 @@ from repro.core.digram import node_it_counts as ref_node_it_counts
 from repro.data.synthetic import rdf_like, version_graph, web_graph
 from repro_torch.core.digram import digram_counts, node_it_counts
 from tests.test_itr_core import random_hypergraph
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DATASETS = {
     "rdf_like": lambda: rdf_like(300, 1000, 5, seed=3),

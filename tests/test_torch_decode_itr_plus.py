@@ -34,6 +34,7 @@ from repro_torch.kernels import ops
 from tests.test_itr_core import fig1_graph, random_hypergraph
 from tests.test_torch_build import DATASETS, assert_same_grammar, assert_same_graph, \
     both_graphs, port_hypergraph
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 

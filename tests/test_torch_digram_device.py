@@ -25,6 +25,7 @@ from repro_torch.kernels.digram_count import (EMPTY, SKIP, DigramTable, digram_p
                                               digram_select_cuda)
 from tests.test_itr_core import random_hypergraph
 from tests.test_torch_build import DATASETS, assert_same_grammar, both_graphs, port_hypergraph
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _ragged(rng, n_rows, max_k, empty_share=0.2):

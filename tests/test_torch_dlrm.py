@@ -27,6 +27,7 @@ from repro_torch.launch import steps
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.models.common import MLP
 from repro_torch.models.dlrm import DLRM
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL_BF16 = dict(name="dlrm-small-bf16", embed_dim=16, bot_mlp=(32, 16), top_mlp=(32, 16, 1),
                   compute_dtype="bfloat16", row_counts=tuple(range(3, 29)))

@@ -57,6 +57,7 @@ from repro_torch.kernels.embedding_bag import (embedding_bag_backward_cuda, mapp
 from repro_torch.launch import steps
 from repro_torch.models.dlrm import DLRM, dlrm_grads, dlrm_loss
 from repro_torch.train import optimizer as topt
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 

@@ -28,6 +28,7 @@ from repro.models.dlrm import _interact
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_interaction import (SMEM_CAP, TC_SAMPLES, backward_uses_tensor_cores,
                                                  tc_backward_plan, tc_backward_smem)
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_SM = 132  # an H100's SMs
 TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}  # (rtol, x max|want|)

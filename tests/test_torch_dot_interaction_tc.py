@@ -24,6 +24,7 @@ from repro.models.dlrm import _interact
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_interaction import (SMEM_CAP, TC_SAMPLES, tc_plan, tc_smem,
                                                  uses_tensor_cores)
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_SM = 132  # an H100's SMs
 

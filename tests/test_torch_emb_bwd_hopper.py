@@ -25,6 +25,7 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 from repro_torch.kernels import embedding_bag as eb
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EMB_BWD_TOL = dict(rtol=1e-5, scaled=1e-5)
 EBB_DONE = 2**40  # the kernel's count of a cut run once all its chunks are in

@@ -34,6 +34,7 @@ from repro_torch.data.graphs import node_graph
 from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from repro_torch.models.gnn import GCN, Graph, node_loss
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
@@ -48,7 +49,8 @@ def test_port_sources_name_no_reference_import():
             core / "bgp.py", core / "term_dict.py", data / "rdf.py", data / "ingest.py",
             data / "graph_store.py", serve / "concurrency.py", serve / "triple_service.py",
             serve / "sharded.py", dist / "__init__.py", dist / "partition.py",
-            dist / "rebalance.py"} <= set(paths)
+            dist / "rebalance.py", persist / "wal.py", persist / "service.py",
+            serve / "replication.py", SRC / "repro_torch" / "launch" / "itr_durable.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -90,8 +92,8 @@ def _zero_lm_params(cfg):
                                    "gcn_from_numpy_params", "gnn_build_cell",
                                    "dlrm_train_build_cell", "load_snapshot",
                                    "graph_store_from_triples", "parse_ntriples",
-                                   "sharded_build"])
-def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
+                                   "sharded_build", "durable_build", "durable_open"])
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     _without_cuda()
     from repro_torch import resolve_device
     from repro_torch.configs import qwen2_1_5b
@@ -105,6 +107,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
     from repro_torch.models.transformer import Transformer
     from repro_torch.data import GraphStore, parse_ntriples
     from repro_torch.persist import load_snapshot
+    from repro_torch.persist import DurableShardedService
     from repro_torch.serve import ShardedTripleService
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
@@ -141,11 +144,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry):
                                                      device=dev),
         "sharded_build": lambda dev: ShardedTripleService.build(triples, 3, 1, n_shards=2,
                                                                 device=dev),
+        "durable_build": lambda dev: DurableShardedService.build(
+            triples, 3, 1, root=tmp_path / "svc", n_shards=2, fsync=False, device=dev).close(),
+        "durable_open": lambda dev: DurableShardedService.open(ROOT / "no-such-service",
+                                                               device=dev),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)
-    if entry not in ("from_numpy_state", "load_snapshot"):  # these need real input
+    if entry not in ("from_numpy_state", "load_snapshot", "durable_open"):  # need real input
         calls[entry]("cpu")  # asking for the CPU works
+    if entry == "durable_build":  # and the directory it wrote opens on the CPU
+        DurableShardedService.open(tmp_path / "svc", device="cpu").close()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DurableShardedService.open(tmp_path / "svc")
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -16,6 +16,7 @@ from hypothesis import given, settings, strategies as st
 from repro.core import succinct as R
 from repro_torch.core import succinct as P
 from repro_torch.kernels import ops, ref
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _trees(r, c, n_rows, n_cols, k):

@@ -22,6 +22,7 @@ from repro_torch.kernels.bitvec_rank import bitvec_rank_cuda
 from repro_torch.kernels.digram_count import digram_pair_counts_cuda
 from repro_torch.kernels.k2_lines import K2Layout, k2_lines_cuda
 from repro_torch.kernels.segment_matmul import CSR
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rank_inputs(rng, nbits):

@@ -23,6 +23,7 @@ from repro.models.dlrm import _interact
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dot_interaction import dot_interaction_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_ROUND = dict(rtol=2**-7, atol=1e-6)

@@ -27,6 +27,7 @@ import repro_torch.core as P
 import repro_torch.core.delta as P_delta
 from tests.test_torch_build import assert_same_grammar, port_hypergraph
 from tests.test_torch_query import _load_reference_state
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATTERN_NAMES = ["s??", "?p?", "??o", "sp?", "s?o", "?po", "spo", "???"]
 

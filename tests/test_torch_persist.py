@@ -31,6 +31,7 @@ import repro_torch.persist.crash as P_crash
 import repro_torch.persist.snapshot as P_snap
 from repro_torch.core.repair import RepairConfig as PortConfig
 from tests.test_torch_build import assert_same_grammar, port_hypergraph
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ALL_PATTERNS = [(-1, -1, -1), (1, -1, -1), (-1, 1, -1), (-1, -1, 1),
                 (1, 1, -1), (1, -1, 1), (-1, 1, 1), (1, 1, 1)]

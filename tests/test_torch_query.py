@@ -17,6 +17,7 @@ import repro.core as R
 import repro_torch.core as P
 from repro.persist.snapshot import MANIFEST, save_snapshot
 from tests.test_torch_build import DATASETS, both_graphs
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATTERNS = ["s??", "?p?", "??o", "sp?", "s?o", "?po", "spo", "???"]
 

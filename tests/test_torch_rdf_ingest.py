@@ -27,6 +27,7 @@ import repro_torch.data.graph_store as P_gs
 import repro_torch.data.ingest as P_ing
 import repro_torch.data.rdf as P_rdf
 from repro.data.synthetic import rdf_like
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "small.nt")
 PATTERNS = ["spo", "sp?", "s?o", "s??", "?po", "?p?", "??o", "???"]

@@ -17,6 +17,7 @@ import repro.core as R
 import repro_torch.core as P
 from tests.test_itr_core import random_hypergraph
 from tests.test_torch_build import port_hypergraph
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _canon(results):

@@ -24,6 +24,7 @@ from repro_torch.core.succinct import K2Tree as PK2Tree
 from tests.test_itr_core import random_hypergraph
 from tests.test_torch_build import DATASETS, both_graphs, port_hypergraph
 from tests.test_torch_query import _load_reference_state
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATTERNS = ["s??", "?p?", "??o", "sp?", "s?o", "?po", "spo", "???"]
 SELECTIVE = [p for p in PATTERNS if p[0] != "?" or p[2] != "?"]

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.launch import host_probe
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def walk(plan: eb.SgdPlan, cap: int, n_unique: int) -> list:

@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.segment_matmul import CSR, CSRSpMM, build_csr, csr_spmm_cuda
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)  # tests/test_kernels.py::_tol for bfloat16

@@ -10,6 +10,7 @@ import torch
 
 from repro.core import succinct as R
 from repro_torch.core import succinct as P
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np(t):

@@ -22,6 +22,7 @@ import repro.persist.snapshot as R_snap
 import repro_torch.core.bgp as P_bgp
 import repro_torch.core.term_dict as P_td
 import repro_torch.persist.snapshot as P_snap
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _TERMS = ([f"<http://ex.org/node/{i:04d}>" for i in range(60)]
           + [f"_:b{i}" for i in range(10)]

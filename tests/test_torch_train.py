@@ -19,6 +19,7 @@ from repro.train.loop import Trainer as JTrainer
 from repro.train.loop import TrainerConfig as JTrainerConfig
 from repro_torch.train import optimizer as topt
 from repro_torch.train.loop import Trainer, TrainerConfig
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SHAPES = {"emb/table": (10, 4), "mlp/b": (4,), "mlp/w": (4, 3)}

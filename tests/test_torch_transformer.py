@@ -33,6 +33,7 @@ from repro_torch.launch import steps
 from repro_torch.models import common as tcommon
 from repro_torch.models.transformer import Transformer, TransformerConfig
 from repro_torch.serve import GenerationResult, ServeEngine
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_LOGITS = dict(rtol=0.0, atol=0.1)
