@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR, DLRM serving
-and training, LM serving, GNN training.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR and the paper's
+baselines, DLRM serving and training, LM serving, GNN training.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
 
@@ -253,6 +253,23 @@ nothing of the JAX package. Phases:
    the oracle holding it disagrees), a group whose cursor skipped a
    record (its answers differ), a flipped byte in one shard's snapshot
    (that shard degrades, a write routed to it raises);
+   3h. the paper's baselines and the loop ablation on phase 3's triples,
+   the launch counts set to 0 before it and read after (``bitvec_rank``
+   and ``k2_lines_count`` at least once): ``K2Triples`` (a k²-tree a
+   predicate) and ``HDTBitmapTriples`` built on the card (s), each
+   ``size_in_bytes()`` equal to the port's CPU build's, beside phase 3's
+   ITR encoded bytes and ``ntriples_size_bytes`` (the paper's Table 1a
+   ratios); 256 queries a pattern of phase 3's picked rows (16 for ?p?, 4
+   for ???) through each ``query``, every answer sorted equal to a plain
+   scan of the triples, p50 / p99 µs beside phase 3's ``engine.query``
+   singles, host syncs a query (sync debug mode) and the ``bitvec_rank``
+   and ``k2_lines`` launches by pattern; a control (one ``Bo`` bit flipped
+   in a copy of HDT-BT) that must fail; ``loop_rule_transform`` of phase
+   3's grammar and of chess-legal's ITR grammar (phase 3d's): loop edges,
+   rules added, encoded bytes with index-functions and with loop rules,
+   the transform's s, no loop edge left, the decompression's edge set
+   equal on the card and the grammar equal to the port's CPU transform;
+
 4. time each kernel on the inputs its path gave it, beside its plain twin,
    a PyTorch library call where one computes the same function, and its
    least possible time (bytes at 3.35 TB/s or operations at the card's
@@ -351,6 +368,26 @@ nothing of the JAX package. Phases:
    the rows of more than 1,024 edges emptied, the combine on the split
    twin's partials, the kernel's gathers in a row (SASS), the kernel path
    against the twin path, and two steps from one state bit-identical.
+   8b. the reference example's training path (``launch/gnn_compressed``)
+   on phase 3's graph under phase 8's memory rule (at most 1 GiB
+   allocated at its start and end): a ``GraphStore`` built anew (s),
+   ``csc()`` ms, ``NeighborSampler`` with fanouts (15, 10) and 1,024 seeds
+   (ms and host syncs a sample, nodes and edges) and its invariants
+   checked on the card (every edge a CSC edge, no repeated pair, fanouts
+   kept, ``node_ids`` sorted, unique, holding the seeds) with a planted
+   non-edge that must fail; GatedGCN at full width (16 layers, 70 wide)
+   on ``minibatch_lg``'s batch shape (602 features, 41 classes, 46,108 x
+   168,960 padded): one step's loss and gradients against the twin path,
+   exactly 64 ``csr_spmm`` launches and 32 combines a step, the kernel at
+   the edge-id CSR and its transpose beside its twin and
+   ``torch.sparse.mm``; the reduced config on the example's sizes, card
+   against host CPU over 3 steps; the example's schedule (300 steps,
+   checkpoints every 50, a failure at 120, a fresh model restored from
+   step 100 bit for bit against the host copy that save took, run to 300,
+   the loss falling; a checkpoint leaf altered on disk must fail), with
+   step, save, write and restore ms; 20 steps each with ``int8`` and
+   ``topk`` gradient compression (decoded gradients equal to the CPU
+   codec's); steps with an async save in flight against none.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -866,6 +903,7 @@ def drive_main_path(torch, np, seed: int, scale: float, n_queries: int) -> dict:
               f"us_per_query={query_s[pat] / n_q * 1e6:.3f} oracle_equal=True")
     return {"engine": engine, "graph": graph, "table": table, "counts": counts,
             "batches": batches, "build_s": build_s, "dataset": ds, "grammar": grammar,
+            "encoded": encoded,
             "stats": stats, "accum_calls": accum_calls, "select_table": select_table[0],
             "pick": pick, "triples": triples, "query_s": query_s, "stages": stages}
 
@@ -926,7 +964,7 @@ def _single_queries(torch, np, engine, main: dict, width: int) -> dict:
     engine.crossover = width
     filled = engine._nt_rows is not None
     ops.reset_launch_counts()
-    n_seeds, p50 = 0, {}
+    n_seeds, p50, p99 = 0, {}, {}
     for pat in SELECTIVE:
         qs = [tuple(int(main["pick"][i, j]) if pat[j] != "?" else None for j in range(3))
               for i in range(SINGLES)]
@@ -941,6 +979,7 @@ def _single_queries(torch, np, engine, main: dict, width: int) -> dict:
             _fail(f"single {pat} queries at crossover {width} differ from the oracle")
         n_seeds += len(qs)
         p50[pat] = float(np.percentile(us, 50))
+        p99[pat] = float(np.percentile(us, 99))
         print(f"single {pat} crossover={width} queries={len(qs)} {_pcts(np, us)} "
               f"results={sum(map(len, answers))} oracle_equal=True")
     counts = {k: ops.launch_counts[k] for k in K2_NAMES}
@@ -955,7 +994,7 @@ def _single_queries(torch, np, engine, main: dict, width: int) -> dict:
             "k2_lines_write": n_seeds + fills}
     if counts != want:
         _fail(f"single queries at crossover {width} launched {counts}, not {want}")
-    return {"p50_us": p50, "counts": counts}
+    return {"p50_us": p50, "p99_us": p99, "counts": counts}
 
 
 def _neighbour_rows(torch, lists):
@@ -1120,6 +1159,7 @@ def drive_scalar_path(torch, np, main: dict, seed: int) -> None:
     print("crossover check (p50 us, worklist width / frontier): "
           + " ".join(f"{pat}={worklist[pat]:.1f}/{frontier[pat]:.1f}" for pat in SELECTIVE))
     main["scalar_part"] = {"row_ms": row_ms, "row_twin_ms": twin_ms,
+                           "singles": readings[widths[0]], "crossover": widths[0],
                            "launches": {k: sum(r["counts"][k] for r in readings.values())
                                         + nb["counts"][k] for k in K2_NAMES}}
 
@@ -1779,6 +1819,7 @@ def _itr_plus_part(torch, np, seed: int) -> dict:
     if label_edges == 0:
         _fail("no ITR+ query answered a rank-1 label edge")
     return {"bytes": (builds["ITR"]["bytes"], plus["bytes"]), "costs": costs,
+            "itr_grammar": builds["ITR"]["grammar"],
             "build_s": (builds["ITR"]["build_s"], plus["build_s"]), "cpu_s": cpu_s}
 
 
@@ -4391,6 +4432,261 @@ def drive_durable_path(torch, np, main: dict, seed: int) -> None:
                             "sigkill": sigkill, "replication": repl, "part_s": part_s}
 
 
+BASELINE_QUERIES = 256      # queries a pattern in phase 3h (16 for ?p?, 4 for ???)
+BASELINE_NARROW = {"?p?": 16, "???": 4}
+BASELINE_PATTERNS = ("spo", "sp?", "s?o", "s??", "?po", "?p?", "??o", "???")
+RANK_NAMES = ("bitvec_rank", "k2_lines_count", "k2_lines_write")
+
+
+def _host_oracle(np, t, q) -> list:
+    """The (p, (s, o)) answers of pattern q over the (n, 3) numpy triples,
+    sorted: the plain scan."""
+    sel = np.ones(len(t), dtype=bool)
+    for i, v in enumerate(q):
+        if v is not None:
+            sel &= t[:, i] == v
+    return sorted((int(p), (int(s), int(o))) for s, p, o in t[sel])
+
+
+def _baseline_queries(np, pick, pat: str) -> list:
+    n = BASELINE_NARROW.get(pat, BASELINE_QUERIES)
+    return [tuple(int(pick[i, j]) if pat[j] != "?" else None for j in range(3))
+            for i in range(n)]
+
+
+def _baseline_reading(torch, np, what: str, obj, t_np, pat: str, qs: list) -> dict:
+    """Each query of a pattern through ``obj.query`` on the host clock (the
+    answer is host tuples: finished work), held against the plain scan; the
+    launch counts around the whole reading and the host syncs of its first
+    query."""
+    from repro_torch.kernels import ops
+
+    syncs = _count_syncs(torch, lambda: obj.query(*qs[0]))
+    torch.cuda.synchronize()
+    before = {k: ops.launch_counts[k] for k in RANK_NAMES}
+    us, results, lines = [], 0, 0
+    for q in qs:
+        t0 = time.perf_counter()
+        ans = obj.query(*q)
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) * 1e6)
+        want = _host_oracle(np, t_np, q)
+        if sorted(ans) != want:
+            _fail(f"{what} {pat} query {q} differs from the oracle scan")
+        results += len(ans)
+        lines += len({p for p, _ in want})
+    launches = {k: ops.launch_counts[k] - before[k] for k in RANK_NAMES}
+    return {"p50_us": float(np.percentile(us, 50)), "p99_us": float(np.percentile(us, 99)),
+            "syncs": syncs, "launches": launches, "results": results, "queries": len(qs),
+            "lines": lines}
+
+
+def _access_ranks(np, k2_cpu, qs: list) -> int:
+    """The ``rank1`` calls that ``K2Tree.access`` makes for queries ``qs``
+    (S and O bound) over the trees they name: one at each level whose bit
+    on the path is set, walked over numpy copies of the CPU build's levels."""
+    from repro_torch.core.succinct.bitvector import unpack_bits
+
+    trees = []
+    for t in k2_cpu.trees:
+        bits = [unpack_bits(lv.words, lv.n).numpy() for lv in t.levels]
+        trees.append((t, bits, [np.concatenate([[0], np.cumsum(b)]) for b in bits]))
+    total = 0
+    for s, p, o in qs:
+        for tree, bits, ranks in (trees if p is None else [trees[p]]):
+            k, block = tree.k, 0
+            for lvl in range(tree.h):
+                scale = k ** (tree.h - 1 - lvl)
+                pos = block * k * k + (s // scale % k) * k + (o // scale % k)
+                if pos >= len(bits[lvl]) or not bits[lvl][pos]:
+                    break
+                total += 1
+                block = int(ranks[lvl][pos])
+    return total
+
+
+def _check_baseline_launches(name: str, pat: str, r: dict, n_preds: int, ranks: int) -> None:
+    """The launches a reading ``r`` must make, exactly: HDT-BT one
+    ``bitvec_rank`` a query (the S-rooted walk's ``Bo.rank1``, the scan's
+    ``Bp.rank1``); k²-triples, for S and O bound, ``ranks`` ``bitvec_rank``
+    (``access``, one a level reached) and no ``k2_lines``, else one
+    ``k2_lines_count`` a query and tree and one ``k2_lines_write`` for each
+    (query, tree) whose line the oracle shows not empty, and no
+    ``bitvec_rank``."""
+    n_q, got = r["queries"], r["launches"]
+    trees = 1 if pat[1] == "p" else n_preds
+    if name == "hdt-bt":
+        want = {"bitvec_rank": n_q, "k2_lines_count": 0, "k2_lines_write": 0}
+    elif pat[0] == "s" and pat[2] == "o":
+        want = {"bitvec_rank": ranks, "k2_lines_count": 0, "k2_lines_write": 0}
+    else:
+        want = {"bitvec_rank": 0, "k2_lines_count": n_q * trees, "k2_lines_write": r["lines"]}
+    if got != want:
+        _fail(f"{name} {pat} launched {got}, not {want}")
+
+
+def _flipped_bo(torch, hdt):
+    """A copy of the HDT-BT structure with one bit of ``Bo`` flipped (the
+    control of phase 3h)."""
+    import copy
+
+    from repro_torch.core.succinct import BitVector
+
+    bad = copy.copy(hdt)
+    words = hdt.Bo.words.clone()
+    words[words.numel() // 2] ^= 1 << 7
+    bad.Bo = BitVector.from_words(words, hdt.Bo.n)
+    return bad
+
+
+def _grammar_to(grammar, dev):
+    """A copy of the grammar on ``dev``."""
+    from repro_torch.core import Grammar, Hypergraph, LabelTable, Rule
+
+    def graph(g):
+        return Hypergraph(g.n_nodes, g.labels.to(dev), g.nodes_flat.to(dev), g.offsets.to(dev))
+
+    table = LabelTable(grammar.table.ranks.to(dev), grammar.table.n_terminals,
+                       grammar.table.names)
+    return Grammar(table, graph(grammar.start),
+                   {lbl: Rule(r.label, r.rank, graph(r.rhs)) for lbl, r in grammar.rules.items()})
+
+
+def _loop_edges(torch, g) -> int:
+    """Start edges with a repeated node (rank-2 and rank-3 edges of these
+    grammars: compare every pair of positions)."""
+    ranks = (g.offsets[1:] - g.offsets[:-1]).tolist()
+    flat, off = g.nodes_flat.tolist(), g.offsets.tolist()
+    return sum(len(set(flat[off[e]:off[e + 1]])) < ranks[e] for e in range(len(ranks)))
+
+
+def _edge_set(torch, g):
+    """The distinct (label, nodes...) rows of a hypergraph, padded with -1."""
+    ranks = g.offsets[1:] - g.offsets[:-1]
+    r_max = int(ranks.max()) if ranks.numel() else 0
+    slot = torch.arange(r_max, device=g.labels.device)
+    take = (g.offsets[:-1, None] + slot).clamp(max=max(g.nodes_flat.numel() - 1, 0))
+    nodes = torch.where(slot < ranks[:, None], g.nodes_flat[take], -1)
+    return torch.unique(torch.cat([g.labels[:, None], nodes], 1), dim=0)
+
+
+def _ablation(torch, what: str, grammar) -> dict:
+    from repro_torch.core import encode
+    from repro_torch.core.ablations import loop_rule_transform
+
+    loops = _loop_edges(torch, grammar.start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = loop_rule_transform(grammar)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    if _loop_edges(torch, out.start):
+        _fail(f"the loop transform of {what} left loop edges in its start graph")
+    if not torch.equal(_edge_set(torch, out.decompress()), _edge_set(torch, grammar.decompress())):
+        _fail(f"the loop transform of {what} decompresses to another edge set on the card")
+    cpu = loop_rule_transform(_grammar_to(grammar, "cpu"))
+    if not _same_grammar(torch, out, cpu):
+        _fail(f"the loop transform of {what} on the card differs from the CPU's")
+    b_index, b_loops = encode(grammar).size_in_bytes(), encode(out).size_in_bytes()
+    added = len(out.rules) - len(grammar.rules)
+    print(f"loop ablation {what}: start_edges={grammar.start.n_edges} loop_edges={loops} "
+          f"rules_added={added} encoded_bytes index_functions={b_index} loop_rules={b_loops} "
+          f"(ratio {b_loops / b_index:.6f}) transform_s={transform_s:.6f}; no loop edge left, "
+          f"decompression equal, card transform equal to the CPU's")
+    return {"loop_edges": loops, "rules_added": added, "bytes_index": b_index,
+            "bytes_loops": b_loops, "transform_s": transform_s}
+
+
+def drive_baselines_path(torch, np, main: dict, seed: int) -> None:
+    """Phase 3h: the paper's baselines (k²-triples, HDT-BT) and the loop
+    ablation on phase 3's data, on the card."""
+    from repro_torch.baselines import HDTBitmapTriples, K2Triples, ntriples_size_bytes
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    card = _card()
+    ds = main["dataset"]
+    t_np = ds.triples
+    ops.reset_launch_counts()
+    built, sizes, cpu_built = {}, {}, {}
+    for name, cls in (("k2-triples", K2Triples), ("hdt-bt", HDTBitmapTriples)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built[name] = cls(t_np, ds.n_nodes, ds.n_preds)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sizes[name] = built[name].size_in_bytes()
+        cpu_built[name] = cls(t_np, ds.n_nodes, ds.n_preds, device="cpu")
+        cpu = cpu_built[name].size_in_bytes()
+        if sizes[name] != cpu:
+            _fail(f"{name}: size_in_bytes {sizes[name]} on the card, {cpu} on the CPU")
+        print(f"baseline {name} build_s={build_s:.6f} size_in_bytes={sizes[name]} "
+              f"(equal to the CPU build's) on {card}")
+    build_counts = {k: ops.launch_counts[k] for k in RANK_NAMES}
+    nt = ntriples_size_bytes(t_np)
+    itr = main["encoded"].size_in_bytes()
+    print(f"table 1a geo-coordinates-en: ntriples_bytes={nt} ITR={itr} "
+          f"({100 * itr / nt:.4f}%) k2-triples={sizes['k2-triples']} "
+          f"({100 * sizes['k2-triples'] / nt:.4f}%) hdt-bt={sizes['hdt-bt']} "
+          f"({100 * sizes['hdt-bt'] / nt:.4f}%) of the N-Triples size")
+
+    singles = main["scalar_part"]["singles"]
+    marks = {"a": time.perf_counter() - t_start}
+    readings = {}
+    for pat in BASELINE_PATTERNS:
+        qs = _baseline_queries(np, main["pick"], pat)
+        for name, obj in built.items():
+            r = _baseline_reading(torch, np, name, obj, t_np, pat, qs)
+            readings[(name, pat)] = r
+            ranks = _access_ranks(np, cpu_built[name], qs) \
+                if name == "k2-triples" and pat[0] == "s" and pat[2] == "o" else 0
+            _check_baseline_launches(name, pat, r, ds.n_preds, ranks)
+            itr_pct = (f"{singles['p50_us'][pat]:.1f}/{singles['p99_us'][pat]:.1f}"
+                       if pat in singles["p50_us"] else "not measured")
+            print(f"baseline {name} {pat} queries={r['queries']} p50_us={r['p50_us']:.1f} "
+                  f"p99_us={r['p99_us']:.1f} results={r['results']} host_syncs_a_query="
+                  f"{r['syncs']} launches " + " ".join(f"{k}={v}" for k, v in
+                                                       r["launches"].items())
+                  + f" oracle_equal=True; ITR engine.query p50/p99_us={itr_pct} "
+                  f"(phase 3, crossover {main['scalar_part']['crossover']}) on {card}")
+    # the control: a flipped Bo bit must change some answer
+    bad = _flipped_bo(torch, built["hdt-bt"])
+    caught = 0
+    for q in _baseline_queries(np, main["pick"], "??o")[:64] + [(None, None, None)]:
+        try:
+            caught += sorted(bad.query(*q)) != _host_oracle(np, t_np, q)
+        except (IndexError, RuntimeError):
+            caught += 1
+    print(f"control: HDT-BT with one Bo bit flipped differs from the oracle on {caught} of 65 "
+          f"queries (must be > 0)")
+    if not caught:
+        _fail("the flipped-Bo-bit control of HDT-BT answered every query as the oracle")
+    del bad
+    marks["b"] = time.perf_counter() - t_start
+    counts = {k: ops.launch_counts[k] for k in (*RANK_NAMES, *DIGRAM_NAMES)}
+    if counts["bitvec_rank"] == 0 or counts["k2_lines_count"] == 0:
+        _fail(f"phase 3h launched bitvec_rank {counts['bitvec_rank']} and k2_lines_count "
+              f"{counts['k2_lines_count']} times: both must run")
+    ablation = {"geo-coordinates-en": _ablation(torch, "geo-coordinates-en", main["grammar"]),
+                PLUS_DATASET: _ablation(torch, PLUS_DATASET,
+                                        main["snapshot_part"]["itr_plus"]["itr_grammar"])}
+    counts = {k: ops.launch_counts[k] for k in (*RANK_NAMES, *DIGRAM_NAMES)}
+    seconds = time.perf_counter() - t_start
+    print(f"phase 3h launches " + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f" (builds: " + " ".join(f"{k}={v}" for k, v in build_counts.items())
+          + f") phase_3h_s={seconds:.3f} (cumulative s at the end of (a) {marks['a']:.1f}, "
+          f"(b) {marks['b']:.1f})")
+    # the rank kernel at the baselines' shapes: HDT-BT's run_subject, one
+    # rank1 over every run of Bp (the O-rooted scan's launch)
+    hdt = built["hdt-bt"]
+    bp = hdt.Bp
+    runs = torch.arange(hdt.Sp.numel(), device=DEV)
+    bp.rank1(runs[:1])  # builds the padded words
+    main["baselines_part"] = {"launches": counts, "sizes": sizes, "ablation": ablation,
+                              "rank_call": (bp._rank_words, bp.word_ranks, runs),
+                              "seconds": seconds}
+
+
 def time_kernels(torch, np, main: dict, errs: dict) -> list:
     """Phase 4: each kernel on the inputs the main path gives it."""
     from repro_torch.kernels import ref
@@ -4421,11 +4717,27 @@ def time_kernels(torch, np, main: dict, errs: dict) -> list:
     print(f"bitvec_rank per-level shapes: {len(rank_calls)} calls (one s?? seed batch), "
           f"Q per level={[a[2].numel() for a in rank_calls]}, "
           f"W+1 per level={[a[0].numel() for a in rank_calls]}")
+    baselines = main["baselines_part"]
     out = [_kernel_row(torch, "bitvec_rank", "src/repro_torch/csrc/bitvec_rank.cu",
-                       "src/repro/kernels/bitvec_rank.py:33", main["counts"]["bitvec_rank"],
+                       "src/repro/kernels/bitvec_rank.py:33",
+                       main["counts"]["bitvec_rank"] + baselines["launches"]["bitvec_rank"],
                        errs["bitvec_rank"], lambda: [bitvec_rank_cuda(*a) for a in rank_calls],
                        lambda: [ref.bitvec_rank_ref(*a) for a in rank_calls],
                        rank_bytes, rank_ops)]
+    # and at the baselines' shape: HDT-BT's run_subject, one rank1 over all runs
+    call = baselines["rank_call"]
+    got, want = bitvec_rank_cuda(*call), ref.bitvec_rank_ref(*call)
+    if not torch.equal(got, want):
+        _fail("bitvec_rank differs from its twin at HDT-BT's run_subject shape")
+    q = call[2].numel()
+    at_bl = _kernel_row(torch, "bitvec_rank", "src/repro_torch/csrc/bitvec_rank.cu",
+                        "src/repro/kernels/bitvec_rank.py:33", baselines["launches"]["bitvec_rank"],
+                        0, lambda: bitvec_rank_cuda(*call), lambda: ref.bitvec_rank_ref(*call),
+                        16 * q + min(64 * q, 12 * call[0].numel()), 12 * q)
+    out[0].update(launches_phase3=main["counts"]["bitvec_rank"],
+                  launches_baselines_part=baselines["launches"]["bitvec_rank"],
+                  at_baselines_shape={k: at_bl[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by")} | {"q": q})
     out += _digram_rows(torch, main, errs)
     out += _k2_lines_rows(torch, main, errs, lay, s, per_level, rank_calls)
     return out
@@ -4558,6 +4870,7 @@ def _digram_rows(torch, main: dict, errs: dict) -> list:
                         (sel, "digram_select")):
         entry["launches_mutation_part"] = main["mutation_part"]["launches"][name]
         entry["launches_snapshot_part"] = main["snapshot_part"]["launches"][name]
+        entry["launches_baselines_part"] = main["baselines_part"]["launches"][name]
     return [dense, row, sel]
 
 
@@ -4627,6 +4940,7 @@ def _k2_lines_rows(torch, main: dict, errs: dict, lay, s, per_level, rank_calls)
                      "launches_scalar_part": main["scalar_part"]["launches"][name],
                      "launches_mutation_part": main["mutation_part"]["launches"][name],
                      "launches_snapshot_part": main["snapshot_part"]["launches"][name],
+                     "launches_baselines_part": main["baselines_part"]["launches"][name],
                      "single_row_ms": main["scalar_part"]["row_ms"]})
     return rows
 
@@ -8030,6 +8344,609 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
              "split twin's partials", "per_launch": combines}]
 
 
+# Phase 8b: the reference example's training path (store -> sampler ->
+# GatedGCN -> Trainer with checkpoints, a failure and the restore) at
+# minibatch_lg's batch shape on phase 3's graph, with GatedGCN at full width.
+# Tolerances, kernel path against twin path on one step: both sum each
+# aggregation in float32 (the twin's index_add_ in any order), which moves a
+# sum by about n * 2**-24 of its terms; 16 layers of layer norms pass that
+# on, so the loss is held at rtol 1e-5 and each gradient leaf at 1e-3 of its
+# largest entry. Card against host CPU, 3 steps of the reduced config: the
+# same sums in another order, losses at rtol 1e-4.
+GATED_SEEDS = 1024          # minibatch_lg's batch_nodes
+GATED_FANOUTS = (15, 10)    # minibatch_lg's fanouts
+GATED_LOSS_RTOL = 1e-5
+GATED_GRAD_SCALED = 1e-3
+GATED_HOST_RTOL = 1e-4
+GATED_STEPS = 300           # the example's schedule
+GATED_CKPT_EVERY = 50
+GATED_FAIL_AT = 120
+CODEC_STEPS = 20            # steps a codec in 8b (d)
+OVERLAP_STEPS = 10          # steps with and without an async save in flight (e)
+FILLED_STEPS = 10           # timed steps on the filled batch (b)
+SAMPLES_TIMED = 10
+
+
+def _csc_keys(torch, indptr, indices, n: int):
+    """dst * n + src of every CSC edge (row dst lists its in-neighbours)."""
+    rows = torch.repeat_interleave(torch.arange(n, device=indptr.device), indptr.diff(),
+                                   output_size=indices.numel())
+    return torch.unique(rows * n + indices)
+
+
+def _sample_ok(torch, batch, keys, n: int, fanouts) -> bool:
+    """The sampler's invariants, on the card, read with one host copy: every
+    sampled edge is a CSC edge, no (dst, src) repeats in a block, no receiver
+    exceeds its fanout, node_ids is sorted, unique and holds every seed, and
+    senders / receivers index it."""
+    ids = batch.node_ids
+    m = ids.numel()
+    checks = [(ids[1:] > ids[:-1]).all(), torch.isin(batch.seeds, ids).all()]
+    for blk, f in zip(batch.blocks, fanouts):
+        inside = (blk.senders >= 0).all() & (blk.senders < m).all() & \
+            (blk.receivers >= 0).all() & (blk.receivers < m).all()
+        key = ids[blk.receivers.clamp(0, m - 1)] * n + ids[blk.senders.clamp(0, m - 1)]
+        checks += [inside, torch.isin(key, keys).all(),
+                   torch.tensor(torch.unique(key).numel() == key.numel(), device=ids.device),
+                   torch.bincount(blk.receivers, minlength=1).max() <= f]
+    return bool(torch.stack(checks).all())
+
+
+def _planted_non_edge(torch, batch, keys, n: int):
+    """The batch with the first sampled edge's sender swapped for a node
+    that is not its receiver's in-neighbour (the control)."""
+    import copy
+
+    bad = copy.deepcopy(batch)
+    blk = bad.blocks[0]
+    ids = bad.node_ids
+    dst = int(ids[blk.receivers[0]])
+    for j in range(ids.numel()):
+        if not bool(torch.isin(torch.tensor([dst * n + int(ids[j])], device=ids.device), keys)):
+            blk.senders[0] = j
+            return bad
+    _fail("phase 8b's control found no non-edge to plant")
+
+
+def _state_copy(trainer) -> list:
+    from repro_torch.train.checkpoint import flatten, host_copy
+
+    return flatten(host_copy({"params": trainer.params, "opt_state": trainer.opt_state}))
+
+
+def _saved_leaves(np, torch, path: str) -> list:
+    """(path, tensor) of a checkpoint step's leaves, read with numpy from
+    its manifest and .npy files (no port code)."""
+    import os
+
+    with open(os.path.join(path, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    return [(rec["path"], torch.from_numpy(np.load(os.path.join(path, rec["file"]))))
+            for rec in manifest["leaves"]]
+
+
+def _same_state(torch, a: list, b: list) -> bool:
+    return [p for p, _ in a] == [p for p, _ in b] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for (_, x), (_, y) in zip(a, b))
+
+
+def _gated_spmm_row(torch, what: str, x, a, card: str) -> dict:
+    """csr_spmm at GatedGCN's edge-id CSR: held against its twin run in
+    float64 and against the split twin on the same plan, timed beside the
+    twin and torch.sparse.mm, with its bound.
+
+    A batch's padded edges all sit on one dummy row (about 69,000 of the
+    filled batch's edges, 167,710 of the store's), and on random normal
+    rows that long the float32 twin's index_add_, whose atomics add in any
+    order, moves the sum by about 1e-5 of the largest output from run to
+    run (0.00696 in one run): the float32 twin cannot stand as the answer
+    there. Its float64 run can, at the same SPMM_F32_SCALED; the float32
+    twin's own distance from it is printed beside the kernel's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_matmul import csr_spmm_cuda
+
+    row_ptr, col, n_out = a.row_ptr, a.col, a.n_rows
+    n_x, d = x.shape
+    nnz = col.numel()
+    rows = torch.repeat_interleave(torch.arange(n_out, device=x.device),
+                                   row_ptr[1:] - row_ptr[:-1], output_size=nnz)
+    want = torch.zeros((n_out, d), dtype=torch.float64, device=x.device).index_add_(
+        0, rows, x[col.to(torch.int64)].double())  # the twin's sum, in float64
+    del rows
+    got = csr_spmm_cuda(x, a)
+    err = float((got.double() - want).abs().max())
+    twin_err = float((ref.csr_spmm_ref(x, row_ptr, col, n_out).double() - want).abs().max())
+    if err > SPMM_F32_SCALED * float(want.abs().max()):
+        _fail(f"csr_spmm differs from its twin (run in float64) at GatedGCN's {what} ({err})")
+    split_err, bits = _split_close(torch, got, a, x)
+    if split_err is None:
+        _fail(f"csr_spmm differs from its split twin at GatedGCN's {what}")
+    a_csr = torch.sparse_csr_tensor(row_ptr, col.to(torch.int64), torch.ones(nnz, device=DEV),
+                                    size=(n_out, n_x), check_invariants=False)
+    plain_a = _time_ms(torch, lambda: ref.csr_spmm_ref(x, row_ptr, col, n_out), 5)
+    ms_a = _time_ms(torch, lambda: csr_spmm_cuda(x, a), 20)
+    lib_a = _time_ms(torch, lambda: torch.sparse.mm(a_csr, x), 20)
+    lib_b = _time_ms(torch, lambda: torch.sparse.mm(a_csr, x), 20)
+    ms_b = _time_ms(torch, lambda: csr_spmm_cuda(x, a), 20)
+    plain_b = _time_ms(torch, lambda: ref.csr_spmm_ref(x, row_ptr, col, n_out), 5)
+    nbytes = n_x * d * 4 + row_ptr.numel() * 8 + nnz * 4 + n_out * d * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nnz * d / CORE_OPS_PER_S * 1e3
+    row = {"what": what, "D": d, "rows": n_out, "source_rows": n_x, "nnz": nnz,
+           "ms": min(ms_a, ms_b), "plain_ms": min(plain_a, plain_b),
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+           else "operations", "library_ms": min(lib_a, lib_b), "max_abs_err": err,
+           "float32_twin_err": twin_err, "split_err": split_err, "split_bit_identical": bits,
+           "long_rows": a.plan.n_long, "chunks": a.plan.n_chunks}
+    print(f"kernel csr_spmm at GatedGCN {what}: D={d} rows={n_out} nnz={nnz} "
+          f"ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
+          f"(torch.sparse.mm) bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, {nbytes} B) "
+          f"max_abs_err={err} vs the float64 twin (tol {SPMM_F32_SCALED} x max|want| "
+          f"{float(want.abs().max())}; the float32 twin's own {twin_err}), vs the split twin "
+          f"{split_err} bit-identical={bits}; long_rows={a.plan.n_long} "
+          f"chunks={a.plan.n_chunks} on {card}")
+    return row
+
+
+def _gated_grads(torch, model, batch) -> tuple:
+    from repro_torch.models.gnn import gatedgcn_loss
+
+    leaves = model.leaves()
+    loss = gatedgcn_loss(model, batch)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def _gated_step_launches(torch, model, batch) -> tuple:
+    """One step's loss and gradients on the kernel path, with its csr_spmm
+    launches and combines checked exactly: 4 a layer, and 2 combines a
+    layer for each of the two CSRs that holds a row cut into chunks."""
+    counts, (loss, grads) = _served_counts(torch, lambda: _gated_grads(torch, model, batch))
+    csr = batch["csr"]
+    n_layers = model.cfg.n_layers
+    want = {"csr_spmm": 4 * n_layers,
+            "csr_spmm_combine": 2 * n_layers * (bool(csr.fwd.plan.n_long)
+                                                + bool(csr.bwd.plan.n_long))}
+    got = {k: counts[k] for k in want}
+    print(f"launches GatedGCN step ({n_layers} layers x 2 aggregations, forward and backward): "
+          f"csr_spmm {got['csr_spmm']} csr_spmm_combine {got['csr_spmm_combine']} (expected "
+          f"{want}; the forward CSR's long rows {csr.fwd.plan.n_long}, the transposed CSR's "
+          f"{csr.bwd.plan.n_long}, heaviest row {int(csr.fwd.row_lengths().max())} edges)")
+    if got != want:
+        _fail(f"one GatedGCN step launched {got}, not {want}")
+    if not (bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                               for g in grads.values())):
+        _fail("one GatedGCN step gave a loss or gradient that is not finite")
+    return got, loss, grads
+
+
+def _gated_one_step(torch, np, model, batch, card: str) -> dict:
+    """One step's loss and gradients, kernel path against twin path; the
+    csr_spmm launches and combines of the step, exactly."""
+    got, l_k, g_k = _gated_step_launches(torch, model, batch)
+    with _Twins():
+        l_t, g_t = _gated_grads(torch, model, batch)
+    l_err = abs(float(l_k) - float(l_t)) / abs(float(l_t))
+    errs = _grad_errs(g_k, g_t)
+    print(f"GatedGCN step kernel path vs twin path: loss {float(l_k)} vs {float(l_t)} "
+          f"rel_err={l_err} tol={GATED_LOSS_RTOL}; grads max_err/max|g| per leaf: worst "
+          f"{max(errs.values())} tol={GATED_GRAD_SCALED} ({len(errs)} leaves)")
+    if l_err > GATED_LOSS_RTOL:
+        _fail(f"the GatedGCN step's loss differs from the twin path's ({l_err})")
+    _grads_close(torch, g_k, g_t, GATED_GRAD_SCALED)
+    return {"counts": got, "loss_rel_err": l_err, "grad_err": max(errs.values())}
+
+
+def _gated_filled(torch, np, cfg, seed: int, card: str) -> dict:
+    """GatedGCN at minibatch_lg's batch shape on a graph whose in-degrees
+    fill the fanouts: ogb_products' Chung-Lu graph at its published sizes
+    (geo-coordinates-en's mean in-degree is 1.08, so the store's batch is
+    mostly padding on one dummy row). One step with its launches checked
+    exactly, FILLED_STEPS timed Trainer steps, one profiled, and csr_spmm
+    at the batch's edge-id CSRs against its twin. The whole step is held
+    against the twin path on the store's batch, in (b)."""
+    import statistics
+
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data import NeighborSampler
+    from repro_torch.data.graphs import node_graph
+    from repro_torch.launch import gnn_compressed as gnc
+    from repro_torch.models.gnn import GatedGCN, gatedgcn_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    p, mb = GNN_SHAPES["ogb_products"].params, GNN_SHAPES["minibatch_lg"].params
+    n, e = p["n_nodes"], p["n_edges"]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    g = node_graph(n, e, mb["d_feat"], mb["n_classes"], real_nodes=n, real_edges=e,
+                   generator=gen)
+    order = torch.argsort(g["receivers"], stable=True)
+    indices = g["senders"][order]
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=DEV)
+    indptr[1:] = torch.cumsum(torch.bincount(g["receivers"], minlength=n), 0)
+    del order, g["senders"], g["receivers"]
+    sampler = NeighborSampler(indptr, indices, GATED_FANOUTS)
+    n_pad, e_pad = gnc.pad_sizes(n, GATED_SEEDS, GATED_FANOUTS)
+    data = gnc.make_batches(sampler, g["x"], g["y"], gen, GATED_SEEDS, n_pad, e_pad)
+    b = next(data)
+    real_e = int((b["senders"] != n_pad - 1).sum())
+    dummy_row = int(b["csr"].fwd.row_lengths()[n_pad - 1])
+    model = GatedGCN.from_config(cfg, mb["d_feat"], gnc.D_EDGE, mb["n_classes"], device=DEV,
+                                 seed=seed)
+    print(f"GatedGCN on a filled batch: ogb_products' Chung-Lu graph ({n} nodes, {e} edges, "
+          f"mean in-degree {e / n:.4f}), n_pad={n_pad} e_pad={e_pad} sampled edges={real_e} "
+          f"({100 * real_e / e_pad:.2f}% of e_pad), the dummy row {dummy_row} edges")
+    counts, _, _ = _gated_step_launches(torch, model, b)
+    t = Trainer(lambda x: gatedgcn_loss(model, x), model.leaves(), TrainerConfig())
+    ms = []
+    for _ in range(FILLED_STEPS):
+        bb = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.run(iter([bb]), steps=1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    bb = next(data)
+    wall, dev_s, avgs = _profile(torch, lambda: t.run(iter([bb]), steps=1))
+    csr = b["csr"]
+    rows = [_gated_spmm_row(torch, "filled batch forward (edges into nodes)",
+                            torch.randn((e_pad, cfg.d_hidden), generator=gen, device=DEV),
+                            csr.fwd, card),
+            _gated_spmm_row(torch, "filled batch backward (transposed CSR)",
+                            torch.randn((n_pad, cfg.d_hidden), generator=gen, device=DEV),
+                            csr.bwd, card)]
+    out = {"step_ms": statistics.median(ms), "sampled_edges": real_e, "dummy_row": dummy_row,
+           "busy": dev_s / wall, "counts": counts, "spmm_rows": rows}
+    print(f"GatedGCN filled batch: step_ms median={out['step_ms']:.6f} (of {FILLED_STEPS}) "
+          f"profiled step wall_s={wall:.6f} kernel_s={dev_s:.6f} busy_share={out['busy']:.4f}; "
+          f"kernels by device time: {_top_kernels(avgs, 8)} on {card}")
+    del g, indptr, indices, sampler, data, b, bb, model, t, csr
+    return out
+
+
+def _gated_vs_host(torch, np, make, seed: int) -> None:
+    """The reduced config on the example's sizes (a fresh web graph's
+    batches), card against host CPU: 3 Trainer steps' losses."""
+    import itertools
+
+    from repro_torch.configs import gatedgcn
+    from repro_torch.models.gnn import EdgeCSR, GatedGCN, gatedgcn_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = gatedgcn.reduced()
+    card = GatedGCN.from_config(cfg, 32, 4, 7, device=DEV, seed=seed)
+    host = GatedGCN(cfg, {k: t.detach().cpu().clone() for k, t in card.leaves().items()})
+    batch = next(make)
+    host_batch = {k: v.cpu() for k, v in batch.items() if k != "csr"}
+    host_batch["csr"] = EdgeCSR.from_receivers(host_batch["receivers"], batch["x"].shape[0])
+    logs = []
+    for model, b in ((card, batch), (host, host_batch)):
+        t = Trainer(lambda x, m=model: gatedgcn_loss(m, x), model.leaves(),
+                    TrainerConfig(log_every=1))
+        logs.append([r["loss"] for r in t.run(itertools.repeat(b), steps=3)])
+    err = max(abs(a - b) / abs(b) for a, b in zip(*logs))
+    print(f"GatedGCN reduced (3 layers, 16 wide) card vs host CPU, 3 Trainer steps on the "
+          f"example's batch shape ({batch['x'].shape[0]} nodes, {batch['senders'].numel()} "
+          f"edges): losses card {logs[0]} host {logs[1]} max_rel_err={err} "
+          f"tol={GATED_HOST_RTOL}")
+    if err > GATED_HOST_RTOL:
+        _fail("the reduced GatedGCN's losses on the card differ from the host's")
+
+
+def drive_gnn_compressed(torch, np, seed: int, card: str) -> dict:
+    """Phase 8b: the reference example's path, at full width, on phase 3's
+    graph. Returns the kernel line's additions."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import repro_torch.train.checkpoint as ckmod
+    from repro_torch.configs import gatedgcn
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data import GraphStore, NeighborSampler
+    from repro_torch.data.synthetic import PAPER_DATASETS, web_graph
+    from repro_torch.kernels import ops
+    from repro_torch.launch import gnn_compressed as gnc
+    from repro_torch.models.gnn import GatedGCN, gatedgcn_loss
+    from repro_torch.train import (AsyncCheckpointer, CompressionConfig, Trainer,
+                                   TrainerConfig, restore_checkpoint)
+    from repro_torch.train.compression import compress_int8, compress_topk, wire_bytes
+
+    t_start = time.perf_counter()
+    left = torch.cuda.memory_allocated()
+    print(f"phase 8b on {card} starts with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated when phase 8b starts")
+    shape = GNN_SHAPES["minibatch_lg"].params
+    d_feat, n_cls = shape["d_feat"], shape["n_classes"]
+    ds = PAPER_DATASETS["geo-coordinates-en"](scale=1.0, seed=seed)
+    ops.reset_launch_counts()
+    # (a) store and sampler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = GraphStore.from_triples(ds.triples, ds.n_nodes, ds.n_preds)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_counts = dict(ops.launch_counts)
+    t0 = time.perf_counter()
+    indptr, indices = store.csc()
+    torch.cuda.synchronize()
+    csc_ms = (time.perf_counter() - t0) * 1e3
+    n = store.n_nodes
+    sampler = NeighborSampler(indptr, indices, GATED_FANOUTS)
+    keys = _csc_keys(torch, indptr, indices, n)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    seeds = torch.randperm(n, generator=gen, device=DEV)[:GATED_SEEDS]
+    syncs = _count_syncs(torch, lambda: sampler.sample(seeds, gen))
+    times, batch = [], None
+    for _ in range(SAMPLES_TIMED):
+        seeds = torch.randperm(n, generator=gen, device=DEV)[:GATED_SEEDS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = sampler.sample(seeds, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not _sample_ok(torch, batch, keys, n, GATED_FANOUTS):
+            _fail("a sampled batch breaks the sampler's invariants")
+    edges = [b.senders.numel() for b in batch.blocks]
+    print(f"graph store geo-coordinates-en: build_s={build_s:.6f} (digram_pair_accum "
+          f"{build_counts['digram_pair_accum']}, digram_select {build_counts['digram_select']}, "
+          f"k2_lines_count {build_counts['k2_lines_count']}) csc_ms={csc_ms:.6f}; sampler "
+          f"fanouts {GATED_FANOUTS} seeds {GATED_SEEDS}: ms_a_sample median="
+          f"{statistics.median(times):.6f} (of {SAMPLES_TIMED}) host_syncs_a_sample={syncs} "
+          f"nodes={batch.node_ids.numel()} edges={edges}; invariants hold on {card}")
+    if build_counts["digram_pair_accum"] != 1 + store.stats.iterations or \
+            build_counts["digram_select"] < store.stats.iterations:
+        _fail(f"the store's build launched {build_counts['digram_pair_accum']} digram_pair_accum "
+              f"and {build_counts['digram_select']} digram_select over "
+              f"{store.stats.iterations} replacements")
+    if _sample_ok(torch, _planted_non_edge(torch, batch, keys, n), keys, n, GATED_FANOUTS):
+        _fail("the sampler's check passes a batch with a planted non-edge")
+    print("control: a planted non-edge fails the sampler's check")
+    marks = {"a": time.perf_counter() - t_start}
+
+    # (b) GatedGCN at full width on minibatch_lg's batch shape
+    cfg = gatedgcn.config()
+    n_pad, e_pad = gnc.pad_sizes(n, GATED_SEEDS, GATED_FANOUTS)
+    feats = torch.randn((n, d_feat), generator=gen, device=DEV)
+    labels = torch.randint(0, n_cls, (n,), generator=gen, device=DEV)
+    data = gnc.make_batches(sampler, feats, labels, gen, GATED_SEEDS, n_pad, e_pad)
+    b = next(data)
+    print(f"GatedGCN {cfg.n_layers} layers x {cfg.d_hidden} on minibatch_lg's batch: "
+          f"d_feat={d_feat} classes={n_cls} n_pad={n_pad} e_pad={e_pad} "
+          f"sampled edges={int((b['senders'] != n_pad - 1).sum())}")
+    model = GatedGCN.from_config(cfg, d_feat, gnc.D_EDGE, n_cls, device=DEV, seed=seed)
+    step = _gated_one_step(torch, np, model, b, card)
+    calls = []
+    real = ops.csr_spmm
+
+    def rec(x, a):
+        calls.append((x.detach(), a))
+        return real(x, a)
+
+    ops.csr_spmm = rec
+    try:
+        loss = gatedgcn_loss(model, b)
+        torch.autograd.grad(loss, list(model.leaves().values()))
+    finally:
+        ops.csr_spmm = real
+    spmm_rows = [_gated_spmm_row(torch, "forward (eta into denom, layer 0)", *calls[0], card),
+                 _gated_spmm_row(torch, "backward (transposed CSR, last layer)",
+                                 *calls[2 * cfg.n_layers], card)]
+    del calls, loss, model
+    small = web_graph(n_nodes=2000, n_edges=12000, seed=0)
+    s_store = GraphStore.from_triples(small.triples, small.n_nodes, small.n_preds)
+    s_sampler = NeighborSampler(*s_store.csc(), fanouts=(15, 10))
+    s_gen = torch.Generator(device=DEV).manual_seed(seed)
+    s_pad = gnc.pad_sizes(s_store.n_nodes, 64, (15, 10))
+    _gated_vs_host(torch, np, gnc.make_batches(
+        s_sampler, torch.randn((s_store.n_nodes, 32), generator=s_gen, device=DEV),
+        torch.randint(0, 7, (s_store.n_nodes,), generator=s_gen, device=DEV), s_gen, 64,
+        *s_pad), seed)
+    del s_store, s_sampler
+    filled = _gated_filled(torch, np, cfg, seed, card)
+    marks["b"] = time.perf_counter() - t_start
+
+    # (c) the example's schedule; every checkpoint kept, so step 100's stays
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_gnn_")
+    ops.reset_launch_counts()
+    res = gnc.main(DEV, store=store, d_feat=d_feat, n_classes=n_cls, seeds=GATED_SEEDS,
+                   fanouts=GATED_FANOUTS, cfg=cfg, total_steps=GATED_STEPS,
+                   checkpoint_every=GATED_CKPT_EVERY, log_every=GATED_CKPT_EVERY,
+                   fail_at=GATED_FAIL_AT, lr=3e-3, warmup_steps=20, seed=seed,
+                   checkpoint_dir=ckdir, keep_checkpoints=GATED_STEPS // GATED_CKPT_EVERY,
+                   out=lambda *_: None)
+    path_counts = dict(ops.launch_counts)
+    if res["failed_at"] != GATED_FAIL_AT or res["restored_step"] != 100:
+        _fail(f"the schedule failed at {res['failed_at']} and restored step "
+              f"{res['restored_step']}, not {GATED_FAIL_AT} and 100")
+    n_steps = res["failed_at"] + GATED_STEPS - res["restored_step"]
+    print(f"launches of the schedule ({n_steps} steps): " + " ".join(
+        f"{k}={path_counts[k]}" for k in ("csr_spmm", "csr_spmm_combine", "k2_lines_count",
+                                          "bitvec_rank", "digram_pair_accum")))
+    if path_counts["csr_spmm"] != n_steps * step["counts"]["csr_spmm"] or \
+            path_counts["csr_spmm_combine"] != n_steps * step["counts"]["csr_spmm_combine"]:
+        _fail(f"the schedule's {n_steps} steps launched {path_counts['csr_spmm']} csr_spmm "
+              f"and {path_counts['csr_spmm_combine']} csr_spmm_combine, not {n_steps} x "
+              f"{step['counts']}")
+    logs = res["first_log"] + res["log"]
+    savers = [res["first_trainer"].ckpt, res["trainer"].ckpt]
+    copy_ms = [v * 1e3 for sv in savers for v in sv.copy_s]
+    write_ms = [v * 1e3 for sv in savers for v in sv.write_s]
+    # step 100 as the save's host copy wrote it, read with numpy, against a
+    # fresh trainer restored from it by this script
+    saved100 = _saved_leaves(np, torch, os.path.join(ckdir, "step_00000100"))
+    d100 = tempfile.mkdtemp(prefix="chip_smoke_gnn100_")
+    shutil.copytree(os.path.join(ckdir, "step_00000100"), os.path.join(d100, "step_00000100"))
+    m100 = GatedGCN.from_config(cfg, d_feat, gnc.D_EDGE, n_cls, device=DEV, seed=seed + 2)
+    t100 = Trainer(lambda x: gatedgcn_loss(m100, x), m100.leaves(),
+                   TrainerConfig(checkpoint_dir=d100))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t100.maybe_restore()
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if t100.step != 100 or not _same_state(torch, _state_copy(t100), saved100):
+        _fail("a trainer restored from step 100 differs from the host copy saved at step 100")
+    shutil.rmtree(d100, ignore_errors=True)
+    losses = [r["loss"] for r in logs]
+    flags = res["first_trainer"].straggler.flagged + res["trainer"].straggler.flagged
+    step_ms = statistics.median(r["sec_per_step"] * 1e3 for r in logs)
+    print(f"GatedGCN schedule ({GATED_STEPS} steps, checkpoint every {GATED_CKPT_EVERY}, "
+          f"failure at {GATED_FAIL_AT}): step_ms median={step_ms:.6f} (of the {len(logs)} "
+          f"logged steps' sec_per_step) save host copy ms median={statistics.median(copy_ms):.6f} "
+          f"(of {len(copy_ms)}) worker write ms median={statistics.median(write_ms):.6f} (of "
+          f"{len(write_ms)}) restore_ms={res['restore_s'] * 1e3:.6f} (in the schedule), "
+          f"{restore_ms:.6f} (a fresh trainer from step 100); restored state == step-100 host "
+          f"copy bit for bit; losses {[round(v, 6) for v in losses]} at steps "
+          f"{[r['step'] for r in logs]}; straggler flags {flags} on {card}")
+    if not losses[-1] < losses[0]:
+        _fail(f"the schedule's loss did not fall: {losses[0]} -> {losses[-1]}")
+    final = _state_copy(res["trainer"])
+    got, _ = restore_checkpoint(ckdir, device=DEV)
+    on_disk = ckmod.flatten(ckmod.host_copy({"params": got["params"],
+                                             "opt_state": got["opt_state"]}))
+    if not _same_state(torch, on_disk, final):
+        _fail("the last checkpoint differs from the final state")
+    leaf = os.path.join(ckdir, f"step_{GATED_STEPS:08d}", "leaf_00003.npy")
+    raw = bytearray(open(leaf, "rb").read())
+    raw[-1] ^= 0x01
+    open(leaf, "wb").write(bytes(raw))
+    got, _ = restore_checkpoint(ckdir, device=DEV)
+    if _same_state(torch, ckmod.flatten(ckmod.host_copy(
+            {"params": got["params"], "opt_state": got["opt_state"]})), final):
+        _fail("a checkpoint with an altered leaf restores to the final state")
+    print("control: a checkpoint with one leaf altered on disk restores to another state")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    sched = {"step_ms": step_ms, "copy_ms": statistics.median(copy_ms),
+             "write_ms": statistics.median(write_ms), "restore_ms": res["restore_s"] * 1e3,
+             "restore_ms_fresh": restore_ms, "loss_first": losses[0], "loss_last": losses[-1],
+             "flags": len(flags)}
+    del res, got, final, on_disk, saved100, m100, t100, savers
+    marks["c"] = time.perf_counter() - t_start
+
+    # (d) the codecs, 20 steps each from one state
+    codecs = {}
+    for codec in ("none", "int8", "topk"):
+        m = GatedGCN.from_config(cfg, d_feat, gnc.D_EDGE, n_cls, device=DEV, seed=seed)
+        tc = TrainerConfig(total_steps=CODEC_STEPS, log_every=CODEC_STEPS,
+                           compression=CompressionConfig(codec, 0.01))
+        t = Trainer(lambda x, m=m: gatedgcn_loss(m, x), m.leaves(), tc)
+        c_gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+        c_data = gnc.make_batches(sampler, feats, labels, c_gen, GATED_SEEDS, n_pad, e_pad)
+        ms = []
+        for _ in range(CODEC_STEPS):
+            bb = next(c_data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.run(iter([bb]), steps=1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        leaves = m.leaves()
+        loss = gatedgcn_loss(m, next(c_data))
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        res_norm = float(torch.sqrt(sum(r.square().sum() for r in t.residual.values()))) \
+            if t.residual is not None else 0.0
+        entry = {"ms": statistics.median(ms), "loss": t.metrics_log[-1]["loss"],
+                 "residual_norm": res_norm}
+        if codec != "none":
+            fn = compress_int8 if codec == "int8" else (lambda g, r: compress_topk(g, r, 0.01))
+            wire, dec, new = fn(grads, t.residual)
+            cw, cdec, cnew = fn({k: g.cpu() for k, g in grads.items()},
+                                {k: r.cpu() for k, r in t.residual.items()})
+            for k in grads:
+                if codec == "int8":
+                    same = torch.equal(wire[k][0].cpu(), cw[k][0]) and torch.equal(
+                        wire[k][1].cpu(), cw[k][1]) and torch.equal(dec[k].cpu(), cdec[k]) \
+                        and torch.equal(new[k].cpu(), cnew[k])
+                else:
+                    same = torch.equal(wire[k][1].cpu().sort().values, cw[k][1].sort().values) \
+                        and torch.equal(dec[k].cpu(), cdec[k])
+                if not same:
+                    _fail(f"the {codec} codec on the card differs from the CPU's at {k}")
+            entry["wire_bytes"] = wire_bytes(wire)
+        else:
+            entry["wire_bytes"] = sum(g.numel() * 4 for g in grads.values())
+        codecs[codec] = entry
+        print(f"codec {codec}: {CODEC_STEPS} steps from one state, ms_a_step median="
+              f"{entry['ms']:.6f} wire_bytes={entry['wire_bytes']} residual_norm={res_norm} "
+              f"loss={entry['loss']}" + ("" if codec == "none" else
+                                         "; decoded gradients equal the CPU codec's")
+              + f" on {card}")
+        del m, t, grads, loss
+
+    marks["d"] = time.perf_counter() - t_start
+    # (e) a step with an async save in flight against one with none: a
+    # "none" step waits for the last write first, outside its clock
+    m = GatedGCN.from_config(cfg, d_feat, gnc.D_EDGE, n_cls, device=DEV, seed=seed)
+    t = Trainer(lambda x: gatedgcn_loss(m, x), m.leaves(), TrainerConfig())
+    o_dir = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
+    saver = AsyncCheckpointer(o_dir)
+    saver.save(0, {"params": t.params, "opt_state": t.opt_state})
+    saver.wait()  # a write with no step beside it
+    by, last = {"none": [], "in_flight": []}, None
+    for i in range(1, 2 * OVERLAP_STEPS + 1):
+        kind = "in_flight" if i % 2 else "none"
+        bb = next(data)
+        if kind == "in_flight":
+            saver.save(i, {"params": t.params, "opt_state": t.opt_state})
+            last = (i, [(k, v.clone()) for k, v in ckmod.flatten(
+                {"params": t.params, "opt_state": t.opt_state})])
+        else:
+            saver.wait()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.run(iter([bb]), steps=1)
+        torch.cuda.synchronize()
+        by[kind].append((time.perf_counter() - t0) * 1e3)
+    saver.wait()
+    # the last save, taken just before an in-place step, holds the state it saw
+    got, got_step = restore_checkpoint(o_dir, device=DEV)
+    if got_step != last[0] or not _same_state(torch, ckmod.flatten(
+            {"params": got["params"], "opt_state": got["opt_state"]}), last[1]):
+        _fail("an async save followed by an in-place step restores another state")
+    shutil.rmtree(o_dir, ignore_errors=True)
+    overlap = {k: statistics.median(v) for k, v in by.items()}
+    overlap.update(write_alone_ms=saver.write_s[0] * 1e3,
+                   write_in_flight_ms=statistics.median(saver.write_s[1:]) * 1e3)
+    print(f"overlap: step ms median with an async save in flight {overlap['in_flight']:.6f} "
+          f"against {overlap['none']:.6f} with none ({OVERLAP_STEPS} steps each, in turns, a "
+          f"none step after the write ended); the write {overlap['write_alone_ms']:.6f} ms "
+          f"alone, median {overlap['write_in_flight_ms']:.6f} ms beside a step; the last "
+          f"save restores to the state it copied, bit for bit, on {card}")
+    del got, last
+    del m, t, b, data, feats, labels, store, sampler, keys, indptr, indices, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t_start
+    print(f"phase 8b ends with memory_allocated={left}; phase_8b_s={seconds:.3f} (cumulative "
+          f"s at the end of each part: " + " ".join(f"{k}={v:.1f}" for k, v in marks.items())
+          + ")")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after phase 8b")
+    counts = {k: build_counts[k] + path_counts[k] for k in path_counts}
+    return {"counts": counts, "build_counts": build_counts, "path_counts": path_counts,
+            "step": step, "spmm_rows": spmm_rows, "filled": filled, "schedule": sched,
+            "codecs": codecs, "overlap": overlap, "seconds": seconds}
+
+
+def _merge_gnn_compressed(kernels: list, part: dict) -> None:
+    """Phase 8b's launches and csr_spmm's GatedGCN shapes in the kernel rows."""
+    for row in kernels:
+        name = row["name"]
+        if name in ("csr_spmm", "csr_spmm_combine"):
+            row["launches_phase8"] = row["launches"]
+            row["launches_gnn_compressed_part"] = part["path_counts"][name]
+            row["launches"] += part["path_counts"][name]
+            row["launches_gatedgcn_step"] = part["step"]["counts"][name]
+        if name == "csr_spmm":
+            row["gatedgcn"] = {"shape": "GatedGCN 16 x 70 on minibatch_lg's batch: the edge-id "
+                               "CSR (forward) and its transpose (backward)",
+                               "per_launch": part["spmm_rows"],
+                               "filled_batch_per_launch": part["filled"]["spmm_rows"]}
+        elif name in part["counts"] and name not in ("csr_spmm_combine",):
+            row["launches_gnn_compressed_part"] = part["counts"][name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8037,6 +8954,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=4096)
     args = ap.parse_args(argv)
 
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run", file=sys.stderr)
@@ -8071,6 +8989,7 @@ def main(argv=None) -> int:
     drive_bgp_path(torch, np, main_res, args.seed)
     drive_sharded_path(torch, np, main_res, args.seed)
     drive_durable_path(torch, np, main_res, args.seed)
+    drive_baselines_path(torch, np, main_res, args.seed)
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res
@@ -8078,10 +8997,12 @@ def main(argv=None) -> int:
     kernels += drive_dlrm_train(torch, np, args.seed, errs)
     kernels += drive_lm(torch, np, args.seed, errs)
     kernels += drive_gnn(torch, np, args.seed, errs, card)
+    _merge_gnn_compressed(kernels, drive_gnn_compressed(torch, np, args.seed, card))
     if sys.modules.get("jax") is not None or any(
             m == "repro" or m.startswith("repro.") for m in sys.modules):
         _fail("the JAX package or jax was imported")
 
+    print(f"chip_smoke_s {time.perf_counter() - t_main:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(_card())
     print(json.dumps({"ok": True, "device": {

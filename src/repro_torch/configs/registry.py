@@ -66,6 +66,7 @@ ARCHS: dict[str, ArchSpec] = {
     a.arch_id: a
     for a in [
         ArchSpec("qwen2-1.5b", "lm", "repro_torch.configs.qwen2_1_5b", LM_SHAPES),
+        ArchSpec("gatedgcn", "gnn", "repro_torch.configs.gatedgcn", GNN_SHAPES),
         ArchSpec("gcn-cora", "gnn", "repro_torch.configs.gcn_cora", GNN_SHAPES),
         ArchSpec("dlrm-mlperf", "recsys", "repro_torch.configs.dlrm_mlperf", RECSYS_SHAPES),
     ]

@@ -110,6 +110,11 @@ class BitVector:
         j = as_i64(j, self.device)
         if bool(((j >= self.n_ones) | (j < 0)).any()):
             raise IndexError("select1 argument out of range")
+        return self._select1(j)
+
+    def _select1(self, j: torch.Tensor) -> torch.Tensor:
+        """:meth:`select1` without its range check (and its host sync), for
+        callers whose j lie in [0, n_ones) by construction."""
         flat = j.reshape(-1)
         w = torch.searchsorted(self.word_ranks, flat, right=True) - 1
         within = flat - self.word_ranks[w]

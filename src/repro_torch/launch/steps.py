@@ -131,7 +131,22 @@ def gnn_step(model: GCN, opt_state: dict, batch: dict, opt_cfg: AdamWConfig) -> 
     return train_step(lambda b: gcn_loss(model, b), model.leaves(), opt_state, batch, opt_cfg)
 
 
+def _gatedgcn_not_ported(shape: ShapeSpec) -> NotImplementedError:
+    """GatedGCN runs in the port (``models.gnn.GatedGCN``, trained from a
+    sampled GraphStore by ``launch.gnn_compressed``) but has no cell of the
+    registry's shapes yet. Its full-graph shapes do not fit one card the
+    way the reference lays them out: at ``ogb_products`` (61,859,140 edges)
+    one edge-sized float32 activation of width 70 takes 61.9M x 70 x 4 B,
+    over 17 GB, and a step keeps several of them for each of the 16
+    layers for the backward."""
+    return NotImplementedError(
+        f"gatedgcn {shape.name}: no gatedgcn cell is ported yet (ROADMAP.md queue A, item "
+        "19: GatedGCN's cells of the minibatch_lg, full_graph and molecule kinds)")
+
+
 def _gnn_cell(arch_id: str, shape: ShapeSpec, cfg, reduced: bool, dev, seed: int) -> Cell:
+    if arch_id == "gatedgcn":
+        raise _gatedgcn_not_ported(shape)
     if shape.kind != "full_graph":
         raise NotImplementedError(
             f"{arch_id} {shape.name}: the {shape.kind} kind is not ported yet (ROADMAP.md "
@@ -174,7 +189,8 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     (cut as the reference cuts them when reduced); ``cell.args`` is (model,
     opt_state, batch) and ``cell.run()`` one train step, returning (loss,
     metrics) and updating the parameters and ``opt_state`` in place. The
-    minibatch and molecule kinds raise NotImplementedError.
+    minibatch and molecule kinds raise NotImplementedError, as does every
+    shape of ``gatedgcn``.
 
     train (DLRM): the DLRM built by :meth:`DLRM.from_config` from ``seed``
     with its float32 master in host memory (``master=True``), its AdamW

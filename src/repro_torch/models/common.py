@@ -1,6 +1,6 @@
 """Shared model building blocks: the twin of ``repro.models.common``, cut to
 what the ported models use (``dense_init``, the MLP of ``mlp_params`` /
-``mlp_apply``, ``rms_norm``, and the reference's ``rope`` split into
+``mlp_apply``, ``layer_norm``, ``rms_norm``, and the reference's ``rope`` split into
 ``rope_tables`` and ``apply_rope`` so a forward computes the tables once for
 all layers).
 
@@ -22,6 +22,16 @@ def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     """(d_in, d_out) float32 normal weights times 1/sqrt(d_in)."""
     return torch.randn(d_in, d_out, generator=generator, device=device) / math.sqrt(d_in)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``layer_norm`` formula: (x - mean) * rsqrt(var + eps)
+    * gamma + beta over the last axis, in float32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -73,7 +73,7 @@ def test_registry_matches_the_reference():
                                               ref_arch.shapes[name].params)
     assert dataclasses.asdict(arch.config()) == dataclasses.asdict(ref_arch.config())
     with pytest.raises(KeyError, match="unknown arch"):
-        treg.get_arch("gatedgcn")
+        treg.get_arch("meshgraphnet")
 
 
 # ---------------------------------------------------------------- MLP

@@ -50,7 +50,16 @@ def test_port_sources_name_no_reference_import():
             data / "graph_store.py", serve / "concurrency.py", serve / "triple_service.py",
             serve / "sharded.py", dist / "__init__.py", dist / "partition.py",
             dist / "rebalance.py", persist / "wal.py", persist / "service.py",
-            serve / "replication.py", SRC / "repro_torch" / "launch" / "itr_durable.py"} <= set(paths)
+            serve / "replication.py", SRC / "repro_torch" / "launch" / "itr_durable.py",
+            SRC / "repro_torch" / "baselines" / "__init__.py",
+            SRC / "repro_torch" / "baselines" / "k2_triples.py",
+            SRC / "repro_torch" / "baselines" / "hdt_bt.py",
+            SRC / "repro_torch" / "baselines" / "ntriples.py", core / "ablations.py",
+            data / "sampler.py", SRC / "repro_torch" / "train" / "checkpoint.py",
+            SRC / "repro_torch" / "train" / "compression.py",
+            SRC / "repro_torch" / "train" / "fault_tolerance.py",
+            SRC / "repro_torch" / "configs" / "gatedgcn.py",
+            SRC / "repro_torch" / "launch" / "gnn_compressed.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -92,7 +101,9 @@ def _zero_lm_params(cfg):
                                    "gcn_from_numpy_params", "gnn_build_cell",
                                    "dlrm_train_build_cell", "load_snapshot",
                                    "graph_store_from_triples", "parse_ntriples",
-                                   "sharded_build", "durable_build", "durable_open"])
+                                   "sharded_build", "durable_build", "durable_open",
+                                   "k2_triples", "hdt_bt", "gatedgcn_from_config",
+                                   "restore_checkpoint", "gnn_compressed_main"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     _without_cuda()
     from repro_torch import resolve_device
@@ -109,6 +120,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     from repro_torch.persist import load_snapshot
     from repro_torch.persist import DurableShardedService
     from repro_torch.serve import ShardedTripleService
+    from repro_torch.baselines import HDTBitmapTriples, K2Triples
+    from repro_torch.configs import gatedgcn
+    from repro_torch.launch import gnn_compressed
+    from repro_torch.models.gnn import GatedGCN
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+
+    save_checkpoint(str(tmp_path / "ckpt"), 1, {"w": np.zeros(2, np.float32)})
 
     triples = np.array([[0, 0, 1], [1, 0, 2]])
     calls = {
@@ -148,6 +166,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
             triples, 3, 1, root=tmp_path / "svc", n_shards=2, fsync=False, device=dev).close(),
         "durable_open": lambda dev: DurableShardedService.open(ROOT / "no-such-service",
                                                                device=dev),
+        "k2_triples": lambda dev: K2Triples(triples, 3, 1, device=dev),
+        "hdt_bt": lambda dev: HDTBitmapTriples(triples, 3, 1, device=dev),
+        "gatedgcn_from_config": lambda dev: GatedGCN.from_config(gatedgcn.reduced(), 8, 4, 3,
+                                                                 device=dev),
+        "restore_checkpoint": lambda dev: restore_checkpoint(str(tmp_path / "ckpt"),
+                                                             device=dev),
+        "gnn_compressed_main": lambda dev: gnn_compressed.main(
+            dev, n_nodes=60, n_edges=200, seeds=8, fanouts=(3, 2), total_steps=2,
+            checkpoint_every=1, log_every=1, fail_at=1, out=lambda *_: None),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry](None)

@@ -117,12 +117,3 @@ def test_trainer_logs_the_reference_keys_and_values():
         for key in ("loss", "lr", "grad_norm"):
             np.testing.assert_allclose(g[key], w[key], rtol=1e-5, err_msg=key)
 
-
-@pytest.mark.parametrize("option", ["checkpoint_dir", "compression", "failure_injector"])
-def test_trainer_refuses_what_is_not_ported(option, tmp_path):
-    tw, tloss, _, _ = _quadratic_pair()
-    cfg = TrainerConfig(checkpoint_dir=str(tmp_path) if option == "checkpoint_dir" else None,
-                        compression="int8" if option == "compression" else "none")
-    injector = object() if option == "failure_injector" else None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tloss, {"w": tw}, cfg, failure_injector=injector)
