@@ -65,7 +65,11 @@ class ArchSpec:
 ARCHS: dict[str, ArchSpec] = {
     a.arch_id: a
     for a in [
+        ArchSpec("phi3.5-moe-42b-a6.6b", "lm", "repro_torch.configs.phi35_moe", LM_SHAPES),
+        ArchSpec("olmoe-1b-7b", "lm", "repro_torch.configs.olmoe", LM_SHAPES),
         ArchSpec("qwen2-1.5b", "lm", "repro_torch.configs.qwen2_1_5b", LM_SHAPES),
+        ArchSpec("yi-34b", "lm", "repro_torch.configs.yi_34b", LM_SHAPES),
+        ArchSpec("gemma2-9b", "lm", "repro_torch.configs.gemma2_9b", LM_SHAPES),
         ArchSpec("gatedgcn", "gnn", "repro_torch.configs.gatedgcn", GNN_SHAPES),
         ArchSpec("gcn-cora", "gnn", "repro_torch.configs.gcn_cora", GNN_SHAPES),
         ArchSpec("dlrm-mlperf", "recsys", "repro_torch.configs.dlrm_mlperf", RECSYS_SHAPES),

@@ -9,7 +9,7 @@ ready to call.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Callable
 
@@ -20,7 +20,7 @@ from repro_torch.data.graphs import node_graph
 from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_grads, retrieval_scores
 from repro_torch.models.gnn import GCN, Graph, gcn_loss
-from repro_torch.models.transformer import DTYPES, Transformer, normal_chunked
+from repro_torch.models.transformer import DTYPES, Transformer, moe_group_size, normal_chunked
 from repro_torch.train.loop import train_step
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -89,16 +89,20 @@ def lm_cache(model: Transformer, batch: int, seq_len: int,
 
 
 def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
-             batch: int | None) -> Cell:
+             batch: int | None, layers: int | None) -> Cell:
     B, S = shape.params["global_batch"], shape.params["seq_len"]
     if reduced:
         B, S = 2, min(S, 64)
     if batch is not None:
         B = batch
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
     if shape.kind == "train":
         raise NotImplementedError(
             f"{arch_id} {shape.name}: LM training is not ported yet (ROADMAP.md "
             "queue A: LM training with the flash_attention backward)")
+    if cfg.n_experts:  # the group rule, before the weights are drawn
+        moe_group_size(cfg, B * (S if shape.kind == "prefill" else 1))
     model = Transformer.from_config(cfg, device=dev, seed=seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     if shape.kind == "prefill":
@@ -164,7 +168,7 @@ def _gnn_cell(arch_id: str, shape: ShapeSpec, cfg, reduced: bool, dev, seed: int
 
 
 def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None,
-               seed: int = 0, batch: int | None = None) -> Cell:
+               seed: int = 0, batch: int | None = None, layers: int | None = None) -> Cell:
     """The cell's step function and its inputs on ``device`` (None: CUDA).
 
     prefill: the Transformer built by :meth:`Transformer.from_config` from
@@ -173,9 +177,12 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     cache of S positions filled by :func:`lm_cache` and B tokens,
     ``cell.run()`` one ``decode_step`` at ``cur_index = S - 1``. (B, S)
     are the shape's (global_batch, seq_len), (2, min(S, 64)) when reduced;
-    ``batch`` overrides B, in LM cells only (a single card holds neither
-    prefill_32k's 32 sequences in the time of a smoke run nor decode_32k's
-    128 caches).
+    ``batch`` overrides B and ``layers`` the depth, in LM cells only (a
+    single card holds neither prefill_32k's 32 sequences in the time of a
+    smoke run nor decode_32k's 128 caches, nor phi-3.5-MoE's 83.7 GB of
+    bf16 weights). An MoE config whose B * S (prefill) or B (decode) tokens
+    break the group rule of :func:`moe_group_size` raises its ValueError
+    here: a cell never regroups.
 
     serve: the DLRM built by :meth:`DLRM.from_config` from ``seed`` and one
     batch (512 for ``serve_p99``, 262,144 for ``serve_bulk``, 32 when
@@ -204,7 +211,9 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     shape = arch.shapes[shape_name]
     cfg = arch.reduced() if reduced else arch.config()
     if arch.family == "lm":
-        return _lm_cell(arch_id, shape, cfg, reduced, dev, seed, batch)
+        return _lm_cell(arch_id, shape, cfg, reduced, dev, seed, batch, layers)
+    if layers is not None:
+        raise ValueError(f"{arch_id} {shape_name}: layers= cuts LM cells only")
     if arch.family == "gnn":
         if batch is not None:
             raise ValueError(f"{arch_id} {shape_name}: batch= cuts LM cells only; a "

@@ -1,11 +1,16 @@
-"""Decoder-only transformer, dense GQA path: the serving side of
-``repro.models.transformer`` on one GPU.
+"""Decoder-only transformer: the serving side of ``repro.models.transformer``
+on one GPU, for every config the reference defines.
 
 Pre-norm layers of grouped-query attention with rotary positions and an
-optional QKV bias, then a SiLU-gated MLP; ``qwen2-1.5b`` is this model. Every
-attention, prefill and decode, goes through the hand-written
-``flash_attention`` kernel (:func:`repro_torch.kernels.ops.flash_attention`),
-one launch per layer per forward.
+optional QKV bias, then a SiLU-gated MLP (``qwen2-1.5b``, ``yi-34b``) or
+the grouped-dispatch mixture of experts :func:`moe_ffn` (``olmoe-1b-7b``,
+``phi3.5-moe-42b-a6.6b``). Gemma-2 (``gemma2-9b``) alternates local
+(windowed) and global attention layers, soft-caps the attention scores and
+the final logits, and normalises each sub-layer's output before its
+residual add (post-norms). Every attention, prefill and decode, goes
+through the hand-written ``flash_attention`` kernel
+(:func:`repro_torch.kernels.ops.flash_attention`), one launch per layer per
+forward, which takes the window and the soft-cap itself.
 
 Port decisions:
 
@@ -32,10 +37,23 @@ Port decisions:
   float32 all agree up to summation order.
 - (f) Left padding is attended, as in the reference: positions are
   0..S-1 for every row and there is no padding mask.
+- (g) An alternating model's layers stay on one flat (L, ...) axis, where
+  the reference stacks them (L/2, 2, ...) (``layers_leading``): layer
+  ``l = 2 i + sub``, so even layers are the local ones (the reference's
+  sub-layer 0 has the window). :meth:`Transformer.from_numpy_params`
+  reshapes (L/2, 2, ...) leaves to (L, ...) without reordering, and the
+  cache is (L, B, Smax, Hkv, D) too, every layer the full length, local
+  layers included, as the reference's ``init_cache``.
+- (h) The MoE FFN dispatches and combines by index: each kept (token,
+  slot) is copied into its (group, expert, position) row and gathered
+  back, where the reference multiplies one-hot (G, E, C) tensors (84 MB a
+  group a layer at OLMoE's sizes). The values are the same: a one-hot
+  product summed in float32 copies a token exactly. Top-k ties go to the
+  lower expert index, as ``jax.lax.top_k``'s; a token count that is above
+  ``moe_group`` and not a multiple of it raises ``ValueError`` where the
+  reference's reshape fails.
 
-MoE layers, Gemma-2's alternating local/global attention, post-norms and
-logit soft-caps are not ported: a config that asks for one raises
-``NotImplementedError``. Training (``forward_loss``) is not ported either.
+Training (``forward_loss``) is not ported.
 """
 from __future__ import annotations
 
@@ -64,13 +82,13 @@ class TransformerConfig:
     head_dim: int
     d_ff: int
     vocab: int
-    # MoE (n_experts == 0 -> dense FFN); not ported
+    # MoE (n_experts == 0 -> dense FFN)
     n_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 1.25
     moe_group: int = 2048
-    # gemma-2 extras; not ported
-    local_window: int | None = None
+    # gemma-2 extras
+    local_window: int | None = None    # if set, layers alternate local/global
     attn_softcap: float | None = None
     final_softcap: float | None = None
     post_norms: bool = False
@@ -88,6 +106,15 @@ class TransformerConfig:
     context_parallel: bool = False
     seq_parallel_residual: bool = False
 
+    @property
+    def alternating(self) -> bool:
+        return self.local_window is not None
+
+    @property
+    def layers_leading(self) -> tuple:
+        """The reference's leading layer axes: (L/2, 2) when alternating."""
+        return (self.n_layers // 2, 2) if self.alternating else (self.n_layers,)
+
     def n_params(self) -> int:
         d, h, kv, dh, f, v = (self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
                               self.d_ff, self.vocab)
@@ -95,25 +122,24 @@ class TransformerConfig:
         ffn = self.n_experts * 3 * d * f + d * self.n_experts if self.n_experts else 3 * d * f
         return self.n_layers * (attn + ffn + 2 * d) + 2 * v * d + d
 
+    def n_active_params(self) -> int:
+        if not self.n_experts:
+            return self.n_params()
+        return self.n_params() - self.n_layers * (self.n_experts - self.top_k) * 3 \
+            * self.d_model * self.d_ff
 
-def _check_ported(cfg: TransformerConfig) -> None:
-    missing = [what for what, asked in (
-        ("MoE layers (n_experts > 0)", cfg.n_experts > 0),
-        ("alternating local/global attention (local_window)", cfg.local_window is not None),
-        ("post-norms", cfg.post_norms),
-        ("attention logit soft-cap", cfg.attn_softcap is not None),
-        ("final logit soft-cap", cfg.final_softcap is not None)) if asked]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md queue A, "
-            "'The rest of the model zoo'); only the dense GQA path is")
+
+def _check_config(cfg: TransformerConfig) -> None:
     if cfg.dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, not {cfg.dtype!r}")
+    if cfg.alternating and cfg.n_layers % 2:
+        raise ValueError(f"{cfg.name}: alternating local/global layers come in pairs, "
+                         f"not {cfg.n_layers} layers")
 
 
 def param_shapes(cfg: TransformerConfig) -> dict:
     """``init_params``'s shapes: {name: (shape, init scale)}, scale None for
-    zeros; layer entries carry the leading L axis."""
+    zeros; layer entries carry one leading L axis (decision (g))."""
     d, h, kv, dh, f, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                           cfg.d_ff, cfg.vocab)
     L = (cfg.n_layers,)
@@ -125,10 +151,117 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     }
     if cfg.qkv_bias:
         layers.update(bq=((h * dh,), None), bk=((kv * dh,), None), bv=((kv * dh,), None))
-    layers.update(w_gate=((d, f), d ** -0.5), w_up=((d, f), d ** -0.5),
-                  w_down=((f, d), f ** -0.5))
+    if cfg.post_norms:
+        layers.update(ln_attn_post=((d,), None), ln_mlp_post=((d,), None))
+    if cfg.n_experts:
+        e = cfg.n_experts
+        layers.update(router=((d, e), d ** -0.5), w_gate_e=((e, d, f), d ** -0.5),
+                      w_up_e=((e, d, f), d ** -0.5), w_down_e=((e, f, d), f ** -0.5))
+    else:
+        layers.update(w_gate=((d, f), d ** -0.5), w_up=((d, f), d ** -0.5),
+                      w_down=((f, d), f ** -0.5))
     return {"embed": ((v, d), 0.02), **{k: (L + s, sc) for k, (s, sc) in layers.items()},
             "ln_final": ((d,), None), "w_vocab": ((d, v), d ** -0.5)}
+
+
+def moe_group_size(cfg: TransformerConfig, n_tokens: int) -> int:
+    """G, the tokens of one dispatch group: ``min(moe_group, n_tokens)``.
+    Raises ValueError where the reference's reshape into groups fails (more
+    tokens than ``moe_group`` and not a multiple of it): the port neither
+    pads nor regroups."""
+    g = min(cfg.moe_group, n_tokens)
+    if g < 1 or n_tokens % g:
+        raise ValueError(f"{cfg.name}: {n_tokens} tokens do not split into MoE groups of "
+                         f"{g}; a batch's B * S must be at most moe_group or a multiple of it")
+    return g
+
+
+def moe_capacity(cfg: TransformerConfig, g: int) -> int:
+    """C, the slots of an expert in a group of g tokens, as the reference
+    reckons it in Python floats: max(int(k G / E * capacity_factor), k)."""
+    return max(int(cfg.top_k * g / cfg.n_experts * cfg.capacity_factor), cfg.top_k)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b batched, summed and returned in float32 (bfloat16 operands
+    stay bfloat16 on the card; the CPU has no such product, so there they
+    are cast to float32, which gives the same products)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def moe_logits(tokens: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """The router logits of tokens (n, G, d): ``tokens @ router`` summed in
+    float32 and rounded once to the tokens' dtype, as the reference's
+    einsum in that dtype, then cast to float32: (n, G, E). (A bfloat16
+    GEMM may reduce split partial sums in bfloat16, more than one rounding
+    of a logit, which can flip near-tied experts.)"""
+    n, g, d = tokens.shape
+    logits = _bmm_f32(tokens.reshape(1, n * g, d), router.unsqueeze(0))
+    return logits.reshape(n, g, -1).to(tokens.dtype).float()
+
+
+def moe_route(logits: torch.Tensor, top_k: int) -> tuple:
+    """The router's choice from float32 logits (..., E): (probs, softmax of
+    the logits; idx (..., top_k) int64, the top k experts with ties to the
+    lower index, a stable descending sort as ``jax.lax.top_k``)."""
+    probs = torch.softmax(logits, dim=-1)
+    return probs, torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :top_k]
+
+
+def moe_positions(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (token, slot)'s position among the earlier slots of its group
+    routed to the same expert, in flat (token, slot) order: idx (n, G, k)
+    -> (n, G, k) int64."""
+    n, g, k = idx.shape
+    onehot = F.one_hot(idx.reshape(n, g * k), n_experts)
+    return ((onehot.cumsum(1) - onehot) * onehot).sum(-1).reshape(n, g, k)
+
+
+def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate_e: torch.Tensor,
+            w_up_e: torch.Tensor, w_down_e: torch.Tensor, cfg: TransformerConfig) -> tuple:
+    """The reference's ``_moe_ffn`` (GShard grouped dispatch) on x (B, S, d):
+    tokens in (B, S) order cut into groups of :func:`moe_group_size`,
+    routed by :func:`moe_route` on :func:`moe_logits`, gates renormalised
+    over the k, slots whose :func:`moe_positions` is at or past the
+    capacity :func:`moe_capacity` dropped. Kept tokens are copied into an
+    (E, n, C, d) buffer by index (decision (h)); each expert's SiLU-gated
+    MLP sums in float32, its hidden rounded to x's dtype before
+    ``w_down_e`` and its output after; y sums the kept slots' outputs
+    weighted by their gates rounded to x's dtype, in float32, and is cast
+    to x's dtype. Returns (y (B, S, d), aux), aux the Switch load-balance
+    loss E * sum(top-1 fraction * mean probability), a float32 scalar."""
+    B, S, d = x.shape
+    e = cfg.n_experts
+    g = moe_group_size(cfg, B * S)
+    c = moe_capacity(cfg, g)
+    n = B * S // g
+    tokens = x.reshape(n, g, d)
+    probs, idx = moe_route(moe_logits(tokens, router), cfg.top_k)
+    gates = probs.gather(-1, idx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    pos = moe_positions(idx, e)
+    keep = pos < c
+    group = torch.arange(n, device=x.device)[:, None, None]
+    rows = (idx * n + group) * c + pos  # row of (E, n, C) a kept slot goes to
+    dropped = e * n * c                 # one spare row takes the dropped slots
+    xe = x.new_zeros(dropped + 1, d)
+    xe[torch.where(keep, rows, dropped)] = tokens[:, :, None, :]
+    xe = xe[:dropped].view(e, n * c, d)
+    hidden = F.silu(_bmm_f32(xe, w_gate_e)) * _bmm_f32(xe, w_up_e)
+    ye = _bmm_f32(hidden.to(x.dtype), w_down_e).to(x.dtype).view(dropped, d)
+    del xe, hidden
+    gate_c = (gates * keep).to(x.dtype).float()  # 0 on a dropped slot
+    rows = torch.where(keep, rows, 0)
+    y = torch.zeros((n, g, d), dtype=torch.float32, device=x.device)
+    for j in range(cfg.top_k):
+        y += gate_c[..., j, None] * ye[rows[..., j]].float()
+    frac = F.one_hot(idx[..., 0], e).float().mean((0, 1))
+    aux = e * (frac * probs.mean((0, 1))).sum()
+    return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def normal_chunked(shape, scale, dtype, gen: torch.Generator, device) -> torch.Tensor:
@@ -142,13 +275,13 @@ def normal_chunked(shape, scale, dtype, gen: torch.Generator, device) -> torch.T
 
 
 class Transformer(nn.Module):
-    """The dense decoder with the reference's parameters as frozen tensors:
+    """The decoder with the reference's parameters as frozen tensors:
     ``embed`` (V, d), the layer weights stacked (L, ...), ``ln_final`` (d,),
     ``w_vocab`` (d, V), all in ``cfg.dtype``."""
 
     def __init__(self, cfg: TransformerConfig, params: dict):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         dtype = DTYPES[cfg.dtype]
         shapes = param_shapes(cfg)
@@ -168,7 +301,7 @@ class Transformer(nn.Module):
         for the matrices, normal * 0.02 for the embedding, zeros for norms
         and biases), drawn in float32 a chunk at a time and stored in
         ``cfg.dtype``."""
-        _check_ported(cfg)
+        _check_config(cfg)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         dtype = DTYPES[cfg.dtype]
@@ -183,12 +316,15 @@ class Transformer(nn.Module):
         """Carry the JAX package's parameters across: ``params`` is the
         ``init_params`` pytree as numpy arrays, ``{"embed", "layers": {"wq",
         ...}, "ln_final", "w_vocab"}``, layer weights stacked on a leading L
-        axis."""
-        _check_ported(cfg)
+        axis, (L/2, 2) for an alternating model, which becomes (L,) in layer
+        order (decision (g))."""
+        _check_config(cfg)
         dev = resolve_device(device)
         dtype = DTYPES[cfg.dtype]
         flat = {k: v for k, v in params.items() if k != "layers"}
-        flat.update(params["layers"])
+        lead = len(cfg.layers_leading)
+        flat.update({k: np.reshape(v, (cfg.n_layers,) + np.shape(v)[lead:])
+                     for k, v in params["layers"].items()})
         return cls(cfg, {k: torch.from_numpy(np.asarray(v, dtype=np.float32)).to(dev, dtype)
                          for k, v in flat.items()})
 
@@ -215,15 +351,34 @@ class Transformer(nn.Module):
             k_att[:, index:index + S] = k
             v_att[:, index:index + S] = v
         out = ops.flash_attention(q.transpose(1, 2), k_att.transpose(1, 2),
-                                  v_att.transpose(1, 2), causal=True,
-                                  sm_scale=dh ** -0.5, q_offset=index)
+                                  v_att.transpose(1, 2), causal=True, window=self.window(l),
+                                  softcap=cfg.attn_softcap, sm_scale=dh ** -0.5,
+                                  q_offset=index)
         out = out.transpose(1, 2).reshape(B, S, h * dh).to(x.dtype)
         return out @ self.wo[l]
 
+    def window(self, l: int) -> int | None:
+        """Layer l's attention window: ``local_window`` on the even layers
+        of an alternating model (decision (g)), else None."""
+        return self.cfg.local_window if self.cfg.alternating and l % 2 == 0 else None
+
+    def _mlp(self, x, l: int):
+        if self.cfg.n_experts:
+            return moe_ffn(x, self.router[l], self.w_gate_e[l], self.w_up_e[l],
+                           self.w_down_e[l], self.cfg)[0]
+        return (F.silu(x @ self.w_gate[l]) * (x @ self.w_up[l])) @ self.w_down[l]
+
     def _layer(self, x, l: int, rope_cs, cache=None, index: int = 0):
-        x = x + self._attention(rms_norm(x, self.ln_attn[l]), l, rope_cs, cache, index)
-        m_in = rms_norm(x, self.ln_mlp[l])
-        return x + (F.silu(m_in @ self.w_gate[l]) * (m_in @ self.w_up[l])) @ self.w_down[l]
+        post = self.cfg.post_norms
+        a = self._attention(rms_norm(x, self.ln_attn[l]), l, rope_cs, cache, index)
+        x = x + (rms_norm(a, self.ln_attn_post[l]) if post else a)
+        m = self._mlp(rms_norm(x, self.ln_mlp[l]), l)
+        return x + (rms_norm(m, self.ln_mlp_post[l]) if post else m)
+
+    def _logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """float32 logits, soft-capped by ``final_softcap`` where set."""
+        cap = self.cfg.final_softcap
+        return logits if cap is None else cap * torch.tanh(logits / cap)
 
     def _stack(self, tokens: torch.Tensor, cache=None, index: int = 0) -> torch.Tensor:
         x = self.embed[tokens.to(device=self.device, dtype=torch.int64)]
@@ -238,7 +393,7 @@ class Transformer(nn.Module):
     def forward_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced logits: tokens (B, S) -> (B, S, V) float32."""
         x = rms_norm(self._stack(tokens), self.ln_final)
-        return x.float() @ self.w_vocab.float()
+        return self._logits(x.float() @ self.w_vocab.float())
 
     def init_cache(self, batch: int, max_len: int) -> tuple:
         """A zero (k, v) cache, each (L, batch, max_len, Hkv, D) in
@@ -260,7 +415,7 @@ class Transformer(nn.Module):
         cache = self.init_cache(B, max_len)
         x = self._stack(tokens, cache, 0)
         x_last = rms_norm(x[:, -1], self.ln_final)
-        return (x_last @ self.w_vocab).float(), cache
+        return self._logits((x_last @ self.w_vocab).float()), cache
 
     @torch.no_grad()
     def decode_step(self, cache: tuple, tokens: torch.Tensor, cur_index: int):
@@ -273,4 +428,4 @@ class Transformer(nn.Module):
                              f"{cache[0].shape[2]} positions")
         x = self._stack(tokens.reshape(-1, 1), cache, cur_index)
         x = rms_norm(x[:, 0], self.ln_final)
-        return (x @ self.w_vocab).float(), cache
+        return self._logits((x @ self.w_vocab).float()), cache

@@ -7,6 +7,11 @@ the whole batch, writing the cache in place, with per-sequence stop
 handling. Greedy decoding takes the argmax (the first of equal maxima, as
 ``jnp.argmax``); temperature sampling draws from a ``torch.Generator``
 seeded with ``seed``, which cannot reproduce ``jax.random``'s draws.
+
+For a mixture-of-experts model the prefill's tokens are grouped as the
+reference groups them: the padded batch's B * plen must be at most the
+config's ``moe_group`` or a multiple of it (and B alone for decode), else
+``generate`` raises the model's ValueError (``moe_group_size``).
 """
 from __future__ import annotations
 

@@ -264,26 +264,13 @@ def test_qwen2_parameter_count():
 def test_registry_lm_shapes_equal_the_reference():
     assert {k: (s.kind, s.params) for k, s in treg.LM_SHAPES.items()} == \
         {k: (s.kind, s.params) for k, s in jreg.LM_SHAPES.items()}
-    arch = treg.get_arch("qwen2-1.5b")
-    assert arch.family == jreg.get_arch("qwen2-1.5b").family == "lm"
-    assert arch.shapes is treg.LM_SHAPES
-
-
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "gemma2-9b"])
-def test_unported_archs_raise(arch):
-    cfg = _port_cfg(jreg.get_arch(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer.from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer.from_numpy_params({}, cfg, device="cpu")
-
-
-@pytest.mark.parametrize("field", [dict(attn_softcap=30.0), dict(final_softcap=30.0),
-                                   dict(post_norms=True), dict(local_window=8),
-                                   dict(n_experts=4)])
-def test_each_unported_feature_raises(field):
-    with pytest.raises(NotImplementedError):
-        Transformer.from_config(dataclasses.replace(tcfg.reduced(), **field), device="cpu")
+    lm = [a for a, spec in jreg.ARCHS.items() if spec.family == "lm"]
+    assert len(lm) == 5
+    assert [a for a, spec in treg.ARCHS.items() if spec.family == "lm"] == lm  # the same order
+    for arch_id in lm:
+        arch = treg.get_arch(arch_id)
+        assert arch.family == jreg.get_arch(arch_id).family == "lm"
+        assert arch.shapes is treg.LM_SHAPES
 
 
 # ---------------------------------------------------------------- cells
