@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR and the paper's
-baselines, DLRM serving and training, LM serving, GNN training.
+baselines, DLRM serving and training, LM serving, GNN training (GCN,
+GatedGCN, MeshGraphNet, NequIP).
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
 
@@ -408,6 +409,30 @@ nothing of the JAX package. Phases:
    step, save, write and restore ms; 20 steps each with ``int8`` and
    ``topk`` gradient compression (decoded gradients equal to the CPU
    codec's); steps with an async save in flight against none.
+   8c. the rest of the GNN zoo through ``build_cell`` at full width, every
+   registry cell that fits one card besides phase 8's: ``gcn-cora`` at
+   ``minibatch_lg`` and ``molecule``; GatedGCN (16 x 70), MeshGraphNet (15
+   blocks x 128) and NequIP (5 layers, C = 32, l <= 2) at ``full_graph_sm``,
+   ``minibatch_lg`` and ``molecule``, one cell at a time, each freed before
+   the next (at most 1 GiB allocated at its start and end). First the three
+   ``ogb_products`` cells that do not fit (GatedGCN, MeshGraphNet, NequIP)
+   must raise ``ValueError`` naming their bytes with nothing allocated;
+   then one Chung-Lu graph of Reddit's size (232,965 nodes, 114,615,892
+   edges) is drawn and its CSC sorted once (s, peak) and shared by the
+   ``minibatch_lg`` cells (1,024 seeds at fanouts (15, 10), padded to
+   169,984 x 168,960 with edges -1 at both ends). For each cell: (a) the
+   reduced cell on the card against the host CPU over 3 steps; (b) one
+   full-width step's outputs, loss and gradients against the same step with
+   every aggregation summed in float64, with a control (each row's last
+   edge dropped) that must fail; (c) exactly 4 / 64 / 30 / 10 ``csr_spmm``
+   launches a step (GCN / GatedGCN / MeshGraphNet / NequIP) and the
+   combines the CSRs' plans imply; (d) ms a step (median of 5 after a
+   warm-up), busy share, device ms by kernel and peak memory; (e)
+   ``csr_spmm`` at each width of the step (GCN 16 and 41 or 1, GatedGCN 70,
+   MeshGraphNet 128, NequIP 416, its three sums in one launch), forward and
+   transposed, against its float64 twin and split twin, beside its twin and
+   ``torch.sparse.mm``; NequIP at ``molecule`` also keeps its energies under
+   rotations plus translations, and a shear must move them.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -8440,10 +8465,10 @@ def _graph_to(graph, dev):
 
 
 def _loss_and_grads(torch, model, batch):
-    from repro_torch.models.gnn import gcn_loss
+    from repro_torch.models.gnn import gnn_loss
 
     leaves = model.leaves()
-    loss = gcn_loss(model, batch)
+    loss = gnn_loss(model, batch)
     return loss.detach(), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
 
@@ -8505,7 +8530,10 @@ def _cora_state_check(torch, p, m, v, want: dict, p0: dict, sum_lr: float) -> di
                                   atol=GNN_MOMENT_RTOL * float(w.abs().max())):
                 out["ok"] = False
         d_want = wp - p0[k]
-        rel = float((p[k].cpu() - p0[k] - d_want).norm() / d_want.norm())
+        d_got = p[k].cpu() - p0[k]
+        den = float(d_want.norm())  # 0 where only weight decay could move it, and it did not
+        rel = float((d_got - d_want).norm()) / den if den else (
+            0.0 if float(d_got.norm()) == 0 else float("inf"))
         out["change_rel"] = max(out["change_rel"], rel)
         if not rel <= GNN_CHANGE_RTOL:
             out["ok"] = False
@@ -8522,7 +8550,7 @@ def gnn_vs_host(torch, np, seed: int) -> None:
     import itertools
 
     from repro_torch.launch.steps import build_cell
-    from repro_torch.models.gnn import GCN, gcn_loss
+    from repro_torch.models.gnn import GCN, gnn_loss
     from repro_torch.train import Trainer, TrainerConfig
 
     cell = build_cell("gcn-cora", "full_graph_sm", seed=seed)
@@ -8538,7 +8566,7 @@ def gnn_vs_host(torch, np, seed: int) -> None:
     g_err = _grads_close(torch, g_card, g_host, GNN_GRAD_SCALED)
     logs, states = [], []
     for model, b in ((card, batch), (host, host_batch)):
-        trainer = Trainer(lambda x, m=model: gcn_loss(m, x), model.leaves(),
+        trainer = Trainer(lambda x, m=model: gnn_loss(m, x), model.leaves(),
                           TrainerConfig(log_every=1))
         logs.append(trainer.run(itertools.repeat(b), steps=3))
         states.append(trainer.opt_state)
@@ -8834,7 +8862,7 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
     at full size after the LM phase has freed the card; returns the
     csr_spmm and csr_spmm_combine rows of the kernels line."""
     from repro_torch.configs.registry import GNN_SHAPES
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import _gnn_sizes, build_cell
 
     left = torch.cuda.memory_allocated()
@@ -8921,8 +8949,7 @@ def drive_gnn(torch, np, seed: int, errs: dict, card: str) -> list:
     # a reading, not a check: the float32 step with every aggregation summed
     # in float64 and rounded once, the closest a float32 kernel can come
     real = ops.csr_spmm
-    ops.csr_spmm = lambda x, a: ref.csr_spmm_ref(x.double(), a.row_ptr, a.col,
-                                                 a.n_rows).float()
+    ops.csr_spmm = _f64_spmm(torch)
     try:
         _, g_r = _loss_and_grads(torch, model, batch)
     finally:
@@ -9069,7 +9096,7 @@ def _same_state(torch, a: list, b: list) -> bool:
         x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for (_, x), (_, y) in zip(a, b))
 
 
-def _gated_spmm_row(torch, what: str, x, a, card: str) -> dict:
+def _gated_spmm_row(torch, what: str, x, a, card: str, arch: str = "GatedGCN") -> dict:
     """csr_spmm at GatedGCN's edge-id CSR: held against its twin run in
     float64 and against the split twin on the same plan, timed beside the
     twin and torch.sparse.mm, with its bound.
@@ -9096,10 +9123,10 @@ def _gated_spmm_row(torch, what: str, x, a, card: str) -> dict:
     err = float((got.double() - want).abs().max())
     twin_err = float((ref.csr_spmm_ref(x, row_ptr, col, n_out).double() - want).abs().max())
     if err > SPMM_F32_SCALED * float(want.abs().max()):
-        _fail(f"csr_spmm differs from its twin (run in float64) at GatedGCN's {what} ({err})")
+        _fail(f"csr_spmm differs from its twin (run in float64) at {arch}'s {what} ({err})")
     split_err, bits = _split_close(torch, got, a, x)
     if split_err is None:
-        _fail(f"csr_spmm differs from its split twin at GatedGCN's {what}")
+        _fail(f"csr_spmm differs from its split twin at {arch}'s {what}")
     a_csr = torch.sparse_csr_tensor(row_ptr, col.to(torch.int64), torch.ones(nnz, device=DEV),
                                     size=(n_out, n_x), check_invariants=False)
     plain_a = _time_ms(torch, lambda: ref.csr_spmm_ref(x, row_ptr, col, n_out), 5)
@@ -9116,7 +9143,7 @@ def _gated_spmm_row(torch, what: str, x, a, card: str) -> dict:
            else "operations", "library_ms": min(lib_a, lib_b), "max_abs_err": err,
            "float32_twin_err": twin_err, "split_err": split_err, "split_bit_identical": bits,
            "long_rows": a.plan.n_long, "chunks": a.plan.n_chunks}
-    print(f"kernel csr_spmm at GatedGCN {what}: D={d} rows={n_out} nnz={nnz} "
+    print(f"kernel csr_spmm at {arch} {what}: D={d} rows={n_out} nnz={nnz} "
           f"ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
           f"(torch.sparse.mm) bound_ms={row['bound_ms']:.6f} ({row['bound_by']}, {nbytes} B) "
           f"max_abs_err={err} vs the float64 twin (tol {SPMM_F32_SCALED} x max|want| "
@@ -9186,7 +9213,7 @@ def _gated_filled(torch, np, cfg, seed: int, card: str) -> dict:
 
     from repro_torch.configs.registry import GNN_SHAPES
     from repro_torch.data import NeighborSampler
-    from repro_torch.data.graphs import node_graph
+    from repro_torch.data.graphs import csc, node_graph
     from repro_torch.launch import gnn_compressed as gnc
     from repro_torch.models.gnn import GatedGCN, gatedgcn_loss
     from repro_torch.train import Trainer, TrainerConfig
@@ -9196,11 +9223,7 @@ def _gated_filled(torch, np, cfg, seed: int, card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(seed + 11)
     g = node_graph(n, e, mb["d_feat"], mb["n_classes"], real_nodes=n, real_edges=e,
                    generator=gen)
-    order = torch.argsort(g["receivers"], stable=True)
-    indices = g["senders"][order]
-    indptr = torch.zeros(n + 1, dtype=torch.int64, device=DEV)
-    indptr[1:] = torch.cumsum(torch.bincount(g["receivers"], minlength=n), 0)
-    del order, g["senders"], g["receivers"]
+    indptr, indices = csc(g.pop("senders"), g.pop("receivers"), n)
     sampler = NeighborSampler(indptr, indices, GATED_FANOUTS)
     n_pad, e_pad = gnc.pad_sizes(n, GATED_SEEDS, GATED_FANOUTS)
     data = gnc.make_batches(sampler, g["x"], g["y"], gen, GATED_SEEDS, n_pad, e_pad)
@@ -9586,6 +9609,421 @@ def _merge_gnn_compressed(kernels: list, part: dict) -> None:
             row["launches_gnn_compressed_part"] = part["counts"][name]
 
 
+# Phase 8c: the rest of the GNN zoo at full width, every registry cell that
+# fits one card besides phase 8's (gcn-cora at minibatch_lg and molecule;
+# GatedGCN, MeshGraphNet and NequIP at full_graph_sm, minibatch_lg and
+# molecule). Tolerances: (a) the reduced cell card against host CPU over 3
+# steps as gnn_vs_host holds Cora (losses GNN_LOSS_RTOL, m and v
+# GNN_MOMENT_RTOL, parameters within 2 x the learning rates summed, each
+# leaf's change GNN_CHANGE_RTOL); (b) one full-width step against the same
+# step with every aggregation summed in float64 and rounded once (the
+# kernel sums compensated and rounds each row once too): loss rtol 1e-5,
+# each gradient leaf 1e-3 x its max|g| (phase 8b's bound for GatedGCN's 16
+# layers), outputs 1e-4 x max|out| (the one-class molecule cells' loss and
+# gradients are 0 whatever the sums, so their outputs carry the check); a
+# control with each row's last edge dropped must fail it. Beside them, a
+# reading: the step computed wholly in float64. The steps run with torch's
+# deterministic algorithms on, so the gathers' gradients (index_add_) add in
+# one order in every path. A twin that gathers its rows back to float32
+# before summing (ref.csr_spmm_ref of a float64 x) is no float64 twin:
+# against it GatedGCN's full_graph_sm layer-0 gradients sat 1.3e-3 x max|g|
+# away on an H100, while the kernel's were within 2.8e-6 of the step
+# computed in float64. NequIP at
+# molecule: each energy after a rotation plus a translation within
+# E3_RTOL x |E_i| + E3_ATOL of its own (the reference's own test holds 1e-4
+# at its reduced config, where energies are near 1; at full width with
+# random weights they are heavy-tailed, mean |E| 88 but max 2.2e5 on an
+# H100, and the rotation moved them by up to 5.3e-4 of their own size and
+# 0.45 at most, because float32 positions of nearly coincident atoms lose
+# their relative distance), and a shear of E3_SHEAR must move at least one
+# past it. On the host CPU, with other data from the same seeds, the
+# rotations moved energies by at most 0.21 x this limit, a 1e-3 shear by
+# 50-277 x and a 1e-4 shear by 5-28 x.
+CELLS_8C = (("gcn-cora", ("minibatch_lg", "molecule")),
+            ("gatedgcn", ("full_graph_sm", "minibatch_lg", "molecule")),
+            ("meshgraphnet", ("full_graph_sm", "minibatch_lg", "molecule")),
+            ("nequip", ("full_graph_sm", "minibatch_lg", "molecule")))
+UNFIT_8C = ("gatedgcn", "meshgraphnet", "nequip")  # their ogb_products cells refuse
+CELL_SPMM = {"gcn-cora": 4, "gatedgcn": 64, "meshgraphnet": 30, "nequip": 10}  # a step
+CELL_LOSS_RTOL = 1e-5
+CELL_GRAD_SCALED = 1e-3
+CELL_OUT_SCALED = 1e-4
+CELL_HOST_STEPS = 3
+CELL_TIMED_STEPS = 5
+E3_RTOL = 1e-3
+E3_ATOL = 1e-3
+E3_SHEAR = 1e-3
+
+
+def _rel(a: float, b: float) -> float:
+    """|a - b| / |b|; 0 where both are 0, infinite where only b is."""
+    return abs(a - b) / abs(b) if b else (0.0 if a == 0 else float("inf"))
+
+
+def _cell_copy(torch, cell, dev) -> tuple:
+    """(model, opt_state, batch) of a GNN cell that has taken no step, copied
+    to ``dev``: the parameters, a fresh AdamW state, the batch's tensors and
+    its CSRs built anew there."""
+    import copy
+
+    from repro_torch.models.gnn import EdgeCSR, Graph
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    model, _, batch = cell.args
+    model = copy.deepcopy(model).to(dev)
+    b = {k: v.to(dev) for k, v in batch.items() if torch.is_tensor(v)}
+    n = b["y"].shape[0]
+    if "graph" in batch:
+        b["graph"] = Graph.from_edges(b["senders"], b["receivers"], n)
+    else:
+        b["csr"] = EdgeCSR.from_receivers(b["receivers"], n)
+    return model, init_opt_state(model.leaves(), AdamWConfig()), b
+
+
+def _cell_vs_host(torch, arch: str, shape: str, seed: int) -> dict:
+    """8c (a): the reduced cell built on the host CPU and copied to the card
+    before its first step; 3 steps each side; the losses, and the state
+    after them as gnn_vs_host holds Cora's."""
+    from repro_torch.launch.steps import build_cell, gnn_step
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cell = build_cell(arch, shape, reduced=True, device="cpu", seed=seed)
+    sides = {"card": _cell_copy(torch, cell, DEV), "host": cell.args}
+    p0 = {k: t.detach().clone() for k, t in cell.model.leaves().items()}
+    losses = {"card": [], "host": []}
+    sum_lr = 0.0
+    for _ in range(CELL_HOST_STEPS):
+        for side, (model, opt, b) in sides.items():
+            loss, met = gnn_step(model, opt, b, AdamWConfig())
+            losses[side].append(float(loss))
+        sum_lr += float(met["lr"])
+    (m_c, o_c, _), (m_h, o_h, _) = sides["card"], sides["host"]
+    want = {"p": {k: t.detach() for k, t in m_h.leaves().items()}, "m": o_h["m"], "v": o_h["v"]}
+    got = _cora_state_check(torch, {k: t.detach() for k, t in m_c.leaves().items()},
+                            o_c["m"], o_c["v"], want, p0, sum_lr)
+    got["loss_err"] = max(_rel(a, b) for a, b in zip(losses["card"], losses["host"]))
+    got["losses"] = losses
+    print(f"8c {arch} {shape} reduced card vs host CPU, {CELL_HOST_STEPS} steps: losses card "
+          f"{losses['card']} host {losses['host']} max_rel_err={got['loss_err']} tol="
+          f"{GNN_LOSS_RTOL}; params max_abs_err={got['p_err']} limit={2 * sum_lr}, m "
+          f"{got['m_err']}, v {got['v_err']} (rtol {GNN_MOMENT_RTOL} + {GNN_MOMENT_RTOL} x max), "
+          f"change max_rel_err={got['change_rel']} tol={GNN_CHANGE_RTOL}")
+    if got["loss_err"] > GNN_LOSS_RTOL or not got["ok"]:
+        _fail(f"{arch} {shape}: the reduced cell on the card differs from the host's")
+    return got
+
+
+def _cell_grads(torch, model, batch) -> tuple:
+    """(outputs, loss, gradients by leaf) of one step's forward and backward,
+    the state untouched."""
+    from repro_torch.models.gnn import gnn_outputs, output_loss
+
+    leaves = model.leaves()
+    out = gnn_outputs(model, batch)
+    loss = output_loss(model, out, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                materialize_grads=True)
+    return out.detach(), loss.detach(), dict(zip(leaves, grads))
+
+
+def _f64_spmm(torch, dropped: bool = False):
+    """csr_spmm's twin with its rows gathered and summed in float64 and the
+    sums rounded once to x's dtype; with ``dropped``, on each row without
+    its last edge (the control)."""
+    def run(x, a):
+        rp, col = _last_edge_dropped(torch, a.row_ptr, a.col) if dropped else (a.row_ptr, a.col)
+        rows = torch.repeat_interleave(torch.arange(a.n_rows, device=x.device), rp.diff(),
+                                       output_size=col.numel())
+        out = torch.zeros((a.n_rows, x.shape[1]), dtype=torch.float64, device=x.device)
+        return out.index_add_(0, rows, x[col.long()].double()).to(x.dtype)
+
+    return run
+
+
+def _f64_step(torch, model, b) -> tuple:
+    """The step wholly in float64 (a float64 copy of the model and of the
+    batch's floats, the aggregation by :func:`_f64_spmm`), cast back to
+    float32: a reading beside the checks."""
+    import copy
+
+    from repro_torch.kernels import ops
+
+    m64 = copy.deepcopy(model).double()
+    b64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+           for k, v in b.items()}
+    real = ops.csr_spmm
+    ops.csr_spmm = _f64_spmm(torch)
+    try:
+        o, l, g = _cell_grads(torch, m64, b64)
+    finally:
+        ops.csr_spmm = real
+    return o.float(), l.float(), {k: v.float() for k, v in g.items()}
+
+
+def _step_errs(got: tuple, want: tuple) -> dict:
+    """A step (outputs, loss, gradients) against another: the loss's
+    relative error, the worst leaf's max abs error over its max|g| and the
+    outputs' over max|out| (0 where both are 0), and whether all hold."""
+    def scaled(a, b):
+        e, m = float((a - b).abs().max()), float(b.abs().max())
+        return e / m if m else (0.0 if e == 0 else float("inf"))
+
+    (o_k, l_k, g_k), (o_t, l_t, g_t) = got, want
+    by_leaf = {k: scaled(g_k[k], w) for k, w in g_t.items()}
+    worst = max(by_leaf, key=by_leaf.get)
+    out = {"loss": _rel(float(l_k), float(l_t)), "out": scaled(o_k, o_t),
+           "grad": by_leaf[worst], "grad_leaf": worst}
+    out["ok"] = (out["loss"] <= CELL_LOSS_RTOL and out["grad"] <= CELL_GRAD_SCALED
+                 and out["out"] <= CELL_OUT_SCALED)
+    return out
+
+
+def _e3_check(torch, np, model, b, seed: int) -> dict:
+    """NequIP's energies on the card after 3 rotations plus translations
+    (each within E3_RTOL x |E_i| + E3_ATOL) and after a shear of E3_SHEAR
+    (must move one past that)."""
+    rng = np.random.default_rng(seed)
+
+    def energies(pos):
+        with torch.no_grad():
+            return model(b["species"], pos, b["senders"], b["receivers"], b["csr"])
+
+    base = energies(b["pos"])
+    limit = E3_RTOL * base.abs() + E3_ATOL
+
+    def over(pos):  # the largest move as a share of its energy's limit, and that move
+        d = (energies(pos) - base).abs()
+        return float((d / limit).max()), float(d.max())
+
+    worst = worst_abs = 0.0
+    for _ in range(3):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        if np.linalg.det(q) < 0:
+            q[:, 0] *= -1
+        qt = torch.tensor(q.T, dtype=torch.float32, device=DEV)
+        shift = torch.tensor(rng.normal(size=(3,)), dtype=torch.float32, device=DEV)
+        share, d = over(b["pos"] @ qt + shift)
+        worst, worst_abs = max(worst, share), max(worst_abs, d)
+    shear = torch.eye(3, device=DEV)
+    shear[0, 1] = E3_SHEAR
+    s_share, s_abs = over(b["pos"] @ shear.T)
+    print(f"8c nequip molecule E(3): limit {E3_RTOL} x |E_i| + {E3_ATOL} (max|E| "
+          f"{float(base.abs().max())}, mean|E| {float(base.abs().mean())}); 3 rotations + "
+          f"translations: largest move {worst} x its limit, max_abs_err={worst_abs}; control "
+          f"(shear {E3_SHEAR}): largest move {s_share} x its limit, max_abs_err={s_abs} "
+          f"passes={s_share <= 1}")
+    if worst > 1:
+        _fail(f"nequip molecule: a rotation and a translation move an energy {worst} x its limit")
+    if s_share <= 1:
+        _fail("nequip molecule: the E(3) check does not tell a shear from a rotation")
+    return {"rotation_share": worst, "rotation_err": worst_abs, "shear_share": s_share,
+            "shear_err": s_abs}
+
+
+def _cell_spmm_rows(torch, arch: str, shape: str, model, batch, card: str) -> list:
+    """8c (e): the step's csr_spmm launches recorded; the first forward and
+    the first backward launch at each width, held against the float64 twin
+    and the split twin and timed beside the twin and torch.sparse.mm."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    real = ops.csr_spmm
+
+    def rec(x, a):
+        calls.append((x.detach(), a))
+        return real(x, a)
+
+    ops.csr_spmm = rec
+    try:
+        _cell_grads(torch, model, batch)
+    finally:
+        ops.csr_spmm = real
+    half = len(calls) // 2
+    rows, seen = [], set()
+    for i, (x, a) in enumerate(calls):
+        key = ("forward" if i < half else "backward", x.shape[1])
+        if key in seen:
+            continue
+        seen.add(key)
+        what = f"{shape} {key[0]} D={key[1]}"
+        row = _gated_spmm_row(torch, what, x, a, card, arch=arch)
+        rows.append({"arch": arch, "cell": shape, "direction": key[0], **row})
+    return rows
+
+
+def _gnn_cell_part(torch, np, arch: str, shape: str, seed: int, card: str) -> dict:
+    """8c (a)-(e) for one cell; NequIP at molecule adds the E(3) check."""
+    import statistics
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+
+    t0 = time.perf_counter()
+    host = _cell_vs_host(torch, arch, shape, seed)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    cell = build_cell(arch, shape, seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    model, _, b = cell.args
+    g = b.get("graph") or b["csr"]
+    n_edges = int((b["senders"] >= 0).sum())
+    # (b) the kernel step against the float64 twin's, and the control
+    real = ops.csr_spmm
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kern = _cell_grads(torch, model, b)
+        ops.csr_spmm = _f64_spmm(torch)
+        twin = _cell_grads(torch, model, b)
+        ops.csr_spmm = _f64_spmm(torch, dropped=True)
+        ctrl = _cell_grads(torch, model, b)
+        ops.csr_spmm = real
+        f64 = _step_errs(kern, _f64_step(torch, model, b))
+    finally:
+        ops.csr_spmm = real
+        torch.use_deterministic_algorithms(False)
+    errs, c_errs = _step_errs(kern, twin), _step_errs(ctrl, twin)
+    finite = bool(torch.isfinite(kern[1])) and all(bool(torch.isfinite(v).all())
+                                                   for v in kern[2].values())
+    print(f"8c {arch} {shape} full width ({b['y'].shape[0]} nodes, {b['senders'].numel()} edges, "
+          f"{n_edges} real): kernel step vs float64 twin loss {float(kern[1])} vs "
+          f"{float(twin[1])} rel_err={errs['loss']} tol={CELL_LOSS_RTOL}; grads worst leaf "
+          f"({errs['grad_leaf']}) {errs['grad']} x max|g| tol={CELL_GRAD_SCALED}; outputs "
+          f"{errs['out']} x max|out| "
+          f"tol={CELL_OUT_SCALED}; control (last edge of each row dropped) loss {c_errs['loss']} "
+          f"grads {c_errs['grad']} outputs {c_errs['out']} passes={c_errs['ok']}; reading: vs "
+          f"the step wholly in float64 loss {f64['loss']} grads ({f64['grad_leaf']}) "
+          f"{f64['grad']} outputs {f64['out']}; build_s={build_s:.6f}")
+    if not finite:
+        _fail(f"{arch} {shape}: the full-width step's loss or a gradient is not finite")
+    if not errs["ok"]:
+        _fail(f"{arch} {shape}: the kernel step differs from the float64 twin's: {errs}")
+    if c_errs["ok"]:
+        _fail(f"{arch} {shape}: the step check does not tell the dropped-edge control apart")
+    del twin, ctrl, kern
+    # (c) launches of one train step, exactly (also the warm-up)
+    n_fwd = CELL_SPMM[arch] // 2
+    want = {"csr_spmm": CELL_SPMM[arch],
+            "csr_spmm_combine": n_fwd * (bool(g.fwd.plan.n_long) + bool(g.bwd.plan.n_long))}
+    counts, (loss, met) = _served_counts(torch, cell.run)
+    got = {k: counts[k] for k in want}
+    print(f"8c {arch} {shape} launches a step: {got} (expected {want}; the forward CSR's long "
+          f"rows {g.fwd.plan.n_long}, the transposed CSR's {g.bwd.plan.n_long}, heaviest row "
+          f"{int(g.fwd.row_lengths().max())} edges)")
+    if got != want:
+        _fail(f"one {arch} {shape} step launched {got}, not {want}")
+    # the gradient norm may overflow to inf (the reference's MeshGraphNet at
+    # full_graph_sm, whose clip then zeroes the update); the state may not
+    state = [cell.args[1][n][k] for n in ("m", "v") for k in cell.args[1][n]]
+    if not (bool(torch.isfinite(loss)) and not bool(torch.isnan(met["grad_norm"])) and all(
+            bool(torch.isfinite(t).all()) for t in [*model.leaves().values(), *state])):
+        _fail(f"{arch} {shape}: a step's loss, gradient norm ({float(met['grad_norm'])}) or "
+              "state is not finite")
+    # (d) time a step, its busy share and kernels, the peak
+    ms = []
+    for _ in range(CELL_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, _ = cell.run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    wall, dev_s, avgs = _profile(torch, cell.run)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"arch": arch, "cell": shape, "nodes": b["y"].shape[0], "edges": b["senders"].numel(),
+           "real_edges": n_edges, "build_s": build_s, "step_ms": statistics.median(ms),
+           "steps_ms": ms, "busy": dev_s / wall, "peak_bytes": peak, "counts": got,
+           "loss": float(loss), "grad_norm": float(met["grad_norm"]), "vs_float64": errs,
+           "control": c_errs, "vs_all_float64": f64, "host": host}
+    print(f"8c {arch} {shape}: step_ms median={out['step_ms']:.6f} (of {CELL_TIMED_STEPS} "
+          f"after the warm-up: {[round(t, 6) for t in ms]}) busy_share={out['busy']:.6f} "
+          f"(profiled step wall_s={wall:.6f} kernel_s={dev_s:.6f}) peak max_memory_allocated="
+          f"{peak} loss={float(loss)} first step's grad_norm={out['grad_norm']}; kernels by "
+          f"device time: {_top_kernels(avgs, 8)}; {card}")
+    # (e) the kernel at the cell's widths; NequIP's E(3) at molecule
+    out["spmm_rows"] = _cell_spmm_rows(torch, arch, shape, model, b, card)
+    if arch == "nequip" and shape == "molecule":
+        out["e3"] = _e3_check(torch, np, model, b, seed)
+    out["seconds"] = time.perf_counter() - t0
+    del cell, model, b, g
+    return out
+
+
+def drive_gnn_cells(torch, np, seed: int, card: str) -> dict:
+    """Phase 8c: the ogb_products refusals, the Reddit-size graph drawn once
+    alone to time it (each minibatch_lg cell draws its own), then each cell
+    of CELLS_8C, one at a time, freed before the next."""
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.launch.steps import _minibatch_graph, build_cell
+
+    t_start = time.perf_counter()
+    left = torch.cuda.memory_allocated()
+    print(f"phase 8c on {card} starts with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated when phase 8c starts")
+    refusals = {}
+    for arch in UNFIT_8C:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        try:
+            build_cell(arch, "ogb_products", seed=seed)
+        except ValueError as e:
+            refusals[arch] = str(e)
+        else:
+            _fail(f"{arch} ogb_products built a cell that does not fit one card")
+        grew = torch.cuda.max_memory_allocated() - before
+        print(f"8c refusal: {refusals[arch]} (device bytes allocated meanwhile: {grew})")
+        if grew or "bytes" not in refusals[arch]:
+            _fail(f"{arch} ogb_products allocated {grew} bytes before refusing, or named none")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = _minibatch_graph(GNN_SHAPES["minibatch_lg"], False, DEV, seed + 2)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    deg = graph["indptr"].diff()
+    g_info = {"nodes": deg.numel(), "edges": graph["indices"].numel(), "build_s": graph_s,
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "kept_bytes": torch.cuda.memory_allocated(), "max_in_degree": int(deg.max())}
+    print(f"8c minibatch_lg graph (Reddit's size, Chung-Lu beta 3): nodes={g_info['nodes']} edges="
+          f"{g_info['edges']} in-degree mean={float(deg.float().mean()):.4f} max="
+          f"{g_info['max_in_degree']} build_s={graph_s:.6f} (drawn, CSC sorted) peak "
+          f"max_memory_allocated={g_info['peak_bytes']} kept={g_info['kept_bytes']}; {card}")
+    del graph, deg
+    cells = []
+    for arch, shapes in CELLS_8C:
+        for shape in shapes:
+            cells.append(_gnn_cell_part(torch, np, arch, shape, seed, card))
+            gc.collect()
+            torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t_start
+    counts = {k: sum(c["counts"][k] for c in cells) for k in ("csr_spmm", "csr_spmm_combine")}
+    print(f"phase 8c ends with memory_allocated={left}; phase_8c_s={seconds:.3f} (graph "
+          f"{graph_s:.1f}; by cell: " + " ".join(f"{c['arch']}/{c['cell']}={c['seconds']:.1f}"
+                                              for c in cells) + f"); launches of the 11 "
+          f"counted steps {counts}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after phase 8c")
+    return {"counts": counts, "cells": cells, "graph": g_info, "refusals": refusals,
+            "seconds": seconds}
+
+
+def _merge_gnn_cells(kernels: list, part: dict) -> None:
+    """Phase 8c's launches and csr_spmm's rows at the cells' widths."""
+    for row in kernels:
+        name = row["name"]
+        if name in part["counts"]:
+            row["launches_gnn_cells_part"] = part["counts"][name]
+            row["launches"] += part["counts"][name]
+        if name == "csr_spmm":
+            row["gnn_cells"] = {
+                "shape": "one train step of each 8c cell: the first forward and backward "
+                         "launch at each width",
+                "per_launch": [r for c in part["cells"] for r in c["spmm_rows"]],
+                "steps": [{k: c[k] for k in ("arch", "cell", "step_ms", "busy", "peak_bytes",
+                                             "counts")} for c in part["cells"]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9641,6 +10079,8 @@ def main(argv=None) -> int:
     print(f"elapsed_s after phase 7b {time.perf_counter() - t_main:.3f}")
     kernels += drive_gnn(torch, np, args.seed, errs, card)
     _merge_gnn_compressed(kernels, drive_gnn_compressed(torch, np, args.seed, card))
+    print(f"elapsed_s before phase 8c {time.perf_counter() - t_main:.3f}")
+    _merge_gnn_cells(kernels, drive_gnn_cells(torch, np, args.seed, card))
     if sys.modules.get("jax") is not None or any(
             m == "repro" or m.startswith("repro.") for m in sys.modules):
         _fail("the JAX package or jax was imported")

@@ -1,6 +1,6 @@
 """Architecture registry: maps arch ids to config constructors and shapes.
 
-The twin of ``repro.configs.registry``, cut to the archs the port runs.
+The twin of ``repro.configs.registry``: the same ten archs and shapes.
 Each arch has a module in :mod:`repro_torch.configs` with ``config()``
 (the exact published numbers) and ``reduced()`` (smoke-test scale).
 """
@@ -71,7 +71,9 @@ ARCHS: dict[str, ArchSpec] = {
         ArchSpec("yi-34b", "lm", "repro_torch.configs.yi_34b", LM_SHAPES),
         ArchSpec("gemma2-9b", "lm", "repro_torch.configs.gemma2_9b", LM_SHAPES),
         ArchSpec("gatedgcn", "gnn", "repro_torch.configs.gatedgcn", GNN_SHAPES),
+        ArchSpec("meshgraphnet", "gnn", "repro_torch.configs.meshgraphnet", GNN_SHAPES),
         ArchSpec("gcn-cora", "gnn", "repro_torch.configs.gcn_cora", GNN_SHAPES),
+        ArchSpec("nequip", "gnn", "repro_torch.configs.nequip", GNN_SHAPES),
         ArchSpec("dlrm-mlperf", "recsys", "repro_torch.configs.dlrm_mlperf", RECSYS_SHAPES),
     ]
 }

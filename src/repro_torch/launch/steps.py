@@ -2,7 +2,8 @@
 
 The twin of ``repro.launch.steps`` for the kinds the port runs: the LM's
 prefill and decode cells, the recsys serve, retrieval and train cells, and
-the GNN's full-graph training cells. The reference returns abstract shapes for
+the GNN training cells of every kind (full graph, sampled minibatch,
+molecule batch) for the four GNN archs. The reference returns abstract shapes for
 an ahead-of-time compile on a mesh; the port runs eagerly on one GPU, so a
 cell here holds the model on the device and inputs drawn from the seed,
 ready to call.
@@ -16,10 +17,13 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.registry import ShapeSpec, get_arch
-from repro_torch.data.graphs import node_graph
+from repro_torch.data.graphs import (N_SPECIES, atoms, csc, edge_features, molecule_graph,
+                                     node_graph, node_targets, sampled_batch)
+from repro_torch.data.sampler import NeighborSampler
 from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_grads, retrieval_scores
-from repro_torch.models.gnn import GCN, Graph, gcn_loss
+from repro_torch.models.gnn import (GCN, EdgeCSR, GatedGCN, Graph, MeshGraphNet, NequIP,
+                                    gnn_loss)
 from repro_torch.models.transformer import DTYPES, Transformer, moe_group_size, normal_chunked
 from repro_torch.train.loop import train_step
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -31,7 +35,7 @@ class Cell:
     shape: str
     fn: Callable
     args: tuple
-    model: DLRM | Transformer | GCN | None = None  # the model, None for retrieval
+    model: torch.nn.Module | None = None  # the model, None for retrieval
 
     def run(self):
         return self.fn(*self.args)
@@ -115,13 +119,40 @@ def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
     return Cell(arch_id, shape.name, model.decode_step, (cache, tokens, S - 1), model)
 
 
+GNN_EDGE_FEAT = 8                                    # the reference cell's _GNN_EDGE_FEAT
+GNN_OUT = {"gcn-cora": None, "gatedgcn": None, "meshgraphnet": 3, "nequip": 1}  # its _GNN_OUT
+CARD_BYTES = 80 * 10**9  # one H100's device memory
+# The widest edge-sized float32 tensor a step of the arch makes (what, and
+# its width in d_hidden), of which the backward keeps one a layer at the
+# least. GCN makes none: its aggregation reads node rows through the CSR.
+_EDGE_TENSORS = {
+    "gatedgcn": ("one (E, d_hidden) edge activation", 1),
+    "meshgraphnet": ("the first edge-MLP input [e, h[s], h[r]] (E, 3 d_hidden)", 3),
+    "nequip": ("the tensor messages m2 (E, d_hidden, 3, 3)", 9),
+}
+
+
 def _gnn_sizes(shape: ShapeSpec, reduced: bool) -> tuple:
-    """(nodes, edges, d_feat, n_classes) of a full-graph shape, cut as the
-    reference's ``_gnn_sizes`` cuts it when reduced, rounded up to
-    multiples of 256, and (nodes, edges) before the rounding."""
+    """(nodes, edges, d_feat, n_classes) of a GNN shape as the reference's
+    ``_gnn_sizes`` gives them (cut to at most 64 nodes' scale and 16
+    features when reduced, rounded up to multiples of 256), and (nodes,
+    edges) before the rounding. A minibatch holds the most that
+    ``batch_nodes`` seeds can sample at its fanouts; a molecule batch
+    ``batch`` molecules of one class."""
     p = shape.params
-    n, e = p["n_nodes"], p["n_edges"]
-    d_feat, n_cls = p["d_feat"], p.get("n_classes", 2)
+    if shape.kind == "minibatch":
+        seeds = p["batch_nodes"]
+        f1, f2 = p["fanouts"]
+        n = seeds * (1 + f1 + f1 * f2)
+        e = seeds * f1 + seeds * f1 * f2
+        d_feat, n_cls = p["d_feat"], p["n_classes"]
+    elif shape.kind == "molecule":
+        n = p["batch"] * p["n_nodes"]
+        e = p["batch"] * p["n_edges"]
+        d_feat, n_cls = p["d_feat"], 1
+    else:
+        n, e = p["n_nodes"], p["n_edges"]
+        d_feat, n_cls = p["d_feat"], p.get("n_classes", 2)
     if reduced:
         scale = max(n // 64, 1)
         n, e = max(n // scale, 8), max(e // scale, 16)
@@ -129,38 +160,122 @@ def _gnn_sizes(shape: ShapeSpec, reduced: bool) -> tuple:
     return _r256(n), _r256(e), d_feat, n_cls, n, e
 
 
-def gnn_step(model: GCN, opt_state: dict, batch: dict, opt_cfg: AdamWConfig) -> tuple:
-    """One train step of the GNN cell: (loss, metrics), with the model's
-    parameters and ``opt_state`` updated in place."""
-    return train_step(lambda b: gcn_loss(model, b), model.leaves(), opt_state, batch, opt_cfg)
+def _reduced_scale(shape: ShapeSpec) -> int:
+    """The factor by which the reference's reduced sizes cut the shape."""
+    n = _gnn_sizes(shape, False)[4]
+    return max(n // 64, 1)
 
 
-def _gatedgcn_not_ported(shape: ShapeSpec) -> NotImplementedError:
-    """GatedGCN runs in the port (``models.gnn.GatedGCN``, trained from a
-    sampled GraphStore by ``launch.gnn_compressed``) but has no cell of the
-    registry's shapes yet. Its full-graph shapes do not fit one card the
-    way the reference lays them out: at ``ogb_products`` (61,859,140 edges)
-    one edge-sized float32 activation of width 70 takes 61.9M x 70 x 4 B,
-    over 17 GB, and a step keeps several of them for each of the 16
-    layers for the backward."""
-    return NotImplementedError(
-        f"gatedgcn {shape.name}: no gatedgcn cell is ported yet (ROADMAP.md queue A, item "
-        "19: GatedGCN's cells of the minibatch_lg, full_graph and molecule kinds)")
+def _refuse_unfit(arch_id: str, shape: ShapeSpec) -> None:
+    """ValueError, before anything is allocated, where the cell at full size
+    keeps more edge-sized activations for its backward than one card
+    holds, naming the reckoned bytes."""
+    if arch_id not in _EDGE_TENSORS:
+        return
+    cfg = get_arch(arch_id).config()
+    e = _gnn_sizes(shape, False)[1]
+    what, width = _EDGE_TENSORS[arch_id]
+    one = e * width * cfg.d_hidden * 4
+    if one * cfg.n_layers > CARD_BYTES:
+        raise ValueError(
+            f"{arch_id} {shape.name} does not fit one card: {what} over its {e:,} padded edges "
+            f"takes {one:,} bytes, and a step keeps at least one a layer for the backward "
+            f"({one * cfg.n_layers:,} bytes over {cfg.n_layers} layers against "
+            f"{CARD_BYTES:,}); ROADMAP.md queue A, item 24")
+
+
+def _minibatch_graph(shape: ShapeSpec, reduced: bool, dev, seed: int) -> dict:
+    """The graph a ``minibatch`` cell samples, drawn on ``dev`` from a
+    generator seeded with ``seed``: a symmetric Chung-Lu graph
+    (:func:`node_graph`) of the shape's published size (Reddit: 232,965
+    nodes, 114,615,892 edges, 602 features, 41 classes), or cut by the
+    reference's reduced scale (2,656 at ``minibatch_lg``: 87 nodes, 43,153
+    edges, 16 features) when reduced, and its CSC. {"x", "y", "indptr",
+    "indices"}: features, labels and the CSC; the edge lists are freed."""
+    p = shape.params
+    n, e, d_feat = p["n_nodes"], p["n_edges"], p["d_feat"]
+    if reduced:
+        scale = _reduced_scale(shape)
+        n, e, d_feat = max(n // scale, 8), max(e // scale, 16), min(d_feat, 16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = node_graph(n, e, d_feat, p["n_classes"], real_nodes=n, real_edges=e, generator=gen)
+    indptr, indices = csc(g.pop("senders"), g.pop("receivers"), n)
+    return {"x": g["x"], "y": g["y"], "indptr": indptr, "indices": indices}
+
+
+def _gnn_model(arch_id: str, cfg, d_feat: int, n_cls: int, dev, seed: int):
+    if arch_id == "gcn-cora":
+        return GCN.from_config(cfg, d_feat, n_cls, device=dev, seed=seed)
+    if arch_id == "gatedgcn":
+        return GatedGCN.from_config(cfg, d_feat, GNN_EDGE_FEAT, n_cls, device=dev, seed=seed)
+    if arch_id == "meshgraphnet":
+        return MeshGraphNet.from_config(cfg, d_feat, GNN_EDGE_FEAT, GNN_OUT[arch_id],
+                                        device=dev, seed=seed)
+    return NequIP.from_config(cfg, N_SPECIES, device=dev, seed=seed)
+
+
+def _gnn_batch(arch_id: str, shape: ShapeSpec, reduced: bool, gen: torch.Generator) -> dict:
+    """The cell's batch as the reference's cell takes it (senders,
+    receivers, x or species and pos, ef, y, and seed_mask or graph_ids by
+    kind) drawn from ``gen``, with the port's CSRs: "graph" for GCN,
+    "csr" (an :class:`EdgeCSR`) for the others. A padded edge is -1 at
+    both ends in every kind, so no CSR row holds one."""
+    dev = gen.device
+    n, e, d_feat, n_cls, real_n, real_e = _gnn_sizes(shape, reduced)
+    p = shape.params
+    d_out = GNN_OUT[arch_id]
+    if shape.kind == "minibatch":
+        graph = _minibatch_graph(shape, reduced, dev, gen.initial_seed() + 1)
+        n_graph = graph["indptr"].numel() - 1
+        seeds = p["batch_nodes"] if not reduced else max(p["batch_nodes"]
+                                                        // _reduced_scale(shape), 1)
+        sampler = NeighborSampler(graph["indptr"], graph["indices"], p["fanouts"])
+        seed_ids = torch.randperm(n_graph, generator=gen, device=dev)[:seeds]
+        tables = {"x": graph["x"], "y": graph["y"]}
+        if d_out:
+            tables["y"] = node_targets(n_graph, d_out, n_graph, gen)
+        if arch_id == "nequip":
+            tables["species"], tables["pos"] = atoms(n_graph, n_graph, gen)
+        b = sampled_batch(sampler, seed_ids, tables, n, e, gen)
+        del b["node_ids"]
+    else:
+        if shape.kind == "molecule":
+            molecules = min(real_n // p["n_nodes"], real_e // p["n_edges"])
+            b = molecule_graph(n, e, d_feat, n_cls, molecules=molecules,
+                               mol_nodes=p["n_nodes"], mol_edges=p["n_edges"], generator=gen)
+            real_n = molecules * p["n_nodes"]
+        else:
+            b = node_graph(n, e, d_feat, n_cls, real_nodes=real_n, real_edges=real_e,
+                           generator=gen)
+            b["receivers"][real_e:] = -1  # padding at both ends, as the other kinds'
+        if d_out:
+            b["y"] = node_targets(n, d_out, real_n, gen)
+        if arch_id == "nequip":
+            b["species"], b["pos"] = atoms(n, real_n, gen)
+    if arch_id == "nequip":
+        del b["x"]
+    if arch_id in ("gatedgcn", "meshgraphnet"):
+        b["ef"] = edge_features(b["senders"], GNN_EDGE_FEAT, gen)
+    if arch_id == "gcn-cora":
+        b["graph"] = Graph.from_edges(b["senders"], b["receivers"], n)
+    else:
+        b["csr"] = EdgeCSR.from_receivers(b["receivers"], n)
+    return b
+
+
+def gnn_step(model, opt_state: dict, batch: dict, opt_cfg: AdamWConfig) -> tuple:
+    """One train step of a GNN cell (any of the four models, its loss by
+    :func:`gnn_loss`): (loss, metrics), with the model's parameters and
+    ``opt_state`` updated in place."""
+    return train_step(lambda b: gnn_loss(model, b), model.leaves(), opt_state, batch, opt_cfg)
 
 
 def _gnn_cell(arch_id: str, shape: ShapeSpec, cfg, reduced: bool, dev, seed: int) -> Cell:
-    if arch_id == "gatedgcn":
-        raise _gatedgcn_not_ported(shape)
-    if shape.kind != "full_graph":
-        raise NotImplementedError(
-            f"{arch_id} {shape.name}: the {shape.kind} kind is not ported yet (ROADMAP.md "
-            "queue A, item 19: the minibatch_lg and molecule GNN shapes)")
-    n, e, d_feat, n_cls, real_n, real_e = _gnn_sizes(shape, reduced)
-    model = GCN.from_config(cfg, d_feat, n_cls, device=dev, seed=seed)
+    _refuse_unfit(arch_id, shape)
+    _, _, d_feat, n_cls, _, _ = _gnn_sizes(shape, reduced)
+    model = _gnn_model(arch_id, cfg, d_feat, n_cls, dev, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    g = node_graph(n, e, d_feat, n_cls, real_nodes=real_n, real_edges=real_e, generator=gen)
-    batch = {"x": g["x"], "y": g["y"],
-             "graph": Graph.from_edges(g["senders"], g["receivers"], n)}
+    batch = _gnn_batch(arch_id, shape, reduced, gen)
     opt_cfg = AdamWConfig()
     opt_state = init_opt_state(model.leaves(), opt_cfg)
     return Cell(arch_id, shape.name, partial(gnn_step, opt_cfg=opt_cfg),
@@ -190,14 +305,26 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     reference's 1,000,000 rounded up to a multiple of 256; 1,024 when
     reduced), top 100. Inputs draw from a generator seeded with seed + 1.
 
-    full_graph (GNN): the GCN built by :meth:`GCN.from_config` from ``seed``,
-    its AdamW state and one batch {"x", "y", "graph"} drawn by
-    :func:`node_graph` at the shape's sizes padded to multiples of 256
-    (cut as the reference cuts them when reduced); ``cell.args`` is (model,
-    opt_state, batch) and ``cell.run()`` one train step, returning (loss,
-    metrics) and updating the parameters and ``opt_state`` in place. The
-    minibatch and molecule kinds raise NotImplementedError, as does every
-    shape of ``gatedgcn``.
+    GNN (all four archs, all three kinds): the model built by its
+    ``from_config`` from ``seed`` as the reference cell builds it (GCN and
+    GatedGCN ``n_classes`` logits, MeshGraphNet 3 outputs, NequIP one
+    energy over 64 species; 8 edge features), its AdamW state and one
+    batch at the sizes of :func:`_gnn_sizes`, drawn from a generator seeded
+    with seed + 1 (see :func:`_gnn_batch`): full_graph a :func:`node_graph`;
+    molecule as many whole molecules as the sizes hold (128 of 30 nodes and
+    64 edges; 2 when reduced, the rest padding) with ``graph_ids``;
+    minibatch one sample of 1,024 seeds (1 when reduced) at the shape's
+    fanouts over a graph of the shape's size (:func:`_minibatch_graph`,
+    drawn from seed + 2), padded with edges -1 at both ends, with
+    ``seed_mask``.
+    MeshGraphNet and NequIP regress standard normal targets, NequIP on
+    standard normal positions. ``cell.args`` is (model, opt_state, batch)
+    and ``cell.run()`` one train step (:func:`gnn_step`), returning (loss,
+    metrics) and updating the parameters and ``opt_state`` in place.
+    GatedGCN, MeshGraphNet and NequIP at ``ogb_products`` raise ValueError
+    before allocating, naming the bytes of edge activations that do not fit
+    one card; their reduced cells refuse too, though they would fit, so
+    that the reduced registry runs the same cells as the full one.
 
     train (DLRM): the DLRM built by :meth:`DLRM.from_config` from ``seed``
     with its float32 master in host memory (``master=True``), its AdamW
@@ -217,7 +344,7 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     if arch.family == "gnn":
         if batch is not None:
             raise ValueError(f"{arch_id} {shape_name}: batch= cuts LM cells only; a "
-                             "full-graph step takes the whole graph")
+                             "GNN step takes the shape's batch")
         return _gnn_cell(arch_id, shape, cfg, reduced, dev, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     if shape.kind == "train":

@@ -1,2 +1,2 @@
-"""Models of the JAX package's zoo that the port runs: DLRM, the dense GQA
-transformer and GCN."""
+"""Models of the JAX package's zoo that the port runs: DLRM, the transformer
+zoo and the four GNN architectures."""

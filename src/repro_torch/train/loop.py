@@ -3,8 +3,9 @@
 hooks, failure injection and gradient compression.
 
 A step computes the loss, the gradients of every parameter
-(``torch.autograd.grad``), compresses them with error feedback when the
-config asks for a codec, and applies one :func:`adamw_update` in place.
+(``torch.autograd.grad``; zero for a parameter the loss does not reach),
+compresses them with error feedback when the config asks for a codec,
+and applies one :func:`adamw_update` in place.
 The reference jits a pure ``loss_fn(params, batch)``; here
 ``loss_fn(batch)`` reads a module's own parameters, the tensors that
 ``params`` names and the optimizer updates in place. So a restore copies
@@ -45,7 +46,10 @@ def train_step(loss_fn: Callable, params: dict[str, torch.Tensor], opt_state: di
     updated in place) and one AdamW update in place; returns (loss,
     metrics) as tensors on the device, with no host sync."""
     loss = loss_fn(batch)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    # a leaf the loss does not reach (NequIP's last vector and tensor mixes)
+    # gets a zero gradient, as jax.grad gives it
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                 allow_unused=True, materialize_grads=True)))
     if compression is not None and compression.codec != "none":
         grads, new_res, _ = compress_gradients(grads, residual, compression)
         with torch.no_grad():

@@ -72,8 +72,7 @@ def test_registry_matches_the_reference():
         assert (shape.kind, shape.params) == (ref_arch.shapes[name].kind,
                                               ref_arch.shapes[name].params)
     assert dataclasses.asdict(arch.config()) == dataclasses.asdict(ref_arch.config())
-    with pytest.raises(KeyError, match="unknown arch"):
-        treg.get_arch("meshgraphnet")
+    assert list(treg.ARCHS) == list(jreg.ARCHS)  # the reference's ten archs, in its order
 
 
 # ---------------------------------------------------------------- MLP

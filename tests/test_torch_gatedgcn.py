@@ -22,7 +22,6 @@ from repro.models import gnn as jgnn
 from repro_torch.configs import gatedgcn as tcfg
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import ops
-from repro_torch.launch import steps
 from repro_torch.models.gnn import EdgeCSR, GatedGCN, GatedGCNConfig, gatedgcn_loss
 from repro_torch.train.checkpoint import flatten
 from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -150,9 +149,3 @@ def test_registry_matches_the_reference():
     assert dataclasses.asdict(arch.config()) == dataclasses.asdict(ref_arch.config())
     assert dataclasses.asdict(arch.reduced()) == dataclasses.asdict(ref_arch.reduced())
     assert dataclasses.asdict(tcfg.config()) == dataclasses.asdict(jcfg.config())
-
-
-@pytest.mark.parametrize("shape", list(treg.GNN_SHAPES))
-def test_build_cell_raises_for_every_shape(shape):
-    with pytest.raises(NotImplementedError, match="item 19"):
-        steps.build_cell("gatedgcn", shape, reduced=True, device="cpu")

@@ -216,12 +216,6 @@ def test_full_graph_cell_refuses_a_batch_override():
         steps.build_cell("gcn-cora", "full_graph_sm", reduced=True, device="cpu", batch=4)
 
 
-@pytest.mark.parametrize("shape", ["minibatch_lg", "molecule"])
-def test_unported_gnn_shapes_raise(shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_cell("gcn-cora", shape, reduced=True, device="cpu")
-
-
 # ---------------------------------------------------------------- the graphs
 def test_node_graph_padding_and_degree_law():
     g = node_graph(4096, 40_960, 8, 5, real_nodes=4000, real_edges=40_000,

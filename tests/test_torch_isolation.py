@@ -103,7 +103,8 @@ def _zero_lm_params(cfg):
                                    "graph_store_from_triples", "parse_ntriples",
                                    "sharded_build", "durable_build", "durable_open",
                                    "k2_triples", "hdt_bt", "gatedgcn_from_config",
-                                   "restore_checkpoint", "gnn_compressed_main"])
+                                   "restore_checkpoint", "gnn_compressed_main",
+                                   "meshgraphnet_from_config", "nequip_from_config"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     _without_cuda()
     from repro_torch import resolve_device
@@ -123,7 +124,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     from repro_torch.baselines import HDTBitmapTriples, K2Triples
     from repro_torch.configs import gatedgcn
     from repro_torch.launch import gnn_compressed
-    from repro_torch.models.gnn import GatedGCN
+    from repro_torch.models.gnn import GatedGCN, MeshGraphNet, NequIP
+    from repro_torch.configs import meshgraphnet, nequip
     from repro_torch.train import restore_checkpoint, save_checkpoint
 
     save_checkpoint(str(tmp_path / "ckpt"), 1, {"w": np.zeros(2, np.float32)})
@@ -172,6 +174,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
                                                                  device=dev),
         "restore_checkpoint": lambda dev: restore_checkpoint(str(tmp_path / "ckpt"),
                                                              device=dev),
+        "meshgraphnet_from_config": lambda dev: MeshGraphNet.from_config(
+            meshgraphnet.reduced(), 16, 8, 3, device=dev),
+        "nequip_from_config": lambda dev: NequIP.from_config(nequip.reduced(), 64, device=dev),
         "gnn_compressed_main": lambda dev: gnn_compressed.main(
             dev, n_nodes=60, n_edges=200, seeds=8, fanouts=(3, 2), total_steps=2,
             checkpoint_every=1, log_every=1, fail_at=1, out=lambda *_: None),
