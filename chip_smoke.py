@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ITR and the paper's
-baselines, DLRM serving and training, LM serving, GNN training (GCN,
+baselines, DLRM serving and training, LM serving and training, GNN training (GCN,
 GatedGCN, MeshGraphNet, NequIP).
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0] [--queries 4096]
@@ -65,7 +65,7 @@ nothing of the JAX package. Phases:
    are kept. Then the scalar worklist, the crossover and the paper's
    neighbourhood queries on the same engine: the crossover measured on the
    card and the two best times it came from; ``K2Tree.row`` held against
-   its twin on 256 subjects and timed; 256 single queries of each selective
+   its twin on 256 subjects and timed; 128 single queries of each selective
    pattern (s??, ??o, sp?, s?o, ?po, spo) through ``engine.query``, at the
    calibrated crossover (8 if it chose 0) and at 0 (the frontier alone),
    each reading held against the oracle scan, p50/p99 µs per pattern, with
@@ -74,7 +74,7 @@ nothing of the JAX package. Phases:
    ``neighbors_out_batch`` and ``neighbors_in_batch`` over 4,096 nodes drawn
    from the triples (duplicates, a -1 and an id past n_nodes), every list
    equal to the oracle's distinct objects / subjects, duplicates sharing
-   one tensor, µs per node, then 256 single ``neighbors_out`` and 256
+   one tensor, µs per node, then 128 single ``neighbors_out`` and 128
    ``neighbors_in`` calls, each checked, p50/p99 µs, one of each launch a
    batch or call; controls that must fail: a neighbour list with one node
    dropped, and the worklist with its NT prune inverted on the ?po
@@ -95,7 +95,7 @@ nothing of the JAX package. Phases:
    run hitting every unique pattern within ``max_entry_edges`` and
    launching no ``k2_lines`` kernel; 4,096 neighbourhoods a side against the
    oracle, and ``neighbors_out(-1)`` / ``neighbors_in(-1)`` empty with
-   inserts at row ``n_rows``; 256 single s?? queries cold and warm (every
+   inserts at row ``n_rows``; 128 single s?? queries cold and warm (every
    warm one a hit), p50/p99 and the cache's stats; where a cached batch's
    host time goes; 512 inserts on the warm s?? subjects, after which every
    answer equals the oracle, with a control (``bump_generation`` stubbed
@@ -131,8 +131,8 @@ nothing of the JAX package. Phases:
    iterations, ``rebuild_count`` + 1, every pattern equal to the oracle);
    a crash injected at ``snapshot.pre_commit`` while overwriting must
    leave the first save's files and a ``.tmp`` orphan that the next save
-   clears; then ``chess-legal`` at scale 1.0 (76,269 triples, 68,643 of
-   76,270 nodes labelled with 13 labels) built on the card without and
+   clears; then ``chess-legal`` at scale 0.5 (38,129 triples, 34,317 of
+   them labelled with 13 labels; scale 1.0 until phase 7c) built on the card without and
    with ``attach_node_labels`` (seconds, encoded bytes, ``digram_pair_accum``
    1 + iterations each), the ITR+ grammar equal to the port's CPU build,
    ``strip_node_labels`` of its decompression giving back the labels and
@@ -209,10 +209,11 @@ nothing of the JAX package. Phases:
    oracle without its rows, the degraded patterns counted, writes and
    rebalance refused) and reingested; the N-Triples file into an empty
    P = 4 tier (``n_nodes`` 1) through ``ingest_file`` (``IngestStats``
-   equal to a plain count), 256 S-bound and 256 O-bound ``query_strings``
+   equal to a plain count), 64 S-bound and 64 O-bound ``query_strings``
    against the string oracle, an unknown term launching nothing; then 4
-   reader threads, a churn writer and a rebalancer for 5 s on each P = 4
-   tier (10 s until phase 3g came), every answer checked as the reference's stress machine checks
+   reader threads, a churn writer and a rebalancer for 2 s on each P = 4
+   tier (10 s until phase 3g came, 5 s until 7c), every answer checked as
+   the reference's stress machine checks
    it (queries/s, p50/p99 ms), the launch counts equal to what the
    threads counted themselves;
    3g. the durable tier (``DurableShardedService``) on phase 3's triples
@@ -221,12 +222,12 @@ nothing of the JAX package. Phases:
    (``k2_lines_count``, ``k2_lines_write``, ``digram_pair_accum`` and
    ``digram_select`` at least once, ``bitvec_rank`` and
    ``digram_pair_counts`` never), every answer held against the oracle
-   scan of the logical set over phase 3f's 4,096 picked rows (or 512 and
+   scan of the logical set over phase 3f's 4,096 picked rows (or 256 and
    the batch at hand between crash points) and all eight patterns: (a)
    ``build`` for both strategies (s, the initial snapshot's s and bytes,
    the WAL's bytes); (b) phase 3f's 1,536-row delete and insert batches on
    the tier alone, durably with fsync off and on (ms), the appends' own
-   µs and 256 appends of the record a setting (p50/p99), the host syncs a
+   µs and 64 appends of the record a setting (p50/p99), the host syncs a
    256-row insert makes on the tier and durably, given numpy rows and a
    card tensor (the durable layer adds none beyond the tier's own copy);
    (c) the node_range tier grown by phase 3f's growth rows with the
@@ -244,10 +245,10 @@ nothing of the JAX package. Phases:
    sent ``SIGKILL`` after an acknowledgement in ``KILL_AFTER``: every
    acknowledged batch recovered, the batch in flight all or nothing; (g)
    on the predicate_hash tier, one replica group's seed s and device
-   bytes, two groups tailing 16 logged writes (sync s; each group and the
+   bytes, two groups tailing 8 logged writes (sync s; each group and the
    primary against the oracle), the lag gate (``max_lag=0``: a pending
    record's read served by the primary), a reseed after ``snapshot()``,
-   and 10 s of 4 readers (S-bound patterns, each answer checked) beside a
+   and 2 s of 4 readers (S-bound patterns, each answer checked) beside a
    durable writer with 0 and 2 groups (queries/s, p50/p99 ms,
    ``replica_flushes``). Controls that must fail: a copy of the root with
    the WAL's last intact frame cut (it recovers without that batch, so
@@ -260,7 +261,7 @@ nothing of the JAX package. Phases:
    predicate) and ``HDTBitmapTriples`` built on the card (s), each
    ``size_in_bytes()`` equal to the port's CPU build's, beside phase 3's
    ITR encoded bytes and ``ntriples_size_bytes`` (the paper's Table 1a
-   ratios); 256 queries a pattern of phase 3's picked rows (16 for ?p?, 4
+   ratios); 128 queries a pattern of phase 3's picked rows (16 for ?p?, 4
    for ???) through each ``query``, every answer sorted equal to a plain
    scan of the triples, p50 / p99 µs beside phase 3's ``engine.query``
    singles, host syncs a query (sync debug mode) and the ``bitvec_rank``
@@ -339,7 +340,7 @@ nothing of the JAX package. Phases:
 7. with the DLRM tables freed, serve ``qwen2-1.5b`` at full width (28
    layers, d_model 1536, 12 query and 2 KV heads of 128, vocab 151,936):
    a small model on the card against the host CPU; the full-width model in
-   float32, kernel path against twin path (logits and 16 greedy tokens);
+   float32, kernel path against twin path (logits and 8 greedy tokens);
    ``lm_serve`` (``ServeEngine.generate`` on 8 prompts of 256-2048 ids, 64
    greedy tokens, cache of 4,096, exactly 28 x 65 ``flash_attention``
    launches and 28 x 64 of its merge, one a decode layer), held against
@@ -363,10 +364,10 @@ nothing of the JAX package. Phases:
    ``phi3.5-moe-42b-a6.6b`` (16 experts, top 2; 24 of its 32 layers, its
    83.7 GB of bf16 weights not fitting whole). For each: its reduced
    config on the card against the host CPU; the full-width float32 model
-   (Gemma-2 and OLMoE whole, yi and phi 4 layers) kernel path against twin
-   path on one prompt (logits and 16 greedy tokens); ``lm_serve`` (8
+   (Gemma-2 and OLMoE 8 layers, yi and phi 4) kernel path against twin
+   path on one prompt (logits and 8 greedy tokens); ``lm_serve`` (8
    prompts, 4 for yi, the MoE archs' longest exactly 2,048 so that B x plen
-   keeps the group rule) with exactly L x 65 ``flash_attention`` launches
+   keeps the group rule; 32 greedy tokens) with exactly L x 33 ``flash_attention`` launches
    and a merge for each call whose own plan splits, held against the twin
    path (MoE routing replayed from the kernel path, the flips counted);
    ``prefill_32k`` (Gemma-2 and OLMoE batch 2, yi 1) and ``decode_32k``
@@ -375,6 +376,36 @@ nothing of the JAX package. Phases:
    capacity control; the ``flash_attention`` row at Gemma-2's local and
    global layers of both cells (SDPA has no soft-cap: it is timed without
    it, beside) and at yi's decode layer;
+   7c. LM training (at most 1 GiB allocated at its start and end): (a) the
+   forward's log-sum-exp and the three backward kernels
+   (``flash_attention_bwd_delta``, ``_dkdv``, ``_dq``) against their twins
+   at D 8 to 256, GQA groups 1, 6 and 7, lengths off the tiles, q_offset
+   off Sk - Sq (rows past the keys and rows that see no key), windows 1, 7
+   and 4,096 at S = 8,192 and a cap of 50, float32 and bfloat16 (bfloat16
+   within 2^-6 of the largest |want| or twice the witness with p
+   unrounded), with two controls that must fail the float32 comparison
+   (the last key tile's dK / dV dropped, the cap's derivative left out);
+   (b) the reduced ``train_4k`` cell of all five LM archs, card against
+   host CPU over 3 steps, and ``launch.train --reduced --steps 4`` run
+   twice (the second restores the first's checkpoint and continues); (c)
+   ``qwen2-1.5b``'s ``train_4k`` at full width and depth (28 layers, bf16,
+   S = 4,096), its global batch of 256 cut to 8 in its 4 micro-batches:
+   the float32 model (2 layers, one sequence) kernel path against twin
+   path (every leaf within 1e-4 of its max|g|), then one step's loss,
+   grad_norm and every leaf's gradient against the twin path beside a
+   witness (p unrounded in both passes) with a control (delta left out)
+   that must fail, exactly 2 x 28 x 4 forward launches and 28 x 4 of each
+   backward kernel, two gradient passes bit-identical under deterministic
+   algorithms, then 3 timed steps after a warm-up (s a step, tokens/s),
+   the last under the profiler (busy share, device ms by kernel), and the
+   peak memory; (d)
+   ``gemma2-9b`` at full width, 2 of 42 layers, batch 8 in its 8
+   micro-batches (D = 256, soft-capped), kernel path against twin path,
+   and the four full-size cells that do not fit one card refusing with
+   their bytes and nothing allocated; (e) the backward kernels' rows at
+   qwen2's layer, Gemma-2's global layer and yi's (group 7): each kernel's
+   ms, the twin's, SDPA's backward through autograd and the bound from
+   this run's visible pairs;
 8. with the LM freed, train ``gcn-cora`` (2 layers, hidden 16): three
    ``Trainer`` steps on ``full_graph_sm`` (Cora's 2,816 x 1,433) on the
    card against the same on the host CPU; then ``ogb_products`` at full
@@ -402,11 +433,12 @@ nothing of the JAX package. Phases:
    exactly 64 ``csr_spmm`` launches and 32 combines a step, the kernel at
    the edge-id CSR and its transpose beside its twin and
    ``torch.sparse.mm``; the reduced config on the example's sizes, card
-   against host CPU over 3 steps; the example's schedule (300 steps,
-   checkpoints every 50, a failure at 120, a fresh model restored from
-   step 100 bit for bit against the host copy that save took, run to 300,
+   against host CPU over 3 steps; a schedule shorter than the example's
+   (80 steps, checkpoints every 20, a failure at 50, a fresh model
+   restored from step 40 bit for bit against the host copy that save took,
+   run to 80,
    the loss falling; a checkpoint leaf altered on disk must fail), with
-   step, save, write and restore ms; 20 steps each with ``int8`` and
+   step, save, write and restore ms; 10 steps each with ``int8`` and
    ``topk`` gradient compression (decoded gradients equal to the CPU
    codec's); steps with an async save in flight against none.
    8c. the rest of the GNN zoo through ``build_cell`` at full width, every
@@ -979,7 +1011,8 @@ def _check_view(torch, view, cols, triples, what: str) -> None:
 
 
 SELECTIVE = ("s??", "??o", "sp?", "s?o", "?po", "spo")
-SINGLES = 256           # single queries a selective pattern; single neighbourhoods a side
+SINGLES = 128           # single queries a selective pattern; single neighbourhoods a side
+                        # (256 until phase 7c)
 NEIGHBOUR_NODES = 4096  # nodes of the neighbourhood batch
 
 
@@ -1646,7 +1679,8 @@ def drive_mutation_path(torch, np, main: dict, seed: int) -> None:
 
 
 SNAPSHOT_PICKS = (1024, 1024, 2048)  # phase 3d's query rows: deleted, inserted, untouched
-PLUS_DATASET = "chess-legal"         # the paper's Table 1b size at scale 1.0
+PLUS_DATASET = "chess-legal"         # the paper's Table 1b size at scale 1.0 ...
+PLUS_SCALE = 0.5                     # ... cut to half for the time limit (1.0 until phase 7c)
 
 
 def _state_tensors(engine) -> dict:
@@ -1779,10 +1813,11 @@ def _itr_plus_part(torch, np, seed: int) -> dict:
     from repro_torch.data.synthetic import PAPER_DATASETS
     from repro_torch.kernels import ops
 
-    ds = PAPER_DATASETS[PLUS_DATASET](scale=1.0, seed=seed)
+    ds = PAPER_DATASETS[PLUS_DATASET](scale=PLUS_SCALE, seed=seed)
     labelled = int((ds.node_labels >= 0).sum())
     n_kinds = int(ds.node_labels.max()) + 1
-    print(f"itr+ dataset {PLUS_DATASET} scale=1.0 triples={ds.n_triples} nodes={ds.n_nodes} "
+    print(f"itr+ dataset {PLUS_DATASET} scale={PLUS_SCALE} triples={ds.n_triples} "
+          f"nodes={ds.n_nodes} "
           f"labelled_nodes={labelled} node_labels={n_kinds} preds={ds.n_preds}")
     builds = {}
     for name in ("ITR", "ITR+"):
@@ -2833,8 +2868,8 @@ GROWTH_BATCH = 1024       # ... in batches of this many
 GROWTH_SKEW = 1.5         # the growing tiers' auto-rebalance trigger
 MOTION_ROWS = 512         # query rows between growth batches
 MOTION_VICTIMS = 64       # rows deleted while in motion
-TIER_STRINGS = 256        # string queries a side on the ingested tier
-STRESS_SECONDS = 5.0      # the concurrency run, a strategy (10 s until phase 3g came)
+TIER_STRINGS = 64         # string queries a side on the ingested tier (256 until phase 7c)
+STRESS_SECONDS = 2.0      # the concurrency run, a strategy (10 s until 3g, 5 s until 7c)
 STRESS_READERS = 4
 STRESS_CHURN = 2048       # the churn pool's rows
 STRESS_PAUSE_S = 0.5      # the rebalancer's pause between calls (a re-cut decompresses
@@ -3660,15 +3695,17 @@ def drive_sharded_path(torch, np, main: dict, seed: int) -> None:
 
 
 DURABLE_SHARDS = 4         # the durable tiers' P, as phase 3f's largest
-DURABLE_CHECK_ROWS = 512   # rows of the eight-pattern checks between crash points
-APPEND_REPS = 256          # appends of one 1,536-row record, a fsync setting
+DURABLE_CHECK_ROWS = 256   # rows of the eight-pattern checks between crash points (512
+                           # until phase 7c)
+APPEND_REPS = 64           # appends of one 1,536-row record, a fsync setting (256 until 7c)
 SYNC_ROWS = 256            # rows of the writes whose host syncs are counted
 HOT_ROWS = 1024            # rows piled on one subject, so a node_range re-cut moves rows
 SPOT_EVERY = 4             # the spot checks of the replica readings take every 4th pick
-KILL_BATCHES, KILL_ROWS = 32, 512  # the killed writer's batches (insert, then delete them)
+KILL_BATCHES, KILL_ROWS = 16, 512  # the killed writer's batches (insert, then delete them;
+                                   # 32 until phase 7c)
 KILL_AFTER = (4, 12)       # the parent kills once an acknowledgement in this range arrives
-REPLICA_WRITES, REPLICA_ROWS = 16, 256  # logged writes the replica groups tail
-REPLICA_STRESS_S = 10.0    # the replicated read run, a setting
+REPLICA_WRITES, REPLICA_ROWS = 8, 256  # logged writes the replica groups tail (16 until 7c)
+REPLICA_STRESS_S = 2.0     # the replicated read run, a setting (10 s until phase 7c)
 REPLICA_READERS = 4
 CRASH_POINTS = ("wal.append", "wal.torn", "wal.post_append", "snapshot.write_arrays",
                 "snapshot.pre_commit", "snapshot.post_commit", "migrate.pre_apply",
@@ -4477,7 +4514,8 @@ def drive_durable_path(torch, np, main: dict, seed: int) -> None:
                             "sigkill": sigkill, "replication": repl, "part_s": part_s}
 
 
-BASELINE_QUERIES = 256      # queries a pattern in phase 3h (16 for ?p?, 4 for ???)
+BASELINE_QUERIES = 128      # queries a pattern in phase 3h (16 for ?p?, 4 for ???; 256
+                            # until phase 7c)
 BASELINE_NARROW = {"?p?": 16, "???": 4}
 BASELINE_PATTERNS = ("spo", "sp?", "s?o", "s??", "?po", "?p?", "??o", "???")
 RANK_NAMES = ("bitvec_rank", "k2_lines_count", "k2_lines_write")
@@ -7005,6 +7043,7 @@ SDPA_TOL = 0.1              # the yardstick's agreement with the kernel (bfloat1
 LM_MAX_LEN = 4096           # lm_serve cache positions per sequence
 LM_PROMPT_LENS = (256, 2048)  # lm_serve prompt lengths are drawn in this range
 LM_NEW_TOKENS = 64
+LM_F32_NEW = 8              # greedy tokens of the float32 qwen2 check (16 until phase 7c)
 PREFILL_32K_BATCH = 4       # of the registry's 32: the smoke's time limit
 DECODE_32K_BATCH = 64       # of the registry's 128: 128 caches are 120.3 GB
 H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core peak, the attention bound's rate
@@ -7189,7 +7228,7 @@ def _logit_err(a, b) -> float:
 def lm_float32_full_width(torch, np, seed: int) -> None:
     """qwen2-1.5b at full width with float32 weights (7.1 GB): the kernel
     path against the twin path on 2 prompts of 512, logits within
-    LM_F32_TOL and greedy tokens over 16 steps equal."""
+    LM_F32_TOL and greedy tokens over LM_F32_NEW steps equal."""
     import dataclasses
 
     from repro_torch.configs.qwen2_1_5b import config
@@ -7209,14 +7248,14 @@ def lm_float32_full_width(torch, np, seed: int) -> None:
         _fail(f"float32 qwen2-1.5b: kernel path logits differ from the twin path's ({err})")
     prompts = tokens.cpu().tolist()
     eng = ServeEngine(model, max_len=528)
-    got = eng.generate(prompts, max_new_tokens=16)
+    got = eng.generate(prompts, max_new_tokens=LM_F32_NEW)
     with _Twins():
-        want = eng.generate(prompts, max_new_tokens=16)
+        want = eng.generate(prompts, max_new_tokens=LM_F32_NEW)
     if not np.array_equal(got.tokens, want.tokens):
         _fail("float32 qwen2-1.5b: kernel path greedy tokens differ from the twin path's")
     print(f"lm float32 full width: prefill logits max_abs_err={err} tol={LM_F32_TOL} "
           f"logit range [{float(l_k.min()):.4f}, {float(l_k.max()):.4f}]; greedy tokens "
-          f"equal over 2 x 16 = True; max_memory_allocated={torch.cuda.max_memory_allocated()}")
+          f"equal over 2 x {LM_F32_NEW} = True; max_memory_allocated={torch.cuda.max_memory_allocated()}")
     del model, l_k, l_t
     torch.cuda.empty_cache()
 
@@ -7794,17 +7833,18 @@ def drive_lm(torch, np, seed: int, errs: dict) -> list:
 # plen a multiple of moe_group); prefill / decode: the cells' batches (None:
 # no cell); rows: the layers whose flash_attention row is timed, by cell.
 ZOO = (
-    dict(arch="gemma2-9b", f32_layers=None, f32_prompt=4608, serve=8, twin_batch=8,
+    dict(arch="gemma2-9b", f32_layers=8, f32_prompt=4608, serve=8, twin_batch=8,
          grouped=False, prefill=2, decode=4, layers=None,
          rows={"prefill_32k": (0, 1), "decode_32k": (0, 1)}),
-    dict(arch="olmoe-1b-7b", f32_layers=None, f32_prompt=2048, serve=8, twin_batch=8,
+    dict(arch="olmoe-1b-7b", f32_layers=8, f32_prompt=2048, serve=8, twin_batch=8,
          grouped=True, prefill=2, decode=12, layers=None, rows={}),
     dict(arch="yi-34b", f32_layers=4, f32_prompt=2048, serve=4, twin_batch=2, grouped=False,
          prefill=1, decode=1, layers=None, rows={"decode_32k": (0,)}),
     dict(arch="phi3.5-moe-42b-a6.6b", f32_layers=4, f32_prompt=2048, serve=8, twin_batch=2,
          grouped=True, prefill=None, decode=2, layers=24, rows={}),
 )
-ZOO_F32_NEW = 16          # greedy tokens of the float32 kernel-vs-twin check
+ZOO_F32_NEW = 8           # greedy tokens of the float32 kernel-vs-twin check (16 until 7c)
+ZOO_NEW_TOKENS = 32       # the zoo's lm_serve tokens a request (LM_NEW_TOKENS, 64, until 7c)
 # The MoE layer's router logits, card against host CPU (``moe_logits``):
 # each a bfloat16 rounding of a float32 sum taken in another order, so
 # equal or one bfloat16 step (2**-7 relative at most) apart; near zero a
@@ -8007,8 +8047,8 @@ def zoo_serve(torch, np, seed: int, spec: dict) -> dict:
     eng.generate(prompts, max_new_tokens=2)  # warm-up
     with _Plans() as plans:
         counts, res = _served_counts(torch, lambda: eng.generate(prompts,
-                                                                 max_new_tokens=LM_NEW_TOKENS))
-    want = cfg.n_layers * (1 + LM_NEW_TOKENS)
+                                                                 max_new_tokens=ZOO_NEW_TOKENS))
+    want = cfg.n_layers * (1 + ZOO_NEW_TOKENS)
     print(f"launches flash_attention {counts['flash_attention']} (lm zoo {arch} lm_serve; "
           f"expected {want}) flash_attention_combine {counts['flash_attention_combine']} "
           f"(expected {plans.merges()}, the calls whose own plan splits); calls by kind "
@@ -8019,12 +8059,12 @@ def zoo_serve(torch, np, seed: int, spec: dict) -> dict:
     if counts["flash_attention_combine"] != plans.merges():
         _fail(f"{arch} lm_serve launched flash_attention_combine "
               f"{counts['flash_attention_combine']} times, not {plans.merges()}")
-    if res.tokens.shape != (len(prompts), LM_NEW_TOKENS) \
-            or not (res.n_generated == LM_NEW_TOKENS).all():
-        _fail(f"{arch} lm_serve did not generate {LM_NEW_TOKENS} tokens for each request")
+    if res.tokens.shape != (len(prompts), ZOO_NEW_TOKENS) \
+            or not (res.n_generated == ZOO_NEW_TOKENS).all():
+        _fail(f"{arch} lm_serve did not generate {ZOO_NEW_TOKENS} tokens for each request")
     real = sum(len(p) for p in prompts)
     print(f"lm zoo {arch} lm_serve B={len(prompts)} prompt_lens={[len(p) for p in prompts]} "
-          f"padded_len={plen} max_len={LM_MAX_LEN} new_tokens={LM_NEW_TOKENS} "
+          f"padded_len={plen} max_len={LM_MAX_LEN} new_tokens={ZOO_NEW_TOKENS} "
           f"prefill_ms={res.prefill_ms:.6f} prefill_tokens_per_s={real / res.prefill_ms * 1e3:.1f}"
           f" (real) decode_ms_per_token={res.decode_ms_per_token:.6f} decode_tokens_per_s="
           f"{len(prompts) / res.decode_ms_per_token * 1e3:.1f} "
@@ -8036,11 +8076,11 @@ def zoo_serve(torch, np, seed: int, spec: dict) -> dict:
     splen = tokens.shape[1]
     _paths_bf16(torch, f"lm zoo {arch} lm_serve prefill ({len(sub)} requests, cache {splen})",
                 lambda: model.prefill_step(tokens, max_len=splen)[0])
-    eng_sub = ServeEngine(model, max_len=splen + LM_NEW_TOKENS)
+    eng_sub = ServeEngine(model, max_len=splen + ZOO_NEW_TOKENS)
     with _Routes() as rec:
-        kern = eng_sub.generate(sub, max_new_tokens=LM_NEW_TOKENS)
+        kern = eng_sub.generate(sub, max_new_tokens=ZOO_NEW_TOKENS)
     with _Twins(), _Routes(rec.log) as rep:
-        twin = eng_sub.generate(sub, max_new_tokens=LM_NEW_TOKENS)
+        twin = eng_sub.generate(sub, max_new_tokens=ZOO_NEW_TOKENS)
     differ = twin.tokens != kern.tokens
     print(f"lm zoo {arch} lm_serve kernel vs twin path ({len(sub)} requests): greedy tokens "
           f"agreeing={float((~differ).mean()):.4f} first disagreement per request="
@@ -8278,6 +8318,674 @@ def drive_lm_zoo(torch, np, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# Phase 7c: LM training on the card. qwen2-1.5b's train_4k cell is the
+# slice's path: full width and depth, its global batch of 256 cut to
+# TRAIN_BATCH (GRAD_ACCUM's 4 micro-batches kept) for the time limit.
+TRAIN_ARCHS = ("qwen2-1.5b", "gemma2-9b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "yi-34b")
+TRAIN_BATCH = 8             # of train_4k's 256 sequences of 4,096: 4 micro-batches of 2
+TRAIN_TIMED_STEPS = 3       # timed steps after one warm-up
+TRAIN_HOST_STEPS = 3        # the reduced cells, card against host
+TRAIN_GEMMA_LAYERS = 2      # of Gemma-2's 42 (one local, one global), at its batch of 8
+                            # in 8 micro-batches
+TRAIN_GEMMA_BATCH = 8
+BWD_REPLACES = "src/repro/kernels/flash_attention.py:86"
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+BWD_NAMES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+# The backward kernels against their twin (the same out and lse): float32
+# sums in another order, within 1e-4 of the case's largest |want| (over dq,
+# dk and dv); bfloat16 within 2**-6 of it or twice the witness (the twin with p unrounded: the
+# kernels keep dS in float32, so p's rounding before dV is the only
+# rounding point of the twin's), whichever is larger.
+BWD_F32_SCALED = 1e-4
+BWD_BF16_SCALED = 2.0 ** -6
+BWD_WITNESS = 2.0
+TRAIN_F32_SCALED = 1e-4     # float32 model gradients, kernel path vs twin path, a leaf's max|g|
+TRAIN_BF16_SCALED = 2.0 ** -6  # bf16 model gradients: or twice the witness, a leaf's norm
+TRAIN_LOSS_RTOL = 1e-4      # the reduced cells' losses card against host (float32)
+TRAIN_CHANGE_RTOL = 1e-2    # ... their parameter changes over the steps, a leaf's norm
+# (B, Hq, Hkv, Sq, Sk, D, keywords, q scale): GQA groups 1, 6, 7; D 8 to
+# 256; lengths off the 16 / 32 / 64 tiles; q_offset off Sk - Sq (rows past
+# the keys, rows that see no key); windows 1, 7 and 4,096 at S = 8,192; a
+# cap of 50 on scores large enough (q x 16) for the cap's derivative to
+# matter
+BWD_CASES = (
+    (2, 6, 1, 100, 100, 64, {}, 1.0),
+    (1, 7, 1, 77, 130, 128, dict(q_offset=40), 1.0),
+    (1, 4, 2, 65, 65, 256, dict(softcap=50.0), 16.0),
+    (1, 2, 2, 50, 50, 8, dict(window=7), 1.0),
+    (1, 3, 1, 33, 20, 16, dict(q_offset=-5), 1.0),
+    (1, 2, 2, 37, 40, 16, dict(q_offset=10), 1.0),
+    (1, 2, 1, 8192, 8192, 128, dict(window=1), 1.0),
+    (1, 2, 1, 8192, 8192, 128, dict(window=7), 1.0),
+    (1, 2, 1, 8192, 8192, 128, dict(window=4096), 1.0),
+)
+BWD_TIMED = (  # (what, B, Hq, Hkv, S, D, keywords): the kernel rows' shapes
+    ("qwen2-1.5b layer, micro-batch 2", TRAIN_BATCH // 4, 12, 2, 4096, 128, {}),
+    ("gemma2-9b global layer, micro-batch 1", 1, 16, 8, 4096, 256, dict(softcap=50.0)),
+    ("yi-34b layer (group 7), 1 sequence", 1, 56, 8, 4096, 128, {}),
+)
+
+
+class _TwinAttention:
+    """The training twin path: ``ops.flash_attention`` inside the block is
+    an autograd function whose forward is ``forward`` (default
+    ``ref.flash_attention_lse_ref``) and whose backward is ``backward``
+    (default the twin, ``ref.flash_attention_backward_ref``; the witness
+    and the controls pass others) on the card's tensors."""
+
+    def __init__(self, backward=None, forward=None):
+        self.backward, self.forward = backward, forward
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops, ref
+
+        bwd = self.backward or ref.flash_attention_backward_ref
+        fwd = self.forward or ref.flash_attention_lse_ref
+
+        class Twin(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, kw):
+                out, lse = fwd(q, k, v, **kw)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.kw = kw
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                return (*bwd(*ctx.saved_tensors, dout, **ctx.kw), None)
+
+        def attention(q, k, v, **kw):
+            return Twin.apply(q, k, v, kw)
+
+        self.ops, self.saved = ops, ops.flash_attention
+        ops.flash_attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.saved
+
+
+def _bwd_witness(*args, **kw):
+    """The twin with p unrounded before dV."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_backward_ref(*args, round_p=False, **kw)
+
+
+def _fwd_witness(q, k, v, **kw):
+    """The forward twin with p unrounded before PV (v read as float32),
+    its output in q's dtype, and its lse."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_lse_ref(q, k, v.float(), **kw)
+
+
+def _bwd_last_tile_dropped(q, k, v, out, lse, dout, **kw):
+    """The control: the twin with the last 64-key tile's dK and dV terms
+    dropped, as a kernel that never ran its last key tile would leave."""
+    from repro_torch.kernels import ref
+
+    dq, dk, dv = ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    cut = (k.shape[2] - 1) // CONTROL_TILE * CONTROL_TILE
+    dk, dv = dk.clone(), dv.clone()
+    dk[:, :, cut:] = 0
+    dv[:, :, cut:] = 0
+    return dq, dk, dv
+
+
+def _bwd_no_delta(q, k, v, out, lse, dout, **kw):
+    """The control: the twin with delta left out of dS (dS = p dP), as a
+    zero output gives it."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_backward_ref(q, k, v, out.new_zeros(out.shape), lse, dout, **kw)
+
+
+def _bwd_no_cap_grad(q, k, v, out, lse, dout, *, softcap=None, **kw):
+    """The control: the twin's arithmetic with the soft-cap's derivative
+    left out of dS."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = kw.get("sm_scale") or d ** -0.5
+    off = sk - sq if kw.get("q_offset") is None else kw["q_offset"]
+    s, mask = ref._attention_scores(q, k, causal=kw.get("causal", True), window=kw.get("window"),
+                                    softcap=softcap, sm_scale=scale, q_offset=off)
+    p = torch.where(mask, torch.exp(torch.where(mask, s, 0.0) - lse.reshape(b, hkv, g, sq, 1)),
+                    0.0)
+    do = dout.float().reshape(b, hkv, g, sq, d)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do).sum(dim=2)
+    dp = torch.matmul(do, v.float().unsqueeze(2).transpose(-1, -2))
+    delta = (do * out.float().reshape(b, hkv, g, sq, d)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().reshape(b, hkv, g, sq, d)).sum(dim=2)
+    dq = torch.matmul(ds, k.float().unsqueeze(2))
+    return ((dq * scale).reshape(q.shape).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
+def _bwd_inputs(torch, gen, b, hq, hkv, sq, sk, d, dt, q_scale=1.0):
+    """q and dout (B, Hq, Sq, D), k, v (B, Hkv, Sk, D) in the model's
+    (B, S, H, D) memory, standard normal (q times q_scale), in dt."""
+    def draw(s, h, scale=1.0):
+        x = torch.randn((b, s, h, d), generator=gen, device=DEV) * scale
+        return x.to(dt).transpose(1, 2)
+
+    return draw(sq, hq, q_scale), draw(sk, hkv), draw(sk, hkv), draw(sq, hq)
+
+
+def _tensor_errs(got, want, scaled: bool = True) -> list:
+    """max|got - want| of each pair, over the largest max|want| of all
+    the pairs when ``scaled`` (dq and dk are 0 in exact arithmetic where
+    each row sees one key, a window of 1, and come out as rounding noise:
+    their own max is no scale)."""
+    scale = max(max(float(w.float().abs().max()) for w in want), 1e-30) if scaled else 1.0
+    return [float((a.float() - w.float()).abs().max()) / scale for a, w in zip(got, want)]
+
+
+def check_attention_backward(torch, np, seed: int) -> dict:
+    """Phase 7c (a): the forward's lse and the three backward kernels
+    against their twins on BWD_CASES, float32 and bfloat16, from the
+    kernel's own out and lse; the two controls must fail the float32
+    comparison. Returns the largest errors by dtype."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_cuda,
+                                                     flash_attention_cuda)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 71)
+    worst = {"float32": 0.0, "bfloat16": 0.0, "lse": 0.0, "abs_float32": 0.0,
+             "abs_bfloat16": 0.0}
+    controls = {}
+    for b, hq, hkv, sq, sk, d, kw, q_scale in BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            name = "float32" if dt == torch.float32 else "bfloat16"
+            q, k, v, do = _bwd_inputs(torch, gen, b, hq, hkv, sq, sk, d, dt, q_scale)
+            ops.reset_launch_counts()
+            out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+            got = flash_attention_backward_cuda(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            counts = {n: ops.launch_counts[n] for n in ("flash_attention", *BWD_NAMES)}
+            if counts != {"flash_attention": 1, **{n: 1 for n in BWD_NAMES}}:
+                _fail(f"attention backward case launched {counts}")
+            _, lse_t = ref.flash_attention_lse_ref(q, k, v, **kw)
+            seen = torch.isfinite(lse_t)
+            lse_err = float((lse - lse_t)[seen].abs().max()) if bool(seen.any()) else 0.0
+            if not torch.equal(torch.isinf(lse), ~seen) or lse_err > 1e-4:
+                _fail(f"the forward's lse differs from its twin ({lse_err}) at {d}, {kw}")
+            want = ref.flash_attention_backward_ref(q, k, v, out, lse, do, **kw)
+            errs = _tensor_errs(got, want)
+            tol = BWD_F32_SCALED
+            if dt == torch.bfloat16:
+                wit = max(_tensor_errs(_bwd_witness(q, k, v, out, lse, do, **kw), want))
+                tol = max(BWD_BF16_SCALED, BWD_WITNESS * wit)
+            shape = f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} {kw}"
+            print(f"attention backward {name} {shape}: dq/dk/dv err/max|want| "
+                  f"{['%.3e' % e for e in errs]} tol {tol:.3e}; lse max_abs_err {lse_err:.3e}")
+            if not all(bool(torch.isfinite(t).all()) for t in got) or max(errs) > tol:
+                _fail(f"the attention backward differs from its twin at {name} {shape}")
+            worst[name] = max(worst[name], max(errs))
+            worst[f"abs_{name}"] = max(worst[f"abs_{name}"],
+                                       max(_tensor_errs(got, want, scaled=False)))
+            worst["lse"] = max(worst["lse"], lse_err)
+            if dt == torch.float32 and (kw.get("softcap") or (d == 64 and not kw)):
+                ctl = _bwd_no_cap_grad if kw.get("softcap") else _bwd_last_tile_dropped
+                c_err = max(_tensor_errs(ctl(q, k, v, out, lse, do, **kw), want))
+                controls[ctl.__name__] = c_err
+                if c_err <= BWD_F32_SCALED:
+                    _fail(f"the comparison does not tell {ctl.__name__} ({c_err}) from the twin")
+            del q, k, v, do, out, lse, got, want
+    print(f"attention backward: worst err/max|want| {worst}; controls (must exceed "
+          f"{BWD_F32_SCALED}) {controls}")
+    return {**worst, "controls": controls}
+
+
+def _move_state(torch, cell, dev):
+    """(model, opt_state, tokens, targets) of a CPU cell copied to dev."""
+    import dataclasses
+
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import init_opt_state, AdamWConfig
+
+    model, opt_state, tokens, targets = cell.args
+    with torch.no_grad():
+        params = {n: p.detach().to(dev, copy=True) for n, p in model.named_parameters()}
+    moved = Transformer(dataclasses.replace(model.cfg), params).requires_grad_()
+    opt = init_opt_state(moved.leaves(), AdamWConfig())
+    return moved, opt, tokens.to(dev), targets.to(dev)
+
+
+def train_cells_vs_host(torch, np, seed: int) -> dict:
+    """Phase 7c (b): each arch's reduced train_4k cell, built on the host
+    CPU and copied to the card, TRAIN_HOST_STEPS steps on each: losses
+    within TRAIN_LOSS_RTOL, each leaf's change within TRAIN_CHANGE_RTOL of
+    the host's. Then the training script ``launch.train`` twice on the card, the
+    second run restoring the first's checkpoint."""
+    import os
+    import shutil
+    import tempfile
+    from functools import partial
+
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    out = {}
+    for arch in TRAIN_ARCHS:
+        host = steps.build_cell(arch, "train_4k", reduced=True, device="cpu", seed=seed)
+        card = _move_state(torch, host, DEV)
+        h0 = {k: v.detach().clone() for k, v in host.model.leaves().items()}
+        c0 = {k: v.detach().clone() for k, v in card[0].leaves().items()}
+        step = partial(steps.lm_train_step, opt_cfg=AdamWConfig(), n_micro=1)
+        lh = [float(host.run()[0]) for _ in range(TRAIN_HOST_STEPS)]
+        lc = [float(step(*card)[0]) for _ in range(TRAIN_HOST_STEPS)]
+        worst = 0.0
+        for k, v in host.model.leaves().items():
+            dh = v.detach() - h0[k]
+            dc = (card[0].leaves()[k].detach() - c0[k]).cpu()
+            worst = max(worst, float((dc - dh).norm() / dh.norm().clamp_min(1e-30)))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        print(f"train cell {arch} reduced, card vs host over {TRAIN_HOST_STEPS} steps: losses "
+              f"{[round(x, 6) for x in lc]} vs {[round(x, 6) for x in lh]} (rel err "
+              f"{loss_err:.2e}); parameter changes rel err {worst:.2e}")
+        if loss_err > TRAIN_LOSS_RTOL or worst > TRAIN_CHANGE_RTOL:
+            _fail(f"the reduced {arch} train cell on the card differs from the host's")
+        out[arch] = {"loss_err": loss_err, "change_err": worst}
+        del host, card
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lm_train_")
+    try:
+        argv = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "4", "--ckpt", ckdir]
+        first = lm_train.main(argv)
+        second = lm_train.main(argv)
+        steps_saved = sorted(os.listdir(ckdir))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"launch.train --reduced --steps 4 twice: first from {first['start_step']}, second "
+          f"from {second['start_step']}; checkpoints {steps_saved}; losses "
+          f"{first['losses']} then {second['losses']}")
+    if first["start_step"] != 0 or second["start_step"] != 4 or \
+            steps_saved != ["step_00000004", "step_00000008"] or \
+            not all(np.isfinite(first["losses"] + second["losses"])):
+        _fail("the training script did not save, restore and continue")
+    return out
+
+
+def _leaf_errs(got: dict, want: dict, l2: bool = False) -> dict:
+    """Each leaf's max|got - want| / max|want| or, with ``l2``, its
+    ||got - want|| / ||want||."""
+    if l2:
+        return {k: float((got[k] - w).norm()) / max(float(w.norm()), 1e-30)
+                for k, w in want.items()}
+    return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, w in want.items()}
+
+
+def _attn_counts(torch):
+    from repro_torch.kernels import ops
+
+    return {n: ops.launch_counts[n] for n in ("flash_attention", "flash_attention_combine",
+                                              *BWD_NAMES)}
+
+
+def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, scaled: float,
+                      control, by_witness: bool) -> dict:
+    """The kernel path's gradients (``lm_grads``) against the twin path's
+    from the same state: loss within scaled / 10, grad_norm within
+    ``scaled``, and every leaf within ``scaled`` of its max|g| (float32);
+    ``by_witness`` (bfloat16): every leaf's relative norm error
+    ||g_k - g_t|| / ||g_t|| within ``scaled`` or BWD_WITNESS times the
+    witness's (the twin path with p unrounded in the forward's PV product
+    and before dV, so that the forward's hidden states move by a rounding
+    too, as the kernel path's do), where larger: through 28
+    bfloat16 layers every rounding difference spreads, and a max over a
+    billion entries reads the tail of that spread, so the norm is held and
+    the max printed beside. ``control`` (a backward that must fail) goes
+    through the same comparison. Returns the kernel path's launches,
+    errors and gradients. ``control`` None: no control."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import lm_grads
+    from repro_torch.train.optimizer import global_norm
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_k, g_k = lm_grads(model, tokens, targets, n_micro)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    counts = _attn_counts(torch)
+    with _TwinAttention():
+        loss_t, g_t = lm_grads(model, tokens, targets, n_micro)
+    errs = _leaf_errs(g_k, g_t, l2=by_witness)
+    max_errs = _leaf_errs(g_k, g_t)
+    tol = {k: scaled for k in errs}
+    wit = {}
+    if by_witness:
+        with _TwinAttention(_bwd_witness, _fwd_witness):
+            wit = _leaf_errs(lm_grads(model, tokens, targets, n_micro)[1], g_t, l2=True)
+        tol = {k: max(scaled, BWD_WITNESS * wit[k]) for k in errs}
+    c_errs = {"none": 0.0}
+    if control is not None:
+        with _TwinAttention(control):
+            c_errs = _leaf_errs(lm_grads(model, tokens, targets, n_micro)[1], g_t,
+                                l2=by_witness)
+    norm_k, norm_t = float(global_norm(g_k)), float(global_norm(g_t))
+    loss_err = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    norm_err = abs(norm_k - norm_t) / norm_t
+    worst = max(errs, key=lambda k: errs[k] / tol[k])
+    metric = "||err||/||g||" if by_witness else "err/max|g|"
+    print(f"{what} kernel vs twin path: loss {float(loss_k):.6f} vs {float(loss_t):.6f} (rel "
+          f"{loss_err:.2e}, tol {scaled / 10:.1e}); grad_norm {norm_k:.6f} vs {norm_t:.6f} "
+          f"(rel {norm_err:.2e}, tol {scaled:.1e}); leaves {metric} max "
+          f"{max(errs.values()):.3e} (err/max|g| max "
+          f"{max(max_errs.values()):.3e}; worst against its tol: {worst} {errs[worst]:.3e} tol "
+          f"{tol[worst]:.3e}); witness (p unrounded) max {max(wit.values(), default=0.0):.3e}; "
+          f"control ({getattr(control, '__name__', None)}) max {max(c_errs.values()):.3e}; "
+          f"kernel-path grads "
+          f"{k_s:.3f} s; launches {counts}")
+    if loss_err > scaled / 10 or norm_err > scaled or any(errs[k] > tol[k] for k in errs):
+        _fail(f"{what}: the kernel path's gradients differ from the twin path's")
+    if control is not None and all(c_errs[k] <= tol[k] for k in c_errs):
+        _fail(f"{what}: the comparison does not tell the control from the twin path")
+    return {"launches": counts, "errs": errs, "max_errs": max_errs, "grads": g_k,
+            "loss": float(loss_k),
+            "grad_norm": norm_k, "loss_err": loss_err, "control": max(c_errs.values()),
+            "witness": max(wit.values(), default=0.0), "grads_s": k_s}
+
+
+def qwen2_train(torch, np, seed: int, card: str) -> dict:
+    """Phase 7c (c): qwen2-1.5b train_4k at full width. The float32 model
+    (2 of 28 layers, one sequence) kernel path against twin path; then the
+    bf16 cell at full depth, batch TRAIN_BATCH in its 4 micro-batches: one
+    step's gradients against the twin path (witness, control), the launches
+    exactly, two gradient passes bit-identical under deterministic
+    algorithms, TRAIN_TIMED_STEPS timed steps after a warm-up, the last
+    under the profiler (kernel events only), peak memory."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.configs.qwen2_1_5b import config
+    from repro_torch.configs.registry import LM_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    cfg = config()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 73)
+    seq = LM_SHAPES["train_4k"].params["seq_len"]
+    f32 = Transformer.from_config(dataclasses.replace(cfg, dtype="float32", n_layers=2),
+                                  device=DEV, seed=seed).requires_grad_()
+    tok = torch.randint(0, cfg.vocab, (2, 1, seq), generator=gen, device=DEV)
+    f32_res = _hold_model_grads(torch, f"qwen2-1.5b float32, 2 layers, 1 x {seq}", f32, tok[0],
+                                tok[1], 1, TRAIN_F32_SCALED, _bwd_no_delta, False)
+    del f32, f32_res["grads"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    cell = steps.build_cell("qwen2-1.5b", "train_4k", device=DEV, seed=seed, batch=TRAIN_BATCH)
+    model, opt_state, tokens, targets = cell.args
+    n_micro = steps.GRAD_ACCUM["qwen2-1.5b"]
+    cell.args = opt_state = None  # the comparisons below need no optimizer state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = _hold_model_grads(torch, f"qwen2-1.5b train_4k bf16, B={TRAIN_BATCH}", model, tokens,
+                            targets, n_micro, TRAIN_BF16_SCALED, _bwd_no_delta, True)
+    want = {"flash_attention": 2 * cfg.n_layers * n_micro, "flash_attention_combine": 0,
+            **{n: cfg.n_layers * n_micro for n in BWD_NAMES}}
+    if res["launches"] != want:
+        _fail(f"a qwen2-1.5b train step launched {res['launches']}, not {want}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, again = steps.lm_grads(model, tokens, targets, n_micro)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(again[k], g) for k, g in res["grads"].items())
+    print(f"qwen2-1.5b: two gradient passes from one state bit-identical: {same}")
+    if not same:
+        _fail("two qwen2-1.5b gradient passes from one state differ")
+    del again, res["grads"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig()
+    opt_state = init_opt_state(model.leaves(), opt_cfg)
+    loss, metrics = cell.fn(model, opt_state, tokens, targets)  # warm-up
+    torch.cuda.synchronize()
+    times, losses = [], [float(loss)]
+    for _ in range(TRAIN_TIMED_STEPS - 1):
+        t0 = time.perf_counter()
+        loss, metrics = cell.fn(model, opt_state, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out = []  # the last timed step runs under the profiler (kernel events only)
+    wall, dev_s, avgs = _profile(torch, lambda: out.extend(cell.fn(model, opt_state, tokens,
+                                                                   targets)))
+    times.append(wall)
+    loss, metrics = out
+    losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times)
+    tokens_s = TRAIN_BATCH * tokens.shape[1] / step_s
+    print(f"qwen2-1.5b train_4k ({cfg.n_layers} layers, B={TRAIN_BATCH} in {n_micro} "
+          f"micro-batches, S={seq}, {cfg.dtype}): s a step {[round(t, 6) for t in times]} "
+          f"median {step_s:.6f}, tokens/s "
+          f"{tokens_s:.1f}; losses {losses}; grad_norm {float(metrics['grad_norm']):.6f}; "
+          f"profiled step wall {wall:.6f} s, device {dev_s:.6f} s, busy {dev_s / wall:.4f}; "
+          f"max_memory_allocated={peak}; top kernels: {_top_kernels(avgs, 10)}; card {card}")
+    if not all(np.isfinite(losses)):
+        _fail("qwen2-1.5b train_4k losses are not finite")
+    kernel_ms = {n: sum(getattr(e, "self_device_time_total", 0) for e in avgs
+                        if n in e.key) / 1e3
+                 for n in ("bwd_dkdv", "bwd_dq", "bwd_delta", "tc_kernel", "simt_kernel")}
+    del cell, model, opt_state, tokens, targets, loss, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**{k: v for k, v in res.items() if k != "grads"}, "step_s": step_s, "times": times,
+            "tokens_s": tokens_s, "busy": dev_s / wall, "peak": peak, "kernel_ms": kernel_ms,
+            "f32": {k: v for k, v in f32_res.items() if k != "grads"}}
+
+
+def gemma_train(torch, np, seed: int) -> dict:
+    """Phase 7c (d): gemma2-9b's train_4k at full width, TRAIN_GEMMA_LAYERS
+    of 42 layers, batch TRAIN_GEMMA_BATCH in its 8 micro-batches: one
+    step's gradients, kernel path against twin path (D = 256, soft-capped,
+    the window at 4,096); then the four full-size refusals, each with
+    nothing allocated."""
+    from repro_torch.launch import steps
+
+    cell = steps.build_cell("gemma2-9b", "train_4k", device=DEV, seed=seed,
+                            batch=TRAIN_GEMMA_BATCH, layers=TRAIN_GEMMA_LAYERS)
+    model, _, tokens, targets = cell.args
+    cell.args = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_micro = steps.GRAD_ACCUM["gemma2-9b"]
+    res = _hold_model_grads(torch, f"gemma2-9b train_4k bf16, {TRAIN_GEMMA_LAYERS} layers, "
+                            f"B={TRAIN_GEMMA_BATCH}", model, tokens, targets, n_micro,
+                            TRAIN_BF16_SCALED, None, True)
+    del res["grads"], cell, model, tokens, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+    refused = {}
+    for arch in TRAIN_ARCHS[1:]:
+        before = torch.cuda.memory_allocated()
+        try:
+            steps.build_cell(arch, "train_4k", device=DEV, seed=seed)
+        except ValueError as e:
+            refused[arch] = (str(e).split(" bytes")[0].split()[-1],
+                             torch.cuda.memory_allocated() - before)
+        else:
+            _fail(f"the full-size {arch} train cell did not refuse")
+    print(f"full-size train cells refused (bytes of training state, bytes allocated): {refused}")
+    if any(a for _, a in refused.values()):
+        _fail("a refusing train cell allocated on the card")
+    return {**res, "refused": refused}
+
+
+def _visible_pairs(s: int, window) -> int:
+    """Visible (query, key) pairs of one head at causal length s."""
+    w = window or s
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def _sdpa_backward_ms(torch, q, k, v, do, reps: int) -> float:
+    import torch.nn.functional as F
+
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True)
+    return _time_ms(torch, lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                                       retain_graph=True), reps)
+
+
+def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -> list:
+    """Phase 7c (e): the kernel rows at BWD_TIMED's shapes: each backward
+    kernel's ms (CUDA events), the three together, the twin's ms, SDPA's
+    backward through autograd (without the cap where the layer has one;
+    the kernel without it beside), the forward with lse against the
+    serving forward; bounds from this run's visible pairs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_build, flash_attention_backward_cuda,
+                                                     flash_attention_cuda)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 79)
+    rows = {n: {} for n in (*BWD_NAMES, "flash_attention_lse")}
+    for what, b, hq, hkv, s, d, kw in BWD_TIMED:
+        q, k, v, do = _bwd_inputs(torch, gen, b, hq, hkv, s, s, d, torch.bfloat16)
+        out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=DEV)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, s,
+                d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], 1, kw.get("window") or 0,
+                0, kw.get("softcap") or 0.0, d ** -0.5, 1)
+        dev = q.device
+        part = {
+            "flash_attention_bwd_delta": lambda: _build.launch(
+                "flash_attention", "flash_attention_bwd_delta", dev, out.data_ptr(),
+                do.data_ptr(), delta.data_ptr(), b, hq, s, d, *out.stride()[:3],
+                *do.stride()[:3], 1),
+            "flash_attention_bwd_dkdv": lambda: _build.launch(
+                "flash_attention", "flash_attention_bwd_dkdv", dev, *args),
+            "flash_attention_bwd_dq": lambda: _build.launch(
+                "flash_attention", "flash_attention_bwd_dq", dev, *args),
+        }
+        part["flash_attention_bwd_delta"]()
+        ms = {n: _time_ms(torch, fn, 3) for n, fn in part.items()}
+        whole = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                                      **kw), 3)
+        twin = _time_ms(torch, lambda: ref.flash_attention_backward_ref(q, k, v, out, lse, do,
+                                                                        **kw), 1)
+        sdpa = _sdpa_backward_ms(torch, q, k, v, do, 3)
+        nocap = None
+        if kw.get("softcap"):
+            o2, l2 = flash_attention_cuda(q, k, v, lse=True)
+            nocap = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, o2, l2, do), 3)
+        fwd_lse = _time_ms(torch, lambda: flash_attention_cuda(q, k, v, lse=True, **kw), 5)
+        fwd = _time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw), 5)
+        fwd_twin = _time_ms(torch, lambda: ref.flash_attention_lse_ref(q, k, v, **kw), 1)
+        import torch.nn.functional as F
+        sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
+        pairs = b * hq * _visible_pairs(s, kw.get("window"))
+        el = 2  # bf16
+        qb, kb = b * hq * s * d * el, b * hkv * s * d * el
+        stats = b * hq * s * 4
+        work = {  # (bytes, operations): inputs read once, outputs written once
+            "flash_attention_bwd_delta": (2 * qb + stats, 2 * b * hq * s * d),
+            "flash_attention_bwd_dkdv": (2 * qb + 2 * kb + 2 * stats + 2 * kb, 4 * 2 * d * pairs),
+            "flash_attention_bwd_dq": (2 * qb + 2 * kb + 2 * stats + qb, 3 * 2 * d * pairs),
+            "flash_attention_lse": (qb + 2 * kb + qb + stats, 2 * 2 * d * pairs),
+        }
+        for n, (nbytes, nops) in work.items():
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / H100_BF16_FLOPS * 1e3
+            k_ms = fwd_lse if n == "flash_attention_lse" else ms[n]
+            rows[n][what] = {"ms": k_ms, "bound_ms": max(t_bytes, t_ops),
+                             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                             "bytes": nbytes, "ops": nops}
+        whole_ops = 5 * 2 * d * pairs
+        whole_bound = max(whole_ops / H100_BF16_FLOPS, (4 * qb + 4 * kb + stats)
+                          / HBM_BYTES_PER_S) * 1e3
+        summary = {"backward_ms": whole, "twin_ms": twin, "sdpa_backward_ms": sdpa,
+                   "backward_ms_without_cap": nocap, "backward_bound_ms": whole_bound,
+                   "forward_lse_ms": fwd_lse, "forward_ms": fwd, "forward_twin_ms": fwd_twin,
+                   "sdpa_forward_ms": sdpa_fwd, "visible_pairs": pairs}
+        for n in rows:
+            rows[n][what].update(summary)
+        print(f"attention backward rows at {what} (B={b} Hq={hq} Hkv={hkv} S={s} D={d} {kw}): "
+              f"by kernel ms {ms}; whole backward ms={whole:.6f} (bound {whole_bound:.6f} at "
+              f"{whole_ops} ops), without the cap {nocap}; twin ms={twin:.6f}; SDPA backward "
+              f"ms={sdpa:.6f}{' (no cap)' if nocap is not None else ''}; forward with lse "
+              f"ms={fwd_lse:.6f}, serving forward {fwd:.6f}, twin {fwd_twin:.6f}, SDPA "
+              f"{sdpa_fwd:.6f}; card {card}")
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    first = BWD_TIMED[0][0]
+    out_rows = []
+    for n, by_shape in rows.items():
+        r = by_shape[first]
+        lib = r["sdpa_forward_ms"] if n == "flash_attention_lse" else r["sdpa_backward_ms"]
+        plain = r["forward_twin_ms"] if n == "flash_attention_lse" else r["twin_ms"]
+        out_rows.append({
+            "name": n, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+            "launches": launches["flash_attention" if n == "flash_attention_lse" else n],
+            "max_abs_err": errs["abs_bfloat16"] if n != "flash_attention_lse" else errs["lse"],
+            "max_err_over_max_want": {"float32": errs["float32"], "bfloat16": errs["bfloat16"]},
+            "ms": r["ms"], "plain_ms": plain, "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": lib, "shape": first,
+            "plain_is": "the whole backward's twin" if n != "flash_attention_lse"
+            else "flash_attention_lse_ref",
+            "library_is": "scaled_dot_product_attention(enable_gqa=True) "
+            + ("forward" if n == "flash_attention_lse" else "backward through autograd"),
+            "max_abs_err_float32": errs["abs_float32"], "by_shape": by_shape})
+    for r in out_rows:
+        print(f"kernel {r['name']} ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']:.6f} "
+              f"launches={r['launches']}")
+    return out_rows
+
+
+def drive_lm_train(torch, np, seed: int, card: str) -> list:
+    """Phase 7c: LM training on the card, after phase 7b (at most 1 GiB
+    allocated at its start and end): (a) the backward kernels against
+    their twins, (b) the reduced cells of every LM arch card against host
+    and the training script's restore, (c) qwen2-1.5b's train_4k at full width and
+    depth, (d) Gemma-2 at full width, 4 layers, and the refusals, (e) the
+    kernel rows. Returns the rows of the kernels line."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"lm train phase starts with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated before the LM training phase")
+    errs = check_attention_backward(torch, np, seed)
+    cells = train_cells_vs_host(torch, np, seed)
+    q = qwen2_train(torch, np, seed, card)
+    g = gemma_train(torch, np, seed)
+    rows = backward_rows(torch, np, seed, q["launches"], errs, card)
+    for r in rows:
+        r["train_4k"] = {"step_s": q["step_s"], "tokens_s": q["tokens_s"], "busy": q["busy"],
+                         "peak_bytes": q["peak"], "device_ms_in_profiled_step": q["kernel_ms"],
+                         "grad_err_bf16": max(q["errs"].values()), "control": q["control"],
+                         "witness": q["witness"], "float32_grad_err": max(q["f32"]["errs"].values()),
+                         "gemma_grad_err": max(g["errs"].values()), "gemma_control": g["control"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"lm train phase s={time.perf_counter() - t0:.3f}; ends with memory_allocated={left}; "
+          f"reduced cells {cells}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after the LM training phase")
+    return rows
+
 
 
 # Tolerances of csr_spmm against its twin on the card. float32: both sum
@@ -9024,12 +9732,13 @@ GATED_FANOUTS = (15, 10)    # minibatch_lg's fanouts
 GATED_LOSS_RTOL = 1e-5
 GATED_GRAD_SCALED = 1e-3
 GATED_HOST_RTOL = 1e-4
-GATED_STEPS = 300           # the example's schedule
-GATED_CKPT_EVERY = 50
-GATED_FAIL_AT = 120
-CODEC_STEPS = 20            # steps a codec in 8b (d)
-OVERLAP_STEPS = 10          # steps with and without an async save in flight (e)
-FILLED_STEPS = 10           # timed steps on the filled batch (b)
+GATED_STEPS = 80            # the schedule (the example's 300 / 50 / 120 until phase 7c)
+GATED_CKPT_EVERY = 20
+GATED_FAIL_AT = 50
+GATED_RESTORED = GATED_FAIL_AT // GATED_CKPT_EVERY * GATED_CKPT_EVERY  # the step restored
+CODEC_STEPS = 10            # steps a codec in 8b (d) (20 until phase 7c)
+OVERLAP_STEPS = 5           # steps with and without an async save in flight (e) (10 until 7c)
+FILLED_STEPS = 5            # timed steps on the filled batch (b) (10 until 7c)
 SAMPLES_TIMED = 10
 
 
@@ -9407,7 +10116,7 @@ def drive_gnn_compressed(torch, np, seed: int, card: str) -> dict:
     filled = _gated_filled(torch, np, cfg, seed, card)
     marks["b"] = time.perf_counter() - t_start
 
-    # (c) the example's schedule; every checkpoint kept, so step 100's stays
+    # (c) the schedule; every checkpoint kept, so the restored step's stays
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_gnn_")
     ops.reset_launch_counts()
     res = gnc.main(DEV, store=store, d_feat=d_feat, n_classes=n_cls, seeds=GATED_SEEDS,
@@ -9417,9 +10126,9 @@ def drive_gnn_compressed(torch, np, seed: int, card: str) -> dict:
                    checkpoint_dir=ckdir, keep_checkpoints=GATED_STEPS // GATED_CKPT_EVERY,
                    out=lambda *_: None)
     path_counts = dict(ops.launch_counts)
-    if res["failed_at"] != GATED_FAIL_AT or res["restored_step"] != 100:
+    if res["failed_at"] != GATED_FAIL_AT or res["restored_step"] != GATED_RESTORED:
         _fail(f"the schedule failed at {res['failed_at']} and restored step "
-              f"{res['restored_step']}, not {GATED_FAIL_AT} and 100")
+              f"{res['restored_step']}, not {GATED_FAIL_AT} and {GATED_RESTORED}")
     n_steps = res["failed_at"] + GATED_STEPS - res["restored_step"]
     print(f"launches of the schedule ({n_steps} steps): " + " ".join(
         f"{k}={path_counts[k]}" for k in ("csr_spmm", "csr_spmm_combine", "k2_lines_count",
@@ -9433,11 +10142,12 @@ def drive_gnn_compressed(torch, np, seed: int, card: str) -> dict:
     savers = [res["first_trainer"].ckpt, res["trainer"].ckpt]
     copy_ms = [v * 1e3 for sv in savers for v in sv.copy_s]
     write_ms = [v * 1e3 for sv in savers for v in sv.write_s]
-    # step 100 as the save's host copy wrote it, read with numpy, against a
-    # fresh trainer restored from it by this script
-    saved100 = _saved_leaves(np, torch, os.path.join(ckdir, "step_00000100"))
+    # the restored step as the save's host copy wrote it, read with numpy,
+    # against a fresh trainer restored from it by this script
+    step_dir = f"step_{GATED_RESTORED:08d}"
+    saved100 = _saved_leaves(np, torch, os.path.join(ckdir, step_dir))
     d100 = tempfile.mkdtemp(prefix="chip_smoke_gnn100_")
-    shutil.copytree(os.path.join(ckdir, "step_00000100"), os.path.join(d100, "step_00000100"))
+    shutil.copytree(os.path.join(ckdir, step_dir), os.path.join(d100, step_dir))
     m100 = GatedGCN.from_config(cfg, d_feat, gnc.D_EDGE, n_cls, device=DEV, seed=seed + 2)
     t100 = Trainer(lambda x: gatedgcn_loss(m100, x), m100.leaves(),
                    TrainerConfig(checkpoint_dir=d100))
@@ -9446,8 +10156,9 @@ def drive_gnn_compressed(torch, np, seed: int, card: str) -> dict:
     t100.maybe_restore()
     torch.cuda.synchronize()
     restore_ms = (time.perf_counter() - t0) * 1e3
-    if t100.step != 100 or not _same_state(torch, _state_copy(t100), saved100):
-        _fail("a trainer restored from step 100 differs from the host copy saved at step 100")
+    if t100.step != GATED_RESTORED or not _same_state(torch, _state_copy(t100), saved100):
+        _fail(f"a trainer restored from step {GATED_RESTORED} differs from the host copy saved "
+              "at that step")
     shutil.rmtree(d100, ignore_errors=True)
     losses = [r["loss"] for r in logs]
     flags = res["first_trainer"].straggler.flagged + res["trainer"].straggler.flagged
@@ -9457,8 +10168,8 @@ def drive_gnn_compressed(torch, np, seed: int, card: str) -> dict:
           f"logged steps' sec_per_step) save host copy ms median={statistics.median(copy_ms):.6f} "
           f"(of {len(copy_ms)}) worker write ms median={statistics.median(write_ms):.6f} (of "
           f"{len(write_ms)}) restore_ms={res['restore_s'] * 1e3:.6f} (in the schedule), "
-          f"{restore_ms:.6f} (a fresh trainer from step 100); restored state == step-100 host "
-          f"copy bit for bit; losses {[round(v, 6) for v in losses]} at steps "
+          f"{restore_ms:.6f} (a fresh trainer from step {GATED_RESTORED}); restored state == "
+          f"step-{GATED_RESTORED} host copy bit for bit; losses {[round(v, 6) for v in losses]} at steps "
           f"{[r['step'] for r in logs]}; straggler flags {flags} on {card}")
     if not losses[-1] < losses[0]:
         _fail(f"the schedule's loss did not fall: {losses[0]} -> {losses[-1]}")
@@ -10061,23 +10772,36 @@ def main(argv=None) -> int:
     errs["csr_spmm"] = check_spmm_kernel(torch, np, args.seed)
     print(f"elapsed_s before phase 3 {time.perf_counter() - t_main:.3f}")
     main_res = drive_main_path(torch, np, args.seed, args.scale, args.queries)
+    print(f"elapsed_s after phase 3 {time.perf_counter() - t_main:.3f}")
     drive_scalar_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_scalar_path {time.perf_counter() - t_main:.3f}")
     drive_mutation_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_mutation_path {time.perf_counter() - t_main:.3f}")
     drive_snapshot_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_snapshot_path {time.perf_counter() - t_main:.3f}")
     drive_bgp_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_bgp_path {time.perf_counter() - t_main:.3f}")
     drive_sharded_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_sharded_path {time.perf_counter() - t_main:.3f}")
     drive_durable_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_durable_path {time.perf_counter() - t_main:.3f}")
     drive_baselines_path(torch, np, main_res, args.seed)
+    print(f"elapsed_s after drive_baselines_path {time.perf_counter() - t_main:.3f}")
     kernels = time_kernels(torch, np, main_res, errs)
     breakdown(torch, main_res)
     del main_res
     print(f"elapsed_s before phase 6 {time.perf_counter() - t_main:.3f}")
     kernels += drive_dlrm(torch, np, args.seed, errs)
+    print(f"elapsed_s before phase 6b {time.perf_counter() - t_main:.3f}")
     kernels += drive_dlrm_train(torch, np, args.seed, errs)
     print(f"elapsed_s before phase 7 {time.perf_counter() - t_main:.3f}")
     kernels += drive_lm(torch, np, args.seed, errs)
     print(f"elapsed_s after phase 7b {time.perf_counter() - t_main:.3f}")
+    print(f"elapsed_s before phase 7c {time.perf_counter() - t_main:.3f}")
+    kernels += drive_lm_train(torch, np, args.seed, card)
+    print(f"elapsed_s after phase 7c {time.perf_counter() - t_main:.3f}")
     kernels += drive_gnn(torch, np, args.seed, errs, card)
+    print(f"elapsed_s before phase 8b {time.perf_counter() - t_main:.3f}")
     _merge_gnn_compressed(kernels, drive_gnn_compressed(torch, np, args.seed, card))
     print(f"elapsed_s before phase 8c {time.perf_counter() - t_main:.3f}")
     _merge_gnn_cells(kernels, drive_gnn_cells(torch, np, args.seed, card))

@@ -62,6 +62,37 @@
 // - float32, `simt_kernel`: float32 FMAs, never TF32; 64-row tiles (32 at
 //   D = 256) at prefill, one 8-row tile split as above at decode.
 //
+// With a non-null `lse` the forward also writes each row's log-sum-exp,
+// lse = m + log l in the kernel's score units (after sm_scale and the
+// soft-cap; +inf for a row that sees no key), float32 (B, Hq, Sq): what the
+// backward needs to form p = exp(s - lse) again. Serving passes null.
+//
+// Backward (training; the Pallas kernel has none, the reference
+// differentiates its plain attention with jax.grad). Three kernels, float32
+// FMAs for both types (p is rounded to v's type before dV, as the forward
+// rounds it; dS stays float32):
+//
+// - `bwd_delta_kernel`: delta_i = sum_d dO_id O_id, one warp a row;
+// - `bwd_dkdv_kernel`: one block per (batch, kv head, tile of BN keys). It
+//   keeps its K and V tiles and its dK and dV sums in the block and walks,
+//   for each query head of the kv head's group, the tiles of BM query rows
+//   that can see the key tile (causal, window, q_offset). Per tile it
+//   recomputes s = q.k sm_scale (soft-capped to s_c), p = exp(s_c - lse)
+//   (0 where masked), dP = dO V^T, dS = p (dP - delta) (times 1 - (s_c /
+//   cap)^2 under a soft-cap), then dV += p^T dO and dK += dS^T Q. The GQA
+//   group sums in float32 inside the block: no atomics;
+// - `bwd_dq_kernel`: one block per (batch, query head, tile of BM rows)
+//   over its visible key tiles: dQ = sm_scale dS K, recomputing s, p, dP
+//   and dS as above. Deterministic, like the other two.
+//
+// Both big kernels are bound by their float32 operations: 7 products of
+// 2 D FLOPs per visible (query, key) pair a query head (4 in dkdv, 3 in
+// dq) at 67 TFLOP/s; the bytes they move are the inputs a few times over.
+// Tiles stage in shared memory as float32 (bf16 widened on the way in),
+// every thread computes a 2-4 x 2-8 patch of s and dP from float4 reads,
+// and each accumulator patch is 4 keys (or rows) x 8 columns. The next
+// step is mma.sync (or wgmma) for bf16 with the forward's tile helpers.
+//
 // Nothing carries over between blocks. The next step for the prefill is
 // wgmma fed by TMA, with a producer warp (warp specialisation): mma.sync
 // stays under a third of the card's bf16 rate even at prefill_32k
@@ -77,6 +108,11 @@ constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSplitKeys = 64;  // a split covers whole chunks of this many keys
 constexpr int kDecodeRows = 8;  // rows of a (batch, kv head) up to which decode splits
+// lse of a row with running max m (scaled units) and sum l: m + log l, +inf
+// for a row that saw no key (so exp(s - lse) is 0 there)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? m + logf(l) : __int_as_float(0x7f800000);
+}
 
 struct Params {
   const void* q;
@@ -84,6 +120,7 @@ struct Params {
   const void* v;
   void* o;
   float* part;  // split partials: acc (S, B, Hkv, R, D), then m and l (S, B, Hkv, R)
+  float* lse;   // null, or the rows' log-sum-exp (B, Hq, Sq); only with one split
   int64_t B, Hkv, Sq, Sk, D, group, n_splits;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int64_t q_offset, window;  // window <= 0: no window
@@ -387,6 +424,7 @@ simt_kernel(const Params p) {
     const float l = l_s[row];
     const float denom = l == 0.0f ? 1.0f : l;
     const int64_t i = r / group, h = kvh * group + r % group;
+    if (p.lse != nullptr && cg == 0) p.lse[(b * p.Hkv * group + h) * p.Sq + i] = row_lse(m_s[row], l);
     float* dst = ob + b * p.o_sb + h * p.o_sh + i * p.o_ss;
 #pragma unroll
     for (int j = 0; j < DC / 4; ++j) {
@@ -512,6 +550,7 @@ __device__ __forceinline__ void tc_store_row(const Params& p, int64_t b, int64_t
   }
   const float inv = 1.0f / (l == 0.0f ? 1.0f : l);
   const int64_t i = r / p.group, h = kvh * p.group + r % p.group;
+  if (p.lse != nullptr && d0 == 0) p.lse[(b * p.Hkv * p.group + h) * p.Sq + i] = row_lse(m, l);
   __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_ss;
   for (int d = d0; d < p.D; d += d_step) dst[d] = __float2bfloat16_rn(acc(d) * inv);
 }
@@ -837,6 +876,10 @@ tc_kernel(const Params p) {
         if (r >= R) continue;
         const float inv = 1.0f / (l_row[mt][h] == 0.0f ? 1.0f : l_row[mt][h]);
         const int64_t i = r / group, hq = kvh * group + r % group;
+        if (p.lse != nullptr && tig == 0) {
+          const float m = p.softcap > 0.0f ? m_row[mt][h] : m_row[mt][h] * p.sm_scale;
+          p.lse[(b * p.Hkv * group + hq) * p.Sq + i] = row_lse(m, l_row[mt][h]);
+        }
         __nv_bfloat16* dst =
             static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + hq * p.o_sh + i * p.o_ss + 2 * tig;
 #pragma unroll
@@ -899,6 +942,10 @@ int configure(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+bool aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss, int64_t vec) {
+  return (uintptr_t)ptr % 16 == 0 && sb % vec == 0 && sh % vec == 0 && ss % vec == 0;
+}
+
 template <int BM, int DMAX, int RG>
 int launch_simt(const Params& p, cudaStream_t stream) {
   constexpr int BN = DMAX <= 64 ? 64 : 32;
@@ -948,8 +995,380 @@ int launch_t(const Params& p, cudaStream_t stream) {
   return launch_d<T, 256>(p, stream);
 }
 
-bool aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss, int64_t vec) {
-  return (uintptr_t)ptr % 16 == 0 && sb % vec == 0 && sh % vec == 0 && ss % vec == 0;
+// ------------------------------------------------------------------ backward
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // (B, Hq, Sq), the forward's
+  const float* delta;  // (B, Hq, Sq), rowsum(dO * O)
+  void* dq;
+  void* dk;
+  void* dv;
+  int64_t B, Hkv, Sq, Sk, D, group;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
+  int64_t dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+  int64_t q_offset, window;  // window <= 0: no window
+  int causal;
+  float softcap;  // <= 0: no soft-cap
+  float sm_scale;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {  // x rounded to T, as float
+  if constexpr (sizeof(T) == 4) return x;
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
+// four consecutive elements, 16 (float) or 8 (bf16) bytes, widened to float
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// Tiles of the backward at DMAX: BN keys x BM query rows, staged as float32
+// rows of DMAX padded by 16 bytes (RS floats). The score phase gives thread
+// (rg, cg) rows rg * TM + a and keys cg + CG * c; the accumulation phase
+// gives it 4 keys (dkdv) or TR rows (dq) times the 8 columns c4 .. c4 + 3
+// and c4 + DMAX / 2 .. + 3, c4 = 4 * (tid % (DMAX / 8)).
+template <int DMAX>
+struct Bwd {
+  static constexpr int BN = 4096 / DMAX;           // 64, 32, 16
+  static constexpr int BM = DMAX == 64 ? 64 : 32;
+  static constexpr int RS = DMAX + 4;
+  static constexpr int PS = BN + 1;
+  static constexpr int RG = 16, CG = kThreads / RG;
+  static constexpr int TM = BM / RG, TN = BN / CG;
+  static constexpr int CGD = DMAX / 8;             // column groups of the accumulation
+  static constexpr int OG = kThreads / CGD;        // key (or row) groups of it
+  static constexpr int TK = BN / OG;               // keys a thread in dkdv
+  static constexpr int TR = BM / OG;               // rows a thread in dq
+  static constexpr int kK = 0, kV = BN * RS, kQ = 2 * BN * RS, kDO = kQ + BM * RS;
+  static constexpr int kP = kDO + BM * RS, kDS = kP + BM * PS;
+  static constexpr int kLse = kDS + BM * PS, kDelta = kLse + BM;
+  static constexpr int kBytes = (kDelta + BM) * 4;
+  static_assert(TM * RG == BM && TN * CG == BN && TK * OG == BN && TR * OG == BM, "tile shape");
+};
+
+// rows [r0, r0 + n) of a (position-major) operand into shared rows of RS
+// floats; rows at or past `valid` and columns past D are zeros
+template <int DMAX, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* base, int64_t stride, int64_t r0,
+                                           int n, int64_t valid, int D) {
+  constexpr int RS = DMAX + 4, C4 = DMAX / 4;
+  for (int c = threadIdx.x; c < n * C4; c += kThreads) {
+    const int row = c / C4, col = (c % C4) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r0 + row < valid && col < D) x = load4f(base + (r0 + row) * stride + col);
+    *reinterpret_cast<float4*>(dst + row * RS + col) = x;
+  }
+}
+
+__device__ __forceinline__ bool bwd_visible(const BwdParams& p, int64_t i, int64_t key) {
+  const int64_t pos = i + p.q_offset;
+  return i < p.Sq && key < p.Sk && (!p.causal || pos >= key) &&
+         (p.window <= 0 || key > pos - p.window);
+}
+
+// The score phase over the staged tiles (query rows i0.., keys k0..): s = Q
+// K^T and dP = dO V^T for this thread's patch, then p = exp(s_c - lse) and
+// dS = p (dP - delta) (times the soft-cap's derivative), written to shared
+// memory: dS always, p rounded to T when P is set (dkdv).
+template <int DMAX, typename T, bool P>
+__device__ __forceinline__ void bwd_scores(const BwdParams& p, float* sm, int64_t i0, int64_t k0) {
+  using C = Bwd<DMAX>;
+  const int rg = threadIdx.x / C::CG, cg = threadIdx.x % C::CG;
+  const int D = (int)p.D;
+  float s[C::TM][C::TN], dp[C::TM][C::TN];
+#pragma unroll
+  for (int a = 0; a < C::TM; ++a)
+#pragma unroll
+    for (int c = 0; c < C::TN; ++c) s[a][c] = dp[a][c] = 0.0f;
+  for (int c4 = 0; c4 < D; c4 += 4) {
+    float4 qv[C::TM], dov[C::TM];
+#pragma unroll
+    for (int a = 0; a < C::TM; ++a) {
+      qv[a] = *reinterpret_cast<const float4*>(sm + C::kQ + (rg * C::TM + a) * C::RS + c4);
+      dov[a] = *reinterpret_cast<const float4*>(sm + C::kDO + (rg * C::TM + a) * C::RS + c4);
+    }
+#pragma unroll
+    for (int c = 0; c < C::TN; ++c) {
+      const float4 kv = *reinterpret_cast<const float4*>(sm + C::kK + (cg + C::CG * c) * C::RS + c4);
+      const float4 vv = *reinterpret_cast<const float4*>(sm + C::kV + (cg + C::CG * c) * C::RS + c4);
+#pragma unroll
+      for (int a = 0; a < C::TM; ++a) {
+        s[a][c] = dot4(qv[a], kv, s[a][c]);
+        dp[a][c] = dot4(dov[a], vv, dp[a][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < C::TM; ++a) {
+    const int row = rg * C::TM + a;
+    const float lse = sm[C::kLse + row], delta = sm[C::kDelta + row];
+#pragma unroll
+    for (int c = 0; c < C::TN; ++c) {
+      const int n = cg + C::CG * c;
+      float sc = s[a][c] * p.sm_scale;
+      float dcap = 1.0f;
+      if (p.softcap > 0.0f) {
+        sc = p.softcap * tanhf(sc / p.softcap);
+        const float t = sc / p.softcap;
+        dcap = 1.0f - t * t;
+      }
+      const float pr = bwd_visible(p, i0 + row, k0 + n) ? expf(sc - lse) : 0.0f;
+      if constexpr (P) sm[C::kP + row * C::PS + n] = round_to<T>(pr);
+      sm[C::kDS + row * C::PS + n] = pr * (dp[a][c] - delta) * dcap;
+    }
+  }
+}
+
+// lse and delta of query rows i0 .. i0 + BM of head h (+inf and 0 past Sq)
+template <int DMAX>
+__device__ __forceinline__ void stage_stats(const BwdParams& p, float* sm, int64_t b, int64_t h,
+                                            int64_t i0) {
+  using C = Bwd<DMAX>;
+  const int64_t hq = p.Hkv * p.group;
+  for (int r = threadIdx.x; r < C::BM; r += kThreads) {
+    const int64_t i = i0 + r;
+    const bool valid = i < p.Sq;
+    sm[C::kLse + r] = valid ? p.lse[(b * hq + h) * p.Sq + i] : __int_as_float(0x7f800000);
+    sm[C::kDelta + r] = valid ? p.delta[(b * hq + h) * p.Sq + i] : 0.0f;
+  }
+}
+
+// Block (key tile, kv head, batch): dK and dV of keys k0 .. k0 + BN.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
+  using C = Bwd<DMAX>;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.z, kvh = blockIdx.y, k0 = (int64_t)blockIdx.x * C::BN;
+  const int D = (int)p.D;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb;
+  stage_rows<DMAX>(sm + C::kK, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss,
+                   k0, C::BN, p.Sk, D);
+  stage_rows<DMAX>(sm + C::kV, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss,
+                   k0, C::BN, p.Sk, D);
+
+  // the query rows that can see some key of the tile
+  const int64_t k_last = (k0 + C::BN < p.Sk ? k0 + C::BN : p.Sk) - 1;
+  int64_t i_lo = 0, i_hi = p.Sq;
+  if (p.causal && k0 - p.q_offset > i_lo) i_lo = k0 - p.q_offset;
+  if (p.window > 0 && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
+
+  const int og = tid / C::CGD, c4 = 4 * (tid % C::CGD);
+  constexpr int H = DMAX / 2;
+  float dk[C::TK][8], dv[C::TK][8];
+#pragma unroll
+  for (int a = 0; a < C::TK; ++a)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dk[a][e] = dv[a][e] = 0.0f;
+
+  for (int64_t g = 0; g < p.group; ++g) {
+    const int64_t h = kvh * p.group + g;
+    for (int64_t i0 = i_lo; i0 < i_hi; i0 += C::BM) {
+      __syncthreads();  // every thread is done with the last tile
+      stage_rows<DMAX>(sm + C::kQ, qb + h * p.q_sh, p.q_ss, i0, C::BM, p.Sq, D);
+      stage_rows<DMAX>(sm + C::kDO, dob + h * p.do_sh, p.do_ss, i0, C::BM, p.Sq, D);
+      stage_stats<DMAX>(p, sm, b, h, i0);
+      __syncthreads();
+      bwd_scores<DMAX, T, true>(p, sm, i0, k0);
+      __syncthreads();
+      if (c4 >= D) continue;  // no column of this thread's (the barriers above still meet)
+      for (int m = 0; m < C::BM; ++m) {
+        const float4 do0 = *reinterpret_cast<const float4*>(sm + C::kDO + m * C::RS + c4);
+        const float4 do1 = *reinterpret_cast<const float4*>(sm + C::kDO + m * C::RS + c4 + H);
+        const float4 q0 = *reinterpret_cast<const float4*>(sm + C::kQ + m * C::RS + c4);
+        const float4 q1 = *reinterpret_cast<const float4*>(sm + C::kQ + m * C::RS + c4 + H);
+        const float dof[8] = {do0.x, do0.y, do0.z, do0.w, do1.x, do1.y, do1.z, do1.w};
+        const float qf[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+        for (int a = 0; a < C::TK; ++a) {
+          const int n = og + C::OG * a;
+          const float pr = sm[C::kP + m * C::PS + n], ds = sm[C::kDS + m * C::PS + n];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            dv[a][e] = fmaf(pr, dof[e], dv[a][e]);
+            dk[a][e] = fmaf(ds, qf[e], dk[a][e]);
+          }
+        }
+      }
+    }
+  }
+  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int a = 0; a < C::TK; ++a) {
+    const int64_t key = k0 + og + C::OG * a;
+    if (key >= p.Sk) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = c4 + (e < 4 ? e : H + e - 4);
+      if (col < D) {
+        store_f(dkb + key * p.dk_ss + col, dk[a][e] * p.sm_scale);
+        store_f(dvb + key * p.dv_ss + col, dv[a][e]);
+      }
+    }
+  }
+}
+
+// Block (query tile, query head, batch): dQ of rows i0 .. i0 + BM, the
+// last row tile first (the heaviest under a causal mask).
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const BwdParams p) {
+  using C = Bwd<DMAX>;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.z, h = blockIdx.y, kvh = h / p.group;
+  const int64_t i0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * C::BM;
+  const int D = (int)p.D;
+  stage_rows<DMAX>(sm + C::kQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, i0,
+                   C::BM, p.Sq, D);
+  stage_rows<DMAX>(sm + C::kDO, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                   p.do_ss, i0, C::BM, p.Sq, D);
+  stage_stats<DMAX>(p, sm, b, h, i0);
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // the keys some row of the tile can see
+  const int64_t pos_lo = i0 + p.q_offset;
+  const int64_t pos_hi = (i0 + C::BM < p.Sq ? i0 + C::BM : p.Sq) - 1 + p.q_offset;
+  int64_t k_lo = 0, k_hi = p.Sk;
+  if (p.causal && pos_hi + 1 < k_hi) k_hi = pos_hi + 1;
+  if (p.window > 0 && pos_lo - p.window + 1 > k_lo) k_lo = pos_lo - p.window + 1;
+
+  const int og = tid / C::CGD, c4 = 4 * (tid % C::CGD);
+  constexpr int H = DMAX / 2;
+  float dq[C::TR][8];
+#pragma unroll
+  for (int a = 0; a < C::TR; ++a)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dq[a][e] = 0.0f;
+
+  for (int64_t k0 = k_lo; k0 < k_hi; k0 += C::BN) {
+    __syncthreads();  // every thread is done with the last key tile
+    stage_rows<DMAX>(sm + C::kK, kb, p.k_ss, k0, C::BN, k_hi, D);
+    stage_rows<DMAX>(sm + C::kV, vb, p.v_ss, k0, C::BN, k_hi, D);
+    __syncthreads();
+    bwd_scores<DMAX, T, false>(p, sm, i0, k0);
+    __syncthreads();
+    if (c4 >= D) continue;
+    for (int n = 0; n < C::BN; ++n) {
+      const float4 k0v = *reinterpret_cast<const float4*>(sm + C::kK + n * C::RS + c4);
+      const float4 k1v = *reinterpret_cast<const float4*>(sm + C::kK + n * C::RS + c4 + H);
+      const float kf[8] = {k0v.x, k0v.y, k0v.z, k0v.w, k1v.x, k1v.y, k1v.z, k1v.w};
+#pragma unroll
+      for (int a = 0; a < C::TR; ++a) {
+        const float ds = sm[C::kDS + (og + C::OG * a) * C::PS + n];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dq[a][e] = fmaf(ds, kf[e], dq[a][e]);
+      }
+    }
+  }
+  T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int a = 0; a < C::TR; ++a) {
+    const int64_t i = i0 + og + C::OG * a;
+    if (i >= p.Sq) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = c4 + (e < 4 ? e : H + e - 4);
+      if (col < D) store_f(dqb + i * p.dq_ss + col, dq[a][e] * p.sm_scale);
+    }
+  }
+}
+
+// delta of each row (b, h, i): sum_d dO O in float32, one warp a row
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_delta_kernel(const T* o, const T* dout, float* delta, int64_t Hq, int64_t Sq, int64_t D,
+                 int64_t rows, int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t d_sb,
+                 int64_t d_sh, int64_t d_ss) {
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t i = row % Sq, bh = row / Sq, h = bh % Hq, b = bh / Hq;
+  const T* orow = o + b * o_sb + h * o_sh + i * o_ss;
+  const T* drow = dout + b * d_sb + h * d_sh + i * d_ss;
+  float acc = 0.0f;
+  for (int64_t d = lane; d < D; d += 32) acc = fmaf(to_f(drow[d]), to_f(orow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// Launches of one backward kernel: the dK/dV kernel over key tiles, the dQ
+// kernel over query tiles, each at the instance for the type and D.
+struct LaunchDkdv {
+  template <typename T, int DMAX>
+  static int run(const BwdParams& p, cudaStream_t stream) {
+    using C = Bwd<DMAX>;
+    static const int configured = configure(bwd_dkdv_kernel<T, DMAX>, C::kBytes);
+    if (configured != 0) return configured;
+    const int64_t tiles = (p.Sk + C::BN - 1) / C::BN;
+    if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)tiles, (unsigned)p.Hkv, (unsigned)p.B);
+    bwd_dkdv_kernel<T, DMAX><<<grid, kThreads, C::kBytes, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+};
+struct LaunchDq {
+  template <typename T, int DMAX>
+  static int run(const BwdParams& p, cudaStream_t stream) {
+    using C = Bwd<DMAX>;
+    static const int configured = configure(bwd_dq_kernel<T, DMAX>, C::kBytes);
+    if (configured != 0) return configured;
+    const int64_t tiles = (p.Sq + C::BM - 1) / C::BM;
+    if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)tiles, (unsigned)(p.Hkv * p.group), (unsigned)p.B);
+    bwd_dq_kernel<T, DMAX><<<grid, kThreads, C::kBytes, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename L, typename T>
+int launch_bwd_t(const BwdParams& p, cudaStream_t stream) {
+  if (p.D <= 64) return L::template run<T, 64>(p, stream);
+  if (p.D <= 128) return L::template run<T, 128>(p, stream);
+  return L::template run<T, 256>(p, stream);
+}
+
+template <typename L>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
+               int64_t Hkv, int64_t Sq, int64_t Sk, int64_t D, const int64_t* st, int64_t causal,
+               int64_t window, int64_t q_offset, float softcap, float sm_scale, int64_t dtype,
+               void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || D % 8 != 0 || B > 65535 ||
+      Hq > 65535 || (dtype != 0 && dtype != 1) || lse == nullptr || delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int64_t vec = dtype == 0 ? 4 : 8;
+  if (!aligned(q, st[0], st[1], st[2], vec) || !aligned(k, st[3], st[4], st[5], vec) ||
+      !aligned(v, st[6], st[7], st[8], vec) || !aligned(dout, st[9], st[10], st[11], vec))
+    return (int)cudaErrorInvalidValue;
+  BwdParams p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+              dq, dk, dv, B, Hkv, Sq, Sk, D, Hq / Hkv,
+              st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+              st[12], st[13], st[14], st[15], st[16], st[17], st[18], st[19], st[20],
+              q_offset, window, causal != 0 ? 1 : 0, softcap, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd_t<L, float>(p, s);
+  return launch_bwd_t<L, __nv_bfloat16>(p, s);
 }
 
 }  // namespace
@@ -959,10 +1378,12 @@ bool aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss, int64_t vec) {
 // float32, 1 bfloat16. n_splits > 1 (decode only: Sq * Hq / Hkv <= 8)
 // writes float32 partials to part, n_splits * B * Hkv * Sq * (Hq / Hkv) *
 // (D + 2) of them, for flash_attention_combine_launch to merge into o.
-// Returns a cudaError_t; Sq == 0 launches nothing.
+// lse: null, or float32 (B, Hq, Sq) contiguous for the rows' log-sum-exp
+// (one split only). Returns a cudaError_t; Sq == 0 launches nothing.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, void* part, int64_t B, int64_t Hq,
-    int64_t Hkv, int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    const void* q, const void* k, const void* v, void* o, void* part, void* lse, int64_t B,
+    int64_t Hq, int64_t Hkv, int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh,
+    int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t causal, int64_t window,
     int64_t q_offset, int64_t n_splits, float softcap, float sm_scale, int64_t dtype,
@@ -970,14 +1391,15 @@ extern "C" int flash_attention_launch(
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || D <= 0 || D > 256 || D % 8 != 0 ||
       B > 65535 || Hkv > 65535 || (dtype != 0 && dtype != 1) || n_splits < 1 ||
-      (n_splits > 1 && (Sq * (Hq / Hkv) > kDecodeRows || part == nullptr)))
+      (n_splits > 1 && (Sq * (Hq / Hkv) > kDecodeRows || part == nullptr || lse != nullptr)))
     return (int)cudaErrorInvalidValue;
   const int64_t vec = dtype == 0 ? 4 : 8;
   if (!aligned(q, q_sb, q_sh, q_ss, vec) || !aligned(k, k_sb, k_sh, k_ss, vec) ||
       !aligned(v, v_sb, v_sh, v_ss, vec) || !aligned(o, o_sb, o_sh, o_ss, 4) ||
       (uintptr_t)part % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, static_cast<float*>(part), B, Hkv, Sq, Sk, D, Hq / Hkv, n_splits,
+  Params p{q, k, v, o, static_cast<float*>(part), static_cast<float*>(lse), B, Hkv, Sq, Sk, D,
+           Hq / Hkv, n_splits,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
            q_offset, window, causal != 0 ? 1 : 0, softcap, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1007,5 +1429,61 @@ extern "C" int flash_attention_combine_launch(const void* part, void* o, int64_t
   else
     combine_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
         pf, static_cast<__nv_bfloat16*>(o), B, Hkv, group, R, D, n_splits, o_sb, o_sh, o_ss);
+  return (int)cudaGetLastError();
+}
+
+#define FA_BWD_ARGS                                                                              \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse,               \
+      const void *delta, void *dq, void *dk, void *dv, int64_t B, int64_t Hq, int64_t Hkv,      \
+      int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, \
+      int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t do_sb,       \
+      int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, int64_t dk_sb,  \
+      int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, int64_t causal, \
+      int64_t window, int64_t q_offset, float softcap, float sm_scale, int64_t dtype, void *stream
+#define FA_BWD_STRIDES                                                                         \
+  {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss,                  \
+   dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss}
+
+// The backward's two big launches. Both take the same arguments: q, k, v
+// and dout as the forward took q, k, v (dout like q), the forward's lse and
+// the delta of flash_attention_bwd_delta_launch (float32 (B, Hq, Sq)
+// contiguous), and dq (like q), dk and dv (like k); strides in elements, D
+// contiguous. dkdv writes dk and dv, dq writes dq. Sq == 0 or Sk == 0
+// launches nothing. Returns a cudaError_t.
+extern "C" int flash_attention_bwd_dkdv_launch(FA_BWD_ARGS) {
+  const int64_t st[21] = FA_BWD_STRIDES;
+  return launch_bwd<LaunchDkdv>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, st,
+                                causal, window, q_offset, softcap, sm_scale, dtype, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_launch(FA_BWD_ARGS) {
+  const int64_t st[21] = FA_BWD_STRIDES;
+  return launch_bwd<LaunchDq>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, st,
+                              causal, window, q_offset, softcap, sm_scale, dtype, stream);
+}
+
+// delta (B, Hq, Sq) float32 contiguous = rowsum(dout * o) of the forward's
+// output o and its gradient dout (strides in elements, D contiguous; dtype 0
+// float32, 1 bfloat16). Returns a cudaError_t; Sq == 0 launches nothing.
+extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dout, void* delta,
+                                                int64_t B, int64_t Hq, int64_t Sq, int64_t D,
+                                                int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                                                int64_t d_sb, int64_t d_sh, int64_t d_ss,
+                                                int64_t dtype, void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (D <= 0 || (dtype != 0 && dtype != 1) || delta == nullptr) return (int)cudaErrorInvalidValue;
+  const int64_t rows = B * Hq * Sq;
+  const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 0)
+    bwd_delta_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), dl, Hq, Sq, D, rows, o_sb,
+        o_sh, o_ss, d_sb, d_sh, d_ss);
+  else
+    bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), dl, Hq, Sq,
+        D, rows, o_sb, o_sh, o_ss, d_sb, d_sh, d_ss);
   return (int)cudaGetLastError();
 }

@@ -85,11 +85,22 @@ SOURCES = {
                                           [_P] * 3 + [_I64] * 7 + [_P]),
     },
     "flash_attention": {
-        # q, k, v, o, part; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal,
+        # q, k, v, o, part, lse; B, Hq, Hkv, Sq, Sk, D; 12 strides; causal,
         # window, q_offset, n_splits; softcap, sm_scale; dtype
         "flash_attention": ("flash_attention_launch",
-                            [_P] * 5 + [_I64] * 6 + [_I64] * 12 + [_I64] * 4 + [_F32] * 2
+                            [_P] * 6 + [_I64] * 6 + [_I64] * 12 + [_I64] * 4 + [_F32] * 2
                             + [_I64, _P]),
+        # o, dout, delta; B, Hq, Sq, D; 6 strides; dtype
+        "flash_attention_bwd_delta": ("flash_attention_bwd_delta_launch",
+                                      [_P] * 3 + [_I64] * 4 + [_I64] * 6 + [_I64, _P]),
+        # q, k, v, dout, lse, delta, dq, dk, dv; B, Hq, Hkv, Sq, Sk, D; 21
+        # strides; causal, window, q_offset; softcap, sm_scale; dtype
+        "flash_attention_bwd_dkdv": ("flash_attention_bwd_dkdv_launch",
+                                     [_P] * 9 + [_I64] * 6 + [_I64] * 21 + [_I64] * 3
+                                     + [_F32] * 2 + [_I64, _P]),
+        "flash_attention_bwd_dq": ("flash_attention_bwd_dq_launch",
+                                   [_P] * 9 + [_I64] * 6 + [_I64] * 21 + [_I64] * 3
+                                   + [_F32] * 2 + [_I64, _P]),
         # part, o; B, Hq, Hkv, Sq, D, n_splits; 3 strides of o; dtype
         "flash_attention_combine": ("flash_attention_combine_launch",
                                     [_P] * 2 + [_I64] * 6 + [_I64] * 3 + [_I64, _P]),

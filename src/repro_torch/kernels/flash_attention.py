@@ -22,6 +22,13 @@ over ``n_splits`` blocks a (batch, kv head), planned by
 launch, ``flash_attention_combine`` (:func:`flash_attention_combine_cuda`),
 merges them. The split arithmetic, :func:`visible_range` and
 :func:`split_bounds`, lives beside the twin in :mod:`repro_torch.kernels.ref`.
+
+Training: ``flash_attention_cuda(..., lse=True)`` also returns each row's
+log-sum-exp (one split), and :func:`flash_attention_backward_cuda` is the
+backward, which the Pallas kernel lacks: three launches,
+``flash_attention_bwd_delta`` (rowsum(dO * O)), ``flash_attention_bwd_dkdv``
+and ``flash_attention_bwd_dq``. Its twin is
+:func:`repro_torch.kernels.ref.flash_attention_backward_ref`.
 """
 from __future__ import annotations
 
@@ -81,7 +88,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int | None = None,
                          softcap: float | None = None, sm_scale: float | None = None,
                          q_offset: int | None = None,
-                         n_splits: int | None = None) -> torch.Tensor:
+                         n_splits: int | None = None, lse: bool = False):
     """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), one dtype (float32 or
     bfloat16) on one CUDA device, D contiguous and a multiple of 8 up to
     256, rows 16-byte aligned; Hq a multiple of Hkv. ``window`` >= 1 or
@@ -89,10 +96,53 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     None to plan it (:func:`plan_splits`), above 1 only at decode. Returns
     (B, Hq, Sq, D) in q's dtype; see
     :func:`repro_torch.kernels.ref.flash_attention_ref` for the function.
-    Sq == 0 launches nothing."""
+    With ``lse`` it returns (out, lse), lse (B, Hq, Sq) float32 as
+    :func:`repro_torch.kernels.ref.flash_attention_lse_ref` defines it, from
+    one launch of one split (``n_splits`` must then be None or 1). Sq == 0
+    launches nothing."""
     if n_splits is not None and (not isinstance(n_splits, int) or isinstance(n_splits, bool)
                                  or n_splits < 1):
         raise ValueError(f"n_splits must be an int >= 1 or None, not {n_splits!r}")
+    if lse and n_splits not in (None, 1):
+        raise ValueError(f"lse comes from one split, not {n_splits}")
+    _check_shapes(q, k, v, window, softcap)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    rows = sq * (hq // hkv)
+    if n_splits is not None and n_splits > 1 and rows > SPLIT_MAX_ROWS:
+        raise ValueError(f"n_splits > 1 needs at most {SPLIT_MAX_ROWS} rows of a (batch, kv "
+                         f"head) (decode), not {rows}")
+    _check_memory(q, k, v)
+    dev = q.device
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    lse_t = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) if lse else None
+    if out.numel() == 0:
+        return (out, lse_t) if lse else out
+    if sm_scale is None:
+        sm_scale = float(1.0 / (d ** 0.5))
+    off = sk - sq if q_offset is None else q_offset
+    n_splits = 1 if lse else planned_splits(q, k, causal=causal, window=window, q_offset=off,
+                                            n_splits=n_splits)
+    part = None
+    if n_splits > 1:
+        part = torch.empty(partials_size(n_splits, b, hkv, rows, d), dtype=torch.float32,
+                           device=dev)
+    _build.launch("flash_attention", "flash_attention", dev, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(),
+                  0 if lse_t is None else lse_t.data_ptr(), b, hq, hkv, sq, sk, d,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                  int(causal), window or 0, off, n_splits, softcap or 0.0, sm_scale,
+                  _DTYPES[q.dtype])
+    if part is not None:  # partials made here to fit: merge without checking them again
+        _launch_combine(part, out, hkv, n_splits)
+    return (out, lse_t) if lse else out
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window,
+                  softcap) -> None:
+    """Raise on shapes and types the kernels do not take: q (B, Hq, Sq,
+    D), k and v (B, Hkv, Sk, D) of one dtype, float32 or bfloat16, D a
+    multiple of 8 up to 256, Hq a multiple of Hkv."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention_cuda takes q, k, v of one dtype, float32 or "
                         f"bfloat16, not {q.dtype}, {k.dtype}, {v.dtype}")
@@ -108,40 +158,70 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1 or None, not {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0 or None, not {softcap}")
-    rows = sq * (hq // hkv)
-    if n_splits is not None and n_splits > 1 and rows > SPLIT_MAX_ROWS:
-        raise ValueError(f"n_splits > 1 needs at most {SPLIT_MAX_ROWS} rows of a (batch, kv "
-                         f"head) (decode), not {rows}")
+
+
+def _check_memory(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, more: tuple = ()) -> None:
+    """Raise unless q, k, v and ``more`` (name, tensor) pairs, each shaped
+    like q or k in q's dtype, lie on one CUDA device with D contiguous and
+    16-byte aligned rows."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
     vec = 16 // q.element_size()
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v), *more):
+        if x.device != dev or x.dtype != q.dtype or x.shape not in (q.shape, k.shape):
+            raise ValueError(f"{name} must be shaped like q or k, {q.dtype} on {dev}")
         if x.numel() and (x.stride(3) != 1 or x.data_ptr() % 16
                           or any(s % vec for s in x.stride()[:3])):
             raise ValueError(f"flash_attention_cuda needs {name} with D contiguous and "
                              "16-byte aligned rows")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
-    if out.numel() == 0:
-        return out
+
+
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                                  causal: bool = True, window: int | None = None,
+                                  softcap: float | None = None, sm_scale: float | None = None,
+                                  q_offset: int | None = None) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at
+    ``dout``, from its ``out`` and ``lse`` (``lse=True``): three launches,
+    delta = rowsum(dout * out), then dk and dv, then dq; see
+    :func:`repro_torch.kernels.ref.flash_attention_backward_ref` for the
+    function. q, k, v as the forward took them; out and dout shaped like q,
+    D contiguous, 16-byte aligned rows; lse (B, Hq, Sq) float32
+    contiguous. dq has q's layout ((B, Sq, Hq, D) memory), dk and dv k's
+    ((B, Sk, Hkv, D) memory). Sq == 0 or Sk == 0 launches nothing and
+    returns zeros."""
+    _check_shapes(q, k, v, window, softcap)
+    _check_memory(q, k, v, (("out", out), ("dout", dout)))
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be shaped like q {tuple(q.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be float32 ({b}, {hq}, {sq}) contiguous on q's device")
+    dev = q.device
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=dev).transpose(1, 2)
+    if sq == 0 or sk == 0 or b == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     if sm_scale is None:
         sm_scale = float(1.0 / (d ** 0.5))
     off = sk - sq if q_offset is None else q_offset
-    n_splits = planned_splits(q, k, causal=causal, window=window, q_offset=off,
-                              n_splits=n_splits)
-    part = None
-    if n_splits > 1:
-        part = torch.empty(partials_size(n_splits, b, hkv, rows, d), dtype=torch.float32,
-                           device=dev)
-    _build.launch("flash_attention", "flash_attention", dev, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(),
-                  b, hq, hkv, sq, sk, d,
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                  int(causal), window or 0, off, n_splits, softcap or 0.0, sm_scale,
-                  _DTYPES[q.dtype])
-    if part is not None:  # partials made here to fit: merge without checking them again
-        _launch_combine(part, out, hkv, n_splits)
-    return out
+    dt = _DTYPES[q.dtype]
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    _build.launch("flash_attention", "flash_attention_bwd_delta", dev, out.data_ptr(),
+                  dout.data_ptr(), delta.data_ptr(), b, hq, sq, d, *out.stride()[:3],
+                  *dout.stride()[:3], dt)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            int(causal), window or 0, off, softcap or 0.0, sm_scale, dt)
+    _build.launch("flash_attention", "flash_attention_bwd_dkdv", dev, *args)
+    _build.launch("flash_attention", "flash_attention_bwd_dq", dev, *args)
+    return dq, dk, dv
 
 
 def partials_size(n_splits: int, b: int, hkv: int, rows: int, d: int) -> int:

@@ -18,7 +18,8 @@ from repro_torch.kernels.dot_interaction import (dot_interaction_backward_cuda,
                                                  dot_interaction_cuda)
 from repro_torch.kernels.embedding_bag import (embedding_bag_backward_cuda, embedding_bag_cuda,
                                                sgd_rows_cuda)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_backward_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.k2_lines import K2Layout, k2_lines_cuda
 from repro_torch.kernels.segment_matmul import CSR, csr_spmm_cuda
 
@@ -113,12 +114,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int | None = None) -> torch.Tensor:
     """Grouped-query attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Sk, D)
     with query row i at position i + q_offset; see
-    :func:`ref.flash_attention_ref`."""
+    :func:`ref.flash_attention_ref`. Where autograd records (grad enabled
+    and q, k or v requiring it) the call goes through
+    :class:`FlashAttention`, whose backward is the hand-written one;
+    otherwise (serving) it is one forward launch, as before."""
     kw = dict(causal=causal, window=window, softcap=softcap, sm_scale=sm_scale,
               q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kw)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, **kw)
     return flash_attention_cuda(q, k, v, **kw)
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its D is contiguous and its rows 16-byte aligned, as the
+    kernels take it, else a contiguous copy (an incoming gradient may be
+    expanded or strided)."""
+    vec = 16 // t.element_size()
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and not any(s % vec for s in t.stride()[:3]):
+        return t
+    return t.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient. The forward keeps its
+    output and the rows' log-sum-exp (``flash_attention_cuda(..., lse=True)``,
+    one launch); the backward is :func:`flash_attention_backward_cuda` (three
+    launches: ``flash_attention_bwd_delta``, ``_dkdv``, ``_dq``). On the CPU
+    both are the twins, :func:`ref.flash_attention_lse_ref` and
+    :func:`ref.flash_attention_backward_ref`. Nothing falls back: a CUDA
+    tensor launches or raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        if q.device.type == "cpu":
+            out, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.flash_attention_backward_ref(q, k, v, out, lse, dout, **ctx.kw)
+        else:
+            dq, dk, dv = flash_attention_backward_cuda(q, k, v, out, lse, _kernel_ready(dout),
+                                                       **ctx.kw)
+        return dq, dk, dv, None
 
 
 def csr_spmm(x: torch.Tensor, a: CSR) -> torch.Tensor:
@@ -132,4 +178,5 @@ def csr_spmm(x: torch.Tensor, a: CSR) -> torch.Tensor:
 __all__ = ["bitvec_rank", "k2_lines", "digram_pair_counts", "digram_pair_accum", "digram_select",
            "embedding_bag", "embedding_bag_backward", "sgd_rows", "dot_interaction",
            "dot_interaction_backward",
-           "flash_attention", "csr_spmm", "build_all", "launch_counts", "reset_launch_counts", "ref"]
+           "flash_attention", "FlashAttention", "csr_spmm", "build_all", "launch_counts",
+           "reset_launch_counts", "ref"]

@@ -815,3 +815,97 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_offset=q_offset)
     m, l, acc = flash_attention_partials_ref(q, k, v, n_splits=n_splits, **kw)
     return flash_attention_combine_ref(m, l, acc, q.shape[1] // k.shape[1], q.dtype)
+
+
+def _attention_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int | None,
+                      softcap: float | None, sm_scale: float, q_offset: int) -> tuple:
+    """(s, mask): the float32 scores (B, Hkv, group, Sq, Sk) after scale and
+    soft-cap, and the (Sq, Sk) visibility, as :func:`flash_attention_ref`
+    forms them."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    s = torch.matmul(qf, k.float().unsqueeze(2).transpose(-1, -2)) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return s, mask
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, window: int | None = None,
+                            softcap: float | None = None, sm_scale: float | None = None,
+                            q_offset: int | None = None) -> tuple:
+    """:func:`flash_attention_ref` and its log-sum-exp rows: (out (B, Hq,
+    Sq, D) in q's dtype, lse (B, Hq, Sq) float32). lse = m + log(l) over the
+    visible scores in the kernel's units (after sm_scale and the soft-cap),
+    +inf for a row that sees no key, so that exp(s - lse) is that row's
+    normalised probability (0 for the empty row)."""
+    b, hq, sq, d = q.shape
+    sm_scale = float(1.0 / (d ** 0.5)) if sm_scale is None else sm_scale
+    q_offset = k.shape[2] - sq if q_offset is None else q_offset
+    out = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                              sm_scale=sm_scale, q_offset=q_offset)
+    if sq == 0 or k.shape[2] == 0:
+        return out, torch.full((b, hq, sq), float("inf"), device=q.device)
+    s, mask = _attention_scores(q, k, causal=causal, window=window, softcap=softcap,
+                                sm_scale=sm_scale, q_offset=q_offset)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    l = torch.where(mask, torch.exp(s - m[..., None]), 0.0).sum(dim=-1)
+    lse = torch.where(l > 0, m + torch.log(l), float("inf"))
+    return out, lse.reshape(b, hq, sq)
+
+
+def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                                 causal: bool = True, window: int | None = None,
+                                 softcap: float | None = None, sm_scale: float | None = None,
+                                 q_offset: int | None = None, round_p: bool = True) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at ``dout``,
+    as the backward kernels compute them, scores materialised.
+
+    ``out`` and ``lse`` are the forward's (:func:`flash_attention_lse_ref`).
+    Every product sums in float32 over inputs read exactly as float32:
+
+    - s = q.k * sm_scale, soft-capped (s_c = softcap * tanh(s / softcap));
+    - p = exp(s_c - lse) where visible, else 0;
+    - dv = sum over the query heads of a kv head of p^T dout, p rounded to
+      v's dtype first (the forward's rounding point; ``round_p=False``
+      keeps it float32, the witness of that rounding);
+    - dp = dout v^T; delta = rowsum(dout * out), out as stored;
+    - ds = p (dp - delta), times 1 - (s_c / softcap)^2 under a soft-cap,
+      float32 (never rounded);
+    - dk = sm_scale * sum over the group of ds^T q; dq = sm_scale * ds k.
+
+    Each is rounded once to its input's dtype. Returns (dq (B, Hq, Sq, D),
+    dk, dv (B, Hkv, Sk, D))."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    sm_scale = float(1.0 / (d ** 0.5)) if sm_scale is None else sm_scale
+    q_offset = sk - sq if q_offset is None else q_offset
+    if sq == 0 or sk == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    s, mask = _attention_scores(q, k, causal=causal, window=window, softcap=softcap,
+                                sm_scale=sm_scale, q_offset=q_offset)
+    lse5 = lse.float().reshape(b, hkv, group, sq, 1)
+    p = torch.where(mask, torch.exp(torch.where(mask, s, 0.0) - lse5), 0.0)
+    do = dout.float().reshape(b, hkv, group, sq, d)
+    pr = p.to(v.dtype).float() if round_p else p
+    dv = torch.matmul(pr.transpose(-1, -2), do).sum(dim=2)
+    dp = torch.matmul(do, v.float().unsqueeze(2).transpose(-1, -2))
+    delta = (do * out.float().reshape(b, hkv, group, sq, d)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * (1.0 - (s / softcap).square())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().reshape(b, hkv, group, sq, d)).sum(dim=2)
+    dq = torch.matmul(ds, k.float().unsqueeze(2))
+    return ((dq * sm_scale).reshape(b, hq, sq, d).to(q.dtype), (dk * sm_scale).to(k.dtype),
+            dv.to(v.dtype))

@@ -1,7 +1,7 @@
 """Step functions per (arch, shape) cell, with real inputs made from a seed.
 
 The twin of ``repro.launch.steps`` for the kinds the port runs: the LM's
-prefill and decode cells, the recsys serve, retrieval and train cells, and
+train, prefill and decode cells, the recsys serve, retrieval and train cells, and
 the GNN training cells of every kind (full graph, sampled minibatch,
 molecule batch) for the four GNN archs. The reference returns abstract shapes for
 an ahead-of-time compile on a mesh; the port runs eagerly on one GPU, so a
@@ -10,6 +10,7 @@ ready to call.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from functools import partial
 from typing import Callable
@@ -24,7 +25,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_grads, retrieval_scores
 from repro_torch.models.gnn import (GCN, EdgeCSR, GatedGCN, Graph, MeshGraphNet, NequIP,
                                     gnn_loss)
-from repro_torch.models.transformer import DTYPES, Transformer, moe_group_size, normal_chunked
+from repro_torch.models.transformer import (DTYPES, Transformer, moe_group_size,
+                                            normal_chunked, param_shapes)
 from repro_torch.train.loop import train_step
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -92,6 +94,71 @@ def lm_cache(model: Transformer, batch: int, seq_len: int,
                  for _ in range(2))
 
 
+# gradient-accumulation micro-batches of an LM train step (the reference's
+# GRAD_ACCUM, repro/launch/steps.py:37); 1 when reduced
+GRAD_ACCUM = {
+    "yi-34b": 16,
+    "gemma2-9b": 8,
+    "phi3.5-moe-42b-a6.6b": 8,
+    "qwen2-1.5b": 4,
+    "olmoe-1b-7b": 8,
+}
+# bytes of training state a parameter: bf16 weight 2, float32 master 4, m 4,
+# v 4, float32 gradient accumulator 4, bf16 micro-batch gradient 2
+TRAIN_STATE_BYTES = 20
+
+
+def lm_state_bytes(cfg) -> int:
+    """The training state of ``cfg`` in bytes: TRAIN_STATE_BYTES for each
+    parameter of :func:`param_shapes` (biases included)."""
+    return TRAIN_STATE_BYTES * sum(math.prod(shape) for shape, _ in param_shapes(cfg).values())
+
+
+def lm_grads(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
+             n_micro: int) -> tuple:
+    """The reference cell's accumulation: tokens and targets (B, S) cut into
+    ``n_micro`` micro-batches of B / n_micro rows; each micro-batch's
+    gradients (in the parameters' dtype) are added into float32
+    accumulators, which are then divided by n_micro. Returns (loss, grads):
+    the mean of the micro-batch losses, a float32 scalar, and {path:
+    float32 tensor} in the shapes of :meth:`Transformer.leaves`."""
+    b = tokens.shape[0]
+    if n_micro < 1 or b % n_micro:
+        raise ValueError(f"a batch of {b} does not split into {n_micro} micro-batches")
+    mb = b // n_micro
+    leaves = model.leaves()
+    names = [n for n, _ in model.named_parameters()]
+    params = [getattr(model, n) for n in names]
+    paths = {n: n if n in leaves else f"layers/{n}" for n in names}
+    acc: dict = {}
+    loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+    for i in range(n_micro):
+        loss = model.forward_loss(tokens[i * mb:(i + 1) * mb], targets[i * mb:(i + 1) * mb])
+        grads = torch.autograd.grad(loss, params)
+        loss_sum = loss_sum + loss.detach()
+        for n, g in zip(names, grads):
+            g = g.view(leaves[paths[n]].shape)
+            if i == 0:
+                acc[paths[n]] = g.to(torch.float32, copy=True)
+            else:
+                acc[paths[n]].add_(g)
+        del grads, loss
+    for g in acc.values():
+        g.div_(n_micro)
+    return loss_sum / n_micro, dict(sorted(acc.items()))
+
+
+def lm_train_step(model: Transformer, opt_state: dict, tokens: torch.Tensor,
+                  targets: torch.Tensor, opt_cfg: AdamWConfig, n_micro: int) -> tuple:
+    """One train step of an LM cell, the twin of the reference cell's
+    ``train_step``: :func:`lm_grads` over ``n_micro`` micro-batches, then
+    one :func:`adamw_update` in place on the model's leaves and
+    ``opt_state``. Returns (loss, {"lr", "grad_norm"}) as tensors on the
+    device."""
+    loss, grads = lm_grads(model, tokens, targets, n_micro)
+    return loss, adamw_update(model.leaves(), grads, opt_state, opt_cfg)
+
+
 def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
              batch: int | None, layers: int | None) -> Cell:
     B, S = shape.params["global_batch"], shape.params["seq_len"]
@@ -102,9 +169,7 @@ def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
     if layers is not None:
         cfg = replace(cfg, n_layers=layers)
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{arch_id} {shape.name}: LM training is not ported yet (ROADMAP.md "
-            "queue A: LM training with the flash_attention backward)")
+        return _lm_train_cell(arch_id, shape, cfg, reduced, dev, seed, B, S)
     if cfg.n_experts:  # the group rule, before the weights are drawn
         moe_group_size(cfg, B * (S if shape.kind == "prefill" else 1))
     model = Transformer.from_config(cfg, device=dev, seed=seed)
@@ -117,6 +182,31 @@ def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
     cache = lm_cache(model, B, S, gen)
     tokens = torch.randint(0, cfg.vocab, (B,), generator=gen, device=dev)
     return Cell(arch_id, shape.name, model.decode_step, (cache, tokens, S - 1), model)
+
+
+def _lm_train_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int, B: int,
+                   S: int) -> Cell:
+    n_micro = 1 if reduced else GRAD_ACCUM.get(arch_id, 1)
+    if B % n_micro:
+        raise ValueError(f"{arch_id} {shape.name}: a batch of {B} does not split into its "
+                         f"{n_micro} micro-batches")
+    need = lm_state_bytes(cfg)
+    if not reduced and need > CARD_BYTES:
+        raise ValueError(
+            f"{arch_id} {shape.name} does not fit one card: its training state takes "
+            f"{need:,} bytes ({TRAIN_STATE_BYTES} a parameter: bf16 weight, float32 master, "
+            f"m and v, float32 accumulator, bf16 gradient) against {CARD_BYTES:,}; "
+            "ROADMAP.md queue A, item 16 (a sharded optimizer)")
+    if cfg.n_experts:  # the group rule, before the weights are drawn
+        moe_group_size(cfg, B // n_micro * S)
+    model = Transformer.from_config(cfg, device=dev, seed=seed).requires_grad_()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    targets = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    opt_cfg = AdamWConfig()
+    opt_state = init_opt_state(model.leaves(), opt_cfg)
+    return Cell(arch_id, shape.name, partial(lm_train_step, opt_cfg=opt_cfg, n_micro=n_micro),
+                (model, opt_state, tokens, targets), model)
 
 
 GNN_EDGE_FEAT = 8                                    # the reference cell's _GNN_EDGE_FEAT
@@ -285,6 +375,18 @@ def _gnn_cell(arch_id: str, shape: ShapeSpec, cfg, reduced: bool, dev, seed: int
 def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None,
                seed: int = 0, batch: int | None = None, layers: int | None = None) -> Cell:
     """The cell's step function and its inputs on ``device`` (None: CUDA).
+
+    train (LM, ``train_4k``): the Transformer built by
+    :meth:`Transformer.from_config` from ``seed``, made trainable, its
+    AdamW state (:func:`init_opt_state`) and (B, S) tokens and targets drawn
+    uniformly from the vocabulary by a generator seeded with seed + 1;
+    ``cell.args`` is (model, opt_state, tokens, targets) and ``cell.run()``
+    one :func:`lm_train_step` over the arch's ``GRAD_ACCUM`` micro-batches
+    (1 when reduced), returning (loss, metrics). ``batch`` must stay a
+    multiple of the micro-batches. A full-size config whose training state
+    (:func:`lm_state_bytes`) exceeds one card raises ValueError naming its
+    bytes before anything is allocated (olmoe-1b-7b, gemma2-9b, yi-34b,
+    phi3.5-moe-42b-a6.6b; ``layers`` cuts the depth first).
 
     prefill: the Transformer built by :meth:`Transformer.from_config` from
     ``seed`` and one (B, S) batch of token ids, ``cell.run()`` one

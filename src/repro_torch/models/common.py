@@ -1,8 +1,8 @@
 """Shared model building blocks: the twin of ``repro.models.common``, cut to
 what the ported models use (``dense_init``, the MLP of ``mlp_params`` /
-``mlp_apply``, ``layer_norm``, ``rms_norm``, and the reference's ``rope`` split into
-``rope_tables`` and ``apply_rope`` so a forward computes the tables once for
-all layers).
+``mlp_apply``, ``layer_norm``, ``rms_norm``, ``chunked_cross_entropy``, and
+the reference's ``rope`` split into ``rope_tables`` and ``apply_rope`` so a
+forward computes the tables once for all layers).
 
 Weights keep the reference's layout, ``w`` of shape (in, out) applied as
 ``x @ w + b``, so parameters carried over from the JAX package need no
@@ -101,3 +101,76 @@ class MLP(nn.Module):
             if i < last or self.final_act:
                 x = torch.relu(x)
         return x
+
+
+def _chunk_logits(hc: torch.Tensor, w: torch.Tensor, softcap: float | None) -> tuple:
+    """float32 logits of the rows hc (B, c, D) against w (D, V) float32:
+    (raw, capped), the same tensor without a soft-cap."""
+    raw = hc.float() @ w
+    return raw, raw if softcap is None else softcap * torch.tanh(raw / softcap)
+
+
+class _ChunkedCrossEntropy(torch.autograd.Function):
+    """The loss of :func:`chunked_cross_entropy`; its backward recomputes
+    each chunk's logits from h and w_vocab (the same values), so no chunk's
+    (B, c, V) float32 logits outlive the chunk, and sums w_vocab's gradient
+    over the chunks in float32, rounding it once."""
+
+    @staticmethod
+    def forward(ctx, h, w_vocab, targets, chunk, softcap):
+        w = w_vocab.float()
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.int64, device=h.device)
+        for c0 in range(0, h.shape[1], chunk):
+            _, logits = _chunk_logits(h[:, c0:c0 + chunk], w, softcap)
+            tc = targets[:, c0:c0 + chunk]
+            mask = tc != -100
+            tgt = logits.gather(-1, tc.clamp_min(0).long()[..., None])[..., 0]
+            nll = torch.where(mask, torch.logsumexp(logits, dim=-1) - tgt, 0.0)
+            loss_sum = loss_sum + nll.sum()
+            count = count + mask.sum()
+        denom = count.clamp_min(1).float()
+        ctx.save_for_backward(h, w_vocab, targets, denom)
+        ctx.chunk, ctx.softcap = chunk, softcap
+        return loss_sum / denom
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w_vocab, targets, denom = ctx.saved_tensors
+        chunk, softcap = ctx.chunk, ctx.softcap
+        w = w_vocab.float()
+        dh = torch.empty_like(h)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        scale = grad.float() / denom
+        d = h.shape[-1]
+        for c0 in range(0, h.shape[1], chunk):
+            hc = h[:, c0:c0 + chunk].float()
+            _, logits = _chunk_logits(hc, w, softcap)
+            tc = targets[:, c0:c0 + chunk]
+            mask = tc != -100
+            dlog = torch.softmax(logits, dim=-1)
+            dlog.scatter_add_(-1, tc.clamp_min(0).long()[..., None],
+                              torch.full(tc.shape + (1,), -1.0, device=h.device))
+            dlog.mul_((mask.float() * scale)[..., None])
+            if softcap is not None:
+                dlog.mul_(1.0 - (logits / softcap).square())
+            dh[:, c0:c0 + chunk] = (dlog @ w.T).to(h.dtype)
+            dw.addmm_(hc.reshape(-1, d).T, dlog.reshape(-1, w.shape[1]))
+        return dh, dw.to(w_vocab.dtype), None, None, None
+
+
+def chunked_cross_entropy(h: torch.Tensor, w_vocab: torch.Tensor, targets: torch.Tensor, *,
+                          chunk: int = 256, softcap: float | None = None) -> torch.Tensor:
+    """The reference's token cross-entropy without (B, S, V) logits at once:
+    h (B, S, D), w_vocab (D, V), targets (B, S) integers, -100 ignored.
+    Positions go ``chunk`` at a time (S must be a multiple of min(chunk,
+    S)); a chunk's logits are float32 products of h and w_vocab in float32,
+    soft-capped as ``softcap * tanh(z / softcap)`` where set. Returns the
+    float32 mean of logsumexp - logit[target] over the targets that count,
+    loss_sum / max(count, 1). Differentiable in h and w_vocab; the backward
+    recomputes each chunk's logits rather than keeping them."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
+    return _ChunkedCrossEntropy.apply(h, w_vocab, targets, chunk, softcap)

@@ -1,5 +1,6 @@
-"""Decoder-only transformer: the serving side of ``repro.models.transformer``
-on one GPU, for every config the reference defines.
+"""Decoder-only transformer: ``repro.models.transformer`` on one GPU, for
+every config the reference defines: serving (prefill, decode, teacher-forced
+logits) and training (:meth:`Transformer.forward_loss`).
 
 Pre-norm layers of grouped-query attention with rotary positions and an
 optional QKV bias, then a SiLU-gated MLP (``qwen2-1.5b``, ``yi-34b``) or
@@ -52,8 +53,25 @@ Port decisions:
   lower expert index, as ``jax.lax.top_k``'s; a token count that is above
   ``moe_group`` and not a multiple of it raises ``ValueError`` where the
   reference's reshape fails.
+- (i) The MoE's float32-summing products (:func:`_bmm_f32`: the router
+  logits and the three expert products) have a gradient of their own,
+  :class:`BmmF32`: on the card the bfloat16 product with a float32 output
+  has no derivative in PyTorch. Its backward forms dA = dC B^T and dB =
+  A^T dC as float32 products (bfloat16 operands widened) and rounds each
+  once to its operand's dtype, as JAX transposes an einsum with
+  ``preferred_element_type=float32``.
 
-Training (``forward_loss``) is not ported.
+Training: :meth:`Transformer.forward_loss` is the reference's
+``forward_loss`` (cross-entropy by :func:`chunked_cross_entropy` plus 0.01
+times the Switch loss summed over layers over ``n_layers``). ``remat="full"``
+(the reference's ``nothing_saveable``) wraps each layer in
+``torch.utils.checkpoint`` (non-reentrant): the forward keeps each layer's
+input and the backward runs the layer again, the same values. The
+parameters are built frozen; ``requires_grad_()`` makes them trainable
+leaves (:meth:`Transformer.leaves` names them by the reference's pytree
+paths). Serving runs under ``torch.no_grad()`` and launches the same
+kernels as before. Each attention of a training step runs
+the kernel's forward twice (forward and remat) and its backward once.
 """
 from __future__ import annotations
 
@@ -63,12 +81,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, rms_norm, rope_tables
+from repro_torch.models.common import apply_rope, chunked_cross_entropy, rms_norm, rope_tables
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TOP = ("embed", "ln_final", "w_vocab")  # the parameters outside ``layers``
 _INIT_CHUNK = 1 << 24  # elements drawn at a time: 64 MiB of float32 scratch
 
 
@@ -97,7 +117,7 @@ class TransformerConfig:
     # numerics: the dtype of weights, activations and cache
     dtype: str = "bfloat16"
     # the reference's lowering knobs, kept so configs compare field by
-    # field; eager serving reads none of them
+    # field; training reads remat ("full" or "none") and ce_chunk
     remat: str = "full"
     ce_chunk: int = 256
     scan_layers: bool = True
@@ -182,15 +202,43 @@ def moe_capacity(cfg: TransformerConfig, g: int) -> int:
     return max(int(cfg.top_k * g / cfg.n_experts * cfg.capacity_factor), cfg.top_k)
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b batched, summed and returned in float32 (bfloat16 operands
-    stay bfloat16 on the card; the CPU has no such product, so there they
-    are cast to float32, which gives the same products)."""
+def _bmm_f32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
+
+
+class BmmF32(torch.autograd.Function):
+    """:func:`_bmm_f32` with its gradient (decision (i)): dA = dC B^T and
+    dB = A^T dC summed in float32, each rounded once to its operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32_plain(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        g = grad.float()
+        da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] \
+            else None
+        db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return da, db
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b batched, summed and returned in float32 (bfloat16 operands
+    stay bfloat16 on the card; the CPU has no such product, so there they
+    are cast to float32, which gives the same products). Differentiable
+    through :class:`BmmF32` where autograd records."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return BmmF32.apply(a, b)
+    return _bmm_f32_plain(a, b)
 
 
 def moe_logits(tokens: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
@@ -275,9 +323,10 @@ def normal_chunked(shape, scale, dtype, gen: torch.Generator, device) -> torch.T
 
 
 class Transformer(nn.Module):
-    """The decoder with the reference's parameters as frozen tensors:
-    ``embed`` (V, d), the layer weights stacked (L, ...), ``ln_final`` (d,),
-    ``w_vocab`` (d, V), all in ``cfg.dtype``."""
+    """The decoder with the reference's parameters: ``embed`` (V, d), the
+    layer weights stacked (L, ...), ``ln_final`` (d,), ``w_vocab`` (d, V),
+    all in ``cfg.dtype``. They are frozen as built (serving);
+    ``requires_grad_()`` makes them trainable leaves, as the train cells do."""
 
     def __init__(self, cfg: TransformerConfig, params: dict):
         super().__init__()
@@ -325,12 +374,30 @@ class Transformer(nn.Module):
         lead = len(cfg.layers_leading)
         flat.update({k: np.reshape(v, (cfg.n_layers,) + np.shape(v)[lead:])
                      for k, v in params["layers"].items()})
-        return cls(cfg, {k: torch.from_numpy(np.asarray(v, dtype=np.float32)).to(dev, dtype)
-                         for k, v in flat.items()})
+        # copied: a float32 CPU model would otherwise share the caller's arrays,
+        # and a train step updates its parameters in place
+        return cls(cfg, {k: torch.from_numpy(np.asarray(v, dtype=np.float32)).to(
+            dev, dtype, copy=True) for k, v in flat.items()})
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        """The parameters under the reference's pytree paths (``embed``,
+        ``layers/wq``, ...), in JAX's flatten order (dict keys sorted at
+        each level), each in the reference's shape: an alternating model's
+        layer leaves are (L/2, 2, ...) views of the (L, ...) parameters
+        (decision (g)), so an in-place update of a leaf updates the model."""
+        lead = self.cfg.layers_leading
+        out = {}
+        for name in param_shapes(self.cfg):
+            t = getattr(self, name)
+            if name in _TOP:
+                out[name] = t
+            else:
+                out[f"layers/{name}"] = t.view(lead + t.shape[1:])
+        return dict(sorted(out.items()))
 
     # ------------------------------------------------------------ layers
     def _attention(self, x, l: int, rope_cs, cache, index: int):
@@ -362,18 +429,21 @@ class Transformer(nn.Module):
         of an alternating model (decision (g)), else None."""
         return self.cfg.local_window if self.cfg.alternating and l % 2 == 0 else None
 
-    def _mlp(self, x, l: int):
+    def _mlp(self, x, l: int) -> tuple:
+        """(the FFN's output, its Switch loss: 0 for a dense FFN)."""
         if self.cfg.n_experts:
             return moe_ffn(x, self.router[l], self.w_gate_e[l], self.w_up_e[l],
-                           self.w_down_e[l], self.cfg)[0]
-        return (F.silu(x @ self.w_gate[l]) * (x @ self.w_up[l])) @ self.w_down[l]
+                           self.w_down_e[l], self.cfg)
+        y = (F.silu(x @ self.w_gate[l]) * (x @ self.w_up[l])) @ self.w_down[l]
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _layer(self, x, l: int, rope_cs, cache=None, index: int = 0):
+    def _layer(self, x, l: int, rope_cs, cache=None, index: int = 0) -> tuple:
+        """Layer l on x: (its output, the layer's Switch loss)."""
         post = self.cfg.post_norms
         a = self._attention(rms_norm(x, self.ln_attn[l]), l, rope_cs, cache, index)
         x = x + (rms_norm(a, self.ln_attn_post[l]) if post else a)
-        m = self._mlp(rms_norm(x, self.ln_mlp[l]), l)
-        return x + (rms_norm(m, self.ln_mlp_post[l]) if post else m)
+        m, aux = self._mlp(rms_norm(x, self.ln_mlp[l]), l)
+        return x + (rms_norm(m, self.ln_mlp_post[l]) if post else m), aux
 
     def _logits(self, logits: torch.Tensor) -> torch.Tensor:
         """float32 logits, soft-capped by ``final_softcap`` where set."""
@@ -385,8 +455,33 @@ class Transformer(nn.Module):
         positions = torch.arange(index, index + x.shape[1], device=self.device)
         rope_cs = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
         for l in range(self.cfg.n_layers):
-            x = self._layer(x, l, rope_cs, cache, index)
+            x = self._layer(x, l, rope_cs, cache, index)[0]
         return x
+
+    def forward_loss(self, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """The training loss of tokens and targets (B, S), -100 targets
+        ignored: :func:`chunked_cross_entropy` of the final norm's output
+        against ``w_vocab`` (``ce_chunk`` positions at a time, soft-capped by
+        ``final_softcap``) plus 0.01 * (the Switch losses summed over the
+        layers) / n_layers, a float32 scalar. Each layer is rematerialised
+        (``torch.utils.checkpoint``) when ``remat`` is "full"."""
+        cfg = self.cfg
+        if cfg.remat not in ("full", "none"):
+            raise ValueError(f"remat must be 'full' or 'none', not {cfg.remat!r}")
+        x = self.embed[tokens.to(device=self.device, dtype=torch.int64)]
+        positions = torch.arange(x.shape[1], device=self.device)
+        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for l in range(cfg.n_layers):
+            if cfg.remat == "full":
+                x, a = checkpoint(self._layer, x, l, rope_cs, use_reentrant=False)
+            else:
+                x, a = self._layer(x, l, rope_cs)
+            aux = aux + a
+        x = rms_norm(x, self.ln_final)
+        loss = chunked_cross_entropy(x, self.w_vocab, targets.to(self.device),
+                                     chunk=cfg.ce_chunk, softcap=cfg.final_softcap)
+        return loss + 0.01 * aux / max(cfg.n_layers, 1)
 
     # ------------------------------------------------------------ entry points
     @torch.no_grad()

@@ -59,7 +59,8 @@ def test_port_sources_name_no_reference_import():
             SRC / "repro_torch" / "train" / "compression.py",
             SRC / "repro_torch" / "train" / "fault_tolerance.py",
             SRC / "repro_torch" / "configs" / "gatedgcn.py",
-            SRC / "repro_torch" / "launch" / "gnn_compressed.py"} <= set(paths)
+            SRC / "repro_torch" / "launch" / "gnn_compressed.py",
+            SRC / "repro_torch" / "launch" / "train.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -104,7 +105,8 @@ def _zero_lm_params(cfg):
                                    "sharded_build", "durable_build", "durable_open",
                                    "k2_triples", "hdt_bt", "gatedgcn_from_config",
                                    "restore_checkpoint", "gnn_compressed_main",
-                                   "meshgraphnet_from_config", "nequip_from_config"])
+                                   "meshgraphnet_from_config", "nequip_from_config",
+                                   "lm_train_build_cell", "lm_train_main"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     _without_cuda()
     from repro_torch import resolve_device
@@ -127,6 +129,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     from repro_torch.models.gnn import GatedGCN, MeshGraphNet, NequIP
     from repro_torch.configs import meshgraphnet, nequip
     from repro_torch.train import restore_checkpoint, save_checkpoint
+    from repro_torch.launch import train as lm_train
 
     save_checkpoint(str(tmp_path / "ckpt"), 1, {"w": np.zeros(2, np.float32)})
 
@@ -177,6 +180,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
         "meshgraphnet_from_config": lambda dev: MeshGraphNet.from_config(
             meshgraphnet.reduced(), 16, 8, 3, device=dev),
         "nequip_from_config": lambda dev: NequIP.from_config(nequip.reduced(), 64, device=dev),
+        "lm_train_build_cell": lambda dev: build_cell("gemma2-9b", "train_4k", reduced=True,
+                                                      device=dev),
+        "lm_train_main": lambda dev: lm_train.main(
+            ["--arch", "qwen2-1.5b", "--reduced", "--steps", "1"]
+            + ([] if dev is None else ["--device", dev])),
         "gnn_compressed_main": lambda dev: gnn_compressed.main(
             dev, n_nodes=60, n_edges=200, seeds=8, fanouts=(3, 2), total_steps=2,
             checkpoint_every=1, log_every=1, fail_at=1, out=lambda *_: None),

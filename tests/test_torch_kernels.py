@@ -139,6 +139,7 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
     ops.digram_pair_counts(torch.from_numpy(its), torch.from_numpy(cnts))
     q, kv = torch.zeros((1, 2, 3, 8)), torch.zeros((1, 1, 4, 8))
     ops.flash_attention(q, kv, kv)
+    ops.flash_attention(q.requires_grad_(), kv, kv).sum().backward()  # the backward's twin
     ops.csr_spmm(torch.ones((2, 3)), CSR(torch.tensor([0, 1]), torch.tensor([1], dtype=torch.int32), 2))
     ops.k2_lines(_layout(), torch.tensor([0, 1, 3]), 0)
     rows, grads, n = ops.embedding_bag_backward(torch.tensor([[1], [0], [1]]), torch.ones(3, 4))
@@ -156,7 +157,9 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
                                       "dot_interaction_backward",
                                       "dot_interaction_backward_simt",
                                       "flash_attention",
-                                      "flash_attention_combine", "csr_spmm",
+                                      "flash_attention_combine", "flash_attention_bwd_delta",
+                                      "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+                                      "csr_spmm",
                                       "csr_spmm_combine"}
     assert set(ops.launch_counts.values()) == {0}
 

@@ -310,5 +310,8 @@ def test_build_cell_decode_reduced_matches_the_reference():
 def test_build_cell_batch_override_and_train():
     cell = steps.build_cell("qwen2-1.5b", "decode_32k", reduced=True, device="cpu", batch=3)
     assert cell.args[1].shape == (3,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_cell("qwen2-1.5b", "train_4k", reduced=True, device="cpu")
+    cell = steps.build_cell("qwen2-1.5b", "train_4k", reduced=True, device="cpu", batch=3)
+    model, opt_state, tokens, targets = cell.args
+    assert tokens.shape == targets.shape == (3, 64)
+    loss, _ = cell.run()
+    assert np.isfinite(float(loss)) and int(opt_state["step"]) == 1
