@@ -8333,11 +8333,17 @@ TRAIN_GEMMA_BATCH = 8
 BWD_REPLACES = "src/repro/kernels/flash_attention.py:86"
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 BWD_NAMES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+BWD_MMA = ("bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel")   # the bf16 route's kernels, by name
+BWD_SIMT = ("bwd_dkdv_kernel", "bwd_dq_kernel")          # the float32 route's
 # The backward kernels against their twin (the same out and lse): float32
 # sums in another order, within 1e-4 of the case's largest |want| (over dq,
-# dk and dv); bfloat16 within 2**-6 of it or twice the witness (the twin with p unrounded: the
-# kernels keep dS in float32, so p's rounding before dV is the only
-# rounding point of the twin's), whichever is larger.
+# dk and dv); bfloat16 within 2**-6 of it or twice the witness, whichever
+# is larger. The bf16 kernels have two rounding points, p before dV and dS
+# before dK and dQ (their A operands on the tensor cores), and the twin
+# rounds at both; the witness rounds at neither, so it measures what a
+# rounding flip between kernel and twin can move. The controls (last key
+# tile dropped, the cap's derivative left out) must exceed the tolerance
+# on both routes.
 BWD_F32_SCALED = 1e-4
 BWD_BF16_SCALED = 2.0 ** -6
 BWD_WITNESS = 2.0
@@ -8410,10 +8416,11 @@ class _TwinAttention:
 
 
 def _bwd_witness(*args, **kw):
-    """The twin with p unrounded before dV."""
+    """The twin with neither p (before dV) nor dS (before dK and dQ)
+    rounded."""
     from repro_torch.kernels import ref
 
-    return ref.flash_attention_backward_ref(*args, round_p=False, **kw)
+    return ref.flash_attention_backward_ref(*args, round_p=False, round_ds=False, **kw)
 
 
 def _fwd_witness(q, k, v, **kw):
@@ -8465,7 +8472,7 @@ def _bwd_no_cap_grad(q, k, v, out, lse, dout, *, softcap=None, **kw):
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do).sum(dim=2)
     dp = torch.matmul(do, v.float().unsqueeze(2).transpose(-1, -2))
     delta = (do * out.float().reshape(b, hkv, g, sq, d)).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta)
+    ds = (p * (dp - delta)).to(q.dtype).float()  # rounded as the twin rounds it
     dk = torch.matmul(ds.transpose(-1, -2), q.float().reshape(b, hkv, g, sq, d)).sum(dim=2)
     dq = torch.matmul(ds, k.float().unsqueeze(2))
     return ((dq * scale).reshape(q.shape).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype))
@@ -8492,9 +8499,9 @@ def _tensor_errs(got, want, scaled: bool = True) -> list:
 
 def check_attention_backward(torch, np, seed: int) -> dict:
     """Phase 7c (a): the forward's lse and the three backward kernels
-    against their twins on BWD_CASES, float32 and bfloat16, from the
-    kernel's own out and lse; the two controls must fail the float32
-    comparison. Returns the largest errors by dtype."""
+    against their twins on BWD_CASES, float32 (SIMT) and bfloat16 (tensor
+    cores), from the kernel's own out and lse; the two controls must fail
+    each route's comparison. Returns the largest errors by dtype."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_backward_cuda,
                                                      flash_attention_cuda)
@@ -8534,15 +8541,16 @@ def check_attention_backward(torch, np, seed: int) -> dict:
             worst[f"abs_{name}"] = max(worst[f"abs_{name}"],
                                        max(_tensor_errs(got, want, scaled=False)))
             worst["lse"] = max(worst["lse"], lse_err)
-            if dt == torch.float32 and (kw.get("softcap") or (d == 64 and not kw)):
+            if kw.get("softcap") or (d == 64 and not kw):
                 ctl = _bwd_no_cap_grad if kw.get("softcap") else _bwd_last_tile_dropped
                 c_err = max(_tensor_errs(ctl(q, k, v, out, lse, do, **kw), want))
-                controls[ctl.__name__] = c_err
-                if c_err <= BWD_F32_SCALED:
-                    _fail(f"the comparison does not tell {ctl.__name__} ({c_err}) from the twin")
+                controls[f"{ctl.__name__} {name}"] = (c_err, tol)
+                if c_err <= tol:
+                    _fail(f"the {name} comparison does not tell {ctl.__name__} ({c_err}) from "
+                          f"the twin (tolerance {tol})")
             del q, k, v, do, out, lse, got, want
-    print(f"attention backward: worst err/max|want| {worst}; controls (must exceed "
-          f"{BWD_F32_SCALED}) {controls}")
+    print(f"attention backward: worst err/max|want| {worst}; controls (error, the tolerance "
+          f"it must exceed) {controls}")
     return {**worst, "controls": controls}
 
 
@@ -8641,8 +8649,9 @@ def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, sc
     ``by_witness`` (bfloat16): every leaf's relative norm error
     ||g_k - g_t|| / ||g_t|| within ``scaled`` or BWD_WITNESS times the
     witness's (the twin path with p unrounded in the forward's PV product
-    and before dV, so that the forward's hidden states move by a rounding
-    too, as the kernel path's do), where larger: through 28
+    and before dV, and dS before dK and dQ, so that the forward's hidden
+    states move by a rounding too, as the kernel path's do), where
+    larger: through 28
     bfloat16 layers every rounding difference spreads, and a max over a
     billion entries reads the tail of that spread, so the norm is held and
     the max printed beside. ``control`` (a backward that must fail) goes
@@ -8683,7 +8692,7 @@ def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, sc
           f"(rel {norm_err:.2e}, tol {scaled:.1e}); leaves {metric} max "
           f"{max(errs.values()):.3e} (err/max|g| max "
           f"{max(max_errs.values()):.3e}; worst against its tol: {worst} {errs[worst]:.3e} tol "
-          f"{tol[worst]:.3e}); witness (p unrounded) max {max(wit.values(), default=0.0):.3e}; "
+          f"{tol[worst]:.3e}); witness (p, dS unrounded) max {max(wit.values(), default=0.0):.3e}; "
           f"control ({getattr(control, '__name__', None)}) max {max(c_errs.values()):.3e}; "
           f"kernel-path grads "
           f"{k_s:.3f} s; launches {counts}")
@@ -8782,7 +8791,13 @@ def qwen2_train(torch, np, seed: int, card: str) -> dict:
         _fail("qwen2-1.5b train_4k losses are not finite")
     kernel_ms = {n: sum(getattr(e, "self_device_time_total", 0) for e in avgs
                         if n in e.key) / 1e3
-                 for n in ("bwd_dkdv", "bwd_dq", "bwd_delta", "tc_kernel", "simt_kernel")}
+                 for n in ("bwd_dkdv", "bwd_dq", "bwd_delta", "tc_kernel", "simt_kernel", *BWD_MMA,
+                           *BWD_SIMT)}
+    print(f"qwen2-1.5b train_4k profiled step, device ms by kernel: "
+          f"{ {n: round(m, 3) for n, m in kernel_ms.items()} }; card {card}")
+    if any(kernel_ms[n] for n in BWD_SIMT) or not all(kernel_ms[n] for n in BWD_MMA):
+        _fail("the bf16 train step's attention backward did not run (only) on the tensor-core "
+              "kernels")
     del cell, model, opt_state, tokens, targets, loss, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -8843,41 +8858,64 @@ def _sdpa_backward_ms(torch, q, k, v, do, reps: int) -> float:
                                                        retain_graph=True), reps)
 
 
+def _bwd_launches(torch, q, k, v, out, lse, do, kw) -> dict:
+    """The three backward launches of one call on these tensors, each a
+    callable through ``_build.launch`` (dtype from q), writing into fresh
+    delta, dq, dk, dv."""
+    from repro_torch.kernels.flash_attention import _DTYPES, _build
+
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    dt = _DTYPES[q.dtype]
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=DEV)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, s,
+            d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], 1, kw.get("window") or 0,
+            0, kw.get("softcap") or 0.0, d ** -0.5, dt)
+    dev = q.device
+    keep = (delta, dq, dk, dv)  # the launches' outputs, alive while the callables are
+    return {
+        "flash_attention_bwd_delta": lambda: _build.launch(
+            "flash_attention", "flash_attention_bwd_delta", dev, out.data_ptr(),
+            do.data_ptr(), keep[0].data_ptr(), b, hq, s, d, *out.stride()[:3],
+            *do.stride()[:3], dt),
+        "flash_attention_bwd_dkdv": lambda: _build.launch(
+            "flash_attention", "flash_attention_bwd_dkdv", dev, *args),
+        "flash_attention_bwd_dq": lambda: _build.launch(
+            "flash_attention", "flash_attention_bwd_dq", dev, *args),
+    }
+
+
 def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -> list:
     """Phase 7c (e): the kernel rows at BWD_TIMED's shapes: each backward
-    kernel's ms (CUDA events), the three together, the twin's ms, SDPA's
-    backward through autograd (without the cap where the layer has one;
-    the kernel without it beside), the forward with lse against the
-    serving forward; bounds from this run's visible pairs."""
+    kernel's ms (CUDA events) and share of its bound, the three together,
+    the twin's ms, SDPA's backward through autograd (without the cap where
+    the layer has one; the kernel without it beside), the forward with lse
+    against the serving forward; bounds from this run's visible pairs. At
+    the first shape also the float32 route's (SIMT) dK/dV and dQ on the
+    same inputs in float32."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (_build, flash_attention_backward_cuda,
+    from repro_torch.kernels.flash_attention import (flash_attention_backward_cuda,
                                                      flash_attention_cuda)
 
     gen = torch.Generator(device=DEV).manual_seed(seed + 79)
     rows = {n: {} for n in (*BWD_NAMES, "flash_attention_lse")}
+    simt_ms = {}
     for what, b, hq, hkv, s, d, kw in BWD_TIMED:
         q, k, v, do = _bwd_inputs(torch, gen, b, hq, hkv, s, s, d, torch.bfloat16)
         out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
-        delta = torch.empty(lse.shape, dtype=torch.float32, device=DEV)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, s,
-                d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-                *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], 1, kw.get("window") or 0,
-                0, kw.get("softcap") or 0.0, d ** -0.5, 1)
-        dev = q.device
-        part = {
-            "flash_attention_bwd_delta": lambda: _build.launch(
-                "flash_attention", "flash_attention_bwd_delta", dev, out.data_ptr(),
-                do.data_ptr(), delta.data_ptr(), b, hq, s, d, *out.stride()[:3],
-                *do.stride()[:3], 1),
-            "flash_attention_bwd_dkdv": lambda: _build.launch(
-                "flash_attention", "flash_attention_bwd_dkdv", dev, *args),
-            "flash_attention_bwd_dq": lambda: _build.launch(
-                "flash_attention", "flash_attention_bwd_dq", dev, *args),
-        }
+        part = _bwd_launches(torch, q, k, v, out, lse, do, kw)
         part["flash_attention_bwd_delta"]()
         ms = {n: _time_ms(torch, fn, 3) for n, fn in part.items()}
+        if not simt_ms:  # the float32 route at the first shape, on the same inputs
+            f32 = [t.float() for t in (q, k, v, do)]
+            o32, l32 = flash_attention_cuda(*f32[:3], lse=True, **kw)
+            p32 = _bwd_launches(torch, *f32[:3], o32, l32, f32[3], kw)
+            p32["flash_attention_bwd_delta"]()
+            simt_ms = {n: _time_ms(torch, p32[n], 1) for n in BWD_NAMES[1:]}
+            del f32, o32, l32, p32
         whole = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                                       **kw), 3)
         twin = _time_ms(torch, lambda: ref.flash_attention_backward_ref(q, k, v, out, lse, do,
@@ -8909,6 +8947,7 @@ def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -
             k_ms = fwd_lse if n == "flash_attention_lse" else ms[n]
             rows[n][what] = {"ms": k_ms, "bound_ms": max(t_bytes, t_ops),
                              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                             "bound_share": max(t_bytes, t_ops) / k_ms,
                              "bytes": nbytes, "ops": nops}
         whole_ops = 5 * 2 * d * pairs
         whole_bound = max(whole_ops / H100_BF16_FLOPS, (4 * qb + 4 * kb + stats)
@@ -8919,13 +8958,15 @@ def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -
                    "sdpa_forward_ms": sdpa_fwd, "visible_pairs": pairs}
         for n in rows:
             rows[n][what].update(summary)
+        shares = {n: f"{rows[n][what]['bound_share']:.1%}" for n in BWD_NAMES}
         print(f"attention backward rows at {what} (B={b} Hq={hq} Hkv={hkv} S={s} D={d} {kw}): "
-              f"by kernel ms {ms}; whole backward ms={whole:.6f} (bound {whole_bound:.6f} at "
+              f"by kernel ms {ms}, share of bound {shares}; float32 route (SIMT) at the first "
+              f"shape ms {simt_ms}; whole backward ms={whole:.6f} (bound {whole_bound:.6f} at "
               f"{whole_ops} ops), without the cap {nocap}; twin ms={twin:.6f}; SDPA backward "
               f"ms={sdpa:.6f}{' (no cap)' if nocap is not None else ''}; forward with lse "
               f"ms={fwd_lse:.6f}, serving forward {fwd:.6f}, twin {fwd_twin:.6f}, SDPA "
               f"{sdpa_fwd:.6f}; card {card}")
-        del q, k, v, do, out, lse, delta, dq, dk, dv
+        del q, k, v, do, out, lse, part
         torch.cuda.empty_cache()
     first = BWD_TIMED[0][0]
     out_rows = []
@@ -8944,11 +8985,12 @@ def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -
             else "flash_attention_lse_ref",
             "library_is": "scaled_dot_product_attention(enable_gqa=True) "
             + ("forward" if n == "flash_attention_lse" else "backward through autograd"),
-            "max_abs_err_float32": errs["abs_float32"], "by_shape": by_shape})
+            "max_abs_err_float32": errs["abs_float32"], "by_shape": by_shape,
+            **({"float32_simt_ms": simt_ms[n]} if n in simt_ms else {})})
     for r in out_rows:
         print(f"kernel {r['name']} ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) library_ms={r['library_ms']:.6f} "
-              f"launches={r['launches']}")
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%}) "
+              f"library_ms={r['library_ms']:.6f} launches={r['launches']}; card {card}")
     return out_rows
 
 

@@ -68,38 +68,84 @@
 // backward needs to form p = exp(s - lse) again. Serving passes null.
 //
 // Backward (training; the Pallas kernel has none, the reference
-// differentiates its plain attention with jax.grad). Three kernels, float32
-// FMAs for both types (p is rounded to v's type before dV, as the forward
-// rounds it; dS stays float32):
+// differentiates its plain attention with jax.grad). Three launches:
 //
 // - `bwd_delta_kernel`: delta_i = sum_d dO_id O_id, one warp a row;
-// - `bwd_dkdv_kernel`: one block per (batch, kv head, tile of BN keys). It
-//   keeps its K and V tiles and its dK and dV sums in the block and walks,
-//   for each query head of the kv head's group, the tiles of BM query rows
-//   that can see the key tile (causal, window, q_offset). Per tile it
-//   recomputes s = q.k sm_scale (soft-capped to s_c), p = exp(s_c - lse)
-//   (0 where masked), dP = dO V^T, dS = p (dP - delta) (times 1 - (s_c /
-//   cap)^2 under a soft-cap), then dV += p^T dO and dK += dS^T Q. The GQA
-//   group sums in float32 inside the block: no atomics;
-// - `bwd_dq_kernel`: one block per (batch, query head, tile of BM rows)
-//   over its visible key tiles: dQ = sm_scale dS K, recomputing s, p, dP
-//   and dS as above. Deterministic, like the other two.
+// - dK and dV of a tile of keys, from s = q.k sm_scale (soft-capped to
+//   s_c), p = exp(s_c - lse) (0 where masked), dP = dO V^T and dS = p (dP -
+//   delta) (times 1 - (s_c / cap)^2 under a soft-cap): dV = sum p^T dO,
+//   dK = sm_scale sum dS^T Q over the GQA group's query heads;
+// - dQ = sm_scale dS K of a tile of query rows, recomputing s, p, dP, dS.
 //
-// Both big kernels are bound by their float32 operations: 7 products of
-// 2 D FLOPs per visible (query, key) pair a query head (4 in dkdv, 3 in
-// dq) at 67 TFLOP/s; the bytes they move are the inputs a few times over.
-// Tiles stage in shared memory as float32 (bf16 widened on the way in),
-// every thread computes a 2-4 x 2-8 patch of s and dP from float4 reads,
-// and each accumulator patch is 4 keys (or rows) x 8 columns. The next
-// step is mma.sync (or wgmma) for bf16 with the forward's tile helpers.
+// bf16 (`bwd_dkdv_mma_kernel`, `bwd_dq_mma_kernel`): FlashAttention-2's
+// backward on the tensor cores, mma.sync m16n8k16 with the forward's tile
+// helpers, kept deterministic. p is rounded to bf16 for dV (the forward's
+// rounding point) and dS to bf16 for dK and dQ; every sum is float32.
 //
-// Nothing carries over between blocks. The next step for the prefill is
+// - dK/dV: a block keeps a tile of K and V in shared memory (rows padded by
+//   16 bytes, as in TcSmem), each warp 16 keys and their dK and dV as
+//   float32 mma accumulators: 4 warps (64 keys) at D <= 128, 8 warps (128
+//   keys) at D = 256. Tiles of BM query rows (Q, dO, lse, delta; 16 rows
+//   at D = 128, where 3 blocks an SM leave 168 registers a thread) stream
+//   through a cp.async ring of two stages, one barrier a tile. Keys are
+//   the M dimension: S^T = K Q^T and dP^T = V dO^T, whose accumulators are
+//   the A fragments of the next products as they stand (the m16n8
+//   accumulator layout is the A layout): P^T feeds dV += P^T dO, dS^T
+//   feeds dK += dS^T Q (dO and Q through ldmatrix.trans, their depth being
+//   rows). Only the operands go through shared memory. A block walks the
+//   query tiles that can see its keys and masks per element only where a
+//   tile crosses the diagonal, the window's edge or a ragged end. At D =
+//   256 dK and dV of 16 keys would be 256 registers a thread, so the block
+//   walks its query tiles twice, dV first (S and the dV product: 5
+//   products instead of 4, no spill).
+//   The grid: with the whole GQA group summed in the block, qwen2's micro-batch
+//   of 2 has 4 (batch, kv head) pairs and the first key tiles carry all 6 heads'
+//   query tiles under a causal mask, more than a share of the card's slots: the
+//   heaviest blocks set the time (2.1x slower, PERF.md). So the group is split
+//   over a thread block cluster: the c blocks of a cluster (c the largest
+//   divisor of the group up to 8, the portable cluster size) share a key tile,
+//   each walks group / c heads, and at the end each stages its float32 sums in
+//   its shared memory and sums a slice of the tile's rows over the cluster's
+//   blocks in rank order through distributed shared memory: no atomics, no
+//   scratch in device memory, no second launch, bit-identical from run to run.
+//   The first key tiles (the heaviest under a causal mask) launch first.
+// - dQ: a block owns 16 rows a warp of one (batch, kv head), the (position, head
+//   in the group) pairs as in the forward, so the group's heads share every K
+//   and V tile: 4 warps over 32-key tiles, 3 blocks an SM, at D = 128 (64-key
+//   tiles at D <= 64; 8 warps, 1 block at D = 256). Q, dO, lse and delta stay
+//   resident, K and V come through a cp.async ring over the visible key tiles.
+//   S = Q K^T and dP = dO V^T on the tensor cores, dS formed in registers and
+//   rounded to bf16 as the A fragment of dQ += dS K (K through ldmatrix.trans),
+//   dQ a float32 accumulator written once. The last row tile (the heaviest under
+//   a causal mask) launches first.
+//
+// Both are bound by their operations: 2 D FLOPs a visible (query, key) pair
+// a query head for each product, 4 products in dK/dV and 3 in dQ, at 989
+// TFLOP/s; the bytes they must move are the inputs a few times over. What
+// mma.sync leaves: every warp reads its B operands from shared memory
+// itself for one m-tile (0.75 ldmatrix.x4 a product in dK/dV, 0.67 in
+// dQ), so by count shared memory caps them at a third to a half of the
+// tensor cores' rate (they reach 13-22% of the bound, PERF.md), and the
+// accumulators leave no registers to pipeline the loads. wgmma with TMA
+// and a producer warp is the next step, as for the forward.
+//
+// float32 (`bwd_dkdv_kernel`, `bwd_dq_kernel`): float32 FMAs, never TF32.
+// dK/dV a block a (batch, kv head, tile of BN keys) summing the group in the
+// block; dQ a block a (batch, query head, tile of BM rows); tiles staged in
+// shared memory, every thread computes a 2-4 x 2-8 patch of s and dP from
+// float4 reads, each accumulator patch is 4 keys (or rows) x 8 columns.
+// dS stays float32 on this route. Bound at 67 TFLOP/s.
+//
+// In the forward nothing carries over between blocks. The next step for the prefill is
 // wgmma fed by TMA, with a producer warp (warp specialisation): mma.sync
 // stays under a third of the card's bf16 rate even at prefill_32k
 // (PERF.md), and wgmma is the only path to the full rate.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1019,20 +1065,8 @@ struct BwdParams {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {  // x rounded to T, as float
-  if constexpr (sizeof(T) == 4) return x;
-  else return __bfloat162float(__float2bfloat16_rn(x));
-}
-// four consecutive elements, 16 (float) or 8 (bf16) bytes, widened to float
-__device__ __forceinline__ float4 load4f(const float* p) {
+__device__ __forceinline__ float4 load4f(const float* p) {  // four consecutive floats
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4f(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
@@ -1085,7 +1119,7 @@ __device__ __forceinline__ bool bwd_visible(const BwdParams& p, int64_t i, int64
 // The score phase over the staged tiles (query rows i0.., keys k0..): s = Q
 // K^T and dP = dO V^T for this thread's patch, then p = exp(s_c - lse) and
 // dS = p (dP - delta) (times the soft-cap's derivative), written to shared
-// memory: dS always, p rounded to T when P is set (dkdv).
+// memory: dS always, p when P is set (dkdv).
 template <int DMAX, typename T, bool P>
 __device__ __forceinline__ void bwd_scores(const BwdParams& p, float* sm, int64_t i0, int64_t k0) {
   using C = Bwd<DMAX>;
@@ -1129,7 +1163,7 @@ __device__ __forceinline__ void bwd_scores(const BwdParams& p, float* sm, int64_
         dcap = 1.0f - t * t;
       }
       const float pr = bwd_visible(p, i0 + row, k0 + n) ? expf(sc - lse) : 0.0f;
-      if constexpr (P) sm[C::kP + row * C::PS + n] = round_to<T>(pr);
+      if constexpr (P) sm[C::kP + row * C::PS + n] = pr;
       sm[C::kDS + row * C::PS + n] = pr * (dp[a][c] - delta) * dcap;
     }
   }
@@ -1311,32 +1345,684 @@ bwd_delta_kernel(const T* o, const T* dout, float* delta, int64_t Hq, int64_t Sq
   if (lane == 0) delta[row] = acc;
 }
 
-// Launches of one backward kernel: the dK/dV kernel over key tiles, the dQ
-// kernel over query tiles, each at the instance for the type and D.
+// ------------------------------------------ bf16 backward on the tensor cores
+
+// tanh(x) = 1 - 2 / (e^2x + 1) from one MUFU ex2 and a fast reciprocal: the
+// soft-capped score cap * tanh(s / cap) to about 1e-6 of cap, against
+// tanhf's tens of instructions (it ran as long as the products at D = 256)
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - __fdividef(2.0f, ex2(x * (2.0f * kLog2e)) + 1.0f);
+}
+
+// x clamped to [lo, hi], as int
+__device__ __forceinline__ int clamp_to(int64_t x, int lo, int hi) {
+  return x < lo ? lo : x > hi ? hi : (int)x;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
+constexpr int kBwdStages = 2;  // the backward's cp.async rings
+
+// Shared memory of a dK/dV block of WARPS warps: K and V of its BN keys,
+// then a ring of kBwdStages query tiles (Q and dO rows of BM, then BM lse and
+// BM delta); rows of DMAX bf16 padded by 16 bytes. At the end of a walk
+// the float32 sums are staged from 0 in rows of kAccRow floats for the
+// cluster's reduction: dK then dV (one pass), or the pass's one (two
+// passes: K and V are copied again for the second).
+template <int DMAX, int WARPS, int BM, bool SPLIT>
+struct DkdvSmem {
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int BN = 16 * WARPS;  // keys: 16 a warp
+  static constexpr int kRow = DMAX * 2 + 16;
+  static constexpr int kK = 0, kV = BN * kRow, kRing = 2 * BN * kRow;
+  static constexpr int kStats = 2 * BM * kRow;  // within a stage
+  static constexpr int kStage = kStats + 2 * BM * 4;
+  static constexpr int kAccRow = DMAX + 8;
+  static constexpr int kAcc = BN * kAccRow * 4;
+  static constexpr int kTiles = kRing + kBwdStages * kStage;
+  static constexpr int kRedEnd = (SPLIT ? 1 : 2) * kAcc;
+  static constexpr int kBytes = kTiles > kRedEnd ? kTiles : kRedEnd;
+  static_assert(2 * BM <= NT && BM % 16 == 0, "tile shape");
+  static_assert((BN * DMAX / 8) % NT == 0 && (BM * DMAX / 8) % NT == 0, "copies");
+};
+
+// What a dK/dV block walks: batch, kv head, first key; the query tiles of
+// each of its heads (from i_lo, q_tiles of them) times its heads (from the
+// group's g0).
+struct DkdvWork {
+  int64_t b, kvh, k0, i_lo, q_tiles, n_items, g0;
+};
+
+// The item of head h, query rows i0.. into a ring stage: Q and dO rows
+// (zeros past Sq and D), lse and delta (zeros past Sq: those rows are
+// masked).
+template <int DMAX, int WARPS, int BM, bool SPLIT>
+__device__ __forceinline__ void dkdv_load(const BwdParams& p, const DkdvWork& w,
+                                          unsigned char* smem, int stage, int64_t h,
+                                          int64_t i0) {
+  using SM = DkdvSmem<DMAX, WARPS, BM, SPLIT>;
+  constexpr int CH = DMAX / 8;
+  const int D = (int)p.D;
+  unsigned char* st = smem + SM::kRing + stage * SM::kStage;
+  const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(p.q) + w.b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* dh =
+      static_cast<const __nv_bfloat16*>(p.dout) + w.b * p.do_sb + h * p.do_sh;
+#pragma unroll
+  for (int u = 0; u < BM * CH / SM::NT; ++u) {
+    const int c = threadIdx.x + u * SM::NT, row = c / CH, ch = c % CH;
+    const bool valid = i0 + row < p.Sq && ch * 8 < D;
+    cp_async16(st + row * SM::kRow + ch * 16, valid ? qh + (i0 + row) * p.q_ss + ch * 8 : qh,
+               valid);
+    cp_async16(st + (BM + row) * SM::kRow + ch * 16,
+               valid ? dh + (i0 + row) * p.do_ss + ch * 8 : dh, valid);
+  }
+  if (threadIdx.x < 2 * BM) {
+    const int row = threadIdx.x % BM;
+    const bool valid = i0 + row < p.Sq;
+    const float* src = (threadIdx.x < BM ? p.lse : p.delta) +
+                       (w.b * p.Hkv * p.group + h) * p.Sq + (valid ? i0 + row : 0);
+    cp_async4(st + SM::kStats + threadIdx.x * 4, src, valid);
+  }
+}
+
+// The block's walk over its items, adding this warp's 16 keys' dV (DV)
+// and dK (DK, without sm_scale) into the accumulators. K and V must be in
+// flight (or in place) before; every copy has landed and every warp is
+// done with shared memory when it returns.
+template <int DMAX, int WARPS, int BM, bool SPLIT, bool DV, bool DK>
+__device__ __forceinline__ void dkdv_walk(const BwdParams& p, const DkdvWork& w,
+                                          unsigned char* smem, float (&dv)[DMAX / 8][4],
+                                          float (&dk)[DMAX / 8][4]) {
+  using SM = DkdvSmem<DMAX, WARPS, BM, SPLIT>;
+  constexpr int BN = SM::BN;
+  constexpr int KD = DMAX / 16;  // k-steps of S^T and dP^T
+  constexpr int NQ = BM / 8;     // their n-tiles (queries)
+  constexpr int KQ = BM / 16;    // k-steps of the dV and dK products
+  constexpr int ND = DMAX / 8;   // their n-tiles
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int D = (int)p.D;
+  const float cap = p.softcap, inv_cap = cap > 0.0f ? 1.0f / cap : 0.0f;
+  // this lane's ldmatrix rows: the warp's 16 K (V) rows as A; a stage's Q
+  // (dO) rows as B, as they are (S^T, dP^T) or transposed (dV, dK)
+  const uint32_t base = smem_u32(smem);
+  const uint32_t a_addr = base + (warp * 16 + (mi & 1) * 8 + mr) * SM::kRow + (mi >> 1) * 16;
+  const uint32_t b_addr = base + SM::kRing + ((mi >> 1) * 8 + mr) * SM::kRow + (mi & 1) * 16;
+  const uint32_t t_addr = base + SM::kRing + ((mi & 1) * 8 + mr) * SM::kRow + (mi >> 1) * 16;
+  const int k_row = warp * 16 + gid;  // this thread's keys: k0 + k_row (+ 8)
+
+  // items in order: the query tiles of head g0, then of g0 + 1, ...
+  int64_t ld_h = w.kvh * p.group + w.g0, ld_i0 = w.i_lo, i0 = w.i_lo;
+  const int64_t i_end = w.i_lo + w.q_tiles * BM;
+  auto load_next = [&](int stage) {
+    dkdv_load<DMAX, WARPS, BM, SPLIT>(p, w, smem, stage, ld_h, ld_i0);
+    ld_i0 += BM;
+    if (ld_i0 == i_end) {
+      ld_i0 = w.i_lo;
+      ++ld_h;
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kBwdStages - 1; ++st) {  // one group an item; the first also holds K, V
+    if (st < w.n_items) load_next(st);
+    cp_async_commit();
+  }
+  int stage = 0;
+  for (int64_t t = 0; t < w.n_items; ++t) {
+    cp_async_wait<kBwdStages - 2>();
+    __syncthreads();  // item t landed for every thread; every warp is done with item t - 1
+    if (t + kBwdStages - 1 < w.n_items) load_next(stage == 0 ? kBwdStages - 1 : stage - 1);
+    cp_async_commit();
+    const uint32_t so = stage * SM::kStage;
+    const float* stats = reinterpret_cast<const float*>(smem + SM::kRing + so + SM::kStats);
+
+    // S^T = K Q^T (and dP^T = V dO^T, interleaved: twice the independent
+    // products in flight) over the k-steps that hold some of D
+    float s[NQ][4];
+    [[maybe_unused]] float dp[DK ? NQ : 1][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      if constexpr (DK) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      if (kk * 16 >= D) break;
+      uint32_t a[4], av[4];
+      ldmatrix_x4(a, a_addr + SM::kK + kk * 32);
+      if constexpr (DK) ldmatrix_x4(av, a_addr + SM::kV + kk * 32);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, b_addr + so + np * 16 * SM::kRow + kk * 32);
+        mma_bf16(s[2 * np], a, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], a, bq[2], bq[3]);
+        if constexpr (DK) {
+          uint32_t bd[4];
+          ldmatrix_x4(bd, b_addr + so + (BM + np * 16) * SM::kRow + kk * 32);
+          mma_bf16(dp[2 * np], av, bd[0], bd[1]);
+          mma_bf16(dp[2 * np + 1], av, bd[2], bd[3]);
+        }
+      }
+    }
+
+    // P^T = exp(s_c - lse), 0 where masked (per element only in a tile that
+    // some pair cannot see: uniform over the block); dS^T = P^T (dP^T -
+    // delta), times 1 - (s_c / cap)^2 under a soft-cap. Element (j, e) is
+    // key k0 + k_row + 8 (e >> 1), query i0 + 8 j + 2 tig + (e & 1).
+    const int64_t pos0 = i0 + p.q_offset;
+    const bool whole = w.k0 + BN <= p.Sk && i0 + BM <= p.Sq &&
+                       (!p.causal || pos0 >= w.k0 + BN - 1) &&
+                       (p.window <= 0 || w.k0 > pos0 + BM - 1 - p.window);
+    // else a pair (key row kr, query column qc) of the tile is visible iff
+    // qc < lim_q, kr < lim_k and lo < kr - qc <= hi (bounds clamped to the
+    // tile's range, so int suffices)
+    int lim_q = BM, lim_k = BN, hi = BN, lo = -BM - 1;
+    if (!whole) {
+      lim_q = clamp_to(p.Sq - i0, 0, BM);
+      lim_k = clamp_to(p.Sk - w.k0, 0, BN);
+      const int64_t diag = pos0 - w.k0;  // causal: key <= position, kr - qc <= diag
+      if (p.causal) hi = clamp_to(diag, -BM - 1, BN);
+      if (p.window > 0) lo = clamp_to(diag - p.window, -BM - 1, BN);  // key > position - window
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 lse = *reinterpret_cast<const float2*>(stats + 8 * j + 2 * tig);
+      const float2 dl = *reinterpret_cast<const float2*>(stats + BM + 8 * j + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float u = s[j][e] * p.sm_scale, dcap = 1.0f;
+        if (cap > 0.0f) {
+          const float th = tanh_fast(u * inv_cap);
+          u = cap * th;
+          dcap = 1.0f - th * th;
+        }
+        float pr = ex2(fmaf(u, kLog2e, -(e & 1 ? lse.y : lse.x) * kLog2e));
+        if (!whole) {
+          const int qc = 8 * j + 2 * tig + (e & 1), kr = k_row + 8 * (e >> 1);
+          if (!(qc < lim_q && kr < lim_k && kr - qc <= hi && kr - qc > lo)) pr = 0.0f;
+        }
+        s[j][e] = pr;
+        if constexpr (DK) dp[j][e] = pr * (dp[j][e] - (e & 1 ? dl.y : dl.x)) * dcap;
+      }
+    }
+
+    // dV += P^T dO (p rounded to bf16), dK += dS^T Q (dS rounded to bf16):
+    // n-tiles 2 kq and 2 kq + 1 of the accumulator are the A fragment of
+    // k-step kq
+#pragma unroll
+    for (int kq = 0; kq < KQ; ++kq) {
+      if constexpr (DV) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kq][0], s[2 * kq][1]);
+        a[1] = pack_bf16(s[2 * kq][2], s[2 * kq][3]);
+        a[2] = pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]);
+        a[3] = pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+          if (dp2 * 16 >= D) break;
+          uint32_t bt[4];
+          ldmatrix_x4_trans(bt, t_addr + so + (BM + kq * 16) * SM::kRow + dp2 * 32);
+          mma_bf16(dv[2 * dp2], a, bt[0], bt[1]);
+          mma_bf16(dv[2 * dp2 + 1], a, bt[2], bt[3]);
+        }
+      }
+      if constexpr (DK) {
+        uint32_t a[4];
+        a[0] = pack_bf16(dp[2 * kq][0], dp[2 * kq][1]);
+        a[1] = pack_bf16(dp[2 * kq][2], dp[2 * kq][3]);
+        a[2] = pack_bf16(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
+        a[3] = pack_bf16(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+          if (dp2 * 16 >= D) break;
+          uint32_t bt[4];
+          ldmatrix_x4_trans(bt, t_addr + so + kq * 16 * SM::kRow + dp2 * 32);
+          mma_bf16(dk[2 * dp2], a, bt[0], bt[1]);
+          mma_bf16(dk[2 * dp2 + 1], a, bt[2], bt[3]);
+        }
+      }
+    }
+    stage = stage == kBwdStages - 1 ? 0 : stage + 1;
+    i0 = i0 + BM == i_end ? w.i_lo : i0 + BM;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// This warp's accumulator (16 keys x DMAX) into staged rows of ACC floats.
+template <int DMAX, int ACC>
+__device__ __forceinline__ void stage_acc(float* red, const float (&acc)[DMAX / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  float* row = red + ((threadIdx.x >> 5) * 16 + (lane >> 2)) * ACC + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(row + 8 * ACC + 8 * j) = make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// The cluster's staged sums (one per block, at `red` in each) added in rank
+// order; this block writes its slice of the tile's BN rows, times scale,
+// as bf16 to out (key rows of stride ss, D contiguous).
+template <int DMAX, int ACC, int BN, int NT>
+__device__ __forceinline__ void reduce_rows(cg::cluster_group& cluster, float* red,
+                                            int64_t k0, int64_t Sk, int D,
+                                            __nv_bfloat16* out, int64_t ss, float scale) {
+  constexpr int C4 = DMAX / 4;
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int per = (BN + c - 1) / c, lo = rank * per, hi = lo + per < BN ? lo + per : BN;
+  for (int u = threadIdx.x; u < (hi - lo) * C4; u += NT) {
+    const int row = lo + u / C4, col = u % C4 * 4;
+    if (k0 + row >= Sk || col >= D) continue;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = 0; q < c; ++q) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + row * ACC + col);
+      acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+    }
+    const __nv_bfloat162 lo2 = __floats2bfloat162_rn(acc.x * scale, acc.y * scale);
+    const __nv_bfloat162 hi2 = __floats2bfloat162_rn(acc.z * scale, acc.w * scale);
+    uint2 v;
+    v.x = *reinterpret_cast<const uint32_t*>(&lo2);
+    v.y = *reinterpret_cast<const uint32_t*>(&hi2);
+    *reinterpret_cast<uint2*>(out + (k0 + row) * ss + col) = v;
+  }
+}
+
+// Block (rank in the cluster, (batch, kv head), key tile): dK and dV of
+// keys k0 .. k0 + BN over heads_per_block heads of the group from rank *
+// heads_per_block; the cluster's blocks share the tile and sum the group.
+template <int DMAX, int WARPS, int BM, bool SPLIT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+bwd_dkdv_mma_kernel(const BwdParams p, int heads_per_block) {
+  using SM = DkdvSmem<DMAX, WARPS, BM, SPLIT>;
+  constexpr int BN = SM::BN, NT = SM::NT, CH = DMAX / 8, ND = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int D = (int)p.D;
+  DkdvWork w;
+  w.b = blockIdx.y / p.Hkv;
+  w.kvh = blockIdx.y % p.Hkv;
+  w.k0 = (int64_t)blockIdx.z * BN;
+  w.g0 = (int64_t)cluster.block_rank() * heads_per_block;
+
+  // K and V of the tile (zeros past Sk and D), in the ring's first group
+  const __nv_bfloat16* kb =
+      static_cast<const __nv_bfloat16*>(p.k) + w.b * p.k_sb + w.kvh * p.k_sh;
+  const __nv_bfloat16* vb =
+      static_cast<const __nv_bfloat16*>(p.v) + w.b * p.v_sb + w.kvh * p.v_sh;
+  auto load_kv = [&]() {
+#pragma unroll
+    for (int u = 0; u < BN * CH / NT; ++u) {
+      const int c = threadIdx.x + u * NT, row = c / CH, ch = c % CH;
+      const bool valid = w.k0 + row < p.Sk && ch * 8 < D;
+      const int at = row * SM::kRow + ch * 16;
+      cp_async16(smem + SM::kK + at, valid ? kb + (w.k0 + row) * p.k_ss + ch * 8 : kb, valid);
+      cp_async16(smem + SM::kV + at, valid ? vb + (w.k0 + row) * p.v_ss + ch * 8 : vb, valid);
+    }
+  };
+  load_kv();
+
+  // the query rows that can see some key of the tile
+  const int64_t k_last = (w.k0 + BN < p.Sk ? w.k0 + BN : p.Sk) - 1;
+  int64_t i_lo = 0, i_hi = p.Sq;
+  if (p.causal && w.k0 - p.q_offset > i_lo) i_lo = w.k0 - p.q_offset;
+  if (p.window > 0 && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
+  w.i_lo = i_lo;
+  w.q_tiles = i_hi > i_lo ? (i_hi - i_lo + BM - 1) / BM : 0;
+  w.n_items = w.q_tiles * heads_per_block;
+
+  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(p.dk) + w.b * p.dk_sb + w.kvh * p.dk_sh;
+  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(p.dv) + w.b * p.dv_sb + w.kvh * p.dv_sh;
+  float* red = reinterpret_cast<float*>(smem);
+  if constexpr (SPLIT) {  // dV, then dK: one accumulator at a time
+    {
+      float acc[ND][4];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      dkdv_walk<DMAX, WARPS, BM, SPLIT, true, false>(p, w, smem, acc, acc);
+      stage_acc<DMAX, SM::kAccRow>(red, acc);
+    }
+    cluster.sync();
+    reduce_rows<DMAX, SM::kAccRow, BN, NT>(cluster, red, w.k0, p.Sk, D, dvb, p.dv_ss, 1.0f);
+    cluster.sync();  // every block is done reading what K and V overwrite
+    load_kv();
+    {
+      float acc[ND][4];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+      dkdv_walk<DMAX, WARPS, BM, SPLIT, false, true>(p, w, smem, acc, acc);
+      stage_acc<DMAX, SM::kAccRow>(red, acc);
+    }
+    cluster.sync();
+    reduce_rows<DMAX, SM::kAccRow, BN, NT>(cluster, red, w.k0, p.Sk, D, dkb, p.dk_ss,
+                                           p.sm_scale);
+  } else {
+    float dv[ND][4], dk[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.0f;
+      dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.0f;
+    }
+    dkdv_walk<DMAX, WARPS, BM, SPLIT, true, true>(p, w, smem, dv, dk);
+    stage_acc<DMAX, SM::kAccRow>(red, dk);
+    stage_acc<DMAX, SM::kAccRow>(red + SM::kAcc / 4, dv);
+    cluster.sync();
+    reduce_rows<DMAX, SM::kAccRow, BN, NT>(cluster, red, w.k0, p.Sk, D, dkb, p.dk_ss,
+                                           p.sm_scale);
+    reduce_rows<DMAX, SM::kAccRow, BN, NT>(cluster, red + SM::kAcc / 4, w.k0, p.Sk, D, dvb,
+                                           p.dv_ss, 1.0f);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// Shared memory of a dQ block of WARPS warps: Q and dO of its BM rows, then
+// a ring of kBwdStages key tiles (K and V rows of BN); rows of DMAX bf16
+// padded by 16 bytes.
+template <int DMAX, int WARPS, int BN>
+struct DqSmem {
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int BM = 16 * WARPS;  // rows: 16 a warp
+  static constexpr int kRow = DMAX * 2 + 16;
+  static constexpr int kQ = 0, kDO = BM * kRow, kRing = 2 * BM * kRow;
+  static constexpr int kStage = 2 * BN * kRow;
+  static constexpr int kBytes = kRing + kBwdStages * kStage;
+  static_assert(BN % 16 == 0, "tile shape");
+  static_assert((BN * DMAX / 8) % NT == 0 && (BM * DMAX / 8) % NT == 0, "copies");
+};
+
+// Block ((batch, kv head) pair fastest, then row tile, the last first): dQ
+// of the BM rows r0.. of (batch, kv head), rows r = i * group + g as in the
+// forward.
+template <int DMAX, int WARPS, int BN, int MIN_BLOCKS>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+bwd_dq_mma_kernel(const BwdParams p) {
+  using SM = DqSmem<DMAX, WARPS, BN>;
+  constexpr int BM = SM::BM, NT = SM::NT;
+  constexpr int KD = DMAX / 16;  // k-steps of S and dP
+  constexpr int NS = BN / 8;     // their n-tiles (keys)
+  constexpr int KP = BN / 16;    // k-steps of dQ += dS K
+  constexpr int ND = DMAX / 8;   // its n-tiles
+  constexpr int CH = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int64_t pairs = p.B * p.Hkv;
+  const int64_t b = blockIdx.x % pairs / p.Hkv, kvh = blockIdx.x % p.Hkv;
+  const int64_t group = p.group, R = p.Sq * group, hq = p.Hkv * group;
+  const int64_t row_tiles = (R + BM - 1) / BM;
+  const int64_t r0 = (row_tiles - 1 - (int64_t)blockIdx.x / pairs) * BM;
+  const int64_t r_last = (r0 + BM < R ? r0 + BM : R) - 1;
+  const int64_t pos_lo = r0 / group + p.q_offset, pos_hi = r_last / group + p.q_offset;
+  int64_t k_begin = 0, k_end = p.Sk;
+  if (p.causal && pos_hi + 1 < k_end) k_end = pos_hi + 1;
+  if (p.window > 0 && pos_lo - p.window + 1 > k_begin) k_begin = pos_lo - p.window + 1;
+  const int n_tiles = k_end > k_begin ? (int)((k_end - k_begin + BN - 1) / BN) : 0;
+  const int D = (int)p.D;
+  const float cap = p.softcap, inv_cap = cap > 0.0f ? 1.0f / cap : 0.0f;
+  // The loop keeps keys relative to k_begin, as int (Sk < 2^30): a tile's
+  // first key is k_begin + t BN, and every row sees the whole tile iff
+  // w_lo < t BN <= w_hi (bounds clamped to [-1, k_end_rel], exact there)
+  const int k_end_rel = (int)(k_end - k_begin);
+  const int64_t c_hi = p.causal && pos_lo + 1 < k_end ? pos_lo + 1 - BN : k_end - BN;
+  const int w_hi = clamp_to(c_hi - k_begin, -1, k_end_rel);
+  const int w_lo = p.window > 0 ? clamp_to(pos_hi - p.window - k_begin, -1, k_end_rel) : -1;
+
+  // Q and dO of the rows (zeros past R and D), in the ring's first group
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
+  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb;
+#pragma unroll
+  for (int u = 0; u < BM * CH / NT; ++u) {
+    const int c = tid + u * NT, row = c / CH, ch = c % CH;
+    const int64_t r = r0 + row;
+    const bool valid = r < R && ch * 8 < D;
+    int64_t oq = 0, od = 0;
+    if (valid) {
+      const int64_t i = r / group, h = kvh * group + r % group;
+      oq = h * p.q_sh + i * p.q_ss + ch * 8;
+      od = h * p.do_sh + i * p.do_ss + ch * 8;
+    }
+    cp_async16(smem + SM::kQ + row * SM::kRow + ch * 16, qb + oq, valid);
+    cp_async16(smem + SM::kDO + row * SM::kRow + ch * 16, dob + od, valid);
+  }
+  // K and V from key k_begin on
+  const __nv_bfloat16* kb =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh + k_begin * p.k_ss;
+  const __nv_bfloat16* vb =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh + k_begin * p.v_ss;
+  auto load_tile = [&](int stage, int t0) {  // keys k_begin + t0.. (zeros past k_end, D)
+    unsigned char* st = smem + SM::kRing + stage * SM::kStage;
+#pragma unroll
+    for (int u = 0; u < BN * CH / NT; ++u) {
+      const int c = tid + u * NT, row = c / CH, ch = c % CH;
+      const bool valid = t0 + row < k_end_rel && ch * 8 < D;
+      const int64_t key = t0 + row;
+      cp_async16(st + row * SM::kRow + ch * 16, valid ? kb + key * p.k_ss + ch * 8 : kb, valid);
+      cp_async16(st + (BN + row) * SM::kRow + ch * 16, valid ? vb + key * p.v_ss + ch * 8 : vb,
+                 valid);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kBwdStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, st * BN);
+    cp_async_commit();
+  }
+
+  // this thread's rows r0 + 16 warp + gid (+ 8): the keys each sees, k_begin
+  // + (r_lo, r_hi] (bounds clamped to [-1, k_end_rel], which keeps them
+  // exact there), lse (log2 units), delta
+  int r_hi[2], r_lo[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t r = r0 + warp * 16 + gid + 8 * hh;
+    const bool valid = r < R;
+    const int64_t i = valid ? r / group : 0, h = kvh * group + (valid ? r % group : 0);
+    const int64_t rel = i + p.q_offset - k_begin;  // the row's position less k_begin
+    r_hi[hh] = clamp_to(!valid ? -1 : p.causal ? rel : k_end_rel, -1, k_end_rel);
+    r_lo[hh] = clamp_to(p.window > 0 ? rel - p.window : -1, -1, k_end_rel);
+    lse2[hh] = valid ? p.lse[(b * hq + h) * p.Sq + i] * kLog2e : 0.0f;
+    dlt[hh] = valid ? p.delta[(b * hq + h) * p.Sq + i] : 0.0f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t a_addr = base + (warp * 16 + (mi & 1) * 8 + mr) * SM::kRow + (mi >> 1) * 16;
+  const uint32_t b_addr = base + SM::kRing + ((mi >> 1) * 8 + mr) * SM::kRow + (mi & 1) * 16;
+  const uint32_t t_addr = base + SM::kRing + ((mi & 1) * 8 + mr) * SM::kRow + (mi >> 1) * 16;
+
+  int stage = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = t * BN;  // relative to k_begin
+    cp_async_wait<kBwdStages - 2>();
+    __syncthreads();  // tile t (and Q, dO) landed; every warp is done with tile t - 1
+    if (t + kBwdStages - 1 < n_tiles)
+      load_tile(stage == 0 ? kBwdStages - 1 : stage - 1, t0 + (kBwdStages - 1) * BN);
+    cp_async_commit();
+    const uint32_t so = stage * SM::kStage;
+
+    // S = Q K^T and dP = dO V^T, interleaved, over the k-steps that hold
+    // some of D
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      if (kk * 16 >= D) break;
+      uint32_t a[4], ad[4];
+      ldmatrix_x4(a, a_addr + SM::kQ + kk * 32);
+      ldmatrix_x4(ad, a_addr + SM::kDO + kk * 32);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, b_addr + so + np * 16 * SM::kRow + kk * 32);
+        ldmatrix_x4(bv, b_addr + so + (BN + np * 16) * SM::kRow + kk * 32);
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], ad, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], ad, bv[2], bv[3]);
+      }
+    }
+
+    // dS = p (dP - delta) (times the cap's derivative), p = exp(s_c - lse)
+    // and 0 where masked; element (j, e) is row gid + 8 (e >> 1), key
+    // k_begin + t0 + kc, kc = 8 j + 2 tig + (e & 1)
+    const bool whole = t0 > w_lo && t0 <= w_hi;
+    // else row hh sees kc iff kc < lim_k and lo[hh] < kc <= hi[hh] (bounds
+    // clamped to the tile's range)
+    int lim_k = BN, hi[2] = {BN, BN}, lo[2] = {-1, -1};
+    if (!whole) {
+      lim_k = k_end_rel - t0 < BN ? k_end_rel - t0 : BN;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        hi[hh] = clamp_to(r_hi[hh] - t0, -1, BN);
+        lo[hh] = clamp_to(r_lo[hh] - t0, -1, BN);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float u = s[j][e] * p.sm_scale, dcap = 1.0f;
+        if (cap > 0.0f) {
+          const float th = tanh_fast(u * inv_cap);
+          u = cap * th;
+          dcap = 1.0f - th * th;
+        }
+        float pr = ex2(fmaf(u, kLog2e, -lse2[hh]));
+        if (!whole) {
+          const int kc = 8 * j + 2 * tig + (e & 1);
+          if (!(kc < lim_k && kc <= hi[hh] && kc > lo[hh])) pr = 0.0f;
+        }
+        dp[j][e] = pr * (dp[j][e] - dlt[hh]) * dcap;
+      }
+
+    // dQ += dS K, dS rounded to bf16: S's n-tiles 2 kk and 2 kk + 1 are the
+    // A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      a[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      a[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      a[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+        if (dp2 * 16 >= D) break;
+        uint32_t bt[4];
+        ldmatrix_x4_trans(bt, t_addr + so + kk * 16 * SM::kRow + dp2 * 32);
+        mma_bf16(dq[2 * dp2], a, bt[0], bt[1]);
+        mma_bf16(dq[2 * dp2 + 1], a, bt[2], bt[3]);
+      }
+    }
+    stage = stage == kBwdStages - 1 ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* dqb = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t r = r0 + warp * 16 + gid + 8 * hh;
+    if (r >= R) continue;
+    const int64_t i = r / group, h = kvh * group + r % group;
+    __nv_bfloat16* dst = dqb + h * p.dq_sh + i * p.dq_ss + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      if (j * 8 + 2 * tig < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(
+            dq[j][2 * hh] * p.sm_scale, dq[j][2 * hh + 1] * p.sm_scale);
+  }
+}
+
+// The dK/dV kernel's launch: a cluster of c blocks shares each key tile;
+// grid (c, B * Hkv, key tiles), the first key tiles first.
+template <int DMAX, int WARPS, int BM, bool SPLIT, int MIN_BLOCKS>
+int launch_dkdv_mma(const BwdParams& p, cudaStream_t stream) {
+  using SM = DkdvSmem<DMAX, WARPS, BM, SPLIT>;
+  auto kernel = bwd_dkdv_mma_kernel<DMAX, WARPS, BM, SPLIT, MIN_BLOCKS>;
+  static const int configured = configure(kernel, SM::kBytes);
+  if (configured != 0) return configured;
+  const int64_t tiles = (p.Sk + SM::BN - 1) / SM::BN;
+  if (tiles > 65535 || p.B * p.Hkv > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(SM::NT);
+  cfg.dynamicSmemBytes = SM::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int c = 8;  // the largest divisor of the group up to 8, the portable cluster size
+  while (p.group % c != 0) --c;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(c, (unsigned)(p.B * p.Hkv), (unsigned)tiles);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, (int)(p.group / c));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int DMAX, int WARPS, int BN, int MIN_BLOCKS>
+int launch_dq_mma(const BwdParams& p, cudaStream_t stream) {
+  using SM = DqSmem<DMAX, WARPS, BN>;
+  auto kernel = bwd_dq_mma_kernel<DMAX, WARPS, BN, MIN_BLOCKS>;
+  static const int configured = configure(kernel, SM::kBytes);
+  if (configured != 0) return configured;
+  if (p.Sk >= (int64_t)1 << 30) return (int)cudaErrorInvalidValue;  // keys kept as int
+  const int64_t blocks = (p.Sq * p.group + SM::BM - 1) / SM::BM * p.B * p.Hkv;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, SM::NT, SM::kBytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Launches of one backward kernel at the instance for the type and D: bf16
+// on the tensor cores (dK/dV in two passes at D = 256; dQ over 32-key tiles
+// there), float32 on the SIMT kernels (dK/dV over key tiles, dQ over query
+// tiles).
 struct LaunchDkdv {
   template <typename T, int DMAX>
   static int run(const BwdParams& p, cudaStream_t stream) {
-    using C = Bwd<DMAX>;
-    static const int configured = configure(bwd_dkdv_kernel<T, DMAX>, C::kBytes);
-    if (configured != 0) return configured;
-    const int64_t tiles = (p.Sk + C::BN - 1) / C::BN;
-    if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)tiles, (unsigned)p.Hkv, (unsigned)p.B);
-    bwd_dkdv_kernel<T, DMAX><<<grid, kThreads, C::kBytes, stream>>>(p);
-    return (int)cudaGetLastError();
+    if constexpr (sizeof(T) == 2) {
+      if constexpr (DMAX == 256) return launch_dkdv_mma<DMAX, 8, 32, true, 1>(p, stream);
+      else if constexpr (DMAX == 128) return launch_dkdv_mma<DMAX, 4, 16, false, 3>(p, stream);
+      else return launch_dkdv_mma<DMAX, 4, 64, false, 2>(p, stream);
+    } else {
+      using C = Bwd<DMAX>;
+      static const int configured = configure(bwd_dkdv_kernel<T, DMAX>, C::kBytes);
+      if (configured != 0) return configured;
+      const int64_t tiles = (p.Sk + C::BN - 1) / C::BN;
+      if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+      dim3 grid((unsigned)tiles, (unsigned)p.Hkv, (unsigned)p.B);
+      bwd_dkdv_kernel<T, DMAX><<<grid, kThreads, C::kBytes, stream>>>(p);
+      return (int)cudaGetLastError();
+    }
   }
 };
 struct LaunchDq {
   template <typename T, int DMAX>
   static int run(const BwdParams& p, cudaStream_t stream) {
-    using C = Bwd<DMAX>;
-    static const int configured = configure(bwd_dq_kernel<T, DMAX>, C::kBytes);
-    if (configured != 0) return configured;
-    const int64_t tiles = (p.Sq + C::BM - 1) / C::BM;
-    if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)tiles, (unsigned)(p.Hkv * p.group), (unsigned)p.B);
-    bwd_dq_kernel<T, DMAX><<<grid, kThreads, C::kBytes, stream>>>(p);
-    return (int)cudaGetLastError();
+    if constexpr (sizeof(T) == 2) {
+      if constexpr (DMAX == 256) return launch_dq_mma<DMAX, 8, 32, 1>(p, stream);
+      else if constexpr (DMAX == 128) return launch_dq_mma<DMAX, 4, 32, 3>(p, stream);
+      else return launch_dq_mma<DMAX, 4, 64, 2>(p, stream);
+    } else {
+      using C = Bwd<DMAX>;
+      static const int configured = configure(bwd_dq_kernel<T, DMAX>, C::kBytes);
+      if (configured != 0) return configured;
+      const int64_t tiles = (p.Sq + C::BM - 1) / C::BM;
+      if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+      dim3 grid((unsigned)tiles, (unsigned)(p.Hkv * p.group), (unsigned)p.B);
+      bwd_dq_kernel<T, DMAX><<<grid, kThreads, C::kBytes, stream>>>(p);
+      return (int)cudaGetLastError();
+    }
   }
 };
 
@@ -1359,7 +2045,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
     return (int)cudaErrorInvalidValue;
   const int64_t vec = dtype == 0 ? 4 : 8;
   if (!aligned(q, st[0], st[1], st[2], vec) || !aligned(k, st[3], st[4], st[5], vec) ||
-      !aligned(v, st[6], st[7], st[8], vec) || !aligned(dout, st[9], st[10], st[11], vec))
+      !aligned(v, st[6], st[7], st[8], vec) || !aligned(dout, st[9], st[10], st[11], vec) ||
+      !aligned(dq, st[12], st[13], st[14], vec) || !aligned(dk, st[15], st[16], st[17], vec) ||
+      !aligned(dv, st[18], st[19], st[20], vec))
     return (int)cudaErrorInvalidValue;
   BwdParams p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
               dq, dk, dv, B, Hkv, Sq, Sk, D, Hq / Hkv,
@@ -1448,8 +2136,10 @@ extern "C" int flash_attention_combine_launch(const void* part, void* o, int64_t
 // and dout as the forward took q, k, v (dout like q), the forward's lse and
 // the delta of flash_attention_bwd_delta_launch (float32 (B, Hq, Sq)
 // contiguous), and dq (like q), dk and dv (like k); strides in elements, D
-// contiguous. dkdv writes dk and dv, dq writes dq. Sq == 0 or Sk == 0
-// launches nothing. Returns a cudaError_t.
+// contiguous, rows 16-byte aligned. dkdv writes dk and dv, dq writes dq:
+// bf16 (dtype 1) on the tensor cores, float32 (dtype 0) with float32 FMAs;
+// neither falls back to the other. Sq == 0 or Sk == 0 launches nothing.
+// Returns a cudaError_t.
 extern "C" int flash_attention_bwd_dkdv_launch(FA_BWD_ARGS) {
   const int64_t st[21] = FA_BWD_STRIDES;
   return launch_bwd<LaunchDkdv>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, st,

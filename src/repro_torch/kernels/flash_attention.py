@@ -27,7 +27,9 @@ Training: ``flash_attention_cuda(..., lse=True)`` also returns each row's
 log-sum-exp (one split), and :func:`flash_attention_backward_cuda` is the
 backward, which the Pallas kernel lacks: three launches,
 ``flash_attention_bwd_delta`` (rowsum(dO * O)), ``flash_attention_bwd_dkdv``
-and ``flash_attention_bwd_dq``. Its twin is
+and ``flash_attention_bwd_dq``; bfloat16 runs the last two on the tensor
+cores (dS rounded to bfloat16 for its two products, as p is for dV),
+float32 on float32 FMAs. Its twin is
 :func:`repro_torch.kernels.ref.flash_attention_backward_ref`.
 """
 from __future__ import annotations
@@ -184,7 +186,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   q_offset: int | None = None) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at
     ``dout``, from its ``out`` and ``lse`` (``lse=True``): three launches,
-    delta = rowsum(dout * out), then dk and dv, then dq; see
+    delta = rowsum(dout * out), then dk and dv, then dq, on the tensor cores
+    for bfloat16 and on float32 FMAs for float32 (a refused launch raises;
+    neither route stands in for the other); see
     :func:`repro_torch.kernels.ref.flash_attention_backward_ref` for the
     function. q, k, v as the forward took them; out and dout shaped like q,
     D contiguous, 16-byte aligned rows; lse (B, Hq, Sq) float32

@@ -867,7 +867,8 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                                  causal: bool = True, window: int | None = None,
                                  softcap: float | None = None, sm_scale: float | None = None,
-                                 q_offset: int | None = None, round_p: bool = True) -> tuple:
+                                 q_offset: int | None = None, round_p: bool = True,
+                                 round_ds: bool = True) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at ``dout``,
     as the backward kernels compute them, scores materialised.
 
@@ -881,7 +882,9 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
       keeps it float32, the witness of that rounding);
     - dp = dout v^T; delta = rowsum(dout * out), out as stored;
     - ds = p (dp - delta), times 1 - (s_c / softcap)^2 under a soft-cap,
-      float32 (never rounded);
+      then rounded to q's dtype (the bf16 kernels' A operand of both its
+      products; nothing for float32; ``round_ds=False`` keeps it float32,
+      the witness of that rounding);
     - dk = sm_scale * sum over the group of ds^T q; dq = sm_scale * ds k.
 
     Each is rounded once to its input's dtype. Returns (dq (B, Hq, Sq, D),
@@ -905,6 +908,8 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     ds = p * (dp - delta)
     if softcap is not None:
         ds = ds * (1.0 - (s / softcap).square())
+    if round_ds:
+        ds = ds.to(q.dtype).float()
     dk = torch.matmul(ds.transpose(-1, -2), q.float().reshape(b, hkv, group, sq, d)).sum(dim=2)
     dq = torch.matmul(ds, k.float().unsqueeze(2))
     return ((dq * sm_scale).reshape(b, hq, sq, d).to(q.dtype), (dk * sm_scale).to(k.dtype),

@@ -13,9 +13,11 @@ path, ``ops.flash_attention`` on tensors that require grad
 
 Tolerances: float32 at rtol 1e-5 with atol 1e-5 * max(max|want|, 1) per
 tensor (the same products summed in another order; inputs are of unit
-scale). bfloat16 against the float32
-twin at 2^-6 * max|want|: the twin rounds p to bfloat16 before dV, as the
-forward rounds it, and each gradient once to bfloat16.
+scale). bfloat16 against the float32 twin at 2^-6 * max(max|want|, 1): the
+twin rounds the inputs to bfloat16, p to bfloat16 before dV (the forward's
+rounding point) and dS to bfloat16 before dK and dQ (the A operand of the
+tensor-core kernels' two products; ``round_ds``), and each gradient once.
+The witness (neither p nor dS rounded) pins where each rounding acts.
 """
 import jax
 import jax.numpy as jnp
@@ -112,7 +114,7 @@ def test_backward_twin_and_the_cpu_autograd_path_equal_autograd_of_the_forward(c
             _close(g.numpy(), w.numpy())
 
 
-@pytest.mark.parametrize("case", ["gqa6", "cap_window"])
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_the_cpu_autograd_path_equals_jax(case):
     *shape, kw = CASES[case]
     q, k, v, do = _inputs(*shape, seed=2)
@@ -151,6 +153,49 @@ def test_bfloat16_twin_is_the_float32_one_rounded():
     # the witness (p unrounded) differs from the twin by p's rounding only
     wit = ref.flash_attention_backward_ref(*t[:3], out, lse, t[3], round_p=False, **kw)
     assert torch.equal(wit[0], got[0]) and torch.equal(wit[1], got[1])
+
+
+def _bf16_twin(q, k, v, do, kw, **rounding):
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
+    out, lse = ref.flash_attention_lse_ref(*t[:3], **kw)
+    return ref.flash_attention_backward_ref(*t[:3], out, lse, t[3], **rounding, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(OFFSET_CASES))
+def test_round_ds_changes_nothing_in_float32(case):
+    *shape, kw = {**CASES, **OFFSET_CASES}[case]
+    t = [torch.from_numpy(x) for x in _inputs(*shape, seed=5)]
+    out, lse = ref.flash_attention_lse_ref(*t[:3], **kw)
+    for a, b in zip(ref.flash_attention_backward_ref(*t[:3], out, lse, t[3], **kw),
+                    ref.flash_attention_backward_ref(*t[:3], out, lse, t[3], round_ds=False,
+                                                     round_p=False, **kw)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(OFFSET_CASES))
+def test_bfloat16_twin_with_ds_rounded_stays_near_the_float32_twin(case):
+    *shape, kw = {**CASES, **OFFSET_CASES}[case]
+    q, k, v, do = _inputs(*shape, seed=6)
+    for g, w in zip(_bf16_twin(q, k, v, do, kw), _twin(q, k, v, do, kw)):
+        assert g.dtype == torch.bfloat16
+        _close(g.float().numpy(), w.numpy(), rtol=0.0, scaled=2.0 ** -6)
+
+
+@pytest.mark.parametrize("case", ["gqa6", "cap", "offset_negative"])
+def test_the_witness_differs_from_the_twin_where_the_rounding_bites(case):
+    """The witness (neither p nor dS rounded) and the twin: dv differs by p's
+    rounding only, dq and dk by dS's only, and both are in use."""
+    *shape, kw = {**CASES, **OFFSET_CASES}[case]
+    q, k, v, do = _inputs(*shape, seed=7)
+    twin = _bf16_twin(q, k, v, do, kw)
+    no_p = _bf16_twin(q, k, v, do, kw, round_p=False)
+    no_ds = _bf16_twin(q, k, v, do, kw, round_ds=False)
+    wit = _bf16_twin(q, k, v, do, kw, round_p=False, round_ds=False)
+    assert torch.equal(no_p[0], twin[0]) and torch.equal(no_p[1], twin[1])
+    assert torch.equal(no_ds[2], twin[2]) and torch.equal(wit[2], no_p[2])
+    assert torch.equal(wit[0], no_ds[0]) and torch.equal(wit[1], no_ds[1])
+    assert not torch.equal(no_p[2], twin[2])
+    assert not torch.equal(no_ds[0], twin[0]) and not torch.equal(no_ds[1], twin[1])
 
 
 def test_serving_and_no_grad_calls_take_the_plain_forward(monkeypatch):
