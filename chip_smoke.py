@@ -377,8 +377,12 @@ nothing of the JAX package. Phases:
    global layers of both cells (SDPA has no soft-cap: it is timed without
    it, beside) and at yi's decode layer;
    7c. LM training (at most 1 GiB allocated at its start and end): (a) the
-   forward's log-sum-exp and the three backward kernels
-   (``flash_attention_bwd_delta``, ``_dkdv``, ``_dq``) against their twins
+   forward's log-sum-exp and the backward's two launches
+   (``flash_attention_bwd_dq``, which forms delta, then ``_dkdv``, in that
+   order) against their twins, the delta the dq launch writes into a
+   buffer of NaNs within 1e-5 of the twin's largest |delta| (a control
+   with its last 8 columns dropped must fail), and the standalone
+   ``flash_attention_bwd_delta`` (off the path) with dq reading it,
    at D 8 to 256, GQA groups 1, 6 and 7, lengths off the tiles, q_offset
    off Sk - Sq (rows past the keys and rows that see no key), windows 1, 7
    and 4,096 at S = 8,192 and a cap of 50, float32 and bfloat16 (bfloat16
@@ -394,8 +398,9 @@ nothing of the JAX package. Phases:
    path (every leaf within 1e-4 of its max|g|), then one step's loss,
    grad_norm and every leaf's gradient against the twin path beside a
    witness (p unrounded in both passes) with a control (delta left out)
-   that must fail, exactly 2 x 28 x 4 forward launches and 28 x 4 of each
-   backward kernel, two gradient passes bit-identical under deterministic
+   that must fail, exactly 2 x 28 x 4 forward launches and 28 x 4 of the
+   dq and dK/dV launches, dq first in each call, none of the standalone
+   delta, two gradient passes bit-identical under deterministic
    algorithms, then 3 timed steps after a warm-up (s a step, tokens/s),
    the last under the profiler (busy share, device ms by kernel), and the
    peak memory; (d)
@@ -405,7 +410,10 @@ nothing of the JAX package. Phases:
    their bytes and nothing allocated; (e) the backward kernels' rows at
    qwen2's layer, Gemma-2's global layer and yi's (group 7): each kernel's
    ms, the twin's, SDPA's backward through autograd and the bound from
-   this run's visible pairs;
+   this run's visible pairs; the dq launch that forms delta beside dq
+   reading delta plus the standalone delta pass on the same inputs, in
+   turns, and ``torch.bmm`` of dO by O (float32 sums) as delta's library
+   call;
 8. with the LM freed, train ``gcn-cora`` (2 layers, hidden 16): three
    ``Trainer`` steps on ``full_graph_sm`` (Cora's 2,816 x 1,433) on the
    card against the same on the host CPU; then ``ogb_products`` at full
@@ -8332,7 +8340,8 @@ TRAIN_GEMMA_LAYERS = 2      # of Gemma-2's 42 (one local, one global), at its ba
 TRAIN_GEMMA_BATCH = 8
 BWD_REPLACES = "src/repro/kernels/flash_attention.py:86"
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
-BWD_NAMES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+BWD_NAMES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")  # a backward call, in order
+BWD_DELTA = "flash_attention_bwd_delta"  # the standalone delta pass, off the path
 BWD_MMA = ("bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel")   # the bf16 route's kernels, by name
 BWD_SIMT = ("bwd_dkdv_kernel", "bwd_dq_kernel")          # the float32 route's
 # The backward kernels against their twin (the same out and lse): float32
@@ -8347,6 +8356,13 @@ BWD_SIMT = ("bwd_dkdv_kernel", "bwd_dq_kernel")          # the float32 route's
 BWD_F32_SCALED = 1e-4
 BWD_BF16_SCALED = 2.0 ** -6
 BWD_WITNESS = 2.0
+# delta = rowsum(dO O) against the twin's, within 1e-5 of the case's largest
+# |delta|: float32 sums of the same products in another order (bf16 products
+# are exact in float32), D at most 256 terms. Its control drops the last 8
+# columns (a 16-byte chunk of bf16) from the kernel's delta.
+BWD_DELTA_SCALED = 1e-5
+BWD_LIB_SCALED = 1e-4  # torch.bmm's delta against the kernel's (a gross check of the yardstick)
+BWD_FUSION_REPS = 10   # launches a reading of the fused / two-pass comparison (e)
 TRAIN_F32_SCALED = 1e-4     # float32 model gradients, kernel path vs twin path, a leaf's max|g|
 TRAIN_BF16_SCALED = 2.0 ** -6  # bf16 model gradients: or twice the witness, a leaf's norm
 TRAIN_LOSS_RTOL = 1e-4      # the reduced cells' losses card against host (float32)
@@ -8413,6 +8429,31 @@ class _TwinAttention:
 
     def __exit__(self, *exc):
         self.ops.flash_attention = self.saved
+
+
+class _LaunchOrder:
+    """Records, while entered, the attention backward's launches through
+    ``_build.launch`` (the wrappers' one way to a kernel), in order."""
+
+    def __enter__(self):
+        from repro_torch.kernels import _build
+
+        self.build, self.saved, self.names = _build, _build.launch, []
+
+        def launch(source, kernel, *args):
+            if kernel in (BWD_DELTA, *BWD_NAMES):
+                self.names.append(kernel)
+            return self.saved(source, kernel, *args)
+
+        _build.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.build.launch = self.saved
+
+    def in_order(self) -> bool:
+        """Each backward call launched dq, then dK/dV, and nothing else."""
+        return self.names == list(BWD_NAMES) * (len(self.names) // len(BWD_NAMES))
 
 
 def _bwd_witness(*args, **kw):
@@ -8498,17 +8539,20 @@ def _tensor_errs(got, want, scaled: bool = True) -> list:
 
 
 def check_attention_backward(torch, np, seed: int) -> dict:
-    """Phase 7c (a): the forward's lse and the three backward kernels
-    against their twins on BWD_CASES, float32 (SIMT) and bfloat16 (tensor
-    cores), from the kernel's own out and lse; the two controls must fail
-    each route's comparison. Returns the largest errors by dtype."""
+    """Phase 7c (a): the forward's lse and the backward's launches (dq,
+    which forms delta, then dK/dV, in that order; delta and the two-pass
+    route by :func:`_check_delta`) against their twins on BWD_CASES,
+    float32 (SIMT) and bfloat16 (tensor cores), from the kernel's own out
+    and lse; the controls must fail each route's comparison. Returns the
+    largest errors by dtype."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_backward_cuda,
                                                      flash_attention_cuda)
 
     gen = torch.Generator(device=DEV).manual_seed(seed + 71)
     worst = {"float32": 0.0, "bfloat16": 0.0, "lse": 0.0, "abs_float32": 0.0,
-             "abs_bfloat16": 0.0}
+             "abs_bfloat16": 0.0, "delta_float32": 0.0, "delta_bfloat16": 0.0,
+             "delta_abs_float32": 0.0, "delta_abs_bfloat16": 0.0}
     controls = {}
     for b, hq, hkv, sq, sk, d, kw, q_scale in BWD_CASES:
         for dt in (torch.float32, torch.bfloat16):
@@ -8516,11 +8560,13 @@ def check_attention_backward(torch, np, seed: int) -> dict:
             q, k, v, do = _bwd_inputs(torch, gen, b, hq, hkv, sq, sk, d, dt, q_scale)
             ops.reset_launch_counts()
             out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
-            got = flash_attention_backward_cuda(q, k, v, out, lse, do, **kw)
+            with _LaunchOrder() as order:
+                got = flash_attention_backward_cuda(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
-            counts = {n: ops.launch_counts[n] for n in ("flash_attention", *BWD_NAMES)}
-            if counts != {"flash_attention": 1, **{n: 1 for n in BWD_NAMES}}:
-                _fail(f"attention backward case launched {counts}")
+            counts = {n: ops.launch_counts[n] for n in ("flash_attention", BWD_DELTA, *BWD_NAMES)}
+            if counts != {"flash_attention": 1, BWD_DELTA: 0, **{n: 1 for n in BWD_NAMES}} \
+                    or order.names != list(BWD_NAMES):
+                _fail(f"attention backward case launched {counts} in the order {order.names}")
             _, lse_t = ref.flash_attention_lse_ref(q, k, v, **kw)
             seen = torch.isfinite(lse_t)
             lse_err = float((lse - lse_t)[seen].abs().max()) if bool(seen.any()) else 0.0
@@ -8533,10 +8579,19 @@ def check_attention_backward(torch, np, seed: int) -> dict:
                 wit = max(_tensor_errs(_bwd_witness(q, k, v, out, lse, do, **kw), want))
                 tol = max(BWD_BF16_SCALED, BWD_WITNESS * wit)
             shape = f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} {kw}"
+            scale = max(max(float(w.float().abs().max()) for w in want), 1e-30)
+            d_err, d_abs, c_err, two_pass = _check_delta(torch, q, k, v, out, lse, do, kw, got,
+                                                         scale, tol)
             print(f"attention backward {name} {shape}: dq/dk/dv err/max|want| "
-                  f"{['%.3e' % e for e in errs]} tol {tol:.3e}; lse max_abs_err {lse_err:.3e}")
+                  f"{['%.3e' % e for e in errs]} tol {tol:.3e}; lse max_abs_err {lse_err:.3e}; "
+                  f"delta err/max|want| {d_err:.3e} (tol {BWD_DELTA_SCALED:.0e}, control "
+                  f"{c_err:.3e}); two-pass dq {two_pass:.3e}")
             if not all(bool(torch.isfinite(t).all()) for t in got) or max(errs) > tol:
                 _fail(f"the attention backward differs from its twin at {name} {shape}")
+            worst[f"delta_{name}"] = max(worst[f"delta_{name}"], d_err)
+            worst[f"delta_abs_{name}"] = max(worst[f"delta_abs_{name}"], d_abs)
+            key = f"delta_last_chunk_dropped {name}"  # the smallest over the cases
+            controls[key] = (min(controls.get(key, (c_err,))[0], c_err), BWD_DELTA_SCALED)
             worst[name] = max(worst[name], max(errs))
             worst[f"abs_{name}"] = max(worst[f"abs_{name}"],
                                        max(_tensor_errs(got, want, scaled=False)))
@@ -8638,7 +8693,7 @@ def _attn_counts(torch):
     from repro_torch.kernels import ops
 
     return {n: ops.launch_counts[n] for n in ("flash_attention", "flash_attention_combine",
-                                              *BWD_NAMES)}
+                                              BWD_DELTA, *BWD_NAMES)}
 
 
 def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, scaled: float,
@@ -8655,18 +8710,22 @@ def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, sc
     bfloat16 layers every rounding difference spreads, and a max over a
     billion entries reads the tail of that spread, so the norm is held and
     the max printed beside. ``control`` (a backward that must fail) goes
-    through the same comparison. Returns the kernel path's launches,
-    errors and gradients. ``control`` None: no control."""
+    through the same comparison. The kernel path's backward calls must each
+    launch dq, then dK/dV. Returns the kernel path's launches, errors and
+    gradients. ``control`` None: no control."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import lm_grads
     from repro_torch.train.optimizer import global_norm
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    loss_k, g_k = lm_grads(model, tokens, targets, n_micro)
-    torch.cuda.synchronize()
+    with _LaunchOrder() as order:
+        loss_k, g_k = lm_grads(model, tokens, targets, n_micro)
+        torch.cuda.synchronize()
     k_s = time.perf_counter() - t0
     counts = _attn_counts(torch)
+    if not order.in_order():
+        _fail(f"{what}: the backward's launches came in the order {order.names[:6]}...")
     with _TwinAttention():
         loss_t, g_t = lm_grads(model, tokens, targets, n_micro)
     errs = _leaf_errs(g_k, g_t, l2=by_witness)
@@ -8695,7 +8754,7 @@ def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, sc
           f"{tol[worst]:.3e}); witness (p, dS unrounded) max {max(wit.values(), default=0.0):.3e}; "
           f"control ({getattr(control, '__name__', None)}) max {max(c_errs.values()):.3e}; "
           f"kernel-path grads "
-          f"{k_s:.3f} s; launches {counts}")
+          f"{k_s:.3f} s; launches {counts}, each backward call dq then dK/dV")
     if loss_err > scaled / 10 or norm_err > scaled or any(errs[k] > tol[k] for k in errs):
         _fail(f"{what}: the kernel path's gradients differ from the twin path's")
     if control is not None and all(c_errs[k] <= tol[k] for k in c_errs):
@@ -8745,7 +8804,7 @@ def qwen2_train(torch, np, seed: int, card: str) -> dict:
     res = _hold_model_grads(torch, f"qwen2-1.5b train_4k bf16, B={TRAIN_BATCH}", model, tokens,
                             targets, n_micro, TRAIN_BF16_SCALED, _bwd_no_delta, True)
     want = {"flash_attention": 2 * cfg.n_layers * n_micro, "flash_attention_combine": 0,
-            **{n: cfg.n_layers * n_micro for n in BWD_NAMES}}
+            BWD_DELTA: 0, **{n: cfg.n_layers * n_micro for n in BWD_NAMES}}
     if res["launches"] != want:
         _fail(f"a qwen2-1.5b train step launched {res['launches']}, not {want}")
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -8795,9 +8854,10 @@ def qwen2_train(torch, np, seed: int, card: str) -> dict:
                            *BWD_SIMT)}
     print(f"qwen2-1.5b train_4k profiled step, device ms by kernel: "
           f"{ {n: round(m, 3) for n, m in kernel_ms.items()} }; card {card}")
-    if any(kernel_ms[n] for n in BWD_SIMT) or not all(kernel_ms[n] for n in BWD_MMA):
+    if any(kernel_ms[n] for n in (*BWD_SIMT, "bwd_delta")) or \
+            not all(kernel_ms[n] for n in BWD_MMA):
         _fail("the bf16 train step's attention backward did not run (only) on the tensor-core "
-              "kernels")
+              "kernels, without the standalone delta pass")
     del cell, model, opt_state, tokens, targets, loss, metrics
     gc.collect()
     torch.cuda.empty_cache()
@@ -8858,63 +8918,152 @@ def _sdpa_backward_ms(torch, q, k, v, do, reps: int) -> float:
                                                        retain_graph=True), reps)
 
 
-def _bwd_launches(torch, q, k, v, out, lse, do, kw) -> dict:
-    """The three backward launches of one call on these tensors, each a
-    callable through ``_build.launch`` (dtype from q), writing into fresh
-    delta, dq, dk, dv."""
+def _bwd_launches(torch, q, k, v, out, lse, do, kw) -> tuple:
+    """The backward's launches on these tensors, each a callable through
+    ``_build.launch`` (dtype from q), and the buffers they write, all
+    prefilled with NaN (a row no block writes shows): the path's dq launch
+    (dq into "dq", delta from out into "delta") and dK/dV (reading "delta",
+    into "dk", "dv"); the two-pass route, the standalone delta (into
+    "delta_pass") and dq reading it (o null, into "dq_two_pass")."""
     from repro_torch.kernels.flash_attention import _DTYPES, _build
 
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     dt = _DTYPES[q.dtype]
-    delta = torch.empty(lse.shape, dtype=torch.float32, device=DEV)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, s,
-            d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], 1, kw.get("window") or 0,
-            0, kw.get("softcap") or 0.0, d ** -0.5, dt)
+    off = sk - sq if kw.get("q_offset") is None else kw["q_offset"]
+    nan = float("nan")
+    buf = {n: torch.full(lse.shape, nan, dtype=torch.float32, device=DEV)
+           for n in ("delta", "delta_pass")}
+    buf.update({n: torch.full_like(t, nan) for n, t in (("dq", q), ("dq_two_pass", q), ("dk", k),
+                                                         ("dv", v))})
+
+    def args(o, delta, dq):
+        return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o, lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), buf["dk"].data_ptr(), buf["dv"].data_ptr(), b,
+                hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], *out.stride()[:3], *dq.stride()[:3], *buf["dk"].stride()[:3],
+                *buf["dv"].stride()[:3], int(kw.get("causal", True)), kw.get("window") or 0, off,
+                kw.get("softcap") or 0.0, kw.get("sm_scale") or d ** -0.5, dt)
+
+    fused = args(out.data_ptr(), buf["delta"], buf["dq"])
+    two_pass = args(0, buf["delta_pass"], buf["dq_two_pass"])
     dev = q.device
-    keep = (delta, dq, dk, dv)  # the launches' outputs, alive while the callables are
-    return {
-        "flash_attention_bwd_delta": lambda: _build.launch(
-            "flash_attention", "flash_attention_bwd_delta", dev, out.data_ptr(),
-            do.data_ptr(), keep[0].data_ptr(), b, hq, s, d, *out.stride()[:3],
-            *do.stride()[:3], dt),
-        "flash_attention_bwd_dkdv": lambda: _build.launch(
-            "flash_attention", "flash_attention_bwd_dkdv", dev, *args),
+    calls = {
         "flash_attention_bwd_dq": lambda: _build.launch(
-            "flash_attention", "flash_attention_bwd_dq", dev, *args),
+            "flash_attention", "flash_attention_bwd_dq", dev, *fused),
+        "flash_attention_bwd_dkdv": lambda: _build.launch(
+            "flash_attention", "flash_attention_bwd_dkdv", dev, *fused),
+        BWD_DELTA: lambda: _build.launch(
+            "flash_attention", BWD_DELTA, dev, out.data_ptr(), do.data_ptr(),
+            buf["delta_pass"].data_ptr(), b, hq, sq, d, *out.stride()[:3], *do.stride()[:3], dt),
+        "dq_two_pass": lambda: _build.launch(
+            "flash_attention", "flash_attention_bwd_dq", dev, *two_pass),
     }
+    return calls, buf
+
+
+def _scaled_err(got, want, scale: float | None = None) -> float:
+    """max|got - want| over ``scale`` (None: max|want|); inf where got has
+    a NaN (a row no block wrote)."""
+    if not bool(got.isfinite().all()):
+        return float("inf")
+    if scale is None:
+        scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def _check_delta(torch, q, k, v, out, lse, do, kw, got, scale: float, tol: float) -> tuple:
+    """7c (a)'s delta checks of one case (the caller's launches done, its
+    grads ``got`` in hand): the dq launch again into buffers of NaN, its
+    delta against the fused twin's (the twin's dq equal to the whole
+    twin's, the launch's dq to the call's bit for bit), the control (its
+    last 8 columns dropped) failing; then the standalone delta pass and dq
+    reading it (the two-pass route). Returns (delta's error over the twin's
+    max|delta|, its max abs error, the control's error, the two-pass dq's
+    error over ``scale``)."""
+    from repro_torch.kernels import ref
+
+    calls, buf = _bwd_launches(torch, q, k, v, out, lse, do, kw)
+    calls["flash_attention_bwd_dq"]()
+    calls[BWD_DELTA]()
+    calls["dq_two_pass"]()
+    torch.cuda.synchronize()
+    dq_t, delta_t = ref.flash_attention_bwd_dq_ref(q, k, v, out, lse, do, **kw)
+    err = _scaled_err(buf["delta"], delta_t)
+    pass_err = _scaled_err(buf["delta_pass"], delta_t)
+    cut = (do[..., -8:].float() * out[..., -8:].float()).sum(-1)
+    c_err = _scaled_err(buf["delta"] - cut, delta_t)
+    two_pass = _scaled_err(buf["dq_two_pass"], dq_t, scale)
+    shape = f"B={q.shape[0]} Hq={q.shape[1]} Sq={q.shape[2]} D={q.shape[3]} {kw} {q.dtype}"
+    if not torch.equal(buf["dq"], got[0]) or not torch.equal(
+            dq_t, ref.flash_attention_backward_ref(q, k, v, out, lse, do, **kw)[0]):
+        _fail(f"the dq launch is not the backward call's dq, or the twins' dq differ, at {shape}")
+    if max(err, pass_err) > BWD_DELTA_SCALED or two_pass > tol:
+        _fail(f"delta ({err}, standalone {pass_err}) or the two-pass dq ({two_pass}) differs "
+              f"from its twin at {shape}")
+    if c_err <= BWD_DELTA_SCALED:
+        _fail(f"the delta comparison does not tell the last chunk dropped ({c_err}) at {shape}")
+    return err, float((buf["delta"] - delta_t).abs().max()), c_err, two_pass
+
+
+def _fusion_ms(torch, calls: dict) -> dict:
+    """The dq launch that forms delta against the two-pass route on the
+    same inputs (``calls`` of :func:`_bwd_launches`): the standalone delta
+    pass and dq reading it, timed in turns (fused, dq reading delta, the
+    pass, the pass, dq reading delta, fused), BWD_FUSION_REPS launches a
+    reading. Each one's mean ms, the fused dq's added time over dq reading
+    delta, and whether that is below the pass's time (the fusion gains)."""
+    calls[BWD_DELTA]()  # delta for the dq that reads it
+    runs = {}
+    for n in ("flash_attention_bwd_dq", "dq_two_pass", BWD_DELTA, BWD_DELTA, "dq_two_pass",
+              "flash_attention_bwd_dq"):
+        runs.setdefault(n, []).append(_time_ms(torch, calls[n], BWD_FUSION_REPS))
+    ms = {n: sum(r) / len(r) for n, r in runs.items()}
+    added = ms["flash_attention_bwd_dq"] - ms["dq_two_pass"]
+    return {"fused_dq_ms": ms["flash_attention_bwd_dq"], "two_pass_dq_ms": ms["dq_two_pass"],
+            "delta_pass_ms": ms[BWD_DELTA], "added_ms": added, "gains": added < ms[BWD_DELTA],
+            "runs": runs}
 
 
 def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -> list:
     """Phase 7c (e): the kernel rows at BWD_TIMED's shapes: each backward
-    kernel's ms (CUDA events) and share of its bound, the three together,
-    the twin's ms, SDPA's backward through autograd (without the cap where
-    the layer has one; the kernel without it beside), the forward with lse
-    against the serving forward; bounds from this run's visible pairs. At
-    the first shape also the float32 route's (SIMT) dK/dV and dQ on the
-    same inputs in float32."""
+    kernel's ms (CUDA events) and share of its bound, the two launches
+    together, the twin's ms, SDPA's backward through autograd (without the
+    cap where the layer has one; the kernel without it beside), the
+    forward with lse against the serving forward; bounds from this run's
+    visible pairs. The dq launch that forms delta against the two-pass
+    route on the same inputs (:func:`_fusion_ms`), and delta's library
+    call, ``torch.bmm`` of dO (N, 1, D) by O (N, D, 1) with float32 sums
+    on their (B, S, H, D) memory, held against the kernel's delta. At the
+    first shape also the float32 route's (SIMT) dQ and dK/dV on the same
+    inputs in float32."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_backward_cuda,
                                                      flash_attention_cuda)
 
     gen = torch.Generator(device=DEV).manual_seed(seed + 79)
-    rows = {n: {} for n in (*BWD_NAMES, "flash_attention_lse")}
+    rows = {n: {} for n in (BWD_DELTA, *BWD_NAMES, "flash_attention_lse")}
     simt_ms = {}
     for what, b, hq, hkv, s, d, kw in BWD_TIMED:
         q, k, v, do = _bwd_inputs(torch, gen, b, hq, hkv, s, s, d, torch.bfloat16)
         out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
-        part = _bwd_launches(torch, q, k, v, out, lse, do, kw)
-        part["flash_attention_bwd_delta"]()
-        ms = {n: _time_ms(torch, fn, 3) for n, fn in part.items()}
+        part, buf = _bwd_launches(torch, q, k, v, out, lse, do, kw)
+        fusion = _fusion_ms(torch, part)  # the dq launch first: dK/dV reads its delta
+        ms = {n: _time_ms(torch, part[n], 3) for n in BWD_NAMES}
+        ms[BWD_DELTA] = fusion["delta_pass_ms"]
+        do_r, o_r = (t.transpose(1, 2).contiguous() for t in (do, out))  # views: no copy
+        lib = lambda: torch.bmm(do_r.reshape(-1, 1, d), o_r.reshape(-1, d, 1),  # noqa: E731
+                                out_dtype=torch.float32)
+        lib_ms = _time_ms(torch, lib, 3)
+        lib_err = _scaled_err(lib().reshape(b, s, hq).transpose(1, 2), buf["delta"])
+        if lib_err > BWD_LIB_SCALED:
+            _fail(f"torch.bmm's delta differs from the kernel's ({lib_err}) at {what}")
+        del do_r, o_r, lib
         if not simt_ms:  # the float32 route at the first shape, on the same inputs
             f32 = [t.float() for t in (q, k, v, do)]
             o32, l32 = flash_attention_cuda(*f32[:3], lse=True, **kw)
-            p32 = _bwd_launches(torch, *f32[:3], o32, l32, f32[3], kw)
-            p32["flash_attention_bwd_delta"]()
-            simt_ms = {n: _time_ms(torch, p32[n], 1) for n in BWD_NAMES[1:]}
+            p32, _ = _bwd_launches(torch, *f32[:3], o32, l32, f32[3], kw)
+            simt_ms = {n: _time_ms(torch, p32[n], 1) for n in BWD_NAMES}  # dq first
             del f32, o32, l32, p32
         whole = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                                       **kw), 3)
@@ -8936,9 +9085,11 @@ def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -
         qb, kb = b * hq * s * d * el, b * hkv * s * d * el
         stats = b * hq * s * 4
         work = {  # (bytes, operations): inputs read once, outputs written once
-            "flash_attention_bwd_delta": (2 * qb + stats, 2 * b * hq * s * d),
+            BWD_DELTA: (2 * qb + stats, 2 * b * hq * s * d),
             "flash_attention_bwd_dkdv": (2 * qb + 2 * kb + 2 * stats + 2 * kb, 4 * 2 * d * pairs),
-            "flash_attention_bwd_dq": (2 * qb + 2 * kb + 2 * stats + qb, 3 * 2 * d * pairs),
+            # q, dO, O, k, v and lse in; dq and delta out
+            "flash_attention_bwd_dq": (3 * qb + 2 * kb + 2 * stats + qb,
+                                       3 * 2 * d * pairs + 2 * b * hq * s * d),
             "flash_attention_lse": (qb + 2 * kb + qb + stats, 2 * 2 * d * pairs),
         }
         for n, (nbytes, nops) in work.items():
@@ -8955,10 +9106,17 @@ def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -
         summary = {"backward_ms": whole, "twin_ms": twin, "sdpa_backward_ms": sdpa,
                    "backward_ms_without_cap": nocap, "backward_bound_ms": whole_bound,
                    "forward_lse_ms": fwd_lse, "forward_ms": fwd, "forward_twin_ms": fwd_twin,
-                   "sdpa_forward_ms": sdpa_fwd, "visible_pairs": pairs}
+                   "sdpa_forward_ms": sdpa_fwd, "visible_pairs": pairs, "fusion": fusion,
+                   "delta_bmm_ms": lib_ms, "delta_bmm_err": lib_err}
         for n in rows:
             rows[n][what].update(summary)
-        shares = {n: f"{rows[n][what]['bound_share']:.1%}" for n in BWD_NAMES}
+        shares = {n: f"{rows[n][what]['bound_share']:.1%}" for n in (*BWD_NAMES, BWD_DELTA)}
+        print(f"attention backward fusion at {what}: dq forming delta {fusion['fused_dq_ms']:.6f} "
+              f"ms; dq reading delta {fusion['two_pass_dq_ms']:.6f} + the standalone delta "
+              f"{fusion['delta_pass_ms']:.6f} ms; the fused dq's added time "
+              f"{fusion['added_ms']:.6f} ms, {'below' if fusion['gains'] else 'NOT below'} the "
+              f"delta pass's; readings {fusion['runs']}; torch.bmm's delta {lib_ms:.6f} ms "
+              f"(err/max|delta| {lib_err:.2e}); card {card}")
         print(f"attention backward rows at {what} (B={b} Hq={hq} Hkv={hkv} S={s} D={d} {kw}): "
               f"by kernel ms {ms}, share of bound {shares}; float32 route (SIMT) at the first "
               f"shape ms {simt_ms}; whole backward ms={whole:.6f} (bound {whole_bound:.6f} at "
@@ -8966,27 +9124,33 @@ def backward_rows(torch, np, seed: int, launches: dict, errs: dict, card: str) -
               f"ms={sdpa:.6f}{' (no cap)' if nocap is not None else ''}; forward with lse "
               f"ms={fwd_lse:.6f}, serving forward {fwd:.6f}, twin {fwd_twin:.6f}, SDPA "
               f"{sdpa_fwd:.6f}; card {card}")
-        del q, k, v, do, out, lse, part
+        del q, k, v, do, out, lse, part, buf
         torch.cuda.empty_cache()
     first = BWD_TIMED[0][0]
     out_rows = []
     for n, by_shape in rows.items():
         r = by_shape[first]
         lib = r["sdpa_forward_ms"] if n == "flash_attention_lse" else r["sdpa_backward_ms"]
+        lib_is = "scaled_dot_product_attention(enable_gqa=True) " + (
+            "forward" if n == "flash_attention_lse" else "backward through autograd")
+        if n == BWD_DELTA:
+            lib = r["delta_bmm_ms"]
+            lib_is = "torch.bmm(dO (N, 1, D), O (N, D, 1), out_dtype=float32)"
         plain = r["forward_twin_ms"] if n == "flash_attention_lse" else r["twin_ms"]
         out_rows.append({
             "name": n, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
             "launches": launches["flash_attention" if n == "flash_attention_lse" else n],
-            "max_abs_err": errs["abs_bfloat16"] if n != "flash_attention_lse" else errs["lse"],
+            "max_abs_err": errs["lse"] if n == "flash_attention_lse" else
+            errs["delta_abs_bfloat16"] if n == BWD_DELTA else errs["abs_bfloat16"],
             "max_err_over_max_want": {"float32": errs["float32"], "bfloat16": errs["bfloat16"]},
             "ms": r["ms"], "plain_ms": plain, "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": lib, "shape": first,
             "plain_is": "the whole backward's twin" if n != "flash_attention_lse"
             else "flash_attention_lse_ref",
-            "library_is": "scaled_dot_product_attention(enable_gqa=True) "
-            + ("forward" if n == "flash_attention_lse" else "backward through autograd"),
+            "library_is": lib_is,
             "max_abs_err_float32": errs["abs_float32"], "by_shape": by_shape,
-            **({"float32_simt_ms": simt_ms[n]} if n in simt_ms else {})})
+            **({"float32_simt_ms": simt_ms[n]} if n in simt_ms else {}),
+            **({"note": "off the path: the dq launch forms delta"} if n == BWD_DELTA else {})})
     for r in out_rows:
         print(f"kernel {r['name']} ms={r['ms']:.6f} plain_ms={r['plain_ms']:.6f} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%}) "

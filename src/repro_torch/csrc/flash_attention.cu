@@ -68,14 +68,22 @@
 // backward needs to form p = exp(s - lse) again. Serving passes null.
 //
 // Backward (training; the Pallas kernel has none, the reference
-// differentiates its plain attention with jax.grad). Three launches:
+// differentiates its plain attention with jax.grad). Two launches, in this
+// order on one stream:
 //
-// - `bwd_delta_kernel`: delta_i = sum_d dO_id O_id, one warp a row;
-// - dK and dV of a tile of keys, from s = q.k sm_scale (soft-capped to
-//   s_c), p = exp(s_c - lse) (0 where masked), dP = dO V^T and dS = p (dP -
-//   delta) (times 1 - (s_c / cap)^2 under a soft-cap): dV = sum p^T dO,
-//   dK = sm_scale sum dS^T Q over the GQA group's query heads;
-// - dQ = sm_scale dS K of a tile of query rows, recomputing s, p, dP, dS.
+// - dQ = sm_scale dS K of a tile of query rows, from s = q.k sm_scale
+//   (soft-capped to s_c), p = exp(s_c - lse) (0 where masked), dP = dO V^T
+//   and dS = p (dP - delta) (times 1 - (s_c / cap)^2 under a soft-cap),
+//   where delta_i = sum_d dO_id O_id: the block forms delta of the rows it
+//   owns from the dO it stages anyway and one read of O, uses it, and
+//   writes it (float32, every row by exactly one block);
+// - dK and dV of a tile of keys, recomputing s, p, dP and dS with that
+//   delta: dV = sum p^T dO, dK = sm_scale sum dS^T Q over the GQA group's
+//   query heads.
+//
+// `bwd_delta_kernel` (one warp a row) forms delta alone, off the path: as a
+// launch of its own it reads the dO that dQ reads again, at under half of its
+// byte bound (PERF.md). It stays to compare the two routes.
 //
 // bf16 (`bwd_dkdv_mma_kernel`, `bwd_dq_mma_kernel`): FlashAttention-2's
 // backward on the tensor cores, mma.sync m16n8k16 with the forward's tile
@@ -114,6 +122,13 @@
 //   and V tile: 4 warps over 32-key tiles, 3 blocks an SM, at D = 128 (64-key
 //   tiles at D <= 64; 8 warps, 1 block at D = 256). Q, dO, lse and delta stay
 //   resident, K and V come through a cp.async ring over the visible key tiles.
+//   Delta: each thread loads O for the (row, 16-byte chunk) pieces it
+//   cp.asyncs of dO, into registers (no shared memory: the tile would cost a
+//   block an SM at D = 128 and does not fit at D = 256), and while the first
+//   key tile lands dots them with its own landed dO pieces in float32 and
+//   sums a row over its D / 8 lanes by a fixed shuffle tree (deterministic);
+//   a row's value reaches its warp through the padding after its dO row, past
+//   the loop's first barrier (no barrier of its own).
 //   S = Q K^T and dP = dO V^T on the tensor cores, dS formed in registers and
 //   rounded to bf16 as the A fragment of dQ += dS K (K through ldmatrix.trans),
 //   dQ a float32 accumulator written once. The last row tile (the heaviest under
@@ -131,7 +146,8 @@
 //
 // float32 (`bwd_dkdv_kernel`, `bwd_dq_kernel`): float32 FMAs, never TF32.
 // dK/dV a block a (batch, kv head, tile of BN keys) summing the group in the
-// block; dQ a block a (batch, query head, tile of BM rows); tiles staged in
+// block; dQ a block a (batch, query head, tile of BM rows), delta of its rows a
+// warp a row from the staged dO and O read once; tiles staged in
 // shared memory, every thread computes a 2-4 x 2-8 patch of s and dP from
 // float4 reads, each accumulator patch is 4 keys (or rows) x 8 columns.
 // dS stays float32 on this route. Bound at 67 TFLOP/s.
@@ -1048,13 +1064,15 @@ struct BwdParams {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;       // the forward's output; null: dq reads delta as given
   const float* lse;    // (B, Hq, Sq), the forward's
-  const float* delta;  // (B, Hq, Sq), rowsum(dO * O)
+  float* delta;        // (B, Hq, Sq), rowsum(dO * O): dq writes it where o is set
   void* dq;
   void* dk;
   void* dv;
   int64_t B, Hkv, Sq, Sk, D, group;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss;
+  int64_t o_sb, o_sh, o_ss;
   int64_t dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
   int64_t q_offset, window;  // window <= 0: no window
   int causal;
@@ -1169,17 +1187,18 @@ __device__ __forceinline__ void bwd_scores(const BwdParams& p, float* sm, int64_
   }
 }
 
-// lse and delta of query rows i0 .. i0 + BM of head h (+inf and 0 past Sq)
+// lse and, with `delta`, delta of query rows i0 .. i0 + BM of head h (+inf
+// and 0 past Sq)
 template <int DMAX>
 __device__ __forceinline__ void stage_stats(const BwdParams& p, float* sm, int64_t b, int64_t h,
-                                            int64_t i0) {
+                                            int64_t i0, bool delta) {
   using C = Bwd<DMAX>;
   const int64_t hq = p.Hkv * p.group;
   for (int r = threadIdx.x; r < C::BM; r += kThreads) {
     const int64_t i = i0 + r;
     const bool valid = i < p.Sq;
     sm[C::kLse + r] = valid ? p.lse[(b * hq + h) * p.Sq + i] : __int_as_float(0x7f800000);
-    sm[C::kDelta + r] = valid ? p.delta[(b * hq + h) * p.Sq + i] : 0.0f;
+    if (delta) sm[C::kDelta + r] = valid ? p.delta[(b * hq + h) * p.Sq + i] : 0.0f;
   }
 }
 
@@ -1218,7 +1237,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
       __syncthreads();  // every thread is done with the last tile
       stage_rows<DMAX>(sm + C::kQ, qb + h * p.q_sh, p.q_ss, i0, C::BM, p.Sq, D);
       stage_rows<DMAX>(sm + C::kDO, dob + h * p.do_sh, p.do_ss, i0, C::BM, p.Sq, D);
-      stage_stats<DMAX>(p, sm, b, h, i0);
+      stage_stats<DMAX>(p, sm, b, h, i0, true);
       __syncthreads();
       bwd_scores<DMAX, T, true>(p, sm, i0, k0);
       __syncthreads();
@@ -1261,7 +1280,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(const BwdParams p) {
 }
 
 // Block (query tile, query head, batch): dQ of rows i0 .. i0 + BM, the
-// last row tile first (the heaviest under a causal mask).
+// last row tile first (the heaviest under a causal mask). With p.o set it
+// also forms delta of its rows from the staged dO (a warp a row) and writes
+// it for dK/dV; else it reads delta.
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const BwdParams p) {
   using C = Bwd<DMAX>;
@@ -1274,7 +1295,26 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const BwdParams p) {
                    C::BM, p.Sq, D);
   stage_rows<DMAX>(sm + C::kDO, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh,
                    p.do_ss, i0, C::BM, p.Sq, D);
-  stage_stats<DMAX>(p, sm, b, h, i0);
+  stage_stats<DMAX>(p, sm, b, h, i0, p.o == nullptr);
+  if (p.o != nullptr) {
+    __syncthreads();  // the staged dO rows
+    const T* ob = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+    const int lane = tid & 31;
+    for (int r = tid / 32; r < C::BM; r += kThreads / 32) {
+      const int64_t i = i0 + r;
+      float acc = 0.0f;
+      if (i < p.Sq)
+        for (int c4 = 4 * lane; c4 < D; c4 += 128)
+          acc = dot4(load4f(ob + i * p.o_ss + c4),
+                     *reinterpret_cast<const float4*>(sm + C::kDO + r * C::RS + c4), acc);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) {
+        sm[C::kDelta + r] = acc;
+        if (i < p.Sq) p.delta[(b * p.Hkv * p.group + h) * p.Sq + i] = acc;
+      }
+    }
+  }
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
@@ -1326,7 +1366,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const BwdParams p) {
   }
 }
 
-// delta of each row (b, h, i): sum_d dO O in float32, one warp a row
+// delta of each row (b, h, i): sum_d dO O in float32, one warp a row. Off
+// the path: the dq kernels form delta themselves.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bwd_delta_kernel(const T* o, const T* dout, float* delta, int64_t Hq, int64_t Sq, int64_t D,
@@ -1732,12 +1773,27 @@ struct DqSmem {
   static constexpr int kStage = 2 * BN * kRow;
   static constexpr int kBytes = kRing + kBwdStages * kStage;
   static_assert(BN % 16 == 0, "tile shape");
+  static_assert(32 % (DMAX / 8) == 0, "a row's 16-byte chunks in one warp");
   static_assert((BN * DMAX / 8) % NT == 0 && (BM * DMAX / 8) % NT == 0, "copies");
 };
 
+// sum of the products of two rows of 8 bf16 (16 bytes each), in float32,
+// added to acc
+__device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 xf = __bfloat1622float2(x[j]), yf = __bfloat1622float2(y[j]);
+    acc = fmaf(xf.y, yf.y, fmaf(xf.x, yf.x, acc));
+  }
+  return acc;
+}
+
 // Block ((batch, kv head) pair fastest, then row tile, the last first): dQ
 // of the BM rows r0.. of (batch, kv head), rows r = i * group + g as in the
-// forward.
+// forward. With p.o set it also forms delta of its rows (every (b, h, i)
+// row is one block's) and writes it for dK/dV; else it reads delta.
 template <int DMAX, int WARPS, int BN, int MIN_BLOCKS>
 __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
 bwd_dq_mma_kernel(const BwdParams p) {
@@ -1772,23 +1828,33 @@ bwd_dq_mma_kernel(const BwdParams p) {
   const int w_hi = clamp_to(c_hi - k_begin, -1, k_end_rel);
   const int w_lo = p.window > 0 ? clamp_to(pos_hi - p.window - k_begin, -1, k_end_rel) : -1;
 
-  // Q and dO of the rows (zeros past R and D), in the ring's first group
+  // Q and dO of the rows (zeros past R and D), a cp.async group of their
+  // own; where delta is formed here, O of the same (row, 16-byte chunk)
+  // pieces into registers (zeros past R and D), in flight beside them
+  constexpr int U = BM * CH / NT;  // pieces a thread
+  const bool fuse = p.o != nullptr;
   const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
   const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb;
+  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb;
+  uint4 o_reg[U];
 #pragma unroll
-  for (int u = 0; u < BM * CH / NT; ++u) {
+  for (int u = 0; u < U; ++u) {
     const int c = tid + u * NT, row = c / CH, ch = c % CH;
     const int64_t r = r0 + row;
     const bool valid = r < R && ch * 8 < D;
-    int64_t oq = 0, od = 0;
+    int64_t oq = 0, od = 0, oo = 0;
     if (valid) {
       const int64_t i = r / group, h = kvh * group + r % group;
       oq = h * p.q_sh + i * p.q_ss + ch * 8;
       od = h * p.do_sh + i * p.do_ss + ch * 8;
+      oo = h * p.o_sh + i * p.o_ss + ch * 8;
     }
     cp_async16(smem + SM::kQ + row * SM::kRow + ch * 16, qb + oq, valid);
     cp_async16(smem + SM::kDO + row * SM::kRow + ch * 16, dob + od, valid);
+    o_reg[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (fuse && valid) o_reg[u] = *reinterpret_cast<const uint4*>(ob + oo);
   }
+  cp_async_commit();
   // K and V from key k_begin on
   const __nv_bfloat16* kb =
       static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh + k_begin * p.k_ss;
@@ -1812,9 +1878,35 @@ bwd_dq_mma_kernel(const BwdParams p) {
     cp_async_commit();
   }
 
+  // delta = rowsum(dO O) where formed here, while the first key tiles land:
+  // each thread's O pieces against its own dO pieces in shared memory (its
+  // Q and dO group has landed), then over the CH lanes of a row (CH divides
+  // 32 and NT, so a row's pieces sit in CH consecutive lanes) by a fixed
+  // shuffle tree. The row's first lane writes it to device memory for dK/dV
+  // and into the 16 bytes of padding after the row's dO, which no copy or
+  // ldmatrix touches; the rows' own warps read it after the loop's first
+  // barrier.
+  if (fuse) {
+    cp_async_wait<kBwdStages - 1>();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = tid + u * NT, row = c / CH, ch = c % CH;
+      unsigned char* const do_row = smem + SM::kDO + row * SM::kRow;
+      float acc = dot8_bf16(*reinterpret_cast<const uint4*>(do_row + ch * 16), o_reg[u], 0.0f);
+#pragma unroll
+      for (int off = CH / 2; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const int64_t r = r0 + row;
+      if (ch == 0) {
+        *reinterpret_cast<float*>(do_row + DMAX * 2) = acc;
+        if (r < R) p.delta[(b * hq + kvh * group + r % group) * p.Sq + r / group] = acc;
+      }
+    }
+  }
+
   // this thread's rows r0 + 16 warp + gid (+ 8): the keys each sees, k_begin
   // + (r_lo, r_hi] (bounds clamped to [-1, k_end_rel], which keeps them
-  // exact there), lse (log2 units), delta
+  // exact there), lse (log2 units), delta (where formed here, read in the
+  // loop's first step)
   int r_hi[2], r_lo[2];
   float lse2[2], dlt[2];
 #pragma unroll
@@ -1826,7 +1918,7 @@ bwd_dq_mma_kernel(const BwdParams p) {
     r_hi[hh] = clamp_to(!valid ? -1 : p.causal ? rel : k_end_rel, -1, k_end_rel);
     r_lo[hh] = clamp_to(p.window > 0 ? rel - p.window : -1, -1, k_end_rel);
     lse2[hh] = valid ? p.lse[(b * hq + h) * p.Sq + i] * kLog2e : 0.0f;
-    dlt[hh] = valid ? p.delta[(b * hq + h) * p.Sq + i] : 0.0f;
+    dlt[hh] = valid && !fuse ? p.delta[(b * hq + h) * p.Sq + i] : 0.0f;
   }
   float dq[ND][4];
 #pragma unroll
@@ -1845,6 +1937,11 @@ bwd_dq_mma_kernel(const BwdParams p) {
       load_tile(stage == 0 ? kBwdStages - 1 : stage - 1, t0 + (kBwdStages - 1) * BN);
     cp_async_commit();
     const uint32_t so = stage * SM::kStage;
+    if (fuse && t == 0)  // the rows' delta, past the barrier (0 past R: dO and O are zeros)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        dlt[hh] = *reinterpret_cast<const float*>(smem + SM::kDO +
+                                                  (warp * 16 + gid + 8 * hh) * SM::kRow + DMAX * 2);
 
     // S = Q K^T and dP = dO V^T, interleaved, over the k-steps that hold
     // some of D
@@ -2034,8 +2131,8 @@ int launch_bwd_t(const BwdParams& p, cudaStream_t stream) {
 }
 
 template <typename L>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* o,
+               const void* lse, void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
                int64_t Hkv, int64_t Sq, int64_t Sk, int64_t D, const int64_t* st, int64_t causal,
                int64_t window, int64_t q_offset, float softcap, float sm_scale, int64_t dtype,
                void* stream) {
@@ -2046,14 +2143,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   const int64_t vec = dtype == 0 ? 4 : 8;
   if (!aligned(q, st[0], st[1], st[2], vec) || !aligned(k, st[3], st[4], st[5], vec) ||
       !aligned(v, st[6], st[7], st[8], vec) || !aligned(dout, st[9], st[10], st[11], vec) ||
-      !aligned(dq, st[12], st[13], st[14], vec) || !aligned(dk, st[15], st[16], st[17], vec) ||
-      !aligned(dv, st[18], st[19], st[20], vec))
+      (o != nullptr && !aligned(o, st[12], st[13], st[14], vec)) ||
+      !aligned(dq, st[15], st[16], st[17], vec) || !aligned(dk, st[18], st[19], st[20], vec) ||
+      !aligned(dv, st[21], st[22], st[23], vec))
     return (int)cudaErrorInvalidValue;
-  BwdParams p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+  BwdParams p{q, k, v, dout, o, static_cast<const float*>(lse), static_cast<float*>(delta),
               dq, dk, dv, B, Hkv, Sq, Sk, D, Hq / Hkv,
               st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-              st[12], st[13], st[14], st[15], st[16], st[17], st[18], st[19], st[20],
-              q_offset, window, causal != 0 ? 1 : 0, softcap, sm_scale};
+              st[12], st[13], st[14], st[15], st[16], st[17], st[18], st[19], st[20], st[21],
+              st[22], st[23], q_offset, window, causal != 0 ? 1 : 0, softcap, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd_t<L, float>(p, s);
   return launch_bwd_t<L, __nv_bfloat16>(p, s);
@@ -2121,40 +2219,45 @@ extern "C" int flash_attention_combine_launch(const void* part, void* o, int64_t
 }
 
 #define FA_BWD_ARGS                                                                              \
-  const void *q, const void *k, const void *v, const void *dout, const void *lse,               \
-      const void *delta, void *dq, void *dk, void *dv, int64_t B, int64_t Hq, int64_t Hkv,      \
-      int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, \
-      int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t do_sb,       \
-      int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, int64_t dk_sb,  \
-      int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, int64_t causal, \
-      int64_t window, int64_t q_offset, float softcap, float sm_scale, int64_t dtype, void *stream
+  const void *q, const void *k, const void *v, const void *dout, const void *o,                 \
+      const void *lse, void *delta, void *dq, void *dk, void *dv, int64_t B, int64_t Hq,        \
+      int64_t Hkv, int64_t Sq, int64_t Sk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_ss, \
+      int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,       \
+      int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,    \
+      int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, \
+      int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, int64_t causal, int64_t window,              \
+      int64_t q_offset, float softcap, float sm_scale, int64_t dtype, void *stream
 #define FA_BWD_STRIDES                                                                         \
   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss,                  \
-   dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss}
+   o_sb, o_sh, o_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss}
 
-// The backward's two big launches. Both take the same arguments: q, k, v
-// and dout as the forward took q, k, v (dout like q), the forward's lse and
-// the delta of flash_attention_bwd_delta_launch (float32 (B, Hq, Sq)
-// contiguous), and dq (like q), dk and dv (like k); strides in elements, D
-// contiguous, rows 16-byte aligned. dkdv writes dk and dv, dq writes dq:
-// bf16 (dtype 1) on the tensor cores, float32 (dtype 0) with float32 FMAs;
-// neither falls back to the other. Sq == 0 or Sk == 0 launches nothing.
-// Returns a cudaError_t.
+// The backward's two big launches, dq first, then dkdv, on one stream. Both
+// take the same arguments: q, k, v and dout as the forward took q, k, v
+// (dout like q), the forward's output o (like q) and lse, delta (float32
+// (B, Hq, Sq) contiguous), and dq (like q), dk and dv (like k); strides in
+// elements, D contiguous, rows 16-byte aligned. dq writes dq and, from o
+// and dout, delta = rowsum(dout * o), which dkdv reads; with o null dq
+// reads delta instead (as flash_attention_bwd_delta_launch writes it: the
+// route before the fusion, kept for comparison). dkdv writes dk and dv
+// and ignores o. bf16 (dtype 1) on the tensor cores, float32 (dtype 0)
+// with float32 FMAs; neither falls back to the other. Sq == 0 or Sk == 0
+// launches nothing. Returns a cudaError_t.
 extern "C" int flash_attention_bwd_dkdv_launch(FA_BWD_ARGS) {
-  const int64_t st[21] = FA_BWD_STRIDES;
-  return launch_bwd<LaunchDkdv>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, st,
-                                causal, window, q_offset, softcap, sm_scale, dtype, stream);
+  const int64_t st[24] = FA_BWD_STRIDES;
+  return launch_bwd<LaunchDkdv>(q, k, v, dout, o, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D,
+                                st, causal, window, q_offset, softcap, sm_scale, dtype, stream);
 }
 
 extern "C" int flash_attention_bwd_dq_launch(FA_BWD_ARGS) {
-  const int64_t st[21] = FA_BWD_STRIDES;
-  return launch_bwd<LaunchDq>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, st,
+  const int64_t st[24] = FA_BWD_STRIDES;
+  return launch_bwd<LaunchDq>(q, k, v, dout, o, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, st,
                               causal, window, q_offset, softcap, sm_scale, dtype, stream);
 }
 
 // delta (B, Hq, Sq) float32 contiguous = rowsum(dout * o) of the forward's
 // output o and its gradient dout (strides in elements, D contiguous; dtype 0
 // float32, 1 bfloat16). Returns a cudaError_t; Sq == 0 launches nothing.
+// Off the path since dq forms delta itself; kept to compare the two.
 extern "C" int flash_attention_bwd_delta_launch(const void* o, const void* dout, void* delta,
                                                 int64_t B, int64_t Hq, int64_t Sq, int64_t D,
                                                 int64_t o_sb, int64_t o_sh, int64_t o_ss,

@@ -90,16 +90,16 @@ SOURCES = {
         "flash_attention": ("flash_attention_launch",
                             [_P] * 6 + [_I64] * 6 + [_I64] * 12 + [_I64] * 4 + [_F32] * 2
                             + [_I64, _P]),
-        # o, dout, delta; B, Hq, Sq, D; 6 strides; dtype
+        # o, dout, delta; B, Hq, Sq, D; 6 strides; dtype (off the path)
         "flash_attention_bwd_delta": ("flash_attention_bwd_delta_launch",
                                       [_P] * 3 + [_I64] * 4 + [_I64] * 6 + [_I64, _P]),
-        # q, k, v, dout, lse, delta, dq, dk, dv; B, Hq, Hkv, Sq, Sk, D; 21
+        # q, k, v, dout, o, lse, delta, dq, dk, dv; B, Hq, Hkv, Sq, Sk, D; 24
         # strides; causal, window, q_offset; softcap, sm_scale; dtype
         "flash_attention_bwd_dkdv": ("flash_attention_bwd_dkdv_launch",
-                                     [_P] * 9 + [_I64] * 6 + [_I64] * 21 + [_I64] * 3
+                                     [_P] * 10 + [_I64] * 6 + [_I64] * 24 + [_I64] * 3
                                      + [_F32] * 2 + [_I64, _P]),
         "flash_attention_bwd_dq": ("flash_attention_bwd_dq_launch",
-                                   [_P] * 9 + [_I64] * 6 + [_I64] * 21 + [_I64] * 3
+                                   [_P] * 10 + [_I64] * 6 + [_I64] * 24 + [_I64] * 3
                                    + [_F32] * 2 + [_I64, _P]),
         # part, o; B, Hq, Hkv, Sq, D, n_splits; 3 strides of o; dtype
         "flash_attention_combine": ("flash_attention_combine_launch",

@@ -25,12 +25,16 @@ merges them. The split arithmetic, :func:`visible_range` and
 
 Training: ``flash_attention_cuda(..., lse=True)`` also returns each row's
 log-sum-exp (one split), and :func:`flash_attention_backward_cuda` is the
-backward, which the Pallas kernel lacks: three launches,
-``flash_attention_bwd_delta`` (rowsum(dO * O)), ``flash_attention_bwd_dkdv``
-and ``flash_attention_bwd_dq``; bfloat16 runs the last two on the tensor
-cores (dS rounded to bfloat16 for its two products, as p is for dV),
-float32 on float32 FMAs. Its twin is
-:func:`repro_torch.kernels.ref.flash_attention_backward_ref`.
+backward, which the Pallas kernel lacks: two launches,
+``flash_attention_bwd_dq`` (which also forms delta = rowsum(dO * O) and
+writes it) and then ``flash_attention_bwd_dkdv`` (which reads it);
+bfloat16 runs both on the tensor cores (dS rounded to bfloat16 for its two
+products, as p is for dV), float32 on float32 FMAs. Its twin is
+:func:`repro_torch.kernels.ref.flash_attention_backward_ref`; the dq
+launch's alone (dq and delta) is
+:func:`repro_torch.kernels.ref.flash_attention_bwd_dq_ref`. The standalone
+delta launch ``flash_attention_bwd_delta`` stays in the source, off the
+path.
 """
 from __future__ import annotations
 
@@ -185,8 +189,9 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   softcap: float | None = None, sm_scale: float | None = None,
                                   q_offset: int | None = None) -> tuple:
     """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at
-    ``dout``, from its ``out`` and ``lse`` (``lse=True``): three launches,
-    delta = rowsum(dout * out), then dk and dv, then dq, on the tensor cores
+    ``dout``, from its ``out`` and ``lse`` (``lse=True``): two launches on
+    the current stream, dq with delta = rowsum(dout * out) (written to a
+    float32 buffer), then dk and dv from that delta, on the tensor cores
     for bfloat16 and on float32 FMAs for float32 (a refused launch raises;
     neither route stands in for the other); see
     :func:`repro_torch.kernels.ref.flash_attention_backward_ref` for the
@@ -215,16 +220,13 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     off = sk - sq if q_offset is None else q_offset
     dt = _DTYPES[q.dtype]
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    _build.launch("flash_attention", "flash_attention_bwd_delta", dev, out.data_ptr(),
-                  dout.data_ptr(), delta.data_ptr(), b, hq, sq, d, *out.stride()[:3],
-                  *dout.stride()[:3], dt)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
-            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
-            int(causal), window or 0, off, softcap or 0.0, sm_scale, dt)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *out.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+            *dv.stride()[:3], int(causal), window or 0, off, softcap or 0.0, sm_scale, dt)
+    _build.launch("flash_attention", "flash_attention_bwd_dq", dev, *args)  # writes delta
     _build.launch("flash_attention", "flash_attention_bwd_dkdv", dev, *args)
-    _build.launch("flash_attention", "flash_attention_bwd_dq", dev, *args)
     return dq, dk, dv
 
 

@@ -140,9 +140,9 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with its gradient. The forward keeps its
     output and the rows' log-sum-exp (``flash_attention_cuda(..., lse=True)``,
-    one launch); the backward is :func:`flash_attention_backward_cuda` (three
-    launches: ``flash_attention_bwd_delta``, ``_dkdv``, ``_dq``). On the CPU
-    both are the twins, :func:`ref.flash_attention_lse_ref` and
+    one launch); the backward is :func:`flash_attention_backward_cuda` (two
+    launches: ``flash_attention_bwd_dq``, which forms delta, then
+    ``_dkdv``). On the CPU both are the twins, :func:`ref.flash_attention_lse_ref` and
     :func:`ref.flash_attention_backward_ref`. Nothing falls back: a CUDA
     tensor launches or raises."""
 

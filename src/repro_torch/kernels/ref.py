@@ -891,18 +891,49 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     dk, dv (B, Hkv, Sk, D))."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    if sq == 0 or sk == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    p, do, ds, _, sm_scale = _backward_ds(q, k, v, out, lse, dout, causal=causal, window=window,
+                                          softcap=softcap, sm_scale=sm_scale,
+                                          q_offset=q_offset, round_ds=round_ds)
+    pr = p.to(v.dtype).float() if round_p else p
+    dv = torch.matmul(pr.transpose(-1, -2), do).sum(dim=2)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float().reshape(b, hkv, hq // hkv, sq, d)).sum(dim=2)
+    return _dq_of(ds, k, q, sm_scale), (dk * sm_scale).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                               causal: bool = True, window: int | None = None,
+                               softcap: float | None = None, sm_scale: float | None = None,
+                               q_offset: int | None = None) -> tuple:
+    """What the launch ``flash_attention_bwd_dq`` computes when it forms delta
+    itself: (dq, delta), dq as :func:`flash_attention_backward_ref` gives it
+    (the same arithmetic) and delta = rowsum(dout * out), float32 (B, Hq,
+    Sq), out as stored (0 for a row that sees no key)."""
+    b, hq, sq, d = q.shape
+    if sq == 0 or k.shape[2] == 0:
+        return torch.zeros_like(q), (dout.float() * out.float()).sum(dim=-1)
+    _, _, ds, delta, sm_scale = _backward_ds(q, k, v, out, lse, dout, causal=causal,
+                                             window=window, softcap=softcap, sm_scale=sm_scale,
+                                             q_offset=q_offset, round_ds=True)
+    return _dq_of(ds, k, q, sm_scale), delta.reshape(b, hq, sq)
+
+
+def _backward_ds(q, k, v, out, lse, dout, *, causal, window, softcap, sm_scale, q_offset,
+                 round_ds) -> tuple:
+    """(p, dout, ds, delta, sm_scale) of :func:`flash_attention_backward_ref`,
+    float32, by (B, Hkv, group, Sq, ...)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     sm_scale = float(1.0 / (d ** 0.5)) if sm_scale is None else sm_scale
     q_offset = sk - sq if q_offset is None else q_offset
-    if sq == 0 or sk == 0:
-        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     s, mask = _attention_scores(q, k, causal=causal, window=window, softcap=softcap,
                                 sm_scale=sm_scale, q_offset=q_offset)
     lse5 = lse.float().reshape(b, hkv, group, sq, 1)
     p = torch.where(mask, torch.exp(torch.where(mask, s, 0.0) - lse5), 0.0)
     do = dout.float().reshape(b, hkv, group, sq, d)
-    pr = p.to(v.dtype).float() if round_p else p
-    dv = torch.matmul(pr.transpose(-1, -2), do).sum(dim=2)
     dp = torch.matmul(do, v.float().unsqueeze(2).transpose(-1, -2))
     delta = (do * out.float().reshape(b, hkv, group, sq, d)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
@@ -910,7 +941,10 @@ def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
         ds = ds * (1.0 - (s / softcap).square())
     if round_ds:
         ds = ds.to(q.dtype).float()
-    dk = torch.matmul(ds.transpose(-1, -2), q.float().reshape(b, hkv, group, sq, d)).sum(dim=2)
+    return p, do, ds, delta, sm_scale
+
+
+def _dq_of(ds: torch.Tensor, k: torch.Tensor, q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """dq = sm_scale * ds k, rounded once to q's dtype, (B, Hq, Sq, D)."""
     dq = torch.matmul(ds, k.float().unsqueeze(2))
-    return ((dq * sm_scale).reshape(b, hq, sq, d).to(q.dtype), (dk * sm_scale).to(k.dtype),
-            dv.to(v.dtype))
+    return (dq * sm_scale).reshape(q.shape).to(q.dtype)

@@ -102,19 +102,22 @@ def _inputs(gen, b, hq, hkv, sq, sk, d, kw, q_scale=1.0):
 
     q, k, v, do = draw(sq, hq, q_scale), draw(sk, hkv), draw(sk, hkv), draw(sq, hq)
     out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
-    delta = (do.float() * out.float()).sum(-1).contiguous()
+    delta = torch.empty(lse.shape, dtype=torch.float32, device="cuda")  # the dq launch fills it
     grads = [torch.empty_like(t) for t in (q, k, v)]
     return q, k, v, do, out, lse, delta, grads
 
 
-def _launch(lib, which: str, q, k, v, do, lse, delta, grads, kw) -> None:
+def _launch(lib, which: str, q, k, v, do, out, lse, delta, grads, kw) -> None:
+    """One launch of ``which`` ("dq", which also writes delta from out and
+    do, or "dkdv", which reads it) of a variant's library."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = grads
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk,
-            d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], 1, kw.get("window") or 0,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
+            hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            *out.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], 1,
+            kw.get("window") or 0,
             kw.get("q_offset", sk - sq), kw.get("softcap") or 0.0, d ** -0.5, 1,
             torch.cuda.current_stream().cuda_stream)
     fn = getattr(lib, f"flash_attention_bwd_{which}_launch")
@@ -158,8 +161,8 @@ def main(argv=None) -> dict:
         want = ref.flash_attention_backward_ref(q, k, v, out, lse, do, **kw)
         scale = max(float(w.float().abs().max()) for w in want)
         for n, bt in built.items():
-            for which in ("dkdv", "dq"):
-                _launch(bt["lib"], which, q, k, v, do, lse, delta, grads, kw)
+            for which in ("dq", "dkdv"):
+                _launch(bt["lib"], which, q, k, v, do, out, lse, delta, grads, kw)
             torch.cuda.synchronize()
             err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(grads, want))
             res[n]["errs"].append(err / scale)
@@ -172,9 +175,9 @@ def main(argv=None) -> dict:
         bound = {"dkdv": 8 * d * pairs / BF16_FLOPS * 1e3, "dq": 6 * d * pairs / BF16_FLOPS * 1e3}
         for order in (names, names[::-1]):
             for n in order:
-                for which in ("dkdv", "dq"):
-                    ms = _ms(lambda: _launch(built[n]["lib"], which, q, k, v, do, lse, delta,
-                                             grads, kw), args.repeats)
+                for which in ("dq", "dkdv"):
+                    ms = _ms(lambda: _launch(built[n]["lib"], which, q, k, v, do, out, lse,
+                                             delta, grads, kw), args.repeats)
                     res[n]["ms"].setdefault(what, {}).setdefault(which, []).append(ms)
                     print(f"{what} {n} {which} ms={ms:.4f} share of bound "
                           f"{bound[which] / ms:.1%}", flush=True)

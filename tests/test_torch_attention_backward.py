@@ -4,12 +4,15 @@ on the CPU.
 The Pallas kernel has no backward: the reference differentiates its plain
 attention (``repro.kernels.ref.attention_ref``) with JAX. The port's
 backward twin, ``ref.flash_attention_backward_ref`` (what the CUDA kernels
-``flash_attention_bwd_dkdv`` / ``_dq`` / ``_delta`` compute), is held
-against ``jax.vjp`` of ``attention_ref`` and against torch autograd of the
-forward twin ``ref.flash_attention_ref``, over GQA groups, windows,
-soft-caps, query offsets and rows that see no key; so is the CPU autograd
-path, ``ops.flash_attention`` on tensors that require grad
-(``ops.FlashAttention``). Inputs are seeded numpy draws.
+``flash_attention_bwd_dq`` and ``_dkdv`` compute), is held against
+``jax.vjp`` of ``attention_ref`` and against torch autograd of the forward
+twin ``ref.flash_attention_ref``, over GQA groups, windows, soft-caps,
+query offsets and rows that see no key; so is the CPU autograd path,
+``ops.flash_attention`` on tensors that require grad
+(``ops.FlashAttention``). The dq launch's own twin,
+``ref.flash_attention_bwd_dq_ref`` (dq and the delta it forms), is held
+against ``jax.vjp`` and rowsum(dO * O) of the JAX forward, and its dq
+against the whole twin's bit for bit. Inputs are seeded numpy draws.
 
 Tolerances: float32 at rtol 1e-5 with atol 1e-5 * max(max|want|, 1) per
 tensor (the same products summed in another order; inputs are of unit
@@ -89,6 +92,35 @@ def test_backward_twin_equals_jax_vjp(case):
     q, k, v, do = _inputs(*shape)
     for got, want in zip(_twin(q, k, v, do, kw), _jax_grads(q, k, v, do, kw)):
         _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_dq_twin_equals_jax(case):
+    """dq against jax.vjp of attention_ref; delta against rowsum(dO * O)
+    with O from the JAX forward."""
+    *shape, kw = CASES[case]
+    q, k, v, do = _inputs(*shape, seed=8)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    out, lse = ref.flash_attention_lse_ref(*t[:3], **kw)
+    dq, delta = ref.flash_attention_bwd_dq_ref(*t[:3], out, lse, t[3], **kw)
+    _close(dq.numpy(), _jax_grads(q, k, v, do, kw)[0])
+    jkw = {key: kw[key] for key in ("causal", "window", "softcap") if key in kw}
+    o_jax = np.asarray(jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw))
+    assert delta.dtype == torch.float32 and delta.shape == q.shape[:3]
+    _close(delta.numpy(), (do * o_jax).sum(-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(OFFSET_CASES))
+def test_fused_dq_twin_dq_is_the_whole_twins_bit_for_bit(case, dtype):
+    *shape, kw = {**CASES, **OFFSET_CASES}[case]
+    t = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in _inputs(*shape, seed=9)]
+    out, lse = ref.flash_attention_lse_ref(*t[:3], **kw)
+    dq, delta = ref.flash_attention_bwd_dq_ref(*t[:3], out, lse, t[3], **kw)
+    assert torch.equal(dq, ref.flash_attention_backward_ref(*t[:3], out, lse, t[3], **kw)[0])
+    want = (t[3].double() * out.double()).sum(-1)
+    np.testing.assert_allclose(delta.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * max(float(want.abs().max()), 1.0))
 
 
 def test_an_earlier_offset_equals_jax_on_the_keys_it_can_see():
