@@ -197,7 +197,7 @@ nothing of the JAX package. Phases:
    warm patterns all hit with no launch), the answers against the oracle
    of the logical set, ``rebuild(shard=k)`` timed against a full build of
    the mutated set; 12,288 rows with subjects past every id inserted in
-   batches of 1,024 with the trigger at 1.5: on node_range the trigger
+   batches of 4,096 (1,024 until phase 9) with the trigger at 1.5: on node_range the trigger
    fires, each write drains at most 4,096 migration rows (ms a migration
    batch), the eight patterns over 512 rows (half of them in motion)
    equal the oracle after every batch, 64 rows deleted in motion stay
@@ -209,10 +209,10 @@ nothing of the JAX package. Phases:
    oracle without its rows, the degraded patterns counted, writes and
    rebalance refused) and reingested; the N-Triples file into an empty
    P = 4 tier (``n_nodes`` 1) through ``ingest_file`` (``IngestStats``
-   equal to a plain count), 64 S-bound and 64 O-bound ``query_strings``
+   equal to a plain count), 32 S-bound and 32 O-bound ``query_strings``
    against the string oracle, an unknown term launching nothing; then 4
-   reader threads, a churn writer and a rebalancer for 2 s on each P = 4
-   tier (10 s until phase 3g came, 5 s until 7c), every answer checked as
+   reader threads, a churn writer and a rebalancer for 1 s on each P = 4
+   tier (10 s until phase 3g came, 5 s until 7c, 2 s until 9), every answer checked as
    the reference's stress machine checks
    it (queries/s, p50/p99 ms), the launch counts equal to what the
    threads counted themselves;
@@ -248,7 +248,7 @@ nothing of the JAX package. Phases:
    bytes, two groups tailing 8 logged writes (sync s; each group and the
    primary against the oracle), the lag gate (``max_lag=0``: a pending
    record's read served by the primary), a reseed after ``snapshot()``,
-   and 2 s of 4 readers (S-bound patterns, each answer checked) beside a
+   and 1 s (2 s until phase 9) of 4 readers (S-bound patterns, each answer checked) beside a
    durable writer with 0 and 2 groups (queries/s, p50/p99 ms,
    ``replica_flushes``). Controls that must fail: a copy of the root with
    the WAL's last intact frame cut (it recovers without that batch, so
@@ -473,6 +473,30 @@ nothing of the JAX package. Phases:
    transposed, against its float64 twin and split twin, beside its twin and
    ``torch.sparse.mm``; NequIP at ``molecule`` also keeps its energies under
    rotations plus translations, and a shear must move them.
+9. the one-card dry-run (``repro_torch.launch.dryrun``) at full size,
+   with the launch counts set to 0 before each part and read after: (a)
+   ``cell_specs`` of all 40 registry cells on both production meshes, (16,
+   16) and (2, 16, 16), with ``memory_allocated`` unmoved, printing each
+   mesh's largest per-device argument bytes and its cell; (b) ``run_cell``
+   on the seven cells that ``build_cell`` refuses (the four LM ``train_4k``
+   cells that do not fit and the three ``ogb_products`` ones): each a
+   record naming more bytes than one card, with no device byte allocated;
+   (c) ``partitioned_segment_sum`` on the card over ``partition_edges``'
+   output (8 shards; 46,108 nodes, 168,960 edges, one row of 2,000, D =
+   70), exactly one ``csr_spmm`` launch and the combine its plan calls for,
+   against its plain twin and a float64 host sum within 1e-5 x max|want|,
+   with a control (one receiver moved) that must fail; (d) ``run_cell`` on
+   the two registry cells no other phase builds on the card, each built,
+   run for two timed steps and one under ``op_cost``, and freed:
+   ``gcn-cora`` at ``full_graph_sm`` (exactly 4 ``csr_spmm`` a step and
+   the combines its CSRs' plans call for, in every step and in
+   ``unseen_launches``) and ``qwen2-1.5b`` at ``long_500k`` (batch 1,
+   524,288 positions: 15.03 GB of bfloat16 cache and 3.55 GB of weights;
+   exactly 28 ``flash_attention`` launches a step and a merge for each
+   split call; the split plan, its blocks a SM, finite logits, and one
+   layer's attention against ``flash_attention_ref`` at 524,288 keys within
+   phase 7's bfloat16 bound, with a control, the twin over the first half
+   of the keys, that must fail).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -2871,13 +2895,15 @@ TIER_ROWS = 4096          # rows of the mixed traffic; patterns of a scatter bat
 TIER_CACHE_ENTRIES = 4 * TIER_ROWS  # a tier cache's general entries: the traffic's all fit
 SCATTER_SYNC_WIDTHS = (256, 4096)   # patterns of the flushes whose host syncs are counted
 TIER_MUTATIONS = 1536     # deletes and inserts on the predicate_hash tier
+TIER_PICKS = (512, 512, 1024)  # rows of the tier checks after the writes, and of 3g's: deleted,
+                               # inserted, untouched (1,024, 1,024, 2,048 until phase 9)
 GROWTH_ROWS = 12288       # inserts past n_nodes that grow the graph ...
-GROWTH_BATCH = 1024       # ... in batches of this many
+GROWTH_BATCH = 4096       # ... in batches of this many (1,024 until phase 9)
 GROWTH_SKEW = 1.5         # the growing tiers' auto-rebalance trigger
 MOTION_ROWS = 512         # query rows between growth batches
 MOTION_VICTIMS = 64       # rows deleted while in motion
-TIER_STRINGS = 64         # string queries a side on the ingested tier (256 until phase 7c)
-STRESS_SECONDS = 2.0      # the concurrency run, a strategy (10 s until 3g, 5 s until 7c)
+TIER_STRINGS = 32         # string queries a side on the ingested tier (64 until 9, 256 until 7c)
+STRESS_SECONDS = 1.0      # the concurrency run, a strategy (10 s until 3g, 5 until 7c, 2 until 9)
 STRESS_READERS = 4
 STRESS_CHURN = 2048       # the churn pool's rows
 STRESS_PAUSE_S = 0.5      # the rebalancer's pause between calls (a re-cut decompresses
@@ -3219,8 +3245,9 @@ def _tier_writes(torch, np, main: dict, svc, rng) -> tuple:
         _fail(f"tier writes: the untouched shard's warm patterns did not all hit "
               f"({cache.stats.hits - hits} of {n_warm}, launches {_launches(ops, before)})")
     logical_t = _oracle_triples(torch, logical)
-    picks = np.concatenate([dels[:1024], ins[:1024], ds.triples[rng.integers(
-        0, ds.n_triples, 2048)]])
+    p_del, p_ins, p_kept = TIER_PICKS
+    picks = np.concatenate([dels[:p_del], ins[:p_ins], ds.triples[rng.integers(
+        0, ds.n_triples, p_kept)]])
     main["tier_batches"] = {"dels": dels, "ins": ins, "picks": picks}  # phase 3g's too
     cols = _eight_cols(np, picks)
     _tier_check(torch, _submit_view(svc, cols), cols, logical_t, "tier after writes")
@@ -3273,7 +3300,7 @@ def _motion_cols(np, rng, svc, logical: set):
 
 
 def _tier_growth(torch, np, main: dict, svc, logical: set, rng) -> tuple:
-    """(e): 12,288 rows with subjects past every id, in batches of 1,024,
+    """(e): 12,288 rows with subjects past every id, in batches of 4,096,
     with the trigger at 1.5. On node_range they clip onto the last shard
     until the trigger fires, then each write drains a bounded migration
     chunk; the eight patterns over 512 rows (half in motion) against the
@@ -3511,7 +3538,7 @@ def _tier_strings(torch, np, main: dict, rng, scratch: str) -> dict:
 
 
 def _tier_stress(torch, np, svc, seed: int) -> dict:
-    """(h): 4 readers, a churn writer and a rebalancer for 5 s on a P = 4
+    """(h): 4 readers, a churn writer and a rebalancer for STRESS_SECONDS on a P = 4
     tier, checked as the reference's stress machine checks them: the stable
     rows are the tier's rows, churn subjects lie past every id; afterwards
     the launch counts equal the launches the threads counted themselves."""
@@ -3670,26 +3697,44 @@ def drive_sharded_path(torch, np, main: dict, seed: int) -> None:
     names = (*K2_NAMES, *DIGRAM_NAMES)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
+    part_s, mark = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name] = round(now - mark[0], 3)
+        mark[0] = now
+
     built = _tier_builds(torch, np, main, rng)
     tiers = built["tiers"]
+    lap("builds")
     scatter = _tier_scatter(torch, np, main, tiers)
+    lap("scatter")
     bgps = _tier_bgps(torch, main, tiers)
+    lap("bgp")
     logical_ph, writes = _tier_writes(torch, np, main, tiers["predicate_hash"], rng)
+    lap("writes")
     logical_nr = {tuple(r) for r in main["dataset"].triples.tolist()}
     logical_nr, growth_nr = _tier_growth(torch, np, main, tiers["node_range"], logical_nr, rng)
+    lap("growth node_range")
     logical_ph, growth_ph = _tier_growth(torch, np, main, tiers["predicate_hash"], logical_ph,
                                          rng)
+    lap("growth predicate_hash")
     _tier_degraded(torch, np, tiers["node_range"], logical_nr, rng)
+    lap("degraded")
     scratch = tempfile.mkdtemp(prefix="itr_tier_")
     try:
         strings = _tier_strings(torch, np, main, rng, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    stress = {s: _tier_stress(torch, np, svc, seed + 7) for s, svc in tiers.items()}
+    lap("strings")
+    stress = {}
+    for s, svc in tiers.items():
+        stress[s] = _tier_stress(torch, np, svc, seed + 7)
+        lap(f"stress {s}")
     for svc in tiers.values():
         svc.close()
     counts = {k: ops.launch_counts[k] for k in names}
-    print(f"sharded part: {time.perf_counter() - t0:.1f} s; launches "
+    print(f"sharded part: {time.perf_counter() - t0:.1f} s (by reading {part_s}); launches "
           + " ".join(f"{k}={v}" for k, v in counts.items()))
     for k in ("k2_lines_count", "k2_lines_write", "digram_pair_accum", "digram_select"):
         if counts[k] == 0:
@@ -3699,7 +3744,7 @@ def drive_sharded_path(torch, np, main: dict, seed: int) -> None:
     main["sharded_part"] = {"launches": counts, "builds": built["results"], "scatter": scatter,
                             "bgp": bgps, "writes": writes,
                             "growth": {"node_range": growth_nr, "predicate_hash": growth_ph},
-                            "strings": strings, "stress": stress}
+                            "strings": strings, "stress": stress, "part_s": part_s}
 
 
 DURABLE_SHARDS = 4         # the durable tiers' P, as phase 3f's largest
@@ -3713,7 +3758,7 @@ KILL_BATCHES, KILL_ROWS = 16, 512  # the killed writer's batches (insert, then d
                                    # 32 until phase 7c)
 KILL_AFTER = (4, 12)       # the parent kills once an acknowledgement in this range arrives
 REPLICA_WRITES, REPLICA_ROWS = 8, 256  # logged writes the replica groups tail (16 until 7c)
-REPLICA_STRESS_S = 2.0     # the replicated read run, a setting (10 s until phase 7c)
+REPLICA_STRESS_S = 1.0     # the replicated read run, a setting (10 s until 7c, 2 s until 9)
 REPLICA_READERS = 4
 CRASH_POINTS = ("wal.append", "wal.torn", "wal.post_append", "snapshot.write_arrays",
                 "snapshot.pre_commit", "snapshot.post_commit", "migrate.pre_apply",
@@ -10941,6 +10986,281 @@ def _merge_gnn_cells(kernels: list, part: dict) -> None:
                                              "counts")} for c in part["cells"]]}
 
 
+# Phase 9: the one-card dry-run (repro_torch.launch.dryrun) and the twins it
+# rests on: the production meshes' specs of every cell (host arithmetic: no
+# device byte may move), the seven refusals, the receiver-partitioned sum on
+# the card, and run_cell at full size on the two registry cells that no other
+# phase builds on the card. Tolerances: the partitioned sum within
+# SPMM_F32_SCALED x max|want| of its plain twin and of a float64 host sum, as
+# phase 8 holds csr_spmm; long_500k's attention within ATTN_MAIN_TOL's
+# bfloat16 bound of flash_attention_ref, as phase 7 holds decode_32k's.
+DRYRUN_REFUSALS = (("olmoe-1b-7b", "train_4k"), ("gemma2-9b", "train_4k"),
+                   ("yi-34b", "train_4k"), ("phi3.5-moe-42b-a6.6b", "train_4k"),
+                   ("gatedgcn", "ogb_products"), ("meshgraphnet", "ogb_products"),
+                   ("nequip", "ogb_products"))
+DRYRUN_MESHES = (False, True)  # (16, 16) and (2, 16, 16)
+PSS_NODES, PSS_EDGES, PSS_WIDTH = 46_108, 168_960, 70  # GatedGCN's minibatch_lg batch, d_hidden
+PSS_SHARDS = 8
+PSS_HEAVY = 2000
+
+
+def _dryrun_specs(torch) -> dict:
+    """(a) cell_specs of all 40 cells on both production meshes, with the
+    device's allocation unmoved; each mesh's largest per-device arguments."""
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import cell_specs
+
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    largest = {}
+    for mp in DRYRUN_MESHES:
+        mesh = make_production_mesh(multi_pod=mp)
+        for arch, shape in all_cells():
+            specs, nbytes = cell_specs(arch, shape, mesh)
+            if not specs or nbytes <= 0:
+                _fail(f"cell_specs({arch}, {shape}) on {mesh.shape} gave no specs or bytes")
+            key = "x".join(map(str, mesh.axis_sizes))
+            if nbytes > largest.get(key, (0,))[0]:
+                largest[key] = (nbytes, f"{arch} {shape}", len(specs))
+    moved = torch.cuda.max_memory_allocated() - before
+    print(f"9 (a) cell_specs of {len(all_cells())} cells x {len(DRYRUN_MESHES)} meshes: largest "
+          f"per-device argument bytes " + "; ".join(f"mesh {k}: {b} ({c}, {n} leaves)"
+                                                    for k, (b, c, n) in largest.items())
+          + f"; device bytes allocated meanwhile {moved}")
+    if moved or torch.cuda.memory_allocated() != before:
+        _fail(f"cell_specs allocated {moved} device bytes")
+    return {k: {"bytes": b, "cell": c} for k, (b, c, _) in largest.items()}
+
+
+def _dryrun_refusals(torch, seed: int) -> dict:
+    """(b) run_cell on the seven cells build_cell refuses: records with the
+    refusal's bytes, over one card's, and no device byte allocated."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import CARD_BYTES
+
+    out = {}
+    for arch, shape in DRYRUN_REFUSALS:
+        recs = run_cell(arch, shape, DRYRUN_MESHES, device=DEV, seed=seed)
+        r = recs[0]
+        mem = r["memory"]
+        if r["ok"] or "refused" not in r or not r["refusal_bytes"] > CARD_BYTES \
+                or mem["peak_bytes"] or mem["allocated_bytes_left"]:
+            _fail(f"dry-run {arch} {shape}: not refused before allocating: {r}")
+        out[f"{arch} {shape}"] = {"refusal_bytes": r["refusal_bytes"],
+                                  "argument_bytes": [x["memory"]["argument_bytes"]
+                                                     for x in recs]}
+    print("9 (b) refusals (bytes needed; per-device argument bytes on 16x16, 2x16x16), none "
+          "allocating: " + "; ".join(f"{k} {v['refusal_bytes']} {v['argument_bytes']}"
+                                    for k, v in out.items()))
+    return out
+
+
+def _dryrun_segment_sum(torch, np, seed: int) -> dict:
+    """(c) partitioned_segment_sum on the card over partition_edges' output
+    (8 shards of a graph of GatedGCN's batch size) against its plain twin
+    and a float64 host sum; exact launches; a control with one receiver
+    moved must fail."""
+    from repro_torch.distributed import (partition_edges, partitioned_segment_sum,
+                                         validate_partitioning)
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import EdgeCSR
+
+    rng = np.random.default_rng(seed + 36)
+    n, e, d = PSS_NODES, PSS_EDGES, PSS_WIDTH
+    s = rng.integers(0, n, e)
+    r = rng.integers(0, n, e)
+    r[:PSS_HEAVY] = n // 3  # one row of PSS_HEAVY edges, which the plan cuts into chunks
+    ps, pr, mask = partition_edges(s, r, n, PSS_SHARDS)
+    if not validate_partitioning(pr, n, PSS_SHARDS) or int(mask.sum()) != e:
+        _fail("partition_edges lost an edge or broke the receiver blocks")
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    msgs = np.where(mask[:, None], x[np.maximum(ps, 0)], np.float32(0))
+    want64 = np.zeros((n, d))
+    np.add.at(want64, r, x[s].astype(np.float64))
+    m_t, r_t = torch.from_numpy(msgs).to(DEV), torch.from_numpy(pr).to(DEV)
+    plan = EdgeCSR.from_receivers(r_t, n).fwd.plan
+    want_counts = {"csr_spmm": 1, "csr_spmm_combine": int(plan.n_long > 0)}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = partitioned_segment_sum(m_t, r_t, n)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts.items() if v}
+    twin = partitioned_segment_sum(m_t.cpu(), r_t.cpu(), n)
+    atol = SPMM_F32_SCALED * float(twin.abs().max())
+    err_twin = float((got.cpu() - twin).abs().max())
+    err64 = float(np.abs(got.cpu().double().numpy() - want64).max())
+    moved = r_t.clone()
+    j = int(np.flatnonzero(mask)[0])
+    moved[j] = (int(pr[j]) + 1) % n
+    ctrl = partitioned_segment_sum(m_t, moved, n).cpu().double().numpy()
+    err_ctrl = float(np.abs(ctrl - want64).max())
+    atol64 = SPMM_F32_SCALED * float(np.abs(want64).max())
+    print(f"9 (c) partitioned_segment_sum on the card: {n} nodes, {e} edges padded to {len(pr)} "
+          f"over {PSS_SHARDS} shards, D={d}, {plan.n_long} rows cut into chunks; launches "
+          f"{counts} (want {want_counts}); max_abs_err vs twin {err_twin} (atol {atol}), vs "
+          f"float64 {err64} (atol {atol64}); control (receiver of edge {j} moved) {err_ctrl}")
+    if counts != {k: v for k, v in want_counts.items() if v}:
+        _fail(f"partitioned_segment_sum launched {counts}, not {want_counts}")
+    if got.shape != (n, d) or err_twin > atol or err64 > atol64:
+        _fail("partitioned_segment_sum differs from its twin or the float64 sum")
+    if err_ctrl <= atol64:
+        _fail("the moved-receiver control passed")
+    return {"counts": counts, "err_twin": err_twin, "err64": err64, "err_control": err_ctrl,
+            "n_long": plan.n_long}
+
+
+def _long_500k_check(torch):
+    """run_cell's check of long_500k: the counts of its three steps, then
+    (launches made to compare or profile, not counted) the split plan, the
+    logits, one layer's attention against flash_attention_ref, with a
+    control (the twin over the first half of the keys) that must fail, and
+    one profiled step."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (SPLIT_BLOCKS_PER_SM, _sm_count,
+                                                     flash_attention_cuda, planned_splits)
+
+    def check(cell, out):
+        counts = dict(ops.launch_counts)
+        logits = out[0]
+        finite = logits.shape == (cell.args[1].shape[0], cell.model.cfg.vocab) and bool(
+            torch.isfinite(logits).all())
+        args, kw = _capture_attention(cell.run)
+        q, k, v = args
+        plan = planned_splits(q, k, **kw)
+        n_sm = _sm_count(q.device)
+        blocks = plan * q.shape[0] * k.shape[1]  # one row tile: 6 rows of a (batch, kv head)
+        twin_kw = {a: x for a, x in kw.items() if a != "n_splits"}
+        want = ref.flash_attention_ref(q, k, v, **twin_kw).float()
+        got = flash_attention_cuda(q, k, v, **kw).float()
+        half = k.shape[2] // 2
+        ctrl = ref.flash_attention_ref(q, k[:, :, :half], v[:, :, :half],
+                                       **{**twin_kw, "q_offset": half - 1}).float()
+        rtol, scaled = ATTN_MAIN_TOL["bfloat16"]
+        wall, dev_s, avgs = _profile(torch, cell.run)
+        res = {"counts": counts, "finite": finite, "n_splits": plan, "blocks": blocks,
+               "profiled": {"wall_s": wall, "device_s": dev_s, "busy": dev_s / wall,
+                            "top": _top_kernels(avgs)},
+               "n_layers": cell.model.cfg.n_layers,
+               "n_sm": n_sm, "blocks_per_sm": blocks / n_sm, "keys": k.shape[2],
+               "err": _logit_err(got, want), "err_control": _logit_err(ctrl, want),
+               "atol": scaled * float(want.abs().max()),
+               "same": _close_scaled(torch, got, want, "bfloat16"),
+               "control_passes": _close_scaled(torch, ctrl, want, "bfloat16"),
+               "aim_blocks_per_sm": SPLIT_BLOCKS_PER_SM, "rtol": rtol}
+        del want, got, ctrl, args, q, k, v
+        return res
+
+    return check
+
+
+def _cora_check(torch):
+    """run_cell's check of Cora's full_graph_sm: the counts of its three
+    steps, the combines its CSRs' plans call for, and one profiled step."""
+    from repro_torch.kernels import ops
+
+    def check(cell, out):
+        g = cell.args[2]["graph"]
+        counts = dict(ops.launch_counts)
+        wall, dev_s, avgs = _profile(torch, cell.run)
+        return {"counts": counts, "finite": bool(torch.isfinite(out[0])),
+                "combines_a_step": 2 * int(g.fwd.plan.n_long > 0) + 2 * int(g.bwd.plan.n_long > 0),
+                "profiled": {"wall_s": wall, "device_s": dev_s, "busy": dev_s / wall,
+                             "top": _top_kernels(avgs)}}
+
+    return check
+
+
+def _dryrun_cell(torch, arch: str, shape: str, seed: int, check, card: str) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import run_cell
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    recs = run_cell(arch, shape, DRYRUN_MESHES, device=DEV, seed=seed, check=check)
+    r = recs[0]
+    if not r["ok"] or not r["finite"]:
+        _fail(f"dry-run {arch} {shape} did not run, or its outputs are not finite: "
+              f"{ {k: v for k, v in r.items() if k != 'check'} }")
+    t = r["roofline"]
+    print(f"9 (d) run_cell {arch} {shape} on {card}: build_s={r['build_s']:.6f} step_s="
+          f"{r['step_s']} (first, second) peak_bytes={r['memory']['peak_bytes']} "
+          f"resident_bytes={r['memory']['resident_bytes']} argument_bytes (16x16, 2x16x16) "
+          f"{[x['memory']['argument_bytes'] for x in recs]}; model_flops={r['model_flops_global']} "
+          f"roofline compute_s={t['compute_s']} memory_s={t['memory_s']} (floor) dominant="
+          f"{t['dominant']} useful_flops_rate={r['useful_flops_rate']}; second step's launches "
+          f"{r['launches']}; op_cost counted_flops={r['counted_flops']} bytes="
+          f"{r['cost']['bytes']} unseen_launches={r['unseen_launches']}")
+    p = r["check"]["profiled"]
+    print(f"9 (d) {arch} {shape} one profiled step: wall_s={p['wall_s']:.6f} device_s="
+          f"{p['device_s']:.6f} busy={p['busy']:.4f}; by device time: {p['top']}")
+    return r
+
+
+def drive_dryrun(torch, np, seed: int, card: str) -> dict:
+    """Phase 9: (a) specs, (b) refusals, (c) the partitioned sum, (d) run_cell
+    at full size on gcn-cora full_graph_sm and qwen2-1.5b long_500k. Returns
+    the launches of the main path ((c)'s call and (d)'s steps)."""
+    t_start = time.perf_counter()
+    left = torch.cuda.memory_allocated()
+    print(f"phase 9 on {card} starts with memory_allocated={left}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated when phase 9 starts")
+    specs = _dryrun_specs(torch)
+    refusals = _dryrun_refusals(torch, seed)
+    pss = _dryrun_segment_sum(torch, np, seed)
+    cora = _dryrun_cell(torch, "gcn-cora", "full_graph_sm", seed, _cora_check(torch), card)
+    c = cora["check"]
+    want = {"csr_spmm": 12}
+    if c["combines_a_step"]:
+        want["csr_spmm_combine"] = 3 * c["combines_a_step"]
+    got = {k: v for k, v in c["counts"].items() if v}
+    step_want = {k: v // 3 for k, v in want.items()}
+    if got != want or cora["launches"] != step_want or cora["unseen_launches"] != step_want:
+        _fail(f"gcn-cora full_graph_sm launched {got} in 3 steps (second {cora['launches']}, "
+              f"op_cost's {cora['unseen_launches']}), not {want}")
+    lm = _dryrun_cell(torch, "qwen2-1.5b", "long_500k", seed, _long_500k_check(torch), card)
+    c = lm["check"]
+    layers = c["n_layers"]
+    merges = layers if c["n_splits"] > 1 else 0
+    step_want = {"flash_attention": layers, **({"flash_attention_combine": merges} if merges else {})}
+    got = {k: v for k, v in c["counts"].items() if v}
+    print(f"9 (d) long_500k: plan_splits picks {c['n_splits']} splits of {c['keys']} keys: "
+          f"{c['blocks']} blocks over {c['n_sm']} SMs, {c['blocks_per_sm']:.4f} blocks a SM (the "
+          f"planner aims at {c['aim_blocks_per_sm']}); launches of 3 steps {got} (want 3 x "
+          f"{step_want}); logits finite {c['finite']}; layer 0 attention vs flash_attention_ref "
+          f"at {c['keys']} keys: max_abs_err={c['err']} (rtol {c['rtol']}, atol {c['atol']}) "
+          f"within={c['same']}; control (the twin over the first half of the keys) "
+          f"max_abs_err={c['err_control']} passes={c['control_passes']}; card {card}")
+    if got != {k: 3 * v for k, v in step_want.items()} or lm["launches"] != step_want:
+        _fail(f"long_500k launched {got} in 3 steps (second {lm['launches']}), not 3 x "
+              f"{step_want}")
+    if not c["finite"] or not c["same"] or c["control_passes"]:
+        _fail("long_500k: logits not finite, or its attention differs from the twin, or the "
+              "half-keys control passed")
+    left = torch.cuda.memory_allocated()
+    seconds = time.perf_counter() - t_start
+    counts = {k: pss["counts"].get(k, 0) + cora["check"]["counts"].get(k, 0)
+              + lm["check"]["counts"].get(k, 0)
+              for k in ("csr_spmm", "csr_spmm_combine", "flash_attention",
+                        "flash_attention_combine")}
+    print(f"phase 9 ends with memory_allocated={left}; phase_9_s={seconds:.3f}; main-path "
+          f"launches {counts}")
+    if left > 1 << 30:
+        _fail(f"{left} bytes are still allocated after phase 9")
+    return {"counts": counts, "specs": specs, "refusals": refusals, "segment_sum": pss,
+            "cells": [cora, lm], "seconds": seconds}
+
+
+def _merge_dryrun(kernels: list, part: dict) -> None:
+    """Phase 9's launches in the kernel rows."""
+    for row in kernels:
+        n = part["counts"].get(row["name"])
+        if n is not None:
+            row["launches_dryrun_part"] = n
+            row["launches"] += n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11011,6 +11331,9 @@ def main(argv=None) -> int:
     _merge_gnn_compressed(kernels, drive_gnn_compressed(torch, np, args.seed, card))
     print(f"elapsed_s before phase 8c {time.perf_counter() - t_main:.3f}")
     _merge_gnn_cells(kernels, drive_gnn_cells(torch, np, args.seed, card))
+    print(f"elapsed_s before phase 9 {time.perf_counter() - t_main:.3f}")
+    _merge_dryrun(kernels, drive_dryrun(torch, np, args.seed, card))
+    print(f"elapsed_s after phase 9 {time.perf_counter() - t_main:.3f}")
     if sys.modules.get("jax") is not None or any(
             m == "repro" or m.startswith("repro.") for m in sys.modules):
         _fail("the JAX package or jax was imported")

@@ -83,3 +83,8 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
+
+
+def all_cells():
+    """Every (arch, shape) dry-run cell: 40 in all."""
+    return [(a, s) for a in ARCHS for s in ARCHS[a].shapes]

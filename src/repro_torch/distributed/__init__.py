@@ -1,6 +1,13 @@
-"""Graph partitioning for the sharded serving tier and its online
-rebalancing: the twins of ``repro.distributed.partition`` and
-``repro.distributed.rebalance``."""
+"""Distribution utilities: logical-axis sharding rules, the receiver-block
+aggregation and its loader helpers, graph partitioning for the sharded
+serving tier and its online rebalancing: the twins of
+``repro.distributed.sharding``, ``collectives``, ``partition`` and
+``rebalance``."""
+from repro_torch.distributed.collectives import (
+    partition_edges,
+    partitioned_segment_sum,
+    validate_partitioning,
+)
 from repro_torch.distributed.partition import (
     STRATEGIES,
     PartitionPlan,
@@ -22,8 +29,25 @@ from repro_torch.distributed.rebalance import (
     plan_rebalance,
     resolve_rebalance_skew,
 )
+from repro_torch.distributed.sharding import (
+    LOGICAL_RULES,
+    logical_spec,
+    param_spec,
+    shard,
+    spec_bytes,
+    zero1_spec,
+)
 
 __all__ = [
+    "LOGICAL_RULES",
+    "logical_spec",
+    "shard",
+    "param_spec",
+    "spec_bytes",
+    "zero1_spec",
+    "partition_edges",
+    "partitioned_segment_sum",
+    "validate_partitioning",
     "STRATEGIES",
     "PartitionPlan",
     "diff_plans",

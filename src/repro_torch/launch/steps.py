@@ -12,17 +12,19 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import ShapeSpec, get_arch
 from repro_torch.data.graphs import (N_SPECIES, atoms, csc, edge_features, molecule_graph,
                                      node_graph, node_targets, sampled_batch)
 from repro_torch.data.sampler import NeighborSampler
 from repro_torch.device import resolve_device
-from repro_torch.models.dlrm import DLRM, DLRMConfig, dlrm_grads, retrieval_scores
+from repro_torch.distributed.sharding import logical_spec, param_spec, spec_bytes, zero1_spec
+from repro_torch.models.dlrm import DLRM, DLRMConfig, _mlp_sizes, dlrm_grads, retrieval_scores
 from repro_torch.models.gnn import (GCN, EdgeCSR, GatedGCN, Graph, MeshGraphNet, NequIP,
                                     gnn_loss)
 from repro_torch.models.transformer import (DTYPES, Transformer, moe_group_size,
@@ -45,6 +47,15 @@ class Cell:
 
 def _r256(n: int) -> int:
     return ((n + 255) // 256) * 256
+
+
+class CellRefused(ValueError):
+    """A cell that does not fit one card, refused before anything is
+    allocated; ``nbytes`` is what it would need (the refusal names it)."""
+
+    def __init__(self, msg: str, nbytes: int):
+        super().__init__(msg)
+        self.nbytes = nbytes
 
 
 def dlrm_batch(cfg: DLRMConfig, batch: int, generator: torch.Generator):
@@ -159,6 +170,16 @@ def lm_train_step(model: Transformer, opt_state: dict, tokens: torch.Tensor,
     return loss, adamw_update(model.leaves(), grads, opt_state, opt_cfg)
 
 
+def lm_serve_bytes(cfg, batch: int, seq_len: int) -> int:
+    """The bytes a serving cell of ``cfg`` holds on the card before its
+    step: the weights of :func:`param_shapes` and a (k, v) cache of
+    ``seq_len`` positions for ``batch`` sequences, all in ``cfg.dtype``."""
+    item = DTYPES[cfg.dtype].itemsize
+    weights = sum(math.prod(shape) for shape, _ in param_shapes(cfg).values())
+    cache = 2 * cfg.n_layers * batch * seq_len * cfg.n_kv_heads * cfg.head_dim
+    return item * (weights + cache)
+
+
 def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
              batch: int | None, layers: int | None) -> Cell:
     B, S = shape.params["global_batch"], shape.params["seq_len"]
@@ -170,6 +191,12 @@ def _lm_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int,
         cfg = replace(cfg, n_layers=layers)
     if shape.kind == "train":
         return _lm_train_cell(arch_id, shape, cfg, reduced, dev, seed, B, S)
+    need = lm_serve_bytes(cfg, B, S)
+    if not reduced and need > CARD_BYTES:
+        raise CellRefused(
+            f"{arch_id} {shape.name} does not fit one card: its {cfg.dtype} weights and a cache "
+            f"of {S:,} positions for {B} sequences take {need:,} bytes against "
+            f"{CARD_BYTES:,}; ROADMAP.md queue A, item 27", need)
     if cfg.n_experts:  # the group rule, before the weights are drawn
         moe_group_size(cfg, B * (S if shape.kind == "prefill" else 1))
     model = Transformer.from_config(cfg, device=dev, seed=seed)
@@ -192,11 +219,11 @@ def _lm_train_cell(arch_id: str, shape, cfg, reduced: bool, dev, seed: int, B: i
                          f"{n_micro} micro-batches")
     need = lm_state_bytes(cfg)
     if not reduced and need > CARD_BYTES:
-        raise ValueError(
+        raise CellRefused(
             f"{arch_id} {shape.name} does not fit one card: its training state takes "
             f"{need:,} bytes ({TRAIN_STATE_BYTES} a parameter: bf16 weight, float32 master, "
             f"m and v, float32 accumulator, bf16 gradient) against {CARD_BYTES:,}; "
-            "ROADMAP.md queue A, item 16 (a sharded optimizer)")
+            "ROADMAP.md queue A, item 16 (a sharded optimizer)", need)
     if cfg.n_experts:  # the group rule, before the weights are drawn
         moe_group_size(cfg, B // n_micro * S)
     model = Transformer.from_config(cfg, device=dev, seed=seed).requires_grad_()
@@ -257,7 +284,7 @@ def _reduced_scale(shape: ShapeSpec) -> int:
 
 
 def _refuse_unfit(arch_id: str, shape: ShapeSpec) -> None:
-    """ValueError, before anything is allocated, where the cell at full size
+    """:class:`CellRefused`, before anything is allocated, where the cell at full size
     keeps more edge-sized activations for its backward than one card
     holds, naming the reckoned bytes."""
     if arch_id not in _EDGE_TENSORS:
@@ -267,11 +294,11 @@ def _refuse_unfit(arch_id: str, shape: ShapeSpec) -> None:
     what, width = _EDGE_TENSORS[arch_id]
     one = e * width * cfg.d_hidden * 4
     if one * cfg.n_layers > CARD_BYTES:
-        raise ValueError(
+        raise CellRefused(
             f"{arch_id} {shape.name} does not fit one card: {what} over its {e:,} padded edges "
             f"takes {one:,} bytes, and a step keeps at least one a layer for the backward "
             f"({one * cfg.n_layers:,} bytes over {cfg.n_layers} layers against "
-            f"{CARD_BYTES:,}); ROADMAP.md queue A, item 24")
+            f"{CARD_BYTES:,}); ROADMAP.md queue A, item 24", one * cfg.n_layers)
 
 
 def _minibatch_graph(shape: ShapeSpec, reduced: bool, dev, seed: int) -> dict:
@@ -384,8 +411,8 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     one :func:`lm_train_step` over the arch's ``GRAD_ACCUM`` micro-batches
     (1 when reduced), returning (loss, metrics). ``batch`` must stay a
     multiple of the micro-batches. A full-size config whose training state
-    (:func:`lm_state_bytes`) exceeds one card raises ValueError naming its
-    bytes before anything is allocated (olmoe-1b-7b, gemma2-9b, yi-34b,
+    (:func:`lm_state_bytes`) exceeds one card raises :class:`CellRefused`
+    (a ValueError) naming its bytes before anything is allocated (olmoe-1b-7b, gemma2-9b, yi-34b,
     phi3.5-moe-42b-a6.6b; ``layers`` cuts the depth first).
 
     prefill: the Transformer built by :meth:`Transformer.from_config` from
@@ -397,7 +424,10 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     ``batch`` overrides B and ``layers`` the depth, in LM cells only (a
     single card holds neither prefill_32k's 32 sequences in the time of a
     smoke run nor decode_32k's 128 caches, nor phi-3.5-MoE's 83.7 GB of
-    bf16 weights). An MoE config whose B * S (prefill) or B (decode) tokens
+    bf16 weights). A full-size serving cell whose weights and cache
+    (:func:`lm_serve_bytes`) exceed one card raises :class:`CellRefused`
+    naming them before anything is allocated: at full size every LM
+    serving cell but qwen2-1.5b's prefill_32k and long_500k. An MoE config whose B * S (prefill) or B (decode) tokens
     break the group rule of :func:`moe_group_size` raises its ValueError
     here: a cell never regroups.
 
@@ -466,3 +496,153 @@ def build_cell(arch_id: str, shape_name: str, reduced: bool = False, device=None
     batch = 32 if reduced else shape.params["batch"]
     model = DLRM.from_config(cfg, device=dev, seed=seed)
     return Cell(arch_id, shape_name, model, dlrm_batch(cfg, batch, gen), model)
+
+
+# ============================================================ input specs
+_I32, _F32, _BOOL = torch.int32, torch.float32, torch.bool
+
+
+def _opt_leaves(params: dict, sgd: tuple = ()) -> dict:
+    """The reference's AdamW state of ``params`` ({path: (shape, dtype)}):
+    ``step``, a float32 master of every leaf, m and v of every leaf whose
+    path names none of ``sgd`` (an SGD leaf has no moments)."""
+    out = {"step": ((), _I32)}
+    for path, (shape, _) in params.items():
+        out[f"master/{path}"] = (shape, _F32)
+        if not any(s in path for s in sgd):
+            out[f"m/{path}"] = (shape, _F32)
+            out[f"v/{path}"] = (shape, _F32)
+    return out
+
+
+def _param_specs(params: dict, mesh) -> dict:
+    return {path: param_spec(path, shape, mesh) for path, (shape, _) in params.items()}
+
+
+def _opt_specs(opt: dict, pspecs: dict, mesh) -> dict:
+    """The reference's ``_tree_opt_specs``: the step replicated, master, m
+    and v the ZeRO-1 spec of their parameter's."""
+    return {path: () if path == "step" else
+            zero1_spec(pspecs.get(path.split("/", 1)[1], ()), shape, mesh)
+            for path, (shape, _) in opt.items()}
+
+
+def _lm_inputs(arch_id: str, shape: ShapeSpec, reduced: bool, mesh) -> list:
+    arch = get_arch(arch_id)
+    cfg = arch.reduced() if reduced else arch.config()
+    B, S = shape.params["global_batch"], shape.params["seq_len"]
+    if reduced:
+        B, S = 2, min(S, 64)
+    dt, lead = DTYPES[cfg.dtype], cfg.layers_leading
+    top = ("embed", "ln_final", "w_vocab")
+    params = {(k if k in top else f"layers/{k}"): ((shp if k in top else lead + shp[1:]), dt)
+              for k, (shp, _) in param_shapes(cfg).items()}
+    pspecs = _param_specs(params, mesh)
+    tok = ((B, S), _I32)
+    tok_spec = logical_spec(("batch", None), (B, S), mesh)
+    if shape.kind == "train":
+        opt = _opt_leaves(params)
+        return [(params, pspecs), (opt, _opt_specs(opt, pspecs, mesh)),
+                tok + (tok_spec,), tok + (tok_spec,)]
+    if shape.kind == "prefill":
+        return [(params, pspecs), tok + (tok_spec,)]
+    cache_shape = lead + (B, S, cfg.n_kv_heads, cfg.head_dim)
+    cache_spec = logical_spec((None,) * len(lead) + ("batch", "kv_seq", "kv_heads", None),
+                              cache_shape, mesh)
+    cache = {str(i): (cache_shape, dt) for i in range(2)}
+    return [(params, pspecs), (cache, {k: cache_spec for k in cache}),
+            ((B,), _I32, logical_spec(("batch",), (B,), mesh)), ((), _I32, ())]
+
+
+@lru_cache(maxsize=64)
+def _gnn_param_leaves(arch_id: str, d_feat: int, n_cls: int, reduced: bool) -> dict:
+    """{path: (shape, dtype)} of the arch's parameters, from its constructor
+    run under a fake-tensor mode: shapes only, no storage anywhere. Cached
+    (a cell's parameters do not depend on the mesh); callers must not
+    mutate the result."""
+    arch = get_arch(arch_id)
+    cfg = arch.reduced() if reduced else arch.config()
+    with FakeTensorMode():
+        model = _gnn_model(arch_id, cfg, d_feat, n_cls, "cpu", 0)
+        return {k: (tuple(v.shape), v.dtype) for k, v in model.leaves().items()}
+
+
+def _gnn_inputs(arch_id: str, shape: ShapeSpec, reduced: bool, mesh) -> list:
+    n, e, d_feat, n_cls, _, _ = _gnn_sizes(shape, reduced)
+    params = _gnn_param_leaves(arch_id, d_feat, n_cls, reduced)
+    pspecs = _param_specs(params, mesh)
+    opt = _opt_leaves(params)
+    edge_spec = logical_spec(("edges",), (e,), mesh)
+    batch = {"senders": ((e,), _I32, edge_spec), "receivers": ((e,), _I32, edge_spec)}
+    if arch_id == "nequip":
+        batch["species"] = ((n,), _I32, ())
+        batch["pos"] = ((n, 3), _F32, ())
+    else:
+        batch["x"] = ((n, d_feat), _F32, ())
+        if arch_id != "gcn-cora":
+            batch["ef"] = ((e, GNN_EDGE_FEAT), _F32,
+                           logical_spec(("edges", None), (e, GNN_EDGE_FEAT), mesh))
+    d_out = GNN_OUT[arch_id]
+    batch["y"] = ((n, d_out), _F32, ()) if d_out else ((n,), _I32, ())
+    if shape.kind == "minibatch":
+        batch["seed_mask"] = ((n,), _BOOL, ())
+    if shape.kind == "molecule":
+        batch["graph_ids"] = ((n,), _I32, ())
+    return [(params, pspecs), (opt, _opt_specs(opt, pspecs, mesh)),
+            ({k: v[:2] for k, v in batch.items()}, {k: v[2] for k, v in batch.items()})]
+
+
+def _dlrm_inputs(arch_id: str, shape: ShapeSpec, reduced: bool, mesh) -> list:
+    arch = get_arch(arch_id)
+    cfg = arch.reduced() if reduced else arch.config()
+    if shape.kind == "retrieval":
+        n_cand = 1024 if reduced else _r256(shape.params["n_candidates"])
+        d = cfg.embed_dim
+        return [((d,), _F32, ()),
+                ((n_cand, d), _F32, logical_spec(("table_rows", None), (n_cand, d), mesh))]
+    B = 32 if reduced else shape.params["batch"]
+    params = {f"tables/table_{i}": ((cfg.padded_rows(r), cfg.embed_dim), _F32)
+              for i, r in enumerate(cfg.row_counts)}
+    for top, sizes in zip(("bot", "top"), _mlp_sizes(cfg)):
+        for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+            params[f"{top}/{i}/w"] = ((a, b), _F32)
+            params[f"{top}/{i}/b"] = ((b,), _F32)
+    pspecs = _param_specs(params, mesh)
+    bspec = logical_spec(("wide_batch", None), (B, cfg.n_dense), mesh)
+    dense, sparse = ((B, cfg.n_dense), _F32, bspec), ((B, cfg.n_sparse), _I32, bspec)
+    if shape.kind == "serve":
+        return [(params, pspecs), dense, sparse]
+    opt = _opt_leaves(params, sgd=("tables",))
+    return [(params, pspecs), (opt, _opt_specs(opt, pspecs, mesh)), dense, sparse,
+            ((B,), _F32, logical_spec(("wide_batch",), (B,), mesh))]
+
+
+def cell_specs(arch_id: str, shape_name: str, mesh, reduced: bool = False) -> tuple:
+    """The reference cell's ``in_specs`` on ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`, or None for no mesh) and what
+    they imply for one device: ({path: spec}, argument_bytes).
+
+    A path names one input leaf as the reference's ``_kp_str`` names it
+    within the ``in_specs`` tuple (``"0/layers/wq"``, ``"1/master/embed"``,
+    ``"2/senders"``, ``"3"``); a spec is a tuple of the ``PartitionSpec``'s
+    entries. The leaves are the reference cell's arguments, in its dtypes
+    (float32 tables and master copies, int32 ids), so ``argument_bytes``,
+    each leaf's bytes over the product of the mesh axes its spec names, is
+    the reference's per-device argument size. Shapes come from the configs'
+    arithmetic (a GNN's parameters from its constructor under a fake-tensor
+    mode): nothing is allocated, not even DLRM's tables."""
+    arch = get_arch(arch_id)
+    shape = arch.shapes[shape_name]
+    inputs = {"lm": _lm_inputs, "gnn": _gnn_inputs}.get(arch.family, _dlrm_inputs)(
+        arch_id, shape, reduced, mesh)
+    specs, nbytes = {}, 0
+    for i, arg in enumerate(inputs):
+        if isinstance(arg[0], dict):  # (leaves, specs) of a tree
+            leaves, tree_specs = arg
+            items = [(f"{i}/{k}", leaf, tree_specs[k]) for k, leaf in leaves.items()]
+        else:                         # (shape, dtype, spec) of a leaf
+            items = [(str(i), arg[:2], arg[2])]
+        for path, (shp, dt), spec in items:
+            specs[path] = spec
+            nbytes += spec_bytes(shp, dt.itemsize, spec, mesh)
+    return specs, nbytes

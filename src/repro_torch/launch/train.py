@@ -19,8 +19,11 @@ holds a checkpoint is restored first, and the run continues from its step
 
 Beside the reference's flags it takes ``--device`` (default: the GPU) and
 ``--batch`` (a cut of the global batch, a multiple of the arch's
-micro-batches); the mesh flags (``--multi-pod``, ``--host-mesh``) have no
-twin on one card.
+micro-batches). The mesh flags take their one-card meaning: ``--host-mesh``
+names the 1 x 1 mesh and ``--multi-pod`` the (2, 16, 16) production mesh
+instead of (16, 16) (:mod:`repro_torch.launch.mesh`); the mesh is printed
+at the start of the log and returned, and the run itself is the same on
+one card whichever is named.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.steps import build_cell
 from repro_torch.models.transformer import normal_chunked
 from repro_torch.train.checkpoint import (AsyncCheckpointer, flatten, latest_step,
@@ -75,11 +79,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--host-mesh", action="store_true",
+                    help="1x1 mesh (CPU smoke); default = production mesh")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: the GPU")
     args = ap.parse_args(argv)
 
+    mesh = make_host_mesh() if args.host_mesh else make_production_mesh(multi_pod=args.multi_pod)
+    print(f"mesh {mesh.shape} ({mesh.n_devices} devices in the reference's layout); "
+          "this run holds the whole cell on one device")
     cell = build_cell(args.arch, args.shape, reduced=args.reduced, device=args.device,
                       batch=args.batch)
     model, opt_state, tokens, _ = cell.args
@@ -114,7 +124,8 @@ def main(argv=None) -> dict:
         ckpt.save(start_step + args.steps, state)
         ckpt.wait()
     print("done")
-    return {"start_step": start_step, "losses": losses, "flagged": straggler.flagged}
+    return {"start_step": start_step, "losses": losses, "flagged": straggler.flagged,
+            "mesh": mesh}
 
 
 if __name__ == "__main__":

@@ -60,7 +60,13 @@ def test_port_sources_name_no_reference_import():
             SRC / "repro_torch" / "train" / "fault_tolerance.py",
             SRC / "repro_torch" / "configs" / "gatedgcn.py",
             SRC / "repro_torch" / "launch" / "gnn_compressed.py",
-            SRC / "repro_torch" / "launch" / "train.py"} <= set(paths)
+            SRC / "repro_torch" / "launch" / "train.py",
+            SRC / "repro_torch" / "roofline" / "__init__.py",
+            SRC / "repro_torch" / "roofline" / "analysis.py",
+            SRC / "repro_torch" / "roofline" / "op_cost.py",
+            dist / "collectives.py", dist / "sharding.py",
+            SRC / "repro_torch" / "launch" / "mesh.py",
+            SRC / "repro_torch" / "launch" / "dryrun.py"} <= set(paths)
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.strip().split()
@@ -106,7 +112,8 @@ def _zero_lm_params(cfg):
                                    "k2_triples", "hdt_bt", "gatedgcn_from_config",
                                    "restore_checkpoint", "gnn_compressed_main",
                                    "meshgraphnet_from_config", "nequip_from_config",
-                                   "lm_train_build_cell", "lm_train_main"])
+                                   "lm_train_build_cell", "lm_train_main", "dryrun_main",
+                                   "dryrun_run_cell", "partitioned_segment_sum"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     _without_cuda()
     from repro_torch import resolve_device
@@ -130,6 +137,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
     from repro_torch.configs import meshgraphnet, nequip
     from repro_torch.train import restore_checkpoint, save_checkpoint
     from repro_torch.launch import train as lm_train
+    from repro_torch.launch import dryrun
+    from repro_torch.distributed import partitioned_segment_sum
 
     save_checkpoint(str(tmp_path / "ckpt"), 1, {"w": np.zeros(2, np.float32)})
 
@@ -185,6 +194,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
         "lm_train_main": lambda dev: lm_train.main(
             ["--arch", "qwen2-1.5b", "--reduced", "--steps", "1"]
             + ([] if dev is None else ["--device", dev])),
+        "dryrun_main": lambda dev: dryrun.main(
+            ["--arch", "gcn-cora", "--shape", "molecule", "--reduced"]
+            + ([] if dev is None else ["--device", dev])),
+        "dryrun_run_cell": lambda dev: dryrun.run_cell("gcn-cora", "molecule", reduced=True,
+                                                       device=dev),
+        "partitioned_segment_sum": lambda dev: partitioned_segment_sum(
+            torch.ones((4, 2), device=resolve_device(dev)), torch.tensor([0, 1, 1, 0]), 2),
         "gnn_compressed_main": lambda dev: gnn_compressed.main(
             dev, n_nodes=60, n_edges=200, seeds=8, fanouts=(3, 2), total_steps=2,
             checkpoint_every=1, log_every=1, fail_at=1, out=lambda *_: None),
@@ -197,6 +213,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry, tmp_path):
         DurableShardedService.open(tmp_path / "svc", device="cpu").close()
         with pytest.raises(RuntimeError, match="CUDA"):
             DurableShardedService.open(tmp_path / "svc")
+
+
+def test_cell_specs_need_no_device():
+    # the specs are host arithmetic: they run with no GPU and name none
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import cell_specs
+
+    specs, nbytes = cell_specs("dlrm-mlperf", "train_batch", make_production_mesh())
+    assert specs and nbytes > 0
 
 
 def test_chip_smoke_fails_without_cuda():
