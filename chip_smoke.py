@@ -15,9 +15,11 @@ nothing of the JAX package. Phases:
    ``embedding_bag`` with one row per bag, within a stated tolerance
    otherwise (``flash_attention`` and ``csr_spmm`` in float32 and bfloat16,
    ``flash_attention`` also split and merged at decode and its merge
-   kernel on the twin's partials, ``csr_spmm`` also against its split twin
-   on the plan's edges (rows of C and C + 1 edges, many just past C, one
-   of hundreds of chunks) and its backward against the twin's autograd,
+   kernels on the twin's partials, up to 512 splits, in the plan's chunks
+   and forced ones, the path's merge into float32 within 1e-5,
+   ``csr_spmm`` also against its split twin on the plan's edges (rows of
+   C and C + 1 edges, many just past C, one of hundreds of chunks) and its
+   backward against the twin's autograd,
    ``dot_interaction`` against its plain and its tensor-core tiling twin
    on each case's path, read from the launch counts, with a control (the
    last field row zeroed) that must fail; the fused k²-tree descent
@@ -355,7 +357,11 @@ nothing of the JAX package. Phases:
    kernel is held against its twin on those inputs, in bfloat16 and in
    float32, and the control must fail the float32 comparison. At
    ``decode_32k`` the split count is swept (1, half the plan, the plan,
-   twice it) and the merge kernel gets its own row;
+   twice it) and the merge kernel gets its own row: against the twin's
+   merge (bfloat16, and float32 within 1e-5), a repeat bit for bit, a
+   control (a chunk of a row's splits left out) that must fail, timed in
+   turns against the first merge (``flash_attention_combine_rowwise``, off
+   the path), whose own row says it launched 0 times on every path;
    7b. the rest of the LM zoo at full width, one arch at a time, each
    freed before the next (at most 1 GiB allocated at each start):
    ``gemma2-9b`` (alternating 4,096-window local and global layers, D =
@@ -375,7 +381,9 @@ nothing of the JAX package. Phases:
    layer's router logits, routing and output, card against host, with a
    capacity control; the ``flash_attention`` row at Gemma-2's local and
    global layers of both cells (SDPA has no soft-cap: it is timed without
-   it, beside) and at yi's decode layer;
+   it, beside) and at yi's decode layer; both merges at each arch's first
+   ``decode_32k`` layer, on the attention kernel's own partials, as at
+   ``decode_32k``;
    7c. LM training (at most 1 GiB allocated at its start and end): (a) the
    forward's log-sum-exp and the backward's two launches
    (``flash_attention_bwd_dq``, which forms delta, then ``_dkdv``, in that
@@ -496,7 +504,9 @@ nothing of the JAX package. Phases:
    split call; the split plan, its blocks a SM, finite logits, and one
    layer's attention against ``flash_attention_ref`` at 524,288 keys within
    phase 7's bfloat16 bound, with a control, the twin over the first half
-   of the keys, that must fail).
+   of the keys, that must fail; both merges on that layer's 512 splits as
+   at ``decode_32k``, the merge by chunk count, and the merges' device
+   time in a profiled step).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -5385,6 +5395,8 @@ def _served_counts(torch, run) -> tuple:
     ops.reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
+    if ops.launch_counts["flash_attention_combine_rowwise"]:
+        _fail("a served batch launched the rowwise merge, which is on no path")
     return dict(ops.launch_counts), out
 
 
@@ -7123,12 +7135,15 @@ def check_attention_kernel(torch, np, seed: int) -> dict:
     averaged over many keys are far from unit scale, also within
     ATTN_MAIN_TOL's atol scaled by its largest |output|. Each call launches
     flash_attention once and the merge once exactly when it splits. The
-    merge kernel is also held against the twin's merge on the twin's own
-    partials, within both."""
+    merge kernels are also held against the twin's merge on the twin's own
+    partials (up to 512 splits, in the plan's chunks and forced ones), the
+    path's merge in float32 within MERGE_F32_RTOL."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import (flash_attention_combine_cuda,
+    from repro_torch.kernels.flash_attention import (MERGE_MAX_SPLITS, _sm_count,
+                                                     flash_attention_combine_cuda,
+                                                     flash_attention_combine_rowwise_cuda,
                                                      flash_attention_cuda, pack_partials,
-                                                     planned_splits)
+                                                     plan_merge, planned_splits)
 
     rng = np.random.default_rng(seed)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -7199,22 +7214,51 @@ def check_attention_kernel(torch, np, seed: int) -> dict:
           f"{combines}) max_abs_err float32={err['float32']} bfloat16={err['bfloat16']} "
           f"tolerances={ATTN_TOL} and (rtol, atol / max|want|)={ATTN_MAIN_TOL}")
 
-    # the merge alone, on the twin's partials of a windowed decode with empty splits
-    err["combine"] = 0.0
-    for dt in (f32, bf16):
-        name = str(dt).split(".")[-1]
-        args = [torch.from_numpy(rng.normal(size=(3, h, s, 64)).astype(np.float32)).to(DEV, dt)
-                for s, h in ((1, 12), (900, 2), (900, 2))]
-        kw = dict(q_offset=850, window=300)
-        parts = ref.flash_attention_partials_ref(*args, n_splits=7, **kw)
-        got = flash_attention_combine_cuda(pack_partials(*parts), torch.empty_like(args[0]), 2, 7)
-        want = ref.flash_attention_combine_ref(*parts, 6, dt)
-        if not torch.allclose(got.float(), want.float(), **ATTN_TOL[name]) \
-                or not _close_scaled(torch, got, want, name):
-            _fail(f"flash_attention_combine differs from the twin's merge in {name}")
-        err["combine"] = max(err["combine"], float((got.float() - want.float()).abs().max()))
-    print(f"flash_attention_combine kernel_vs_plain on the twin's partials: max_abs_err="
-          f"{err['combine']} tolerances={ATTN_TOL} and {ATTN_MAIN_TOL}")
+    # the merges alone, on the twin's partials: a windowed decode with empty
+    # splits, long_500k's 512 splits of 32,768 keys (a window of 1,000 keys
+    # leaves 496 empty), D = 256 and D = 24; the path's merge as planned and
+    # in forced chunks (both levels), the rowwise merge as it is
+    err["combine"] = err["combine_rowwise"] = 0.0
+    n_merges = 0
+    for (b, hq, hkv, sk, d), n, kw in (((3, 12, 2, 900, 64), 7, dict(q_offset=850, window=300)),
+                                       ((1, 12, 2, 32768, 128), 512, dict(q_offset=32767)),
+                                       ((1, 12, 2, 32768, 128), 512,
+                                        dict(q_offset=32767, window=1000)),
+                                       ((4, 16, 8, 2048, 256), 32, dict(q_offset=2047)),
+                                       ((3, 6, 2, 500, 24), 9, dict(q_offset=499))):
+        for dt in (f32, bf16):
+            name = str(dt).split(".")[-1]
+            args = [torch.from_numpy(rng.normal(size=(b, h, s_, d)).astype(np.float32))
+                    .to(DEV, dt) for s_, h in ((1, hq), (sk, hkv), (sk, hkv))]
+            parts = ref.flash_attention_partials_ref(*args, n_splits=n, **kw)
+            packed = pack_partials(*parts)
+            want = ref.flash_attention_combine_ref(*parts, hq // hkv, dt)
+            plan = plan_merge(b * hq, n, d, _sm_count(args[0].device))
+            for chunks in sorted({plan, 1, 2, min(16, n), min(n, MERGE_MAX_SPLITS)}):
+                got = flash_attention_combine_cuda(packed, torch.empty_like(args[0]), hkv, n,
+                                                   chunks=chunks)
+                what = f"{name} (B,Hq,Hkv,Sk,D)={(b, hq, hkv, sk, d)} {n} splits {kw} " \
+                       f"in {chunks} chunks"
+                if dt == f32:
+                    atol = MERGE_F32_RTOL * float(want.abs().max())
+                    ok = torch.allclose(got, want, rtol=MERGE_F32_RTOL, atol=atol)
+                else:
+                    ok = torch.allclose(got.float(), want.float(), **ATTN_TOL[name]) \
+                        and _close_scaled(torch, got, want, name)
+                if not ok:
+                    _fail(f"flash_attention_combine differs from the twin's merge at {what}")
+                err["combine"] = max(err["combine"], _logit_err(got, want))
+                n_merges += 1
+            got = flash_attention_combine_rowwise_cuda(packed, torch.empty_like(args[0]), hkv, n)
+            if not torch.allclose(got.float(), want.float(), **ATTN_TOL[name]) \
+                    or not _close_scaled(torch, got, want, name):
+                _fail(f"flash_attention_combine_rowwise differs from the twin's merge in {name}")
+            err["combine_rowwise"] = max(err["combine_rowwise"], _logit_err(got, want))
+    print(f"flash_attention_combine kernel_vs_plain on the twin's partials: {n_merges} merges, "
+          f"max_abs_err={err['combine']} (float32 within rtol {MERGE_F32_RTOL} and atol "
+          f"{MERGE_F32_RTOL} x max|want|, bfloat16 within {ATTN_TOL['bfloat16']} and "
+          f"{ATTN_MAIN_TOL['bfloat16']}); flash_attention_combine_rowwise max_abs_err="
+          f"{err['combine_rowwise']}")
     return err
 
 
@@ -7566,7 +7610,8 @@ def lm_serve(torch, np, seed: int) -> dict:
     del model, cache, l_k, l_t, args, q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
     return {"row": row, "launches": counts["flash_attention"],
-            "merges": counts["flash_attention_combine"]}
+            "merges": counts["flash_attention_combine"],
+            "rowwise": counts["flash_attention_combine_rowwise"]}
 
 
 PREFILL_32K_TWIN_ROWS = 512  # the twin's score tensor over all 32,768 rows would be 206 GB
@@ -7736,59 +7781,195 @@ def _split_sweep(torch, args, kw, plan: int) -> dict:
 
 
 def _time_merge(torch, args, kw, plan: int) -> dict:
-    """The merge kernel at one decode_32k layer: held against the twin's
-    merge on the twin's partials of that call within ATTN_MAIN_TOL (both
-    merge the same float32 partials), timed beside it, and its bound (the
-    partials read once, o written once)."""
+    """The merge at one decode_32k layer, on the twin's partials of that
+    call (:func:`_merge_turns`)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_combine_cuda, pack_partials
+    from repro_torch.kernels.flash_attention import pack_partials
 
     q, k = args[0], args[1]
-    hkv = k.shape[1]
     chunks = [ref.flash_attention_partials_ref(*(x[i:i + 8] for x in args), n_splits=plan, **kw)
               for i in range(0, q.shape[0], 8)]  # 8 sequences at a time: the cache fills the card
-    parts = tuple(torch.cat([c[j] for c in chunks], dim=1) for j in range(3))
+    packed = pack_partials(*(torch.cat([c[j] for c in chunks], dim=1) for j in range(3)))
     del chunks
-    packed = pack_partials(*parts)
-    out = torch.empty_like(q)
-    want = ref.flash_attention_combine_ref(*parts, q.shape[1] // hkv, q.dtype).float()
-    got = flash_attention_combine_cuda(packed, out, hkv, plan).float()
-    err = _logit_err(got, want)
-    atol = ATTN_MAIN_TOL["bfloat16"][1] * float(want.abs().max())
-    print(f"flash_attention_combine vs the twin's merge at decode_32k: max_abs_err={err} "
-          f"tol rtol={ATTN_MAIN_TOL['bfloat16'][0]} atol={atol} (max|want| x "
-          f"{ATTN_MAIN_TOL['bfloat16'][1]})")
-    if not _close_scaled(torch, got, want, "bfloat16"):
-        _fail(f"flash_attention_combine differs from the twin's merge at decode_32k ({err})")
-    # a launch takes less device time than the wrapper takes to issue it, so
-    # events around a loop time the host: read the device time per launch
-    # from the profiler, and the events' figure beside it
-    reps = 50
-    ms, seen = [], []
-    for _ in range(2):
-        _, _, avgs = _profile(torch, lambda: [flash_attention_combine_cuda(packed, out, hkv, plan)
-                                              for _ in range(reps)])
-        hits = [e for e in avgs if "combine_kernel" in e.key]
-        seen.append(sum(e.count for e in hits))
-        if seen[-1]:  # the trace may lose launches: average over those it holds
-            ms.append(sum(getattr(e, "self_device_time_total", 0) for e in hits)
-                      / seen[-1] / 1e3)
-    issue_ms = _time_ms(torch, lambda: flash_attention_combine_cuda(packed, out, hkv, plan), reps)
-    plain = [_time_ms(torch, lambda: ref.flash_attention_combine_ref(
-        *parts, q.shape[1] // hkv, q.dtype), 5) for _ in range(2)]
-    nbytes = packed.numel() * 4 + out.numel() * out.element_size()
-    row = {"ms": min(ms) if ms else issue_ms, "plain_ms": min(plain),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
-           "max_abs_err_here": err, "ms_issue_bound": issue_ms}
-    if not ms:
-        print("flash_attention_combine: the profiler traced no launch; ms is the events' "
-              "figure, an upper bound")
-    print(f"kernel flash_attention_combine at decode_32k, one layer: {plan} splits, partials "
-          f"{packed.numel() * 4} B, ms={row['ms']} (device time per traced launch, profiler; "
-          f"runs {ms}, launches traced {seen} of {reps}; events over {reps} "
-          f"back-to-back calls {issue_ms:.6f}) plain_ms={row['plain_ms']:.6f} "
-          f"bound_ms={row['bound_ms']:.6f} (bytes: {nbytes} B) max_abs_err vs twin's merge={err}")
-    return row
+    return _merge_turns(torch, packed, torch.empty_like(q), k.shape[1], plan, "decode_32k")
+
+
+# The merge into a float32 output against the twin's float32 merge: the same
+# float32 partials summed in another order (the kernel's groups and chunks).
+MERGE_F32_RTOL = 1e-5       # rtol, and atol as a share of the largest |want|
+MERGE_REPS = 20             # launches a profiled turn
+MERGE_TRACES = 4            # profiles a reading tries: a trace may hold none of its launches
+MERGE_SWEEP = (1, 2, 4, 8, 16, 32, 64)  # chunks timed at long_500k beside the plan's
+
+
+def _unpack_partials(part, n_splits: int, b: int, hkv: int, rows: int, d: int) -> tuple:
+    """(m, l, acc) views of flat partials in pack_partials' layout."""
+    k = n_splits * b * hkv * rows
+    shape = (n_splits, b, hkv, rows)
+    return part[k * d:k * d + k].view(shape), part[k * d + k:].view(shape), \
+        part[:k * d].view(*shape, d)
+
+
+def _kernel_partials(torch, args, kw):
+    """(part, n_splits): the float32 partials that the attention kernel
+    writes for the call (args, kw), copied at its merge; None where the call
+    does not split."""
+    from repro_torch.kernels import flash_attention as fa
+
+    seen = {}
+    real = fa._launch_combine
+
+    def record(part, out, hkv, n_splits, chunks=None):
+        seen["part"], seen["n"] = part.clone(), n_splits
+        return real(part, out, hkv, n_splits, chunks)
+
+    fa._launch_combine = record
+    try:
+        fa.flash_attention_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        fa._launch_combine = real
+    return (seen["part"], seen["n"]) if seen else None
+
+
+def _merge_device_ms(torch, fn, key: str, reps: int = MERGE_REPS):
+    """Device ms a launch of the kernels whose name holds ``key`` over reps
+    calls of fn (profiler: a merge takes less device time than the wrapper
+    takes to issue it), from the first of MERGE_TRACES profiles that holds
+    any of them; None if none does."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(MERGE_TRACES):
+        _, _, avgs = _profile(torch, lambda: [fn() for _ in range(reps)])
+        hits = [e for e in avgs if key in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(getattr(e, "self_device_time_total", 0) for e in hits) / n / 1e3
+    return None
+
+
+def _merge_turns(torch, part, out, hkv: int, n_splits: int, what: str) -> dict:
+    """Both merges on one call's float32 partials. The path's
+    (``flash_attention_combine``, planned) against the twin's merge within
+    ATTN_MAIN_TOL in out's dtype and, into a float32 output, within
+    MERGE_F32_RTOL of the twin's float32 merge; a second launch bit for bit;
+    a control that must fail (row 0 without the splits of one chunk: the
+    plan's middle one, or the row's second half where the plan keeps it
+    whole); the first merge (``flash_attention_combine_rowwise``, off the
+    path) against the twin. Then the two timed in turns (path, rowwise,
+    rowwise, path; device time a launch, profiler), beside the twin's time
+    and the bound (the partials read once, o written once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_sm_count, flash_attention_combine_cuda,
+                                                     flash_attention_combine_rowwise_cuda,
+                                                     pack_partials, plan_merge)
+
+    b, hq, sq, d = out.shape
+    group, name = hq // hkv, str(out.dtype).split(".")[-1]
+    m, l, acc = _unpack_partials(part, n_splits, b, hkv, sq * group, d)
+    chunks = plan_merge(b * hq * sq, n_splits, d, _sm_count(out.device))
+    want = ref.flash_attention_combine_ref(m, l, acc, group, out.dtype).float()
+    want32 = ref.flash_attention_combine_ref(m, l, acc, group, torch.float32)
+    got = flash_attention_combine_cuda(part, torch.empty_like(out), hkv, n_splits)
+    again = flash_attention_combine_cuda(part, torch.empty_like(out), hkv, n_splits)
+    got32 = flash_attention_combine_cuda(part, torch.empty_like(out, dtype=torch.float32), hkv,
+                                         n_splits)
+    old = flash_attention_combine_rowwise_cuda(part, torch.empty_like(out), hkv, n_splits)
+    cut = max(chunks, 2)
+    lo, hi = ref.merge_chunks(n_splits, cut)[cut // 2]
+    m2, l2, acc2 = m.clone(), l.clone(), acc.clone()
+    m2[lo:hi, 0, 0, 0], l2[lo:hi, 0, 0, 0], acc2[lo:hi, 0, 0, 0] = ref.NEG_INF, 0.0, 0.0
+    ctrl = flash_attention_combine_cuda(pack_partials(m2, l2, acc2), torch.empty_like(out), hkv,
+                                        n_splits)
+    torch.cuda.synchronize()
+    atol32 = MERGE_F32_RTOL * float(want32.abs().max())
+    res = {"n_splits": n_splits, "chunks": chunks, "rows": b * hq * sq,
+           "max_abs_err_here": _logit_err(got, want), "err_float32": _logit_err(got32, want32),
+           "atol_float32": atol32, "repeat_equal": bool(torch.equal(got, again)),
+           "err_control": _logit_err(ctrl, want), "control_splits_dropped": [lo, hi],
+           "control_passes": _close_scaled(torch, ctrl, want, name)}
+    err_old = _logit_err(old, want)
+    print(f"flash_attention_combine at {what}: {n_splits} splits x {b * hq * sq} rows, D={d}, "
+          f"{chunks} chunks a row (plan_merge); vs the twin's merge max_abs_err="
+          f"{res['max_abs_err_here']} (ATTN_MAIN_TOL {name}); into float32 max_abs_err="
+          f"{res['err_float32']} (rtol {MERGE_F32_RTOL}, atol {atol32}); second launch "
+          f"bit-identical={res['repeat_equal']}; control (row 0 without splits {lo}..{hi - 1}) "
+          f"max_abs_err={res['err_control']} passes={res['control_passes']}; rowwise merge "
+          f"max_abs_err={err_old}")
+    if not _close_scaled(torch, got, want, name) or not torch.allclose(
+            got32, want32, rtol=MERGE_F32_RTOL, atol=atol32):
+        _fail(f"flash_attention_combine differs from the twin's merge at {what}")
+    if not _close_scaled(torch, old, want, name):
+        _fail(f"flash_attention_combine_rowwise differs from the twin's merge at {what}")
+    if not res["repeat_equal"]:
+        _fail(f"two flash_attention_combine launches on the same partials differ at {what}")
+    if res["control_passes"]:
+        _fail(f"the merge control (a chunk of row 0 left out) passed at {what}")
+    del got, again, got32, old, ctrl, m2, l2, acc2
+    turns = {"merge_kernel": [], "combine_kernel": []}
+    runs = {"merge_kernel": lambda: flash_attention_combine_cuda(part, out, hkv, n_splits),
+            "combine_kernel": lambda: flash_attention_combine_rowwise_cuda(part, out, hkv,
+                                                                          n_splits)}
+    for key in ("merge_kernel", "combine_kernel", "combine_kernel", "merge_kernel"):
+        turns[key].append(_merge_device_ms(torch, runs[key], key))
+    issue = {k: _time_ms(torch, fn, MERGE_REPS) for k, fn in runs.items()}
+    ms = {k: min([x for x in v if x is not None], default=issue[k]) for k, v in turns.items()}
+    plain = min(_time_ms(torch, lambda: ref.flash_attention_combine_ref(
+        m, l, acc, group, out.dtype), 3) for _ in range(2))
+    nbytes = part.numel() * 4 + out.numel() * out.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    res.update({"ms": ms["merge_kernel"], "plain_ms": plain, "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": None,
+                "share_of_bound": bound / ms["merge_kernel"],
+                "ms_turns": turns["merge_kernel"], "ms_issue_bound": issue["merge_kernel"],
+                "rowwise": {"ms": ms["combine_kernel"], "ms_turns": turns["combine_kernel"],
+                            "ms_issue_bound": issue["combine_kernel"],
+                            "max_abs_err_here": err_old}})
+    if None in turns["merge_kernel"] + turns["combine_kernel"]:
+        print("flash_attention_combine: the profiler traced no launch in a turn; ms there is "
+              "the events' figure over back-to-back calls, an upper bound")
+    print(f"kernel flash_attention_combine at {what}: ms={ms['merge_kernel']} (device time a "
+          f"launch, profiler; turns {turns['merge_kernel']}) against the rowwise merge "
+          f"ms={ms['combine_kernel']} (turns {turns['combine_kernel']}; path, rowwise, rowwise, "
+          f"path) plain_ms={plain:.6f} bound_ms={bound:.6f} (bytes: {nbytes} B) share of bound "
+          f"{res['share_of_bound']:.4f}; events over {MERGE_REPS} back-to-back calls {issue}")
+    return res
+
+
+def _merge_sweep(torch, part, out, hkv: int, n_splits: int, what: str) -> dict:
+    """Device ms a launch of the merge at each chunk count of MERGE_SWEEP
+    that it takes and the plan's, each output held against the plan's within
+    ATTN_MAIN_TOL (the chunks only reorder float32 sums)."""
+    from repro_torch.kernels.flash_attention import (MERGE_MAX_SPLITS, _sm_count,
+                                                     flash_attention_combine_cuda, plan_merge)
+
+    b, hq, sq, d = out.shape
+    plan = plan_merge(b * hq * sq, n_splits, d, _sm_count(out.device))
+    base = flash_attention_combine_cuda(part, torch.empty_like(out), hkv, n_splits).float()
+    res = {}
+    for c in sorted({*MERGE_SWEEP, plan}):
+        if c > n_splits or -(-n_splits // c) > MERGE_MAX_SPLITS:
+            continue
+        got = flash_attention_combine_cuda(part, out, hkv, n_splits, chunks=c)
+        if not _close_scaled(torch, got, base, str(out.dtype).split(".")[-1]):
+            _fail(f"the merge in {c} chunks differs from the plan's {plan} at {what}")
+        res[c] = _merge_device_ms(torch, lambda c=c: flash_attention_combine_cuda(
+            part, out, hkv, n_splits, chunks=c), "merge_kernel")
+    print(f"flash_attention_combine at {what} by chunks a row (plan {plan}; device ms a launch, "
+          f"profiler): " + " ".join(f"{c}={v}" for c, v in res.items()))
+    return {str(c): v for c, v in res.items()}
+
+
+def _zoo_merge(torch, arch: str, run):
+    """Both merges at the cell's first attention layer, on the attention
+    kernel's own partials (:func:`_merge_turns`); None where it does not
+    split."""
+    args, kw = _capture_attention(run)
+    got = _kernel_partials(torch, args, kw)
+    if got is None:
+        return None
+    return _merge_turns(torch, got[0], torch.empty_like(args[0]), args[1].shape[1], got[1],
+                        f"lm zoo {arch} decode_32k layer 0")
 
 
 def _mma_counts(source: str) -> dict:
@@ -7866,14 +8047,32 @@ def drive_lm(torch, np, seed: int, errs: dict) -> list:
                "launches_decode_32k": z["decode_32k"]["launches"],
                "launches_combine_decode_32k": z["decode_32k"]["merges"],
                **zoo_rows[arch]} for arch, z in zoo.items()}}
+    zoo_merges = {arch: z["decode_32k"]["merge"] for arch, z in zoo.items()
+                  if z["decode_32k"]["merge"] is not None}
+    dm = {k: v for k, v in dec["merge"].items() if k != "rowwise"}
     merge = {"name": "flash_attention_combine", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:86",
              "launches": serve["merges"],
-             **dec["merge"], "max_abs_err": max(err["combine"], dec["merge"]["max_abs_err_here"]),
+             **dm, "max_abs_err": max(err["combine"], dm["max_abs_err_here"],
+                                      *(z["max_abs_err_here"] for z in zoo_merges.values())),
              "shape": f"decode_32k, one layer, B={DECODE_32K_BATCH}, {dec['n_splits']} splits",
-             "launches_decode_32k": dec["merges"]}
-    return [row, merge]
+             "launches_decode_32k": dec["merges"],
+             "lm_zoo": {arch: {k: v for k, v in z.items() if k != "rowwise"}
+                        for arch, z in zoo_merges.items()}}
+    old = dec["merge"]["rowwise"]
+    rowwise = {"name": "flash_attention_combine_rowwise", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:86",
+               "launches": serve["rowwise"],
+               "max_abs_err": max(err["combine_rowwise"], old["max_abs_err_here"],
+                                  *(z["rowwise"]["max_abs_err_here"]
+                                    for z in zoo_merges.values())),
+               "ms": old["ms"], "plain_ms": dm["plain_ms"], "bound_ms": dm["bound_ms"],
+               "bound_by": "bytes", "library_ms": None, "ms_turns": old["ms_turns"],
+               "shape": merge["shape"] + " (off the path: timed in turns beside the merge)",
+               "lm_zoo": {arch: z["rowwise"] for arch, z in zoo_merges.items()}}
+    return [row, merge, rowwise]
 
 
 # Phase 7b: the rest of the LM zoo at full width, one arch at a time, each
@@ -8336,11 +8535,12 @@ def zoo_decode(torch, np, seed: int, spec: dict) -> dict:
     if "decode_32k" in spec["rows"]:
         rows = _zoo_rows(torch, arch, "decode_32k", cell.run, spec["rows"]["decode_32k"],
                          index + 1)
+    merge = _zoo_merge(torch, arch, cell.run)
     del cell, model, cache, sub, logits, tokens
     torch.cuda.empty_cache()
     return {"launches": counts["flash_attention"], "merges": counts["flash_attention_combine"],
             "ms_per_step": float(np.median(times)) * 1e3,
-            "busy_share": dev / wall if dev > 0 else None, "rows": rows}
+            "busy_share": dev / wall if dev > 0 else None, "rows": rows, "merge": merge}
 
 
 def drive_lm_zoo(torch, np, seed: int) -> dict:
@@ -8738,7 +8938,8 @@ def _attn_counts(torch):
     from repro_torch.kernels import ops
 
     return {n: ops.launch_counts[n] for n in ("flash_attention", "flash_attention_combine",
-                                              BWD_DELTA, *BWD_NAMES)}
+                                              "flash_attention_combine_rowwise", BWD_DELTA,
+                                              *BWD_NAMES)}
 
 
 def _hold_model_grads(torch, what: str, model, tokens, targets, n_micro: int, scaled: float,
@@ -8849,7 +9050,8 @@ def qwen2_train(torch, np, seed: int, card: str) -> dict:
     res = _hold_model_grads(torch, f"qwen2-1.5b train_4k bf16, B={TRAIN_BATCH}", model, tokens,
                             targets, n_micro, TRAIN_BF16_SCALED, _bwd_no_delta, True)
     want = {"flash_attention": 2 * cfg.n_layers * n_micro, "flash_attention_combine": 0,
-            BWD_DELTA: 0, **{n: cfg.n_layers * n_micro for n in BWD_NAMES}}
+            "flash_attention_combine_rowwise": 0, BWD_DELTA: 0,
+            **{n: cfg.n_layers * n_micro for n in BWD_NAMES}}
     if res["launches"] != want:
         _fail(f"a qwen2-1.5b train step launched {res['launches']}, not {want}")
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -11114,8 +11316,10 @@ def _long_500k_check(torch):
     """run_cell's check of long_500k: the counts of its three steps, then
     (launches made to compare or profile, not counted) the split plan, the
     logits, one layer's attention against flash_attention_ref, with a
-    control (the twin over the first half of the keys) that must fail, and
-    one profiled step."""
+    control (the twin over the first half of the keys) that must fail, both
+    merges on that layer's partials (:func:`_merge_turns`) and the merge by
+    chunk count (:func:`_merge_sweep`), and one profiled step with its
+    merges' device time."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (SPLIT_BLOCKS_PER_SM, _sm_count,
                                                      flash_attention_cuda, planned_splits)
@@ -11137,8 +11341,18 @@ def _long_500k_check(torch):
         ctrl = ref.flash_attention_ref(q, k[:, :, :half], v[:, :, :half],
                                        **{**twin_kw, "q_offset": half - 1}).float()
         rtol, scaled = ATTN_MAIN_TOL["bfloat16"]
+        part, n = _kernel_partials(torch, args, kw)
+        merge = _merge_turns(torch, part, torch.empty_like(q), k.shape[1], n, "long_500k layer 0")
+        merge["sweep"] = _merge_sweep(torch, part, torch.empty_like(q), k.shape[1], n,
+                                      "long_500k layer 0")
+        del part
         wall, dev_s, avgs = _profile(torch, cell.run)
+        merges = [e for e in avgs if "merge_kernel" in e.key]
+        merge["step"] = {"launches_traced": sum(e.count for e in merges),
+                         "device_ms": sum(getattr(e, "self_device_time_total", 0)
+                                          for e in merges) / 1e3}
         res = {"counts": counts, "finite": finite, "n_splits": plan, "blocks": blocks,
+               "merge": merge,
                "profiled": {"wall_s": wall, "device_s": dev_s, "busy": dev_s / wall,
                             "top": _top_kernels(avgs)},
                "n_layers": cell.model.cfg.n_layers,
@@ -11238,27 +11452,38 @@ def drive_dryrun(torch, np, seed: int, card: str) -> dict:
     if not c["finite"] or not c["same"] or c["control_passes"]:
         _fail("long_500k: logits not finite, or its attention differs from the twin, or the "
               "half-keys control passed")
+    mg = c["merge"]
+    print(f"9 (d) long_500k merges in the profiled step: {mg['step']['launches_traced']} traced, "
+          f"{mg['step']['device_ms']:.6f} ms of device time (one a layer: "
+          f"{mg['step']['device_ms'] / max(mg['step']['launches_traced'], 1):.6f} ms a launch), "
+          f"of the step's {c['profiled']['device_s'] * 1e3:.6f} ms (busy "
+          f"{c['profiled']['busy']:.4f}); card {card}")
     left = torch.cuda.memory_allocated()
     seconds = time.perf_counter() - t_start
     counts = {k: pss["counts"].get(k, 0) + cora["check"]["counts"].get(k, 0)
               + lm["check"]["counts"].get(k, 0)
               for k in ("csr_spmm", "csr_spmm_combine", "flash_attention",
-                        "flash_attention_combine")}
+                        "flash_attention_combine", "flash_attention_combine_rowwise")}
     print(f"phase 9 ends with memory_allocated={left}; phase_9_s={seconds:.3f}; main-path "
           f"launches {counts}")
     if left > 1 << 30:
         _fail(f"{left} bytes are still allocated after phase 9")
     return {"counts": counts, "specs": specs, "refusals": refusals, "segment_sum": pss,
-            "cells": [cora, lm], "seconds": seconds}
+            "cells": [cora, lm], "seconds": seconds, "merge": mg}
 
 
 def _merge_dryrun(kernels: list, part: dict) -> None:
-    """Phase 9's launches in the kernel rows."""
+    """Phase 9's launches in the kernel rows, and the merges at long_500k."""
+    mg = part["merge"]
+    at = {"flash_attention_combine": {k: v for k, v in mg.items() if k != "rowwise"},
+          "flash_attention_combine_rowwise": mg["rowwise"]}
     for row in kernels:
         n = part["counts"].get(row["name"])
         if n is not None:
             row["launches_dryrun_part"] = n
             row["launches"] += n
+        if row["name"] in at:
+            row["long_500k"] = at[row["name"]]
 
 
 def main(argv=None) -> int:

@@ -55,10 +55,11 @@
 //     end. The visible keys are split over n_splits blocks a (batch, kv
 //     head): block (split, kv head, batch) walks its contiguous share of
 //     whole 64-key chunks and writes float32 partials (m, l, unnormalised
-//     acc), which `combine_kernel` merges (m* = max m_s, l* = sum l_s
-//     e^(m_s - m*), o = sum acc_s e^(m_s - m*) / l*). One split writes o
-//     directly. The wrapper plans n_splits from the visible range, so the
-//     card gets a few blocks per SM even at 16 (batch, kv head) pairs.
+//     acc), which `merge_kernel` merges (m* = max m_s, l* = sum l_s
+//     e^(m_s - m*), o = sum acc_s e^(m_s - m*) / l*; a block a chunk of a
+//     row's splits, see its note). One split writes o directly. The
+//     wrapper plans n_splits from the visible range, so the card gets a
+//     few blocks per SM even at 16 (batch, kv head) pairs.
 // - float32, `simt_kernel`: float32 FMAs, never TF32; 64-row tiles (32 at
 //   D = 256) at prefill, one 8-row tile split as above at decode.
 //
@@ -503,10 +504,14 @@ simt_kernel(const Params p) {
 
 // ------------------------------------------------------- combine (split merge)
 
+// The first merge, off the path since merge_kernel (below) took its place;
+// kept to be timed beside it (`flash_attention_combine_rowwise_launch`).
 // One block per (batch, kv head, row): its first warp reduces m* = max m_s
 // and l* = sum l_s e^(m_s - m*) over the splits, then each thread merges
 // its columns, o = sum acc_s e^(m_s - m*) / l*, 0 where l* = 0. A split
 // that saw no key has m = -1e30, l = 0 and acc = 0, so it adds nothing.
+// Each thread walks every split for its column, and a row has one block:
+// at 512 splits and 12 rows it waits on one load after another.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const float* part, T* o, int64_t B, int64_t Hkv, int64_t group, int64_t R,
@@ -543,6 +548,200 @@ combine_kernel(const float* part, T* o, int64_t B, int64_t Hkv, int64_t group, i
       acc += part[(s * per_split + slot) * D + d] * expf(pm[s * per_split] - m);
     if constexpr (sizeof(T) == 4) dst[d] = acc * inv;
     else dst[d] = __float2bfloat16_rn(acc * inv);
+  }
+}
+
+// The split merge of the path, `merge_kernel`: the same function. It is
+// bound by bytes, the float32 partials read once (qwen2-1.5b's long_500k:
+// 512 splits x 12 rows x (128 + 2) floats, 3.2 MB, 0.95 us at 3.35 TB/s),
+// and at such sizes by the latency of each round of loads, so a row's
+// splits are read in parallel:
+//
+// - The wrapper plans C chunks of each row's splits (`plan_merge`), one
+//   block a (row, chunk): C = 1 where one block reads its row in a few
+//   rounds of loads or the rows alone fill the card (decode_32k, lm_serve,
+//   the zoo's decode_32k cells), else one round a block up to 2 blocks an
+//   SM (long_500k: 12 rows x 16 chunks of 32 splits).
+// - In a block, thread t takes float4 j = t % (D / 4) of a split's D
+//   floats for the splits g, g + G, ... (group g = t / (D / 4) of G =
+//   256 / (D / 4)), kMergeLoads 16-byte loads in flight, the first round
+//   issued before the weights are known. Each split's weight
+//   w_s = e^(m_s - m_c) is formed once, into shared memory. The groups'
+//   sums are added in group order through shared memory, never by float
+//   atomics.
+// - With C > 1 a block writes its chunk's (m_c, l_c, acc_c) to a scratch.
+//   The last block of the row to finish, known by a ticket in device memory
+//   that it resets for the next launch (the wrapper keeps the tickets for
+//   the device and stream), merges the C chunks with the same code, in the
+//   same fixed order whichever block it is, and writes o: two launches on
+//   the same partials are bit-identical.
+constexpr int kMergeThreads = 256;
+constexpr int kMergeLoads = 4;
+constexpr int kMergeMaxSplits = 1024;  // splits (or chunks) one block weighs
+
+// n partials of a row: split s's acc at acc + s * acc_stride (D floats), its
+// m and l at m[s * ml_stride] and l[s * ml_stride]
+struct MergeIn {
+  const float* acc;
+  const float* m;
+  const float* l;
+  int64_t acc_stride, ml_stride;
+  int n;
+};
+
+// kL2: read through L2 only (chunk partials that other blocks of this launch wrote)
+template <bool kL2>
+__device__ __forceinline__ float4 merge_ld4(const float* p) {
+  if constexpr (kL2) return __ldcg(reinterpret_cast<const float4*>(p));
+  else return __ldg(reinterpret_cast<const float4*>(p));
+}
+template <bool kL2>
+__device__ __forceinline__ float merge_ld(const float* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return __ldg(p);
+}
+
+// v reduced over the block (max or sum) in a fixed order: each warp's
+// butterfly, then the warps' results in warp order; every thread gets it.
+template <bool kMax>
+__device__ __forceinline__ float merge_reduce(float v, float* sh) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float x = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, x) : v + x;
+  }
+  __syncthreads();  // sh may still be read from the last call
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = sh[0];
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = kMax ? fmaxf(v, sh[i]) : v + sh[i];
+  return v;
+}
+
+// Merges in's n <= kMergeMaxSplits partials into (m, l, acc): m and l for
+// every thread, acc (float4 t of the D columns) for the threads t < D / 4.
+// n = 0 gives m = -1e30, l = 0, acc = 0, as a split that saw no key. The
+// block is a whole number of warps, at least D / 4 threads.
+template <bool kL2>
+__device__ void merge_row(const MergeIn in, int D, float* w, float* wl, float4* red, float* sh,
+                          float& m, float& l, float4& acc) {
+  const int T = blockDim.x, V = D >> 2, G = T / V;
+  const int t = threadIdx.x, j = t % V, g = t / V;
+  const bool on = g < G;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 x[kMergeLoads];
+#pragma unroll
+  for (int u = 0; u < kMergeLoads; ++u) {  // in flight while the weights are formed
+    const int s = g + u * G;
+    x[u] = on && s < in.n ? merge_ld4<kL2>(in.acc + s * in.acc_stride + 4 * j) : zero;
+  }
+  float mx = kNegInf;
+  for (int s = t; s < in.n; s += T) {  // m and l in the same round of loads
+    w[s] = merge_ld<kL2>(in.m + s * in.ml_stride);
+    wl[s] = merge_ld<kL2>(in.l + s * in.ml_stride);
+    mx = fmaxf(mx, w[s]);
+  }
+  mx = merge_reduce<true>(mx, sh);
+  float ls = 0.0f;
+  for (int s = t; s < in.n; s += T) {
+    w[s] = expf(w[s] - mx);
+    ls = fmaf(w[s], wl[s], ls);
+  }
+  ls = merge_reduce<false>(ls, sh);  // its barriers also publish w
+  float4 a = zero;
+  for (int s0 = 0; s0 < in.n; s0 += kMergeLoads * G) {
+    if (s0 > 0) {
+#pragma unroll
+      for (int u = 0; u < kMergeLoads; ++u) {
+        const int s = s0 + g + u * G;
+        x[u] = on && s < in.n ? merge_ld4<kL2>(in.acc + s * in.acc_stride + 4 * j) : zero;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeLoads; ++u) {
+      const int s = s0 + g + u * G;
+      if (on && s < in.n) {
+        const float ws = w[s];
+        a.x = fmaf(ws, x[u].x, a.x);
+        a.y = fmaf(ws, x[u].y, a.y);
+        a.z = fmaf(ws, x[u].z, a.z);
+        a.w = fmaf(ws, x[u].w, a.w);
+      }
+    }
+  }
+  if (on) red[g * V + j] = a;
+  __syncthreads();
+  if (t < V) {
+    a = red[t];
+    for (int h = 1; h < G; ++h) {
+      const float4 b = red[h * V + t];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    acc = a;
+  }
+  m = mx;
+  l = ls;
+}
+
+// Block (row, chunk c) of rows = B * Hkv * R: splits [c * per, (c + 1) * per)
+// of that row, per = ceil(n_splits / chunks). scratch: acc_c (rows, chunks,
+// D), then m_c and l_c (rows, chunks); tickets: one a row, 0 between launches.
+// Sizes below 2^31 (the launch checks): 32-bit index arithmetic.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ part, T* __restrict__ o, float* __restrict__ scratch,
+             unsigned* __restrict__ tickets, unsigned Hkv, unsigned group, unsigned R, int D,
+             int64_t rows, unsigned n_splits, unsigned chunks, int64_t o_sb, int64_t o_sh,
+             int64_t o_ss) {
+  __shared__ float w[kMergeMaxSplits];
+  __shared__ float wl[kMergeMaxSplits];
+  __shared__ float4 red[kMergeThreads];
+  __shared__ float sh[kMergeThreads / 32];
+  __shared__ bool last;
+  const unsigned slot = blockIdx.x / chunks, c = blockIdx.x - slot * chunks;
+  const unsigned per = (n_splits + chunks - 1) / chunks, s0 = c * per;
+  const int n = s0 >= n_splits ? 0 : (int)(n_splits - s0 < per ? n_splits - s0 : per);
+  const float* pm = part + n_splits * rows * D;
+  const float* pl = pm + n_splits * rows;
+  const MergeIn in{part + (s0 * rows + slot) * D, pm + s0 * rows + slot, pl + s0 * rows + slot,
+                   rows * D, rows, n};
+  float m, l;
+  float4 acc;
+  merge_row<false>(in, D, w, wl, red, sh, m, l, acc);
+  if (chunks > 1) {
+    float* sc_m = scratch + rows * chunks * D;
+    float* sc_l = sc_m + rows * chunks;
+    const int64_t at = (int64_t)slot * chunks;
+    if (threadIdx.x < D / 4) reinterpret_cast<float4*>(scratch + (at + c) * D)[threadIdx.x] = acc;
+    if (threadIdx.x == 0) {
+      sc_m[at + c] = m;
+      sc_l[at + c] = l;
+    }
+    if (threadIdx.x < D / 4) __threadfence();  // the writers' stores reach L2 first
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(tickets + slot, 1u) == chunks - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const MergeIn all{scratch + at * D, sc_m + at, sc_l + at, D, 1, (int)chunks};
+    merge_row<true>(all, D, w, wl, red, sh, m, l, acc);
+    if (threadIdx.x == 0) tickets[slot] = 0;  // ready for the next launch on this scratch
+  }
+  if (threadIdx.x < D / 4) {
+    const float inv = 1.0f / (l == 0.0f ? 1.0f : l);
+    const unsigned bh = slot / R, r = slot - bh * R;
+    const unsigned b = bh / Hkv, kvh = bh - b * Hkv;
+    const unsigned i = r / group, h = kvh * group + (r - i * group);
+    T* dst = o + b * o_sb + h * o_sh + i * o_ss + 4 * threadIdx.x;
+    const float v[4] = {acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (sizeof(T) == 4) dst[e] = v[e];
+      else dst[e] = __float2bfloat16_rn(v[e]);
+    }
   }
 }
 
@@ -2194,12 +2393,55 @@ extern "C" int flash_attention_launch(
 }
 
 // Merges the n_splits partials that flash_attention_launch wrote to part
-// into o (strides in elements, D contiguous), in o's dtype (0 float32, 1
-// bfloat16). Returns a cudaError_t.
-extern "C" int flash_attention_combine_launch(const void* part, void* o, int64_t B, int64_t Hq,
-                                              int64_t Hkv, int64_t Sq, int64_t D,
-                                              int64_t n_splits, int64_t o_sb, int64_t o_sh,
+// (16-byte aligned) into o (strides in elements, D contiguous), in o's
+// dtype (0 float32, 1 bfloat16), by merge_kernel over `chunks` chunks of
+// each row's splits (1..n_splits, each of at most kMergeMaxSplits splits,
+// at most kMergeMaxSplits of them). chunks > 1 needs scratch, 16-byte
+// aligned floats: rows * chunks * (D + 2), rows = B * Hq * Sq; and tickets,
+// rows zeroed unsigned ints, which the launch leaves zeroed. Launches on one
+// scratch must be ordered (one stream). Returns a cudaError_t.
+extern "C" int flash_attention_combine_launch(const void* part, void* o, void* scratch,
+                                              void* tickets, int64_t B, int64_t Hq, int64_t Hkv,
+                                              int64_t Sq, int64_t D, int64_t n_splits,
+                                              int64_t chunks, int64_t o_sb, int64_t o_sh,
                                               int64_t o_ss, int64_t dtype, void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  const int64_t per = chunks > 0 ? (n_splits + chunks - 1) / chunks : 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || D % 4 != 0 || n_splits < 2 ||
+      chunks < 1 || chunks > n_splits || chunks > kMergeMaxSplits || per > kMergeMaxSplits ||
+      part == nullptr || (uintptr_t)part % 16 != 0 || (dtype != 0 && dtype != 1) ||
+      (chunks > 1 && (scratch == nullptr || tickets == nullptr || (uintptr_t)scratch % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t group = Hq / Hkv, R = Sq * group, rows = B * Hkv * R;
+  const int64_t blocks = rows * chunks;  // one a (row, chunk)
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // groups of D / 4 threads enough for one round of kMergeLoads loads over a
+  // block's splits (or the last block's chunks), whole warps, at most 256
+  const int64_t v = D / 4, most = per > chunks ? per : chunks;
+  int64_t threads = ((most + kMergeLoads - 1) / kMergeLoads * v + 31) / 32 * 32;
+  if (threads > kMergeThreads) threads = kMergeThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pf = static_cast<const float*>(part);
+  float* sc = static_cast<float*>(scratch);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  if (dtype == 0)
+    merge_kernel<float><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(
+        pf, static_cast<float*>(o), sc, tk, (unsigned)Hkv, (unsigned)group, (unsigned)R, (int)D,
+        rows, (unsigned)n_splits, (unsigned)chunks, o_sb, o_sh, o_ss);
+  else
+    merge_kernel<__nv_bfloat16><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(
+        pf, static_cast<__nv_bfloat16*>(o), sc, tk, (unsigned)Hkv, (unsigned)group, (unsigned)R,
+        (int)D, rows, (unsigned)n_splits, (unsigned)chunks, o_sb, o_sh, o_ss);
+  return (int)cudaGetLastError();
+}
+
+// The first merge (combine_kernel, a block a row), off the path: the same
+// function and arguments without the plan. Returns a cudaError_t.
+extern "C" int flash_attention_combine_rowwise_launch(const void* part, void* o, int64_t B,
+                                                      int64_t Hq, int64_t Hkv, int64_t Sq,
+                                                      int64_t D, int64_t n_splits, int64_t o_sb,
+                                                      int64_t o_sh, int64_t o_ss, int64_t dtype,
+                                                      void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || n_splits < 2 || part == nullptr ||
       (dtype != 0 && dtype != 1))

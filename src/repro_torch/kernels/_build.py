@@ -101,9 +101,14 @@ SOURCES = {
         "flash_attention_bwd_dq": ("flash_attention_bwd_dq_launch",
                                    [_P] * 10 + [_I64] * 6 + [_I64] * 24 + [_I64] * 3
                                    + [_F32] * 2 + [_I64, _P]),
-        # part, o; B, Hq, Hkv, Sq, D, n_splits; 3 strides of o; dtype
+        # part, o, scratch, tickets; B, Hq, Hkv, Sq, D, n_splits, chunks; 3
+        # strides of o; dtype
         "flash_attention_combine": ("flash_attention_combine_launch",
-                                    [_P] * 2 + [_I64] * 6 + [_I64] * 3 + [_I64, _P]),
+                                    [_P] * 4 + [_I64] * 7 + [_I64] * 3 + [_I64, _P]),
+        # part, o; B, Hq, Hkv, Sq, D, n_splits; 3 strides of o; dtype (the
+        # first merge, a block a row, off the path)
+        "flash_attention_combine_rowwise": ("flash_attention_combine_rowwise_launch",
+                                            [_P] * 2 + [_I64] * 6 + [_I64] * 3 + [_I64, _P]),
     },
     "segment_matmul": {
         # x, row_ptr, col, out, part, chunk_start, chunk_end, short_rows;

@@ -20,8 +20,12 @@ of a (batch, kv head): Sq times the GQA group) the visible keys are split
 over ``n_splits`` blocks a (batch, kv head), planned by
 :func:`plan_splits`; each block writes float32 partials, and a second
 launch, ``flash_attention_combine`` (:func:`flash_attention_combine_cuda`),
-merges them. The split arithmetic, :func:`visible_range` and
-:func:`split_bounds`, lives beside the twin in :mod:`repro_torch.kernels.ref`.
+merges them: a block a chunk of a row's splits, the chunks planned by
+:func:`plan_merge` and merged by the row's last block (known by tickets kept
+for the device and stream) through a scratch. The first merge, a block a row, stays off the
+path (:func:`flash_attention_combine_rowwise_cuda`). The split arithmetic,
+:func:`visible_range`, :func:`split_bounds` and :func:`merge_chunks`, lives
+beside the twin in :mod:`repro_torch.kernels.ref`.
 
 Training: ``flash_attention_cuda(..., lse=True)`` also returns each row's
 log-sum-exp (one split), and :func:`flash_attention_backward_cuda` is the
@@ -47,7 +51,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 SPLIT_MAX_ROWS = 8       # rows of a (batch, kv head) up to which decode splits
 SPLIT_BLOCKS_PER_SM = 8  # the planner's aim: about this many decode blocks per SM
+# the merge kernel's (csrc/flash_attention.cu): threads a block at most, float4
+# loads in flight a thread, splits or chunks one block weighs
+MERGE_THREADS, MERGE_LOADS, MERGE_MAX_SPLITS = 256, 4, 1024
+# the merge plan's: rounds of loads up to which a row stays one block (the
+# second level costs about as much; chip_smoke.py times the plan against
+# others at long_500k), and the blocks an SM it aims at when it splits
+MERGE_ONE_LEVEL_ROUNDS, MERGE_BLOCKS_PER_SM = 8, 2
 _sm_counts: dict[int, int] = {}
+_merge_tickets: dict[tuple, torch.Tensor] = {}  # (device index, stream) -> the merge's tickets
 
 
 def plan_splits(pairs: int, rows: int, lo: int, hi: int, n_sm: int = 132) -> int:
@@ -243,29 +255,108 @@ def pack_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.
     return torch.cat([acc.flatten(), m.flatten(), l.flatten()]).float()
 
 
-def flash_attention_combine_cuda(part: torch.Tensor, out: torch.Tensor, hkv: int,
-                                 n_splits: int) -> torch.Tensor:
-    """Merge the float32 split partials ``part`` (the flat layout of
-    :func:`partials_size`) of out's (batch, kv head) pairs into ``out``
-    (B, Hq, Sq, D), float32 or bfloat16, D contiguous, in place; see
-    :func:`repro_torch.kernels.ref.flash_attention_combine_ref`."""
+def plan_merge(rows: int, n_splits: int, d: int, n_sm: int = 132) -> int:
+    """Chunks C of each of `rows` rows' n_splits partials (width d) for the
+    merge kernel, a block a (row, chunk). C = 1 where one block reads a row
+    in at most MERGE_ONE_LEVEL_ROUNDS rounds of MERGE_LOADS loads a thread
+    (the second level costs about that much); else as many chunks as let a
+    block read its share in one round, but no more than give
+    MERGE_BLOCKS_PER_SM blocks on each of `n_sm` SMs, so C = 1 where the
+    rows alone fill the card. At least enough that no block weighs more
+    than MERGE_MAX_SPLITS; never an empty chunk."""
+    rounds = -(-n_splits // (MERGE_THREADS // (d // 4) * MERGE_LOADS))
+    c = 1
+    if rounds > MERGE_ONE_LEVEL_ROUNDS:
+        c = min(rounds, -(-MERGE_BLOCKS_PER_SM * n_sm // max(rows, 1)))
+    c = max(c, -(-n_splits // MERGE_MAX_SPLITS))
+    per = -(-n_splits // c)
+    return -(-n_splits // per)
+
+
+def merge_scratch_size(rows: int, chunks: int, d: int) -> int:
+    """Float32 values of the merge's scratch for `rows` rows in `chunks`
+    chunks: acc_c (rows, chunks, d), then m_c and l_c; none for one chunk."""
+    return rows * chunks * (d + 2) if chunks > 1 else 0
+
+
+def _check_combine(part: torch.Tensor, out: torch.Tensor, hkv: int, n_splits: int) -> None:
     b, hq, sq, d = out.shape
     if out.dtype not in _DTYPES or part.dtype != torch.float32:
         raise TypeError(f"combine takes float32 partials and a float32 or bfloat16 output, "
                         f"not {part.dtype}, {out.dtype}")
-    if hkv < 1 or hq % hkv or n_splits < 2 or out.stride(3) != 1 \
+    if hkv < 1 or hq % hkv or n_splits < 2 or out.stride(3) != 1 or d % 8 \
+            or not 0 < d <= MAX_HEAD_DIM \
             or part.numel() != partials_size(n_splits, b, hkv, sq * (hq // hkv), d):
         raise ValueError(f"partials of {part.numel()} values do not fit out {tuple(out.shape)}, "
                          f"{hkv} kv heads, {n_splits} splits")
-    if out.device.type != "cuda" or part.device != out.device or not part.is_contiguous():
-        raise ValueError("combine needs contiguous partials and out on one CUDA device")
+    if n_splits > MERGE_MAX_SPLITS ** 2:
+        raise ValueError(f"the merge takes at most {MERGE_MAX_SPLITS ** 2} splits, not {n_splits}")
+    if out.device.type != "cuda" or part.device != out.device or not part.is_contiguous() \
+            or part.data_ptr() % 16:
+        raise ValueError("combine needs contiguous 16-byte aligned partials and out on one "
+                         "CUDA device")
+
+
+def flash_attention_combine_cuda(part: torch.Tensor, out: torch.Tensor, hkv: int,
+                                 n_splits: int, *, chunks: int | None = None) -> torch.Tensor:
+    """Merge the float32 split partials ``part`` (the flat layout of
+    :func:`partials_size`) of out's (batch, kv head) pairs into ``out``
+    (B, Hq, Sq, D), float32 or bfloat16, D contiguous, in place; see
+    :func:`repro_torch.kernels.ref.flash_attention_combine_ref`. One launch
+    of the merge kernel over ``chunks`` chunks of each row's splits (None:
+    :func:`plan_merge`'s); its two levels are
+    :func:`repro_torch.kernels.ref.flash_attention_combine_chunked_ref`."""
+    if chunks is not None and (not isinstance(chunks, int) or isinstance(chunks, bool)
+                               or not 1 <= chunks <= min(n_splits, MERGE_MAX_SPLITS)
+                               or -(-n_splits // chunks) > MERGE_MAX_SPLITS):
+        raise ValueError(f"chunks must be an int in 1..{n_splits} of at most "
+                         f"{MERGE_MAX_SPLITS} splits each, or None, not {chunks!r}")
+    _check_combine(part, out, hkv, n_splits)
     if out.numel():
-        _launch_combine(part, out, hkv, n_splits)
+        _launch_combine(part, out, hkv, n_splits, chunks)
     return out
 
 
-def _launch_combine(part: torch.Tensor, out: torch.Tensor, hkv: int, n_splits: int) -> None:
+def flash_attention_combine_rowwise_cuda(part: torch.Tensor, out: torch.Tensor, hkv: int,
+                                         n_splits: int) -> torch.Tensor:
+    """:func:`flash_attention_combine_cuda` by the first merge kernel (a
+    block a row, each thread walking every split for its columns), off the
+    path: kept to be timed beside the merge that took its place."""
+    _check_combine(part, out, hkv, n_splits)
+    if out.numel():
+        b, hq, sq, d = out.shape
+        _build.launch("flash_attention", "flash_attention_combine_rowwise", out.device,
+                      part.data_ptr(), out.data_ptr(), b, hq, hkv, sq, d, n_splits,
+                      *out.stride()[:3], _DTYPES[out.dtype])
+    return out
+
+
+def _tickets(dev: torch.device, rows: int) -> torch.Tensor:
+    """The merge's tickets, one a row, on dev's current stream: kept for the
+    device and stream (launches on one stream are ordered, so they can
+    share them; another stream gets its own), zeroed when made, as each
+    launch leaves them. The scratch is not kept: a call takes it from the
+    stream-ordered allocator, so no cached segment stays pinned by it."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    got = _merge_tickets.get(key)
+    if got is None or got.numel() < rows:
+        got = _merge_tickets[key] = torch.zeros(rows, dtype=torch.int32, device=dev)
+    return got
+
+
+def _launch_combine(part: torch.Tensor, out: torch.Tensor, hkv: int, n_splits: int,
+                    chunks: int | None = None) -> None:
     b, hq, sq, d = out.shape
-    _build.launch("flash_attention", "flash_attention_combine", out.device, part.data_ptr(),
-                  out.data_ptr(), b, hq, hkv, sq, d, n_splits, *out.stride()[:3],
-                  _DTYPES[out.dtype])
+    rows = b * hq * sq
+    dev = out.device
+    if chunks is None:
+        chunks = plan_merge(rows, n_splits, d, _sm_count(dev))
+    scratch = tickets = None
+    if chunks > 1:
+        scratch = torch.empty(merge_scratch_size(rows, chunks, d), dtype=torch.float32,
+                              device=dev)
+        tickets = _tickets(dev, rows)
+    _build.launch("flash_attention", "flash_attention_combine", dev, part.data_ptr(),
+                  out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+                  0 if tickets is None else tickets.data_ptr(), b, hq, hkv, sq, d, n_splits,
+                  chunks, *out.stride()[:3], _DTYPES[out.dtype])

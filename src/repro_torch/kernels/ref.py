@@ -778,14 +778,38 @@ def flash_attention_partials_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     vf = v.float()
     ms, ls, accs = [], [], []
     for lo, hi in split_bounds(*visible_range(sq, sk, q_offset, causal, window), n_splits):
-        m_in = mask & (k_pos >= lo) & (k_pos < hi)
-        s_in = torch.where(m_in, s, NEG_INF)
-        m_s = s_in.amax(dim=-1) if sk else torch.full(s.shape[:-1], NEG_INF, device=q.device)
+        lo, hi = min(lo, sk), min(max(lo, hi), sk)  # the split's keys: [lo, hi)
+        m_in = mask[:, lo:hi]
+        s_in = torch.where(m_in, s[..., lo:hi], NEG_INF)
+        m_s = s_in.amax(dim=-1) if hi > lo else torch.full(s.shape[:-1], NEG_INF,
+                                                             device=q.device)
         p = torch.where(m_in, torch.exp(s_in - m_s[..., None]), 0.0)
         ms.append(m_s)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.matmul(p.to(v.dtype).float(), vf))
+        accs.append(torch.matmul(p.to(v.dtype).float(), vf[:, :, lo:hi]))
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def _merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> tuple:
+    """(m*, l*, acc*) of partials stacked on dim 0: m* = max m_s, l* = sum
+    l_s e^(m_s - m*), acc* = sum acc_s e^(m_s - m*); -1e30, 0, 0 for none."""
+    if m.shape[0] == 0:
+        return (torch.full(m.shape[1:], NEG_INF, device=m.device),
+                torch.zeros(l.shape[1:], device=l.device),
+                torch.zeros(acc.shape[1:], device=acc.device))
+    m_all = m.amax(dim=0)
+    w = torch.exp(m - m_all)
+    return m_all, (l * w).sum(dim=0), (acc * w[..., None]).sum(dim=0)
+
+
+def _merged_output(l_all: torch.Tensor, acc_all: torch.Tensor, group: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """o = acc* / l*, 0 where l* = 0, from (B, Hkv, rows) sums to (B, Hkv *
+    group, Sq, D) in `dtype`."""
+    b, hkv, rows, d = acc_all.shape
+    o = acc_all / torch.where(l_all == 0.0, 1.0, l_all)[..., None]
+    o = o.reshape(b, hkv, rows // group, group, d).transpose(2, 3)
+    return o.reshape(b, hkv * group, rows // group, d).to(dtype)
 
 
 def flash_attention_combine_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
@@ -794,13 +818,29 @@ def flash_attention_combine_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Ten
     :func:`flash_attention_partials_ref`: m* = max m_s, o = sum acc_s
     e^(m_s - m*) / sum l_s e^(m_s - m*), 0 where that sum is 0. Returns
     (B, Hkv * group, Sq, D) in `dtype`."""
-    n, b, hkv, rows, d = acc.shape
-    m_all = m.amax(dim=0)
-    w = torch.exp(m - m_all)
-    l_all = (l * w).sum(dim=0)
-    o = (acc * w[..., None]).sum(dim=0) / torch.where(l_all == 0.0, 1.0, l_all)[..., None]
-    o = o.reshape(b, hkv, rows // group, group, d).transpose(2, 3)
-    return o.reshape(b, hkv * group, rows // group, d).to(dtype)
+    _, l_all, acc_all = _merge_partials(m, l, acc)
+    return _merged_output(l_all, acc_all, group, dtype)
+
+
+def merge_chunks(n_splits: int, chunks: int) -> list[tuple[int, int]]:
+    """The merge kernel's chunks of a row's n_splits partials: chunk c takes
+    splits [c * per, (c + 1) * per) with per = ceil(n_splits / chunks), the
+    last cut at n_splits; a chunk past the last split is empty."""
+    per = -(-n_splits // chunks)
+    return [(min(c * per, n_splits), min((c + 1) * per, n_splits)) for c in range(chunks)]
+
+
+def flash_attention_combine_chunked_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                                        group: int, dtype: torch.dtype,
+                                        chunks: int) -> torch.Tensor:
+    """:func:`flash_attention_combine_ref` in the merge kernel's two levels:
+    each of :func:`merge_chunks`' chunks merged alone into (m_c, l_c,
+    acc_c) (an empty chunk gives -1e30, 0, 0), then the chunks merged. Returns
+    (B, Hkv * group, Sq, D) in `dtype`."""
+    parts = [_merge_partials(m[a:e], l[a:e], acc[a:e])
+             for a, e in merge_chunks(m.shape[0], chunks)]
+    _, l_all, acc_all = _merge_partials(*(torch.stack(x) for x in zip(*parts)))
+    return _merged_output(l_all, acc_all, group, dtype)
 
 
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,10 +23,15 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (SPLIT_MAX_ROWS, flash_attention_combine_cuda,
-                                                 flash_attention_cuda, pack_partials,
-                                                 partials_size, plan_splits, planned_splits)
-from repro_torch.kernels.ref import SPLIT_KEYS, split_bounds, visible_range
+from repro_torch.kernels.flash_attention import (MERGE_BLOCKS_PER_SM, MERGE_LOADS,
+                                                 MERGE_MAX_SPLITS, MERGE_ONE_LEVEL_ROUNDS,
+                                                 MERGE_THREADS, SPLIT_MAX_ROWS,
+                                                 flash_attention_combine_cuda,
+                                                 flash_attention_combine_rowwise_cuda,
+                                                 flash_attention_cuda, merge_scratch_size,
+                                                 pack_partials, partials_size, plan_merge,
+                                                 plan_splits, planned_splits)
+from repro_torch.kernels.ref import SPLIT_KEYS, merge_chunks, split_bounds, visible_range
 from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -203,6 +208,108 @@ def test_split_partials_merge_to_the_unsplit_partial():
                                **F32)
 
 
+# ---------------------------------------------------- many splits and their merge
+@pytest.mark.parametrize("window", [None, 1000])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_many_splits_match_the_oracle(window, dtype):
+    """long_500k's regime at a small width: one decode row, 12 query heads
+    over 2 kv heads, 512 splits of 32,768 keys (a window of 1,000 keys
+    leaves 496 of them empty), merged in one level and in the merge
+    kernel's two (the plan's chunks at long_500k's width and at this one),
+    against the reference's attention_ref (the Pallas kernel takes no block
+    of one query row at this length in reasonable time)."""
+    sk, n = 32768, 512
+    (q, k, v), (tq, tk, tv) = _qkv(12, 1, 12, 2, 1, sk, 16, dtype)
+    m, l, acc = tref.flash_attention_partials_ref(tq, tk, tv, n_splits=n, window=window,
+                                                  q_offset=sk - 1)
+    empty = int((l == 0).all(dim=(1, 2, 3)).sum())
+    assert empty == (n - 1000 // SPLIT_KEYS - 1 if window else 0)
+    want = jref.attention_ref(q, k, v, causal=True, window=window)
+    _close(tref.flash_attention_combine_ref(m, l, acc, 6, tq.dtype), want, _tol(dtype))
+    chunkings = {plan_merge(12, n, 128), plan_merge(12, n, 16), 7}
+    assert chunkings == {16, 1, 7}
+    for chunks in chunkings:
+        got = tref.flash_attention_combine_chunked_ref(m, l, acc, 6, tq.dtype, chunks)
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        _close(got, want, _tol(dtype))
+
+
+CHUNK_CASES = [  # (B, Hq, Hkv, Sq, Sk, D, n_splits, kwargs)
+    (2, 12, 2, 1, 2048, 16, 7, dict(q_offset=1500, window=100)),  # splits 2..6 see no key
+    (1, 12, 2, 1, 2048, 16, 32, dict(q_offset=2047, window=300)),  # 5 of 32 see keys
+    (1, 4, 2, 3, 64, 8, 5, dict(q_offset=-2)),                     # 2 rows see no key
+    (3, 6, 2, 1, 1000, 32, 9, dict(q_offset=999, softcap=20.0)),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,n_splits,kw", CHUNK_CASES)
+def test_chunked_merge_equals_the_one_level_merge(b, hq, hkv, sq, sk, d, n_splits, kw):
+    """The merge kernel's two levels (flash_attention_combine_chunked_ref)
+    against the one-level merge within 1e-5 for every chunking 1..n_splits,
+    chunks whose splits all saw no key among them; a row that saw no key
+    is 0 in both."""
+    _, (tq, tk, tv) = _qkv(13, b, hq, hkv, sq, sk, d)
+    m, l, acc = tref.flash_attention_partials_ref(tq, tk, tv, n_splits=n_splits, **kw)
+    one = tref.flash_attention_combine_ref(m, l, acc, hq // hkv, tq.dtype)
+    seen = l > 0  # (S, B, Hkv, rows): the splits that saw a key, a row each
+    empty_chunks = 0
+    for chunks in range(1, n_splits + 1):
+        got = tref.flash_attention_combine_chunked_ref(m, l, acc, hq // hkv, tq.dtype, chunks)
+        torch.testing.assert_close(got, one, rtol=1e-5, atol=1e-5)
+        empty_chunks += sum(not bool(seen[a:e].any()) for a, e in merge_chunks(n_splits, chunks))
+        if kw.get("q_offset", 0) < 0:
+            assert torch.equal(got[:, :, :-kw["q_offset"]], torch.zeros_like(got[:, :, :2]))
+    if "window" in kw:
+        assert empty_chunks > 0
+    if kw.get("q_offset", 0) < 0:
+        assert torch.equal(one[:, :, :2], torch.zeros_like(one[:, :, :2]))
+
+
+MERGE_PLAN_CASES = [  # (rows, n_splits, D, SMs)
+    (12, 512, 128, 132),    # long_500k: 16 chunks of 32
+    (768, 9, 128, 132),     # decode_32k at batch 64: the rows fill the card
+    (96, 25, 128, 132),     # lm_serve: a block reads its 25 splits in one round
+    (56, 128, 128, 132),    # yi-34b decode_32k at batch 1
+    (12, 512, 256, 132),    # long_500k's splits at D = 256: 22 chunks
+    (64, 32, 256, 132),     # Gemma-2 decode_32k at batch 4, D = 256
+    (64, 64, 128, 132),     # phi-3.5-MoE decode_32k at batch 2
+    (12, 512, 24, 132),
+    (1, 5000, 128, 132),    # more splits than a block weighs
+    (300, 2500, 64, 132),   # the rows fill the card, the splits do not fit one block
+    (6, 2, 8, 8),
+]
+
+
+@pytest.mark.parametrize("rows,n_splits,d,n_sm", MERGE_PLAN_CASES)
+def test_plan_merge_chunks_cover_every_split_once(rows, n_splits, d, n_sm):
+    c = plan_merge(rows, n_splits, d, n_sm)
+    bounds = merge_chunks(n_splits, c)
+    assert 1 <= c <= min(n_splits, MERGE_MAX_SPLITS) and len(bounds) == c
+    assert all(e > a and e - a <= MERGE_MAX_SPLITS for a, e in bounds)  # none empty or too big
+    assert [s for a, e in bounds for s in range(a, e)] == list(range(n_splits))
+    least = -(-n_splits // MERGE_MAX_SPLITS)  # chunks a block can weigh
+    rounds = -(-n_splits // (MERGE_THREADS // (d // 4) * MERGE_LOADS))  # of one block a row
+    if rows >= MERGE_BLOCKS_PER_SM * n_sm or rounds <= MERGE_ONE_LEVEL_ROUNDS:
+        assert c == least  # the rows fill the card, or one block a row reads fast enough
+    assert c == least or (c <= rounds and rows * (c - 1) < MERGE_BLOCKS_PER_SM * n_sm)
+    assert merge_scratch_size(rows, c, d) == (rows * c * (d + 2) if c > 1 else 0)
+
+
+def test_plan_merge_at_the_main_paths():
+    assert plan_merge(12, 512, 128) == 16   # long_500k: 192 blocks, one round of loads each
+    assert plan_merge(768, 9, 128) == 1     # decode_32k
+    assert plan_merge(96, 25, 128) == 1     # lm_serve
+    assert plan_merge(56, 128, 128) == 1    # yi-34b's decode_32k: 4 rounds of loads
+    assert plan_merge(12, 512, 256) == 22   # long_500k's splits at D = 256: 32 rounds
+    assert plan_merge(1, 5000, 128) == 157  # 157 chunks of 32 splits
+
+
+def test_merge_chunks_forced_past_the_last_split_are_empty():
+    assert merge_chunks(10, 6) == [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10), (10, 10)]
+    assert merge_chunks(512, 16) == [(32 * c, 32 * c + 32) for c in range(16)]
+    assert merge_chunks(7, 1) == [(0, 7)]
+
+
 # ------------------------------------------------------------------ the planner
 PLAN_CASES = [  # (pairs, Sq, group, Sk, q_offset, causal, window, SMs)
     (128, 1, 6, 32768, 32767, True, None, 132),  # decode_32k at batch 64
@@ -329,8 +436,11 @@ def test_cuda_wrapper_refuses(case):
         flash_attention_cuda(q, kv, kv, **kw)
 
 
-@pytest.mark.parametrize("case", ["cpu_tensor", "size", "dtype", "one_split"])
-def test_combine_wrapper_refuses(case):
+COMBINE_REFUSALS = ["cpu_tensor", "size", "dtype", "one_split", "head_dim_odd"]
+
+
+def _combine_refusal(case):
+    """(part, out, hkv, n_splits, error) of a merge call the wrappers refuse."""
     out = torch.zeros((1, 4, 1, 16))
     part = torch.zeros(3 * 1 * 2 * 2 * 18)
     hkv, n, err = 2, 3, ValueError
@@ -340,5 +450,28 @@ def test_combine_wrapper_refuses(case):
         part, err = part.double(), TypeError
     elif case == "one_split":
         n, part = 1, torch.zeros(1 * 1 * 2 * 2 * 18)
+    elif case == "head_dim_odd":
+        out, part = torch.zeros((1, 4, 1, 12)), torch.zeros(3 * 1 * 2 * 2 * 14)
+    return part, out, hkv, n, err
+
+
+@pytest.mark.parametrize("case", COMBINE_REFUSALS)
+def test_combine_wrapper_refuses(case):
+    *args, err = _combine_refusal(case)
     with pytest.raises(err):
-        flash_attention_combine_cuda(part, out, hkv, n)
+        flash_attention_combine_cuda(*args)
+
+
+@pytest.mark.parametrize("case", COMBINE_REFUSALS)
+def test_combine_rowwise_wrapper_refuses(case):
+    *args, err = _combine_refusal(case)
+    with pytest.raises(err):
+        flash_attention_combine_rowwise_cuda(*args)
+
+
+@pytest.mark.parametrize("chunks", [0, 4, 2.0, True])
+def test_combine_wrapper_refuses_chunks(chunks):
+    """chunks: an int in 1..n_splits (3 here), or None for the plan."""
+    with pytest.raises(ValueError, match="chunks"):
+        flash_attention_combine_cuda(torch.zeros(3 * 2 * 2 * 18), torch.zeros((1, 4, 1, 16)),
+                                     2, 3, chunks=chunks)

@@ -157,7 +157,9 @@ def test_cpu_dispatch_takes_the_twin_and_counts_no_launch():
                                       "dot_interaction_backward",
                                       "dot_interaction_backward_simt",
                                       "flash_attention",
-                                      "flash_attention_combine", "flash_attention_bwd_delta",
+                                      "flash_attention_combine",
+                                      "flash_attention_combine_rowwise",
+                                      "flash_attention_bwd_delta",
                                       "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
                                       "csr_spmm",
                                       "csr_spmm_combine"}
